@@ -1,0 +1,134 @@
+"""Shared neural building blocks on torch tensors (functional, dict params).
+
+Mirrors ``repro.models.layers`` with the same layouts, so the parity
+tests compare like with like:
+  * params are nested dicts of tensors; per-layer blocks are stacked
+    along a leading layer dim;
+  * weights are ``[d_in, d_out]`` and used as ``x @ w``;
+  * softmax and norms run in f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape, in_axis: int = -2,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init, drawn from ``generator`` (which
+    must live on ``device``).  ``in_axis`` indexes the per-layer shape,
+    so a stacked ``[L, d_in, d_out]`` tensor takes ``in_axis=-2``."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    w.normal_(0.0, 1.0, generator=generator)
+    return w.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def apply_norm(p, x, kind, eps=1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float()
+        out = out + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (split-halves convention, not interleaved)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, S, H, D]; positions: [B, S] (or [S]) integer."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # [D/2]
+    ang = positions[..., None].float() * freqs             # [B, S, D/2]
+    cos = torch.cos(ang)[..., None, :]                     # [B, S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention projections
+# ---------------------------------------------------------------------------
+
+
+def _qkv(p, x, cfg):
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
+            v.reshape(b, s, hkv, hd))
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated / plain)
+# ---------------------------------------------------------------------------
+
+
+def _gate_act(x, act):
+    if act == "swiglu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")   # geglu; jax.nn.gelu's default
+
+
+def apply_mlp(p, x, act):
+    if "w_gate" not in p:
+        h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
+                   approximate="tanh")
+        return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+    h = _gate_act(x @ p["w_gate"].to(x.dtype), act) * (x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(p, tokens, compute_dtype):
+    return p["table"][tokens].to(compute_dtype)
+
+
+def unembed(p_embed, p_head, x, tie: bool):
+    if tie:
+        w = p_embed["table"].to(x.dtype).T
+    else:
+        w = p_head["w"].to(x.dtype)
+    return (x @ w).float()

@@ -1,0 +1,67 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and its entry points
+refuse to fall back to the CPU when CUDA is asked for."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args and
+              isinstance(node.args[0], (ast.Constant, ast.JoinedStr))):
+            arg = node.args[0]
+            text = (arg.value if isinstance(arg, ast.Constant) else
+                    "".join(v.value for v in arg.values
+                            if isinstance(v, ast.Constant)))
+            yield text
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert path.exists(), path
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in BANNED]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_launcher_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the launcher would run on it")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "granite-3-2b", "--reduced", "--paged",
+                    "--requests", "1", "--prompt-len", "4", "--gen", "1"])
+
+
+def test_launcher_runs_on_cpu_when_asked():
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "granite-3-2b", "--reduced", "--paged",
+                      "--requests", "2", "--prompt-len", "6", "--gen", "3",
+                      "--horizon", "2", "--prefill-chunk", "4",
+                      "--device", "cpu"])
+    assert {k: len(v) for k, v in out.items()} == {0: 3, 1: 3}
+
+
+@pytest.mark.parametrize("flags", [["--pool", "--paged"], [],
+                                   ["--paged", "--speculative"],
+                                   ["--paged", "--temperature", "0.8"]])
+def test_launcher_paths_not_yet_ported_exit(flags):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="not yet ported"):
+        serve.main(["--arch", "granite-3-2b", "--reduced", *flags])
