@@ -3,16 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, paged-KV serving of full-width
-granite-3-2b, on the card, in phases; each phase prints one JSON line
-and any failure exits non-zero:
+Drives the port's two paths on the card, in phases; each phase prints
+one JSON line and any failure exits non-zero:
 
   env      the card (name and power limit from nvidia-smi), torch and
            CUDA versions; fails when torch.cuda.is_available() is false
-  build    nvcc builds every kernel source of the checkout, timed
-  kernels  each kernel against its plain version at the serving path's
-           shapes (decode and prefill chunk; f32, int8 and fp8 pages),
-           timed with CUDA events beside its bound and a library call
+  build    nvcc builds every kernel source of the checkout (one nvcc per
+           source, all started together), timed
+  kernels  each kernel against its plain version, timed with CUDA events
+           beside its bound and a library call: paged attention at the
+           serving path's shapes (decode and prefill chunk; f32, int8 and
+           fp8 pages, within 1e-4); the scan over a TPC-H SF-1 lineitem
+           extent (6,001,215 rows x 16 f32 columns, page 128; five filter
+           jobs on f32, int8 and fp8 pools, a pow2-padded table and an
+           empty result), the top-k over a 1M x 768 corpus (k 4 and 128,
+           dot and cosine, planted duplicate rows), the embedding bag
+           (4M x 128 table, 2048 Zipf bags of 16) and the token-block
+           gather, each bit-identical to its plain version
   serve    PagedServer over full-width granite-3-2b (40 layers, random
            f32 weights from a seeded torch.Generator): 8 prompts of 512
            tokens, prefill chunks of 256, 64 greedy tokens at horizon 1
@@ -21,8 +28,18 @@ and any failure exits non-zero:
            int8 and fp8 page passes; kernel launch counters reset just
            before and read just after; a few horizon-1 steps under
            torch.profiler give the step's device busy time
+  isp      the in-storage path through the port's entry points, launch
+           counters reset just before and read just after: a 4-node
+           StoragePool pulls the analytics image, a node ingests a table
+           through λFS, a job goes through the docker-cli front door, the
+           SF-1 extent is scanned in storage through one JOB frame, the
+           OffloadPlanner runs jobs on the device and on the host (blocks
+           bit-identical), the extent on int8 and fp8 pools takes a scan
+           and a top-k job, a dlrm-embed container runs, and RAG over the
+           1M x 768 corpus feeds the serve phase's granite-3-2b in two
+           waves (the second rides the prefix cache)
 
-Then the kernels line (with the serve phase's launch counts), the
+Then the kernels line (launches: the serve and isp phases' counts), the
 nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -275,6 +292,589 @@ def library_call(torch, F, q, kd, vd, table, lengths, page, case):
     return call
 
 
+# -- in-storage analytics and retrieval: kernels -------------------------------
+
+ISP_SOURCE = "src/repro_torch/kernels/csrc/isp_scan.cu"
+EMBED_SOURCE = "src/repro_torch/kernels/csrc/embed_agg.cu"
+ISP_REPLACES = {"scan_filter_reduce_f32": "src/repro/kernels/isp_scan.py:120",
+                "scan_filter_reduce_int8": "src/repro/kernels/isp_scan.py:162",
+                "scan_filter_reduce_fp8": "src/repro/kernels/isp_scan.py:162",
+                "topk_scan_f32": "src/repro/kernels/isp_scan.py:376",
+                "topk_scan_int8": "src/repro/kernels/isp_scan.py:414",
+                "topk_scan_fp8": "src/repro/kernels/isp_scan.py:414",
+                "embed_agg": "src/repro/kernels/embed_agg.py:23",
+                "embed_gather": "src/repro/kernels/embed_agg.py:94"}
+NEW_KERNELS = tuple(ISP_REPLACES)
+# TPC-H SF-1 lineitem: 6,001,215 rows of its 16 columns, as f32
+LINEITEM = {"rows": 6_001_215, "cols": 16, "page_rows": 128}
+# the columns' value ranges (TPC-H spec 4.2.3), in column order:
+# orderkey, partkey, suppkey, linenumber, quantity, extendedprice,
+# discount, tax, returnflag, linestatus, shipdate, commitdate,
+# receiptdate, shipinstruct, shipmode, comment (a hash)
+SCAN_JOBS = [("all", 0, "all", 0.0), ("ge extendedprice", 5, "ge", 50000.0),
+             ("lt shipdate", 10, "lt", 1000.0), ("eq quantity", 4, "eq", 24.0),
+             ("ne returnflag", 8, "ne", 1.0)]
+# retrieval corpus: 1,000,000 passages x 768 (BERT-base-class embedding
+# width), page 128; rows DUP_IDS are copies of one row (tie-break)
+CORPUS = {"rows": 1_000_000, "dim": 768, "page_rows": 128, "chunk": 64}
+DUP_IDS = (123_457, 500_000, 999_999)
+# DLRM embedding bag: MLPerf DLRM (Criteo 1TB) embedding dim 128, its
+# largest tables cut 10x to 4M rows; 2048 bags of 16 lookups
+EMBED = {"rows": 4_000_000, "dim": 128, "bags": 2048, "lookups": 16}
+RAG = {"template": 128, "k": 4, "question": 32, "queries": 4, "waves": 2,
+       "gen": 8}
+PLAIN_ITERS = 3          # timing repeats of the plain versions
+HOST_SLICE = 65_536      # rows of the slice the planner runs both ways
+
+
+def make_data(np):
+    """Seeded inputs of the isp kernels and phase (numpy generators)."""
+    rng = np.random.default_rng(1)
+    n = LINEITEM["rows"]
+    cols = [np.repeat(np.arange(1, n // 4 + 2), 4)[:n],   # orderkey
+            rng.integers(1, 200_001, n), rng.integers(1, 10_001, n),
+            rng.integers(1, 8, n), rng.integers(1, 51, n),
+            rng.uniform(900.0, 105_000.0, n),
+            rng.integers(0, 11, n) / 100.0, rng.integers(0, 9, n) / 100.0,
+            rng.integers(0, 3, n), rng.integers(0, 2, n),
+            rng.integers(0, 2_557, n), rng.integers(0, 2_557, n),
+            rng.integers(0, 2_557, n), rng.integers(0, 4, n),
+            rng.integers(0, 7, n), rng.standard_normal(n)]
+    lineitem = np.stack(cols, axis=1).astype(np.float32)
+    corpus = rng.standard_normal((CORPUS["rows"], CORPUS["dim"]),
+                                 dtype=np.float32)
+    corpus[list(DUP_IDS[1:])] = corpus[DUP_IDS[0]]
+    tokens = rng.integers(0, 49_155, (CORPUS["rows"], CORPUS["chunk"]),
+                          dtype=np.int32)
+    return {"lineitem": lineitem, "corpus": corpus, "corpus_tokens": tokens}
+
+
+def bytes_bound(n_bytes, ops=0):
+    """(least ms, what bounds it): bytes over the memory rate vs f32
+    operations over the f32 rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def pool_bound(n_valid, page_rows, n_cols, pages, quantized, ops_per_elem,
+               extra_bytes):
+    """The valid pages' bytes, their scales and table entries once, plus
+    the query/output bytes; operations per element read."""
+    elems = n_valid * page_rows * n_cols
+    n_bytes = (elems * pages.element_size() + n_valid * 4 +
+               (n_valid * page_rows * 4 if quantized else 0) + extra_bytes)
+    return bytes_bound(n_bytes, elems * (ops_per_elem + quantized))
+
+
+def kernel_line(results, kernel, case, err, kernel_ms, plain_ms, bound_,
+                library_ms, library, source):
+    results.append({
+        "name": kernel.rsplit("_", 1)[0] if kernel.startswith(
+            ("scan", "topk")) else kernel,
+        "kernel": kernel, "case": case, "route": "cuda", "source": source,
+        "replaces": ISP_REPLACES[kernel], "launches": None,
+        "max_abs_err": err, "tolerance": 0.0, "ms": kernel_ms,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "plain_iters": PLAIN_ITERS, "bound_ms": bound_[0],
+        "bound_by": bound_[1], "library_ms": library_ms,
+        "library": library})
+    emit({"phase": "kernels", **{k: results[-1][k] for k in (
+        "kernel", "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "launches")}})
+
+
+def exact(torch, got, want, what):
+    """max |got - want| after checking the two are equal bit for bit."""
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.equal(got, want), f"{what}: kernel != plain version "
+          f"(max_abs_err {err})")
+    return err
+
+
+def quantized_pools(torch, x):
+    from repro_torch.core.kv_tier import quantize_page_kv
+    pools = {"f32": (x, None)}
+    for code, dtype, qmax in (("int8", torch.int8, 127.0),
+                              ("fp8", torch.float8_e4m3fn, 448.0)):
+        pools[code] = quantize_page_kv(x, qmax, dtype)
+    return pools
+
+
+def on_pages(torch, arr, page_rows):
+    """[rows, C] numpy -> zero-padded [pages, page_rows, C] on the card
+    and the identity page table."""
+    rows, cols = arr.shape
+    n_pages = -(-rows // page_rows)
+    x = torch.zeros((n_pages * page_rows, cols), device=DEVICE)
+    x[:rows] = torch.from_numpy(arr).to(DEVICE)
+    table = torch.arange(n_pages, dtype=torch.int32, device=DEVICE)
+    return x.view(n_pages, page_rows, cols), table
+
+
+def scan_library(torch, flat, col, op, thr):
+    """The same masked count/sum/min/max in six PyTorch calls."""
+    key = flat[:, col]
+    thr = float(thr)
+
+    def call():
+        m = {"all": torch.ones_like(key, dtype=torch.bool), "ge": key >= thr,
+             "lt": key < thr, "eq": key == thr, "ne": key != thr}[op]
+        mf = m[:, None]
+        return (m.sum(), torch.where(mf, flat, 0.0).sum(0),
+                torch.where(mf, flat, 1e30).amin(0),
+                torch.where(mf, flat, -1e30).amax(0))
+    return call
+
+
+def phase_isp_kernels(torch, np, data, flush):
+    """The scan, top-k and embedding kernels against their plain versions
+    at the isp phase's sizes; every case must agree bit for bit."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embed_agg as emb
+    from repro_torch.kernels import ops
+
+    results = []
+    # -- scan over the lineitem extent ---------------------------------------
+    pr = LINEITEM["page_rows"]
+    li = data["lineitem"]
+    n_rows, n_cols = li.shape
+    x, table = on_pages(torch, li, pr)
+    n_valid = table.numel()
+    padded = torch.zeros(1 << (n_valid - 1).bit_length(), dtype=torch.int32,
+                         device=DEVICE)
+    padded[:n_valid] = table
+    for code, (pages, scales) in quantized_pools(torch, x).items():
+        kernel = f"scan_filter_reduce_{code}"
+        flat = ops.ref.pool_rows(pages, scales, table.long()).reshape(
+            -1, n_cols)[:n_rows]
+        cases = [(f"SF-1 lineitem {label} col{col} ({code})", table, col, op,
+                  thr) for label, col, op, thr in SCAN_JOBS]
+        if code == "f32":
+            cases += [("SF-1 lineitem ge col5, table pow2-padded to "
+                       f"{padded.numel()}", padded, 5, "ge", 50000.0),
+                      ("SF-1 lineitem, filter passes no row", table, 5, "ge",
+                       1e9)]
+        for case, tab, col, op, thr in cases:
+            def run(fn=ops.scan_filter_reduce, tab=tab, col=col, op=op,
+                    thr=thr):
+                return fn(pages, tab, n_rows, thr, scales=scales,
+                          filter_col=col, filter_op=op)
+            got = run()
+            want = run(ops.ref.scan_filter_reduce_ref)
+            err = exact(torch, got, want, case)
+            lib = scan_library(torch, flat, col, op, thr)
+            cnt, _, mn, mx = lib()
+            check(got[0, 0].item() == cnt.item() and torch.equal(got[2], mn)
+                  and torch.equal(got[3], mx), f"{case}: count/min/max "
+                  "differ from the library expression")
+            if "no row" in case:
+                check(cnt.item() == 0 and bool((got[2] == 1e30).all()) and
+                      bool((got[3] == -1e30).all()), "empty result sentinels")
+            kernel_line(results, kernel, case, err,
+                        time_ms(torch, run, flush),
+                        time_ms(torch, lambda: run(
+                            ops.ref.scan_filter_reduce_ref), flush,
+                            PLAIN_ITERS, 1),
+                        pool_bound(n_valid, pr, n_cols, pages,
+                                   scales is not None, 4, 8 * n_cols * 4),
+                        time_ms(torch, lib, flush, 10, 2),
+                        "masked count/sum/amin/amax over the f32 rows "
+                        "(dequantised outside the timing): 6 PyTorch calls",
+                        ISP_SOURCE)
+        del flat
+    del x
+    # -- top-k over the retrieval corpus -------------------------------------
+    pr = CORPUS["page_rows"]
+    x, table = on_pages(torch, data["corpus"], pr)
+    n_rows, dim = data["corpus"].shape
+    n_valid = table.numel()
+    q = torch.from_numpy(data["corpus"][DUP_IDS[0]].copy()).to(DEVICE)
+    for code, (pages, scales) in quantized_pools(torch, x).items():
+        kernel = f"topk_scan_{code}"
+        flat = ops.ref.pool_rows(pages, scales, table.long()).reshape(
+            -1, dim)[:n_rows]
+        for k in (4, 128):
+            for metric in ("dot", "cosine"):
+                case = (f"1M x 768 corpus, k={k}, {metric} ({code}), query "
+                        f"= row {DUP_IDS[0]}, copied at {DUP_IDS[1:]}")
+
+                def run(fn=ops.topk_scan, k=k, metric=metric):
+                    return fn(pages, table, n_rows, q, k=k, metric=metric,
+                              scales=scales)
+                got = run()
+                want = run(ops.ref.topk_scan_ref)
+                err = exact(torch, got, want, case)
+                check(got[1, :3].tolist() == [float(i) for i in DUP_IDS],
+                      f"{case}: planted copies first, by row id")
+                if metric == "dot":
+                    def lib(k=k):
+                        return torch.topk(flat @ q, k)
+                    lib_name = "torch.topk(rows @ q, k): 2 PyTorch calls"
+                else:
+                    def lib(k=k):
+                        return torch.topk((flat @ q) / torch.clamp(
+                            flat.norm(dim=1), min=1e-6), k)
+                    lib_name = ("torch.topk((rows @ q) / clamp(rows.norm(1)"
+                                ")), k): 5 PyTorch calls")
+                kernel_line(results, kernel, case, err,
+                            time_ms(torch, run, flush, 10, 2),
+                            time_ms(torch, lambda: run(ops.ref.topk_scan_ref),
+                                    flush, PLAIN_ITERS, 1),
+                            pool_bound(n_valid, pr, dim, pages,
+                                       scales is not None,
+                                       2 if metric == "dot" else 4,
+                                       dim * 4 + 8 * ops.topk_pad(k) * 4),
+                            time_ms(torch, lib, flush, 10, 2),
+                            lib_name + " on the f32 rows (dequantised "
+                            "outside the timing)", ISP_SOURCE)
+        del flat
+    del x, pages, scales
+    torch.cuda.empty_cache()
+    # -- embedding bag and gather --------------------------------------------
+    rng = np.random.default_rng(2)
+    table_e = torch.from_numpy(rng.standard_normal(
+        (EMBED["rows"], EMBED["dim"]), dtype=np.float32)).to(DEVICE)
+    shape = (EMBED["bags"], EMBED["lookups"])
+    ids = ((rng.zipf(1.2, shape) - 1) % EMBED["rows"]).astype(np.int32)
+    idx = torch.from_numpy(ids).to(DEVICE)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(
+        np.float32)).to(DEVICE)
+    idx_long = idx.long()
+    n_unique = len(np.unique(ids))
+    for weights in (None, w):
+        case = (f"{EMBED['rows']} x {EMBED['dim']} table, "
+                f"{shape[0]} bags x {shape[1]} Zipf(1.2) lookups "
+                f"({n_unique} distinct rows), "
+                f"{'weighted' if weights is not None else 'unweighted'}")
+        got = ops.embed_agg(table_e, idx, weights)
+        want = ops.ref.embed_agg_ref(table_e, idx, weights)
+        err = exact(torch, got, want, case)
+
+        def lib(weights=weights):
+            return F.embedding_bag(idx_long, table_e, mode="sum",
+                                   per_sample_weights=weights)
+        check(bool(torch.allclose(lib(), got, rtol=1e-5, atol=1e-5)),
+              "embed_agg vs embedding_bag")
+        n_look = idx.numel()
+        kernel_line(results, "embed_agg", case, err,
+                    time_ms(torch, lambda weights=weights:
+                            emb.launch_embed_agg(table_e, idx, weights),
+                            flush),
+                    time_ms(torch, lambda weights=weights:
+                            ops.ref.embed_agg_ref(table_e, idx, weights),
+                            flush, PLAIN_ITERS, 1),
+                    bytes_bound(n_unique * EMBED["dim"] * 4 + n_look * 4 *
+                                (1 + (weights is not None)) +
+                                shape[0] * EMBED["dim"] * 4,
+                                n_look * EMBED["dim"] *
+                                (1 + (weights is not None))),
+                    time_ms(torch, lib, flush),
+                    "torch.nn.functional.embedding_bag(mode='sum', "
+                    "per_sample_weights=w)", EMBED_SOURCE)
+    del table_e
+    tokens = torch.from_numpy(data["corpus_tokens"]).to(DEVICE)
+    gidx = torch.from_numpy(rng.integers(0, CORPUS["rows"], (8, RAG["k"]),
+                                         dtype=np.int32)).to(DEVICE)
+    case = (f"corpus_tokens [{CORPUS['rows']}, {CORPUS['chunk']}] int32, "
+            f"ids [8, {RAG['k']}]")
+    got = ops.embed_gather(tokens, gidx)
+    err = exact(torch, got, ops.ref.embed_gather_ref(tokens, gidx), case)
+    n_unique = int(torch.unique(gidx).numel())
+    kernel_line(results, "embed_gather", case, err,
+                time_ms(torch, lambda: emb.launch_embed_gather(tokens, gidx),
+                        flush),
+                time_ms(torch, lambda: ops.ref.embed_gather_ref(tokens, gidx),
+                        flush, PLAIN_ITERS, 1),
+                bytes_bound(n_unique * CORPUS["chunk"] * 4 + gidx.numel() * 4
+                            + gidx.numel() * CORPUS["chunk"] * 4),
+                time_ms(torch, lambda: tokens[gidx.long()], flush),
+                "tokens[ids] (one index_select)", EMBED_SOURCE)
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- in-storage analytics and retrieval: the isp phase -------------------------
+
+
+def phase_isp(torch, np, smi, served, data):
+    """The port's isp path on the card, through its entry points: a
+    4-node StoragePool, λFS ingest, the docker-cli front door, JOB frames
+    over the SF-1 lineitem extent (f32, int8 and fp8 pools), the offload
+    planner on the device and on the host, a dlrm-embed container, and
+    RAG over the 1M x 768 corpus into full-width granite-3-2b."""
+    import urllib.parse
+    from repro_torch.core.container import (ImageManifest, from_jsonable,
+                                            make_blob)
+    from repro_torch.core.extent_store import AnalyticsJob, analytics_blob
+    from repro_torch.core.lambda_fs import SHARABLE_NS
+    from repro_torch.core.storage_pool import StoragePool
+    from repro_torch.kernels import ops
+    from repro_torch.launch import isp as isp_launch   # dlrm-embed app
+    from repro_torch.runtime.offload import OffloadPlanner
+    from repro_torch.runtime.retrieval import RetrievalFrontend
+    from repro_torch.runtime.serve import PagedServer
+
+    cfg, model, params = served
+    rng = np.random.default_rng(3)
+    li = data["lineitem"]
+    pr, n_cols = LINEITEM["page_rows"], LINEITEM["cols"]
+    sf1_pages = -(-li.shape[0] // pr)
+    ext_cfg = {"n_pages": sf1_pages + HOST_SLICE // pr, "page_rows": pr,
+               "n_cols": n_cols, "device": DEVICE}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_phase = time.monotonic()
+    out = {}
+
+    def wire(stats):
+        return stats.bytes_tx + stats.bytes_rx
+
+    def plain_scan(store, name, job):
+        return ops.ref.scan_filter_reduce_ref(
+            store.pages, store.page_table(name), store.extents[name].n_rows,
+            job.threshold, scales=store.scales, filter_col=job.filter_col,
+            filter_op=job.filter_op).cpu().numpy()
+
+    def plain_topk(store, name, job):
+        q = torch.from_numpy(job.padded_query(store.n_cols)).to(DEVICE)
+        return ops.ref.topk_scan_ref(
+            store.pages, store.page_table(name), store.extents[name].n_rows,
+            q, k=job.k, metric=job.metric, scales=store.scales).cpu().numpy()
+
+    # 1. the analytics image, pulled onto all four nodes over Ether-oN
+    pool = StoragePool(4, extent_cfg=ext_cfg)
+    pool.broadcast_pull("isp-analytics", analytics_blob())
+    ips = pool.alive_nodes()
+    # 2. λFS ingest of a 65,536-row slice of lineitem on node 1
+    node = pool.nodes[ips[1]]
+    sl = li[:HOST_SLICE]
+    node.fs.write("/data/lineitem.bin", sl.tobytes(), SHARABLE_NS,
+                  actor="host")
+    node.ingest_extent("lineitem-slice", "/data/lineitem.bin", n_cols)
+    # 3. an AnalyticsJob through the docker-cli front door
+    job = AnalyticsJob(extent="lineitem-slice", filter_col=4,
+                       filter_op="eq", threshold=24.0, reduce="count")
+    cid = json.loads(node.docker.handle_http(
+        "POST /containers/create?image=isp-analytics"))["Id"]
+    q_str = urllib.parse.quote(json.dumps([job.to_dict()]))
+    resp = from_jsonable(json.loads(node.docker.handle_http(
+        f"POST /containers/{cid}/start?job={q_str}")))
+    block = resp["result"][0]
+    host = ops.scan_filter_reduce_host(
+        torch.from_numpy(node.extents.get("lineitem-slice")), 24.0,
+        page_rows=pr, filter_col=4, filter_op="eq").numpy()
+    check(np.array_equal(block, host), "front door block != host fold")
+    check(block[0, 0] == (sl[:, 4] == 24.0).sum(), "front door count")
+    out["front_door"] = {"extent_rows": HOST_SLICE, "job": "count(quantity"
+                         " == 24)", "count": float(block[0, 0]),
+                         "bit_identical_to_host_fold": True}
+    # 4. the full SF-1 extent in storage: five jobs in one JOB frame
+    store = pool.nodes[ips[0]].extents
+    t0 = time.monotonic()
+    store.put("lineitem", li)
+    torch.cuda.synchronize()
+    put_s = time.monotonic() - t0
+    jobs = [AnalyticsJob(extent="lineitem", filter_col=col, filter_op=op,
+                         threshold=thr, job_id=i)
+            for i, (_, col, op, thr) in enumerate(SCAN_JOBS)]
+    before = dict(vars(pool.driver.stats))
+    t0 = time.monotonic()
+    blocks = from_jsonable(pool.driver.submit_jobs(
+        ips[0], [j.to_dict() for j in jobs]))
+    frame_s = time.monotonic() - t0
+    stats = pool.driver.stats
+    wire_b = wire(stats) - before["bytes_tx"] - before["bytes_rx"]
+    for j, b in zip(jobs, blocks):
+        check(np.array_equal(b, plain_scan(store, "lineitem", j)),
+              f"SF-1 JOB frame job {j.job_id} != plain version")
+    scanned = len(jobs) * store.extents["lineitem"].nbytes
+    out["sf1_job_frame"] = {
+        "rows": li.shape[0], "pages": sf1_pages, "jobs": len(jobs),
+        "ingest_s": put_s, "frame_wall_s": frame_s,
+        "per_job_wall_s": frame_s / len(jobs),
+        "tx_commands": stats.tx_commands - before["tx_commands"],
+        "upcalls": stats.rx_completions - before["rx_completions"],
+        "wire_bytes": wire_b, "bytes_scanned": scanned,
+        "reduction_ratio": scanned / wire_b,
+        "counts": [float(b[0, 0]) for b in blocks],
+        "blocks_equal_plain_version": True}
+    # the host leg at full size for one job: the whole extent through
+    # Ether-oN frames, then the host fold
+    planner = OffloadPlanner(pool)
+    before = dict(vars(pool.driver.stats))
+    t0 = time.monotonic()
+    rec = planner.execute([jobs[1]], force="host")[0]
+    host_s = time.monotonic() - t0
+    check(rec["where"] == "host" and np.array_equal(rec["block"], blocks[1]),
+          "SF-1 host leg block != in-storage block")
+    out["sf1_host_leg"] = {
+        "job": SCAN_JOBS[1][0], "wall_s": host_s,
+        "upcalls": pool.driver.stats.rx_completions - before["rx_completions"],
+        "wire_bytes": wire(pool.driver.stats) - before["bytes_tx"] -
+        before["bytes_rx"], "equals_in_storage_block": True}
+    # 5. the planner on the slice: batched JOB frames vs fetch + host fold
+    sjobs = [AnalyticsJob(extent="lineitem-slice", filter_col=col,
+                          filter_op=op, threshold=thr, job_id=i)
+             for i, (_, col, op, thr) in enumerate(SCAN_JOBS)]
+    runs = {}
+    for force in ("device", "host", None):
+        before = dict(vars(pool.driver.stats))
+        t0 = time.monotonic()
+        recs = planner.execute(sjobs, force=force)
+        secs = time.monotonic() - t0
+        runs[force or "planner"] = (recs, {
+            "where": [r["where"] for r in recs],
+            "wall_s": secs, "per_job_wall_s": secs / len(sjobs),
+            "wire_bytes": wire(pool.driver.stats) - before["bytes_tx"] -
+            before["bytes_rx"],
+            "job_frames": pool.driver.stats.job_frames -
+            before["job_frames"],
+            "extent_reads": pool.driver.stats.extent_reads -
+            before["extent_reads"]})
+    for d, h in zip(runs["device"][0], runs["host"][0]):
+        check(d["where"] == "device" and h["where"] == "host",
+              "forced placements")
+        check(np.array_equal(d["block"], h["block"]),
+              f"slice job {d['job'].job_id}: device block != host block")
+    est = runs["planner"][0][0]["est"]
+    out["planner_slice"] = {
+        "note": f"five jobs on a {HOST_SLICE}-row slice of the SF-1 "
+                "extent, each placement (sf1_host_leg: one job's host leg "
+                "at full size)", "device_equals_host": True,
+        "modeled_host_ms": est.host_s * 1e3,
+        "modeled_dvirtfw_ms": est.dvirtfw_s * 1e3,
+        **{k: v[1] for k, v in runs.items()}}
+    # 6. the same SF-1 extent on int8 and fp8 pools: a scan and a top-k job
+    out["quantized"] = {}
+    for code in ("int8", "fp8"):
+        qpool = StoragePool(1, extent_cfg={**ext_cfg, "page_dtype": code})
+        qpool.broadcast_pull("isp-analytics", analytics_blob())
+        qip = qpool.alive_nodes()[0]
+        qstore = qpool.nodes[qip].extents
+        qstore.put("lineitem", li)
+        qjobs = [AnalyticsJob(extent="lineitem", filter_col=5,
+                              filter_op="ge", threshold=50000.0, job_id=0),
+                 AnalyticsJob(extent="lineitem", reduce="topk", k=4,
+                              query=[float(v) for v in
+                                     rng.standard_normal(n_cols)],
+                              job_id=1)]
+        t0 = time.monotonic()
+        qb = from_jsonable(qpool.driver.submit_jobs(
+            qip, [j.to_dict() for j in qjobs]))
+        secs = time.monotonic() - t0
+        check(np.array_equal(qb[0], plain_scan(qstore, "lineitem",
+                                               qjobs[0])),
+              f"{code} scan JOB != plain version")
+        check(np.array_equal(qb[1], plain_topk(qstore, "lineitem",
+                                               qjobs[1])),
+              f"{code} top-k JOB != plain version")
+        out["quantized"][code] = {
+            "frame_wall_s": secs, "count_ge": float(qb[0][0, 0]),
+            "topk_ids": qb[1][1, :4].tolist(),
+            "extent_bytes": qstore.extents["lineitem"].nbytes,
+            "wire_bytes": wire(qpool.driver.stats)}
+        del qpool, qstore
+    # 7. the DLRM embed container on node 2
+    pool.broadcast_pull("dlrm-embed", make_blob(
+        ImageManifest("dlrm-embed", "dlrm-embed", ["rootfs-layer0"]),
+        {"rootfs-layer0": b"binaries+runtime"}))
+    enode = pool.nodes[ips[2]]
+    etable = rng.standard_normal((512, isp_launch.EMBED_DIM),
+                                 dtype=np.float32)
+    eidx = rng.integers(0, 512, (32, isp_launch.EMBED_LOOKUPS),
+                        dtype=np.int32)
+    enode.fs.write("/data/table.npy", etable.tobytes(), SHARABLE_NS,
+                   actor="host")
+    enode.fs.write("/data/idx.npy", eidx.tobytes(), SHARABLE_NS,
+                   actor="host")
+    _, pooled = enode.docker.cmd_run("dlrm-embed")
+    want = ops.ref.embed_agg_ref(torch.from_numpy(etable).to(DEVICE),
+                                 torch.from_numpy(eidx).to(DEVICE))
+    check(np.array_equal(pooled, want.cpu().numpy()), "dlrm-embed result")
+    out["dlrm_embed"] = {"pooled_shape": list(pooled.shape)}
+    del pool, store
+    torch.cuda.empty_cache()
+    # 8. RAG over the 1M x 768 corpus into full-width granite-3-2b
+    rpool = StoragePool(1, extent_cfg={
+        "n_pages": -(-CORPUS["rows"] // CORPUS["page_rows"]),
+        "page_rows": CORPUS["page_rows"], "n_cols": CORPUS["dim"],
+        "device": DEVICE})
+    rpool.broadcast_pull("isp-analytics", analytics_blob())
+    server = PagedServer(model, params, page_size=SERVE["page"],
+                         hbm_pages=SERVE["hbm_pages"], device=DEVICE)
+    template = rng.integers(0, cfg.vocab_size, RAG["template"],
+                            dtype=np.int32)
+    fe = RetrievalFrontend(rpool, server, corpus_tokens=data[
+        "corpus_tokens"] % cfg.vocab_size, template=template, k=RAG["k"])
+    t0 = time.monotonic()
+    fe.ingest(data["corpus"])
+    torch.cuda.synchronize()
+    ingest_s = time.monotonic() - t0
+    queries = rng.standard_normal((RAG["queries"], CORPUS["dim"]),
+                                  dtype=np.float32)
+    queries[0] = data["corpus"][DUP_IDS[0]]
+    rstore = rpool.nodes[rpool.alive_nodes()[0]].extents
+    rag_job = AnalyticsJob(extent=fe.extent, reduce="topk", k=RAG["k"],
+                           query=[float(v) for v in queries[0]])
+    check(fe.planner.estimate(rag_job).choice == "device",
+          "the planner prices corpus retrieval on the device")
+    waves = []
+    for wave in range(RAG["waves"]):
+        tails = [rng.integers(0, cfg.vocab_size, RAG["question"],
+                              dtype=np.int32) for _ in queries]
+        g0 = ops.launch_counts()["embed_gather"]
+        h0 = server.tier_stats()["prefix_hits"]
+        t0 = time.monotonic()
+        prompts, hits = fe.build_prompts(queries, tails, force="device")
+        retrieve_s = time.monotonic() - t0
+        check(ops.launch_counts()["embed_gather"] - g0 == 1,
+              "one embed_gather launch per build_prompts")
+        check(all(h["where"] == "device" and len(h["ids"]) == RAG["k"]
+                  for h in hits), "retrieval ran in storage")
+        check(hits[0]["ids"][:3] == list(DUP_IDS), "planted rows retrieved")
+        want_len = RAG["template"] + RAG["k"] * CORPUS["chunk"] + \
+            RAG["question"]
+        check(all(len(p) == want_len for p in prompts), "prompt length")
+        t0 = time.monotonic()
+        ttft = []
+        for i, p in enumerate(prompts):
+            server.add_request(100 * wave + i, p, chunk=SERVE["chunk"])
+            ttft.append(time.monotonic() - t0)
+        toks = server.decode(RAG["gen"])
+        check(all(len(t) == RAG["gen"] and all(0 <= v < cfg.vocab_size
+                                               for v in t)
+                  for t in toks.values()), "RAG tokens")
+        waves.append({"retrieve_s": retrieve_s, "admit_s": ttft[-1],
+                      "ttft_first_s": ttft[0],
+                      "prefix_hits": server.tier_stats()["prefix_hits"] -
+                      h0, "top_ids_query0": hits[0]["ids"]})
+    check(waves[1]["prefix_hits"] > 0, "second wave rides the prefix cache")
+    check(np.array_equal(
+        plain_topk(rstore, fe.extent, rag_job)[1, :RAG["k"]],
+        np.asarray(hits[0]["ids"], np.float32)),
+        "RAG ids == plain top-k on the card")
+    out["rag"] = {"corpus": [CORPUS["rows"], CORPUS["dim"]],
+                  "ingest_s": ingest_s, "k": RAG["k"],
+                  "prompt_len": want_len, "queries": RAG["queries"] *
+                  RAG["waves"], "waves": waves, "where": fe.stats,
+                  "prefix_hit_rate": server.prefix_hit_rate(),
+                  "etheron_wire_bytes": wire(rpool.driver.stats),
+                  "corpus_bytes": rstore.extents[fe.extent].nbytes}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in NEW_KERNELS:
+        check(counts[name] > 0, f"{name} launched on the isp path")
+    emit({"phase": "isp", **out, "launches": counts,
+          "phase_s": time.monotonic() - t_phase,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return counts
+
+
 # -- serve --------------------------------------------------------------------
 
 
@@ -393,7 +993,7 @@ def phase_serve(torch, np, smi):
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": "smoke run, not a benchmark"})
-    return counts
+    return counts, (cfg, model, params)
 
 
 def profile_decode(torch, server, n_steps):
@@ -455,10 +1055,16 @@ def main() -> int:
     resolve_device("cuda")                      # f32 contract: TF32 off
     smi = phase_env(torch)
     phase_build()
+    data = make_data(np)
     kernels = phase_kernels(torch, np)
-    counts = phase_serve(torch, np, smi)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)
+    kernels += phase_isp_kernels(torch, np, data, flush)
+    del flush
+    counts, served = phase_serve(torch, np, smi)
+    isp_counts = phase_isp(torch, np, smi, served, data)
     for entry in kernels:
-        entry["launches"] = counts[entry["kernel"]]
+        entry["launches"] = counts[entry["kernel"]] + \
+            isp_counts[entry["kernel"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,204 @@
+"""Wrappers of the hand-written in-storage scan and top-k CUDA kernels.
+
+``csrc/isp_scan.cu`` replaces the JAX package's Pallas TPU kernels
+``_scan_kernel``/``_scan_q_kernel`` and ``_topk_kernel``/
+``_topk_q_kernel`` (``repro/kernels/isp_scan.py:120, :162, :376,
+:414``).  Each wrapper checks device, dtype, shape and contiguity and
+raises on what the kernel does not take, allocates the output and the
+per-block partials with ``torch.empty``, launches on the current CUDA
+stream and raises if the launcher returns a CUDA error.  For tensors on
+the CPU (and only there) it runs the plain version in ``kernels.ref``.
+``LAUNCHES`` counts wrapper calls that launched their kernels (the pages
+launch, then the ordered fold or the merge rounds), one entry per
+compiled page format.
+
+``n_rows`` and ``threshold`` are host scalars: nothing here waits for
+the card.  Page ids are trusted: the table's first ``n_valid_pages``
+entries must name pages of the pool (``ExtentStore`` guarantees it);
+the entries past them, e.g. pow2 padding, are never read.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import operator
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.ref import (BIG_ID, FILTER_OPS, MAX_TOPK,  # noqa: F401
+                                     NEG_INF, POS_INF, REDUCE_ROWS,
+                                     TOPK_METRICS, n_valid_pages, topk_pad)
+
+LAUNCHES = {f"{kind}_{code}": 0 for kind in ("scan_filter_reduce",
+                                             "topk_scan")
+            for code in ("f32", "int8", "fp8")}
+
+_CODE = {torch.float32: "f32", torch.int8: "int8",
+         torch.float8_e4m3fn: "fp8"}
+
+#: the top-k kernel keeps one thread per page row
+MAX_TOPK_PAGE_ROWS = 256
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+
+
+@functools.lru_cache(maxsize=None)
+def _bind(name: str):
+    fn = getattr(build.load_library("isp_scan"), name)
+    if name.startswith("scan"):
+        # pages, scales, table, partials, out, n_valid, page_rows,
+        # n_cols, n_rows, threshold, filter_col, filter_op, stream
+        fn.argtypes = [_P] * 5 + [_I, _I, _I, _LL, _F, _I, _I, _P]
+    else:
+        # pages, scales, query, table, cand_s, cand_i, out, n_valid,
+        # page_rows, n_cols, n_rows, k, kpad, cosine, n_blocks, stream
+        fn.argtypes = [_P] * 7 + [_I, _I, _I, _LL, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_pool(pages, page_table, scales):
+    if pages.dim() != 3:
+        raise ValueError(f"pages must be [n_phys, page_rows, n_cols]; got "
+                         f"{tuple(pages.shape)}")
+    if pages.dtype not in _CODE:
+        raise TypeError(f"pages must be one of {tuple(_CODE)}, got "
+                        f"{pages.dtype}")
+    n_phys, page_rows, _ = pages.shape
+    if (pages.dtype != torch.float32) != (scales is not None):
+        raise ValueError("scales go with an int8/fp8 pool, and only there")
+    if scales is not None:
+        if scales.numel() != n_phys * page_rows or \
+                scales.shape[:2] != (n_phys, page_rows):
+            raise ValueError(f"scales must be [{n_phys}, {page_rows}]; got "
+                             f"{tuple(scales.shape)}")
+        if scales.dtype != torch.float32:
+            raise TypeError("scales must be float32")
+    if page_table.dim() != 1 or page_table.numel() < 1:
+        raise ValueError(f"page_table must be a non-empty [pps] vector; "
+                         f"got {tuple(page_table.shape)}")
+    if page_table.dtype != torch.int32:
+        raise TypeError("page_table must be int32")
+
+
+def _check_cuda(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}; one is on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous inputs only")
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def scan_filter_reduce(pages, page_table, n_rows, threshold=0.0, *,
+                       scales=None, filter_col: int = 0,
+                       filter_op: str = "all"):
+    """Filtered aggregate over an extent's pages of a pool.
+
+    pages: [n_phys, page_rows, n_cols] f32, or int8/fp8-e4m3 codes with
+    ``scales`` [n_phys, page_rows] f32 per-row scales; page_table: [pps]
+    int32 physical ids (pow2 padding allowed); n_rows: valid rows and
+    threshold: the filter operand (rounded to f32), both host scalars.
+    Returns [8, n_cols] f32: count (broadcast), per-column sum, min, max
+    over the rows passing ``filter_op`` on ``filter_col``; rows 4-7 zero.
+    Bit-identical to ``ref.scan_filter_reduce_ref``.
+    """
+    if filter_op not in FILTER_OPS:
+        raise ValueError(f"filter_op must be one of {FILTER_OPS}, "
+                         f"got {filter_op!r}")
+    _check_pool(pages, page_table, scales)
+    n_phys, page_rows, n_cols = pages.shape
+    if not 0 <= filter_col < n_cols:
+        raise ValueError(f"filter_col {filter_col} out of range "
+                         f"[0, {n_cols})")
+    n_rows = operator.index(n_rows)
+    threshold = float(threshold)
+    if pages.device.type == "cpu":
+        return ref.scan_filter_reduce_ref(
+            pages, page_table, n_rows, threshold, scales=scales,
+            filter_col=filter_col, filter_op=filter_op)
+    _check_cuda(pages, page_table, scales)
+    n_valid = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+    partials = torch.empty((n_valid, 4, n_cols), device=pages.device)
+    out = torch.empty((REDUCE_ROWS, n_cols), device=pages.device)
+    name = f"scan_filter_reduce_{_CODE[pages.dtype]}"
+    stream = torch.cuda.current_stream(pages.device).cuda_stream
+    # fp8 codes: the bytes are handed over as-is and read as __nv_fp8_e4m3
+    err = _bind(name)(pages.data_ptr(), _ptr(scales), page_table.data_ptr(),
+                      partials.data_ptr(), out.data_ptr(), n_valid,
+                      page_rows, n_cols, n_rows, threshold, filter_col,
+                      FILTER_OPS.index(filter_op), stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def topk_scan(pages, page_table, n_rows, query, *, k: int,
+              metric: str = "dot", scales=None):
+    """Query-scored top-k over an extent's pages of a pool.
+
+    The pool operands are those of :func:`scan_filter_reduce`; query:
+    [n_cols] (or [1, n_cols]) f32.  Each valid row is scored by the
+    column add chain of its products with the query (``cosine``: over
+    max(sqrt(chain(x*x)), 1e-6)); the k best by (score descending, row
+    id ascending) are kept, k in [1, 128].  Returns [8, topk_pad(k)]
+    f32: scores on row 0, row ids as f32 on row 1, empty slots
+    (-1e30, 2^30).  Bit-identical to ``ref.topk_scan_ref``.
+    """
+    if metric not in TOPK_METRICS:
+        raise ValueError(f"metric must be one of {TOPK_METRICS}, "
+                         f"got {metric!r}")
+    if not 1 <= k <= MAX_TOPK:
+        raise ValueError(f"k must be in [1, {MAX_TOPK}], got {k}")
+    _check_pool(pages, page_table, scales)
+    n_phys, page_rows, n_cols = pages.shape
+    if query.numel() != n_cols or query.dim() > 2:
+        raise ValueError(f"query must be [{n_cols}] or [1, {n_cols}], got "
+                         f"{tuple(query.shape)}")
+    if query.dtype != torch.float32:
+        raise TypeError("query must be float32")
+    n_rows = operator.index(n_rows)
+    if pages.device.type == "cpu":
+        return ref.topk_scan_ref(pages, page_table, n_rows, query, k=k,
+                                 metric=metric, scales=scales)
+    query = query.reshape(n_cols)
+    _check_cuda(pages, page_table, scales, query)
+    if page_rows > MAX_TOPK_PAGE_ROWS:
+        raise ValueError(f"page_rows {page_rows} > {MAX_TOPK_PAGE_ROWS}")
+    n_valid = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+    n_blocks = min(n_valid, 2 * _sm_count(pages.device.index or 0))
+    dev = pages.device
+    # two halves: the merge rounds ping-pong between them
+    cand_s = torch.empty((2, n_blocks, k), device=dev)
+    cand_i = torch.empty((2, n_blocks, k), dtype=torch.int32, device=dev)
+    kpad = topk_pad(k)
+    out = torch.empty((REDUCE_ROWS, kpad), device=dev)
+    name = f"topk_scan_{_CODE[pages.dtype]}"
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bind(name)(pages.data_ptr(), _ptr(scales), query.data_ptr(),
+                      page_table.data_ptr(), cand_s.data_ptr(),
+                      cand_i.data_ptr(), out.data_ptr(), n_valid, page_rows,
+                      n_cols, n_rows, k, kpad, int(metric == "cosine"),
+                      n_blocks, stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-They follow the conventions of the JAX package's Pallas kernels
+The paged-attention versions follow the conventions of the JAX package's Pallas kernels
 (``repro/kernels/paged_attention.py``), not those of its jnp oracles:
 
   * a row with ``length == 0`` returns zeros (``acc / max(l, 1e-30)``
@@ -11,13 +11,18 @@ They follow the conventions of the JAX package's Pallas kernels
   * for the quantized pages, the k scale multiplies the logits and the
     v scale multiplies the probabilities.
 
-The CPU path of every wrapper in ``kernels.paged_attention`` runs these,
-and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+The in-storage scan, top-k and embedding versions (below) write out
+the order of every f32 add that the JAX package's contract fixes.
+
+The CPU path of every wrapper in ``kernels.paged_attention``,
+``kernels.isp_scan`` and ``kernels.embed_agg`` runs these, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -78,3 +83,209 @@ def paged_attention_q8_ref(q, k_pages, v_pages, k_scale, v_scale,
     """The same over int8 or fp8-e4m3 codes with per-slot f32 scales
     ``k_scale``/``v_scale`` [P, page, Hkv]."""
     return _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+
+
+# ---------------------------------------------------------------------------
+# in-storage scan / filter / reduce and top-k (``repro/kernels/isp_scan.py``)
+#
+# These are specifications, not speed targets: every f32 sum whose order
+# is part of the contract is written out as an explicit sequence of
+# elementwise adds (no ``torch.sum``/``cumsum``, whose order is not fixed;
+# on the CPU ``cumsum`` even accumulates f32 in double).  The CUDA kernels
+# (``csrc/isp_scan.cu``) perform the same adds in the same order, so the
+# two are bit-identical.
+# ---------------------------------------------------------------------------
+
+POS_INF = 1e30
+#: filter predicates over the filter column vs the threshold
+FILTER_OPS = ("all", "ge", "lt", "eq", "ne")
+#: rows of the aggregate / top-k output block
+REDUCE_ROWS = 8
+#: scoring metrics of the top-k scan
+TOPK_METRICS = ("dot", "cosine")
+#: id of an empty top-k slot (exact in f32, above every real row id)
+BIG_ID = float(2 ** 30)
+#: widest supported k
+MAX_TOPK = 128
+
+
+def topk_pad(k: int) -> int:
+    """Width of the top-k block: pow2-bucketed with a floor of 128, the
+    wire format ``OffloadPlanner.estimate`` prices."""
+    return max(128, 1 << max(int(k) - 1, 0).bit_length())
+
+
+def n_valid_pages(n_rows: int, page_rows: int, pps: int) -> int:
+    """Pages of a table that hold the extent's rows (at least one, at
+    most the table's length): the kernels read no page past these."""
+    return min(max(-(-int(n_rows) // page_rows), 1), pps)
+
+
+def _predicate(key, threshold, op: str):
+    if op == "all":
+        return torch.ones_like(key, dtype=torch.bool)
+    if op == "ge":
+        return key >= threshold
+    if op == "lt":
+        return key < threshold
+    if op == "eq":
+        return key == threshold
+    if op == "ne":
+        return key != threshold
+    raise ValueError(f"filter_op must be one of {FILTER_OPS}, got {op!r}")
+
+
+def pool_rows(pages, scales, ids):
+    """Pages ``ids`` of a pool as f32 [n, page_rows, n_cols]; a quantized
+    pool dequantises each row as ``codes.float() * scale``."""
+    x = _gather_pages(pages, ids)
+    if scales is not None:
+        x = x * scales.reshape(pages.shape[0], pages.shape[1])[ids][..., None]
+    return x
+
+
+def _fold_pages(x, n_rows: int, threshold: float, filter_col: int,
+                filter_op: str):
+    """The page-sequential fold over logical pages x [n, page_rows, C]:
+
+      * in each page, count and sum the passing rows in row order
+        0..page_rows-1, starting from 0 (``acc = acc + where(m, v, 0)``);
+      * fold the per-page partials across pages in page order, in f32;
+      * min/max (order-free) start from POS_INF/NEG_INF.
+
+    Returns [REDUCE_ROWS, C] f32 on x's device: count broadcast on row
+    0, then sum, min, max; rows 4-7 zero."""
+    n, page_rows, n_cols = x.shape
+    dev = x.device
+    pos = torch.arange(n * page_rows, device=dev).reshape(n, page_rows)
+    thr = torch.tensor(np.float32(threshold), device=dev)
+    mask = (pos < n_rows) & _predicate(x[:, :, filter_col], thr, filter_op)
+    zero = torch.zeros((), device=dev)
+    cnt = torch.zeros((n,), device=dev)
+    s = torch.zeros((n, n_cols), device=dev)
+    for r in range(page_rows):
+        cnt = cnt + mask[:, r].float()
+        s = s + torch.where(mask[:, r, None], x[:, r], zero)
+    mn = torch.where(mask[..., None], x, POS_INF).amin(dim=1)
+    mx = torch.where(mask[..., None], x, NEG_INF).amax(dim=1)
+    # cross-page fold: numpy's accumulate is a sequential f32 loop
+    part = torch.cat([cnt[:, None], s], dim=1).cpu().numpy()
+    tot = np.add.accumulate(part, axis=0)[-1]
+    out = torch.zeros((REDUCE_ROWS, n_cols), device=dev)
+    out[0] = float(tot[0])
+    out[1] = torch.from_numpy(tot[1:]).to(dev)
+    out[2] = mn.amin(dim=0)
+    out[3] = mx.amax(dim=0)
+    return out
+
+
+def scan_filter_reduce_ref(pages, page_table, n_rows: int, threshold=0.0, *,
+                           scales=None, filter_col: int = 0,
+                           filter_op: str = "all"):
+    """Filtered aggregate over an extent's pages of a pool.
+
+    pages: [n_phys, page_rows, n_cols] f32, or int8/fp8 codes with
+    ``scales`` [n_phys, page_rows] f32; page_table: [pps] int32 (only
+    the first ``n_valid_pages`` entries are read, so pow2 padding is
+    free); n_rows/threshold: host scalars (threshold rounded to f32).
+    Returns [REDUCE_ROWS, n_cols] f32, folded as :func:`_fold_pages`."""
+    page_rows = pages.shape[1]
+    nv = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+    x = pool_rows(pages, scales, page_table[:nv].long())
+    return _fold_pages(x, n_rows, threshold, filter_col, filter_op)
+
+
+def scan_filter_reduce_host(data, threshold=0.0, *, page_rows: int,
+                            filter_col: int = 0, filter_op: str = "all"):
+    """The same fold over a fetched extent data [n_rows, n_cols] (the
+    host-reads-everything path): bit-identical to the pool fold."""
+    n_rows, n_cols = data.shape
+    n = -(-max(n_rows, 1) // page_rows)
+    x = torch.zeros((n * page_rows, n_cols), device=data.device)
+    x[:n_rows] = data
+    return _fold_pages(x.reshape(n, page_rows, n_cols), n_rows, threshold,
+                       filter_col, filter_op)
+
+
+def _chain(cols, scale):
+    """Per-row sum of ``cols[c] * scale[c]`` as an explicit add chain
+    over columns: s = w[0]; s = s + w[c] for c = 1..C-1, each product
+    rounded before its add (the order of ``_topk_fold_page``)."""
+    s = cols[0] * scale[0]
+    for c in range(1, cols.shape[0]):
+        s = s + cols[c] * scale[c]
+    return s
+
+
+def _topk_rows(x, n_rows: int, query, k: int, metric: str):
+    """Score rows x [R, C] (row id = index) against query [C] and keep
+    the k best by (score descending, id ascending); rows at or past
+    n_rows are empty slots (NEG_INF, BIG_ID).  Returns [8, topk_pad(k)]
+    f32: scores on row 0, ids (as f32) on row 1."""
+    if metric not in TOPK_METRICS:
+        raise ValueError(f"metric must be one of {TOPK_METRICS}, "
+                         f"got {metric!r}")
+    dev = x.device
+    cols = x.t().contiguous()                      # one column per step
+    q = query.reshape(-1).float().to(dev)
+    s = _chain(cols, q)
+    if metric == "cosine":
+        s = s / torch.clamp(torch.sqrt(_chain(cols, cols)), min=1e-6)
+    pos = torch.arange(x.shape[0], device=dev)
+    valid = pos < n_rows
+    s = torch.where(valid, s, NEG_INF)
+    ids = torch.where(valid, pos.float(), BIG_ID)
+    # rows are in id order, so a stable sort keeps ids ascending on ties
+    order = torch.sort(s, descending=True, stable=True).indices[:k]
+    out = torch.zeros((REDUCE_ROWS, topk_pad(k)), device=dev)
+    out[0, :k] = NEG_INF
+    out[1, :k] = BIG_ID
+    out[0, :order.numel()] = s[order]
+    out[1, :order.numel()] = ids[order]
+    return out
+
+
+def topk_scan_ref(pages, page_table, n_rows: int, query, *, k: int,
+                  metric: str = "dot", scales=None):
+    """Query-scored top-k over an extent's pages: the same pool operands
+    as :func:`scan_filter_reduce_ref`; query [n_cols] (or [1, n_cols])
+    f32.  ``cosine`` divides each row's dot by max(sqrt(chain(x*x)),
+    1e-6) (the query is not normalised)."""
+    n_phys, page_rows, n_cols = pages.shape
+    nv = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+    x = pool_rows(pages, scales, page_table[:nv].long())
+    return _topk_rows(x.reshape(-1, n_cols), n_rows, query, k, metric)
+
+
+def topk_scan_host(data, query, *, page_rows: int, k: int,
+                   metric: str = "dot"):
+    """The same top-k over a fetched extent data [n_rows, n_cols]:
+    bit-identical to the pool version (``page_rows`` only sets the
+    pages the pool would hold; empty rows never win)."""
+    del page_rows
+    return _topk_rows(data.float(), data.shape[0], query, k, metric)
+
+
+# ---------------------------------------------------------------------------
+# embedding bag and row gather (``repro/kernels/embed_agg.py``)
+# ---------------------------------------------------------------------------
+
+
+def embed_agg_ref(table, indices, weights=None):
+    """Sum-pooled lookups: [B, D] f32, out[b] = sum over l = 0..L-1 in
+    lookup order of w[b, l] * table[indices[b, l]] (each product rounded
+    before its add, from 0; unweighted: the rows themselves)."""
+    b, n_look = indices.shape
+    out = torch.zeros((b, table.shape[1]), device=table.device)
+    for li in range(n_look):
+        row = table[indices[:, li].long()].float()
+        if weights is not None:
+            row = row * weights[:, li, None].float()
+        out = out + row
+    return out
+
+
+def embed_gather_ref(table, indices):
+    """Batched row gather: table [V, D] by indices [B, K] -> [B, K, D],
+    the table's dtype kept (int32 token blocks stay int32)."""
+    return table[indices.long()]

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points
-refuse to fall back to the CPU when CUDA is asked for."""
+``chip_smoke.py`` imports JAX, ``ml_dtypes`` (a JAX dependency) or the
+JAX package, and its entry points refuse to fall back to the CPU when
+CUDA is asked for."""
 import ast
 from pathlib import Path
 
@@ -11,7 +12,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imported_modules(path: Path):
@@ -65,3 +66,25 @@ def test_launcher_paths_not_yet_ported_exit(flags):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--arch", "granite-3-2b", "--reduced", *flags])
+
+
+def test_isp_launcher_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the launcher would run on it")
+    from repro_torch.launch import isp
+    with pytest.raises(RuntimeError, match="CUDA"):
+        isp.main(["--rows", "10"])
+
+
+def test_isp_launcher_runs_on_cpu_when_asked():
+    from repro_torch.launch import isp
+    out = isp.main(["--rows", "70", "--cols", "8", "--page-rows", "16",
+                    "--page-dtype", "int8", "--corpus-rows", "40",
+                    "--emb-dim", "8", "--k", "2", "--reduced",
+                    "--device", "cpu"])
+    assert [v["where"] for v in out["planner"]] == ["device", "device"]
+    assert out["dlrm_shape"] == [32, 64]
+    assert out["etheron"]["job_frames"] == 4
+    rag = out["rag"]
+    assert rag["where"]["device"] == 8 and len(rag["ids"]) == 2
+    assert rag["waves"][1]["prefix_hits"] > rag["waves"][0]["prefix_hits"]
