@@ -39,11 +39,26 @@ one JSON line and any failure exits non-zero:
            1M x 768 corpus feeds the serve phase's granite-3-2b in two
            waves (the second rides the prefix cache)
 
-Then the kernels line (launches: the serve and isp phases' counts), the
-nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
+  dense    the launcher's default (non-paged) path through get_model +
+           make_serving_fns, launch counters reset just before and read
+           just after each model: the serve phase's granite-3-2b on its 8
+           prompts of 512 tokens, then full-width rwkv6-3b (32 layers,
+           d_model 2560, random f32 weights) on 8 prompts of 512 tokens,
+           64 greedy tokens each; prefill and first decode-step logits
+           within 1e-3 of the same path with the plain kernel versions on
+           the card and greedy tokens identical to it; granite's first
+           decode step within 1e-3 of the paged serve phase's; one
+           prefill and a few decode steps of each under torch.profiler
+
+The kernels phase also holds the flash-attention kernel (causal and not,
+at granite-3-2b's prefill shape) and the RWKV6 wkv-scan kernel (at
+rwkv6-3b's) against their plain versions.  Then the kernels line
+(launches: the serve, isp and dense phases' counts), the nvidia-smi
+line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -368,13 +383,14 @@ def pool_bound(n_valid, page_rows, n_cols, pages, quantized, ops_per_elem,
 
 
 def kernel_line(results, kernel, case, err, kernel_ms, plain_ms, bound_,
-                library_ms, library, source):
+                library_ms, library, source, tolerance=0.0):
     results.append({
         "name": kernel.rsplit("_", 1)[0] if kernel.startswith(
-            ("scan", "topk")) else kernel,
+            ("scan", "topk", "flash", "rwkv")) else kernel,
         "kernel": kernel, "case": case, "route": "cuda", "source": source,
-        "replaces": ISP_REPLACES[kernel], "launches": None,
-        "max_abs_err": err, "tolerance": 0.0, "ms": kernel_ms,
+        "replaces": {**ISP_REPLACES, **DENSE_REPLACES}[kernel],
+        "launches": None, "max_abs_err": err, "tolerance": tolerance,
+        "ms": kernel_ms,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "plain_iters": PLAIN_ITERS, "bound_ms": bound_[0],
         "bound_by": bound_[1], "library_ms": library_ms,
@@ -616,7 +632,7 @@ def phase_isp(torch, np, smi, served, data):
     from repro_torch.runtime.retrieval import RetrievalFrontend
     from repro_torch.runtime.serve import PagedServer
 
-    cfg, model, params = served
+    cfg, model, params = (served[k] for k in ("cfg", "model", "params"))
     rng = np.random.default_rng(3)
     li = data["lineitem"]
     pr, n_cols = LINEITEM["page_rows"], LINEITEM["cols"]
@@ -875,6 +891,311 @@ def phase_isp(torch, np, smi, served, data):
     return counts
 
 
+# -- dense serving: flash attention and the RWKV6 wkv scan --------------------
+
+DENSE_SOURCE = {"flash_attention_f32":
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "rwkv_scan_f32": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
+DENSE_REPLACES = {"flash_attention_f32":
+                  "src/repro/kernels/flash_attention.py:26",
+                  "rwkv_scan_f32": "src/repro/kernels/rwkv_scan.py:21"}
+# granite-3-2b's dense prefill: 8 prompts of 512 tokens, 32 heads over 8
+# kv heads of 64
+FLASH = {"batch": 8, "heads": 32, "kv_heads": 8, "seq": 512, "head_dim": 64}
+# rwkv6-3b's prefill: 8 prompts of 512 tokens, 40 heads of 64, chunk 32
+WKV = {"batch": 8, "seq": 512, "heads": 40, "dk": 64, "dv": 64, "chunk": 32}
+# the dense phase: the serve phase's granite-3-2b and prompts, then
+# rwkv6-3b; 64 greedy tokens a request, f32 caches
+DENSE = {"rwkv_arch": "rwkv6-3b", "rwkv_reduced": False, "requests": 8,
+         "prompt_len": 512, "gen": 64, "profile_steps": 4}
+WKV_TOL = 1e-4           # times max(1, max |plain|), on o and on sT
+
+
+def flash_bound(b, h, hkv, s, d, causal):
+    """q, k, v and out once against 4*D f32 operations per (query, key)
+    pair kept (the QK dot and the PV update)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return bytes_bound(4 * (2 * b * h * s * d + 2 * b * hkv * s * d),
+                       b * h * pairs * 4 * d)
+
+
+def wkv_ops_per_chunk(c, dk, dv):
+    """f32 operations of one chunk of one (batch, head) in the chunk
+    form: cumsum and cum - logw; the strictly lower scores (sub, exp, two
+    multiplies, add per key dim); the diagonal; scores @ v; r * exp(cx)
+    and its product with the state; the k decays, exp(cum[-1]), the
+    decayed state and k2^T v."""
+    return (2 * c * dk + c * (c - 1) // 2 * dk * 5 + 3 * c * dk +
+            c * (c + 1) // 2 * dv * 2 + 2 * c * dk + 2 * c * dk * dv +
+            3 * c * dk + dk + 2 * dk * dv + 2 * c * dk * dv)
+
+
+def wkv_bound(b, s, h, dk, dv, chunk):
+    n_bytes = 4 * (3 * b * s * h * dk + 2 * b * s * h * dv + h * dk +
+                   2 * b * h * dk * dv)
+    return bytes_bound(n_bytes, b * h * (s // chunk) *
+                       wkv_ops_per_chunk(chunk, dk, dv))
+
+
+def phase_dense_kernels(torch, np, flush):
+    """Flash attention (causal and not) at granite-3-2b's prefill shape
+    and the wkv scan at rwkv6-3b's, each against its plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    results = []
+    rng = np.random.default_rng(4)
+    b, h, hkv, s, d = (FLASH[k] for k in ("batch", "heads", "kv_heads", "seq",
+                                          "head_dim"))
+    q = torch.from_numpy(rng.standard_normal((b, h, s, d),
+                                             dtype=np.float32)).to(DEVICE)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (b, hkv, s, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+    k_rep = k.repeat_interleave(h // hkv, dim=1)
+    v_rep = v.repeat_interleave(h // hkv, dim=1)
+    for causal in (True, False):
+        def kernel(causal=causal):
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def plain(causal=causal):
+            return ops.ref.flash_attention_ref(q, k, v, causal=causal)
+
+        def lib(causal=causal):
+            return F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                  is_causal=causal)
+        got = kernel()
+        torch.cuda.synchronize()
+        err = float((got - plain()).abs().max())
+        check(bool(torch.isfinite(got).all()), "flash attention: finite")
+        check(err <= KERNEL_TOL, f"flash attention causal={causal}: "
+              f"max_abs_err {err} > {KERNEL_TOL}")
+        kernel_line(
+            results, "flash_attention_f32",
+            f"{'causal' if causal else 'non-causal'} B={b} H={h} Hkv={hkv} "
+            f"S={s} D={d} (granite-3-2b prefill)", err,
+            time_ms(torch, kernel, flush),
+            time_ms(torch, plain, flush, PLAIN_ITERS, 1),
+            flash_bound(b, h, hkv, s, d, causal), time_ms(torch, lib, flush),
+            "torch.nn.functional.scaled_dot_product_attention(is_causal) "
+            "on f32 with the kv heads repeated (outside the timing)",
+            DENSE_SOURCE["flash_attention_f32"], KERNEL_TOL)
+    del q, k, v, k_rep, v_rep
+    # -- the wkv scan ---------------------------------------------------------
+    b, s, h, dk, dv, chunk = (WKV[k] for k in ("batch", "seq", "heads", "dk",
+                                               "dv", "chunk"))
+
+    def dev(x):
+        return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+    r, k = (dev(rng.standard_normal((b, s, h, dk))) for _ in range(2))
+    v = dev(rng.standard_normal((b, s, h, dv)))
+    logw = dev(-np.exp(rng.standard_normal((b, s, h, dk))))
+    u = dev(rng.standard_normal((h, dk)))
+    s0 = dev(rng.standard_normal((b, h, dk, dv)))
+
+    def kernel():
+        return ops.rwkv_scan(r, k, v, logw, u, s0, chunk=chunk)
+
+    def plain():
+        return ops.ref.wkv_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+    o_p, s_p = plain()
+    o, s_t = kernel()
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, want in (("o", o, o_p), ("sT", s_t, s_p)):
+        err = float((got - want).abs().max())
+        lim = WKV_TOL * max(1.0, float(want.abs().max()))
+        check(bool(torch.isfinite(got).all()), f"rwkv_scan {name}: finite")
+        check(err <= lim, f"rwkv_scan {name}: max_abs_err {err} > {lim}")
+        errs.append(err)
+    kernel_line(
+        results, "rwkv_scan_f32",
+        f"B={b} S={s} H={h} dk={dk} dv={dv} chunk {chunk}, logw = "
+        "-exp(N(0,1)), s0 ~ N(0,1) (rwkv6-3b prefill)", max(errs),
+        time_ms(torch, kernel, flush),
+        time_ms(torch, plain, flush, PLAIN_ITERS, 1),
+        wkv_bound(b, s, h, dk, dv, chunk), None,
+        "none: no single PyTorch call computes the wkv recurrence",
+        DENSE_SOURCE["rwkv_scan_f32"],
+        f"{WKV_TOL} x max(1, max|plain|) on o and sT")
+    torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def plain_kernels(ops):
+    """The same path with the flash and wkv kernels' plain versions on
+    the card (the wrappers launch their kernels for every CUDA tensor)."""
+    saved = ops.flash_attention, ops.rwkv_scan
+    ops.flash_attention = ops.ref.flash_attention_ref
+    ops.rwkv_scan = ops.ref.wkv_chunked_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rwkv_scan = saved
+
+
+def dense_run(torch, prefill, decode, params, prompts, gen):
+    """The launcher's default path: one prefill of every prompt (f32
+    cache), a transformer's cache padded to prompt_len + gen, then
+    gen - 1 greedy decode steps: gen tokens a request."""
+    import torch.nn.functional as F
+    n_req, prompt_len = prompts.shape
+    tokens = torch.from_numpy(prompts).long().to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    logits, cache = prefill(params, {"tokens": tokens},
+                            cache_dtype=torch.float32)
+    cur = logits.argmax(-1)
+    picks = [cur.cpu()]                    # the first token is on the host
+    prefill_s = time.monotonic() - t0
+    if "k" in cache:
+        pad = prompt_len + gen - cache["k"].shape[-2]
+        cache["k"] = F.pad(cache["k"], (0, 0, 0, pad))
+        cache["v"] = F.pad(cache["v"], (0, 0, 0, pad))
+    t1 = time.monotonic()
+    step1 = None
+    for _ in range(gen - 1):
+        step_logits, cache = decode(params, cache, cur)
+        if step1 is None:
+            step1 = step_logits.clone()
+        cur = step_logits.argmax(-1)
+        picks.append(cur)
+    toks = torch.stack([p.to(DEVICE) for p in picks], dim=1).cpu()
+    decode_s = time.monotonic() - t1
+    return {"prefill_logits": logits, "step1_logits": step1,
+            "tokens": toks, "cache": cache, "last": cur,
+            "stats": {"prefill_s": prefill_s, "ttft_s": prefill_s,
+                      "prefill_tok_s": n_req * prompt_len / prefill_s,
+                      "decode_s": decode_s,
+                      "decode_tok_s": n_req * (gen - 1) / decode_s,
+                      "peak_memory_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}}
+
+
+def dense_model(torch, ops, name, model, params, prompts, gen):
+    """One model through the dense path: launch counts of the kernel run,
+    the plain run on the card, the gates between them, a profile."""
+    from repro_torch.runtime.serve import make_serving_fns
+    cfg = model.cfg
+    prefill, decode = make_serving_fns(model)
+    ops.reset_launch_counts()
+    run = dense_run(torch, prefill, decode, params, prompts, gen)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with plain_kernels(ops):
+        ref = dense_run(torch, prefill, decode, params, prompts, gen)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "requests": prompts.shape[0], "prompt_len": prompts.shape[1],
+           "gen": gen, **run["stats"],
+           "plain_run": ref["stats"], "launches": counts}
+    for key in ("prefill_logits", "step1_logits"):
+        got = run[key]
+        check(tuple(got.shape) == (prompts.shape[0], cfg.vocab_size) and
+              bool(torch.isfinite(got).all()), f"{name} {key}: shape, finite")
+        err = float((got - ref[key]).abs().max())
+        check(err <= LOGITS_TOL, f"{name} {key} vs the plain kernels: "
+              f"{err} > {LOGITS_TOL}")
+        out[f"{key}_max_abs_err_vs_plain"] = err
+    check(torch.equal(run["tokens"], ref["tokens"]),
+          f"{name}: greedy tokens differ from the plain kernels' run")
+    check(bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab_size))
+               .all()), f"{name}: token range")
+    out["tokens_identical_to_plain"] = True
+    out["tokens_request0"] = run["tokens"][0].tolist()
+    del ref
+    # one prefill, then a few decode steps on its cache, under the profiler
+    tokens = torch.from_numpy(prompts).long().to(DEVICE)
+    n_prof = DENSE["profile_steps"]
+    state = {}
+
+    def prefill_once():
+        state["logits"], state["cache"] = prefill(
+            params, {"tokens": tokens}, cache_dtype=torch.float32)
+
+    def steps():
+        import torch.nn.functional as F
+        cache, cur = state["cache"], state["logits"].argmax(-1)
+        if "k" in cache:
+            cache["k"] = F.pad(cache["k"], (0, 0, 0, n_prof))
+            cache["v"] = F.pad(cache["v"], (0, 0, 0, n_prof))
+        torch.cuda.synchronize()
+        for _ in range(n_prof):
+            logits, cache = decode(params, cache, cur)
+            cur = logits.argmax(-1)
+    out["profile_prefill"] = profile_calls(torch, prefill_once, 1)
+    out["profile_decode_step"] = profile_calls(torch, steps, n_prof)
+    return out, counts, run
+
+
+def phase_dense(torch, np, smi, served):
+    """The launcher's default path at full width: granite-3-2b (the serve
+    phase's params and prompts), then rwkv6-3b; ``served`` is emptied so
+    that granite's weights are freed before rwkv6-3b's are made."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+
+    t_phase = time.monotonic()
+    gen = DENSE["gen"]
+    cfg = served["cfg"]
+    granite, g_counts, run = dense_model(
+        torch, ops, "granite", served["model"], served["params"],
+        served["prompts"], gen)
+    check(g_counts["flash_attention_f32"] == cfg.n_layers,
+          f"flash_attention_f32 launched {g_counts['flash_attention_f32']} "
+          f"times in one granite prefill, not {cfg.n_layers}")
+    # the paged serve phase's first decode step on the same prompts
+    seqs, paged_logits = served["paged_first_step"]
+    order = torch.tensor(seqs, device=run["step1_logits"].device)
+    err = float((run["step1_logits"][order] - paged_logits).abs().max())
+    check(err <= LOGITS_TOL, f"granite dense vs paged first decode step: "
+          f"{err} > {LOGITS_TOL}")
+    # the paged run's tokens start after the admission token, which is
+    # the dense run's first
+    paged = served["tokens_h1"]
+    pairs = [(a, b) for i in range(len(seqs))
+             for a, b in zip(run["tokens"][i, 1:].tolist(), paged[i])]
+    granite["step1_logits_max_abs_err_vs_paged"] = err
+    granite["tokens_equal_to_paged"] = sum(a == b for a, b in pairs)
+    granite["tokens_compared_to_paged"] = len(pairs)
+    del run
+    served.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    rcfg = get_arch(DENSE["rwkv_arch"])
+    if DENSE["rwkv_reduced"]:
+        rcfg = rcfg.reduced()
+    model = get_model(rcfg)
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = np.random.default_rng(5).integers(
+        0, rcfg.vocab_size, (DENSE["requests"], DENSE["prompt_len"]),
+        dtype=np.int32)
+    rwkv, r_counts, run = dense_model(torch, ops, "rwkv6", model, params,
+                                      prompts, gen)
+    rwkv["init_s"] = init_s
+    rwkv["weights_gb"] = rwkv["params"] * 4 / 1e9
+    check(r_counts["rwkv_scan_f32"] == rcfg.n_layers,
+          f"rwkv_scan_f32 launched {r_counts['rwkv_scan_f32']} times in "
+          f"one rwkv6 prefill, not {rcfg.n_layers}")
+    del run, params
+    torch.cuda.empty_cache()
+    counts = {k: g_counts[k] + r_counts[k] for k in g_counts}
+    emit({"phase": "dense", "granite": granite, "rwkv6": rwkv,
+          "launches": counts, "logits_tol": LOGITS_TOL,
+          "phase_s": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return counts
+
+
 # -- serve --------------------------------------------------------------------
 
 
@@ -993,25 +1314,38 @@ def phase_serve(torch, np, smi):
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": "smoke run, not a benchmark"})
-    return counts, (cfg, model, params)
+    served = {"cfg": cfg, "model": model, "params": params,
+              "prompts": prompts, "paged_first_step": (seqs, logits),
+              "tokens_h1": tokens_h1}
+    return counts, served
 
 
 def profile_decode(torch, server, n_steps):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
-    steps under ``torch.profiler``; device busy time is the sum of the
-    kernels' device time (one stream, so they do not overlap), idle share
-    the rest of the wall time.  A measurement only: a profiler that fails
-    or sees no device time is reported, not fatal."""
+    steps of the paged server under ``torch.profiler``."""
+    pending = server.pending_tokens()
+
+    def steps():
+        nonlocal pending
+        for _ in range(n_steps):
+            seqs, logits = server.step_batch(pending)
+            pending = dict(zip(seqs, logits.argmax(-1).cpu().tolist()))
+    return profile_calls(torch, steps, n_steps)
+
+
+def profile_calls(torch, run, n_steps):
+    """``run()`` (``n_steps`` steps) under ``torch.profiler``: device busy
+    time is the sum of the kernels' device time (one stream, so they do
+    not overlap), idle share the rest of the wall time.  A measurement
+    only: a profiler that fails or sees no device time is reported, not
+    fatal."""
     from torch.profiler import ProfilerActivity, profile
     try:
-        pending = server.pending_tokens()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            for _ in range(n_steps):
-                seqs, logits = server.step_batch(pending)
-                pending = dict(zip(seqs, logits.argmax(-1).cpu().tolist()))
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3 / n_steps
         rows = []
@@ -1059,12 +1393,15 @@ def main() -> int:
     kernels = phase_kernels(torch, np)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)
     kernels += phase_isp_kernels(torch, np, data, flush)
+    kernels += phase_dense_kernels(torch, np, flush)
     del flush
     counts, served = phase_serve(torch, np, smi)
     isp_counts = phase_isp(torch, np, smi, served, data)
+    del data
+    dense_counts = phase_dense(torch, np, smi, served)
     for entry in kernels:
-        entry["launches"] = counts[entry["kernel"]] + \
-            isp_counts[entry["kernel"]]
+        entry["launches"] = sum(c[entry["kernel"]] for c in (
+            counts, isp_counts, dense_counts))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

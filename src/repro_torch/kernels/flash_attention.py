@@ -1,0 +1,93 @@
+"""Wrapper of the hand-written flash-attention CUDA kernel.
+
+``csrc/flash_attention.cu`` replaces the JAX package's Pallas TPU kernel
+``_flash_kernel`` (``repro/kernels/flash_attention.py:26``).  As in
+``kernels.paged_attention``: the wrapper checks device, dtype, shape,
+contiguity and alignment and raises on what the kernel does not take,
+allocates the output with ``torch.empty``, launches on the current CUDA
+stream and raises if the launcher returns a CUDA error.  For tensors on
+the CPU (and only there) it runs the plain version
+``ref.flash_attention_ref``.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"flash_attention_f32": 0}
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    fn = build.load_library("flash_attention").flash_attention_f32
+    # q, k, v, out, B, H, Hkv, Sq, Sk, D, causal, stream
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, causal):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be [B, H, Sq, D] and k/v [B, Hkv, Sk, D]; "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    b, h, sq, d = q.shape
+    bk, hkv, sk, dk = k.shape
+    if v.shape != k.shape or bk != b or dk != d:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
+    if sq < 1 or sk < 1:
+        raise ValueError("empty query or key axis")
+    if causal and sq != sk:
+        # the Pallas kernel masks from the top left, its jnp oracle from
+        # the bottom right; the two agree only for Sq == Sk
+        raise ValueError(f"causal attention needs Sq == Sk (got Sq={sq}, "
+                         f"Sk={sk}): the reference kernel and its oracle "
+                         f"align the causal mask differently otherwise")
+    for t in (q, k, v):
+        if t.dtype != torch.float32:
+            raise TypeError(f"q/k/v must be float32, got {t.dtype}")
+    return b, h, hkv, sq, sk, d
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Blockwise online-softmax GQA attention.
+
+    q: [B, H, Sq, D] f32; k/v: [B, Hkv, Sk, D] f32 with H a multiple of
+    Hkv.  ``causal`` keeps key positions <= the query position and needs
+    Sq == Sk.  Returns [B, H, Sq, D] f32.
+    """
+    b, h, hkv, sq, sk, d = _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}; one is on "
+                             f"{t.device}")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the CUDA kernel takes contiguous inputs that "
+                             "start 16-byte aligned")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if h // hkv > MAX_GROUP:
+        raise ValueError(f"GQA group {h // hkv} > {MAX_GROUP}")
+    if b > 65535 or hkv > 65535:
+        raise ValueError("B and Hkv must be at most 65535 (grid limits)")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, h, hkv, sq, sk, d, int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_f32 launch failed: "
+                           f"cudaError_t {err}")
+    LAUNCHES["flash_attention_f32"] += 1
+    return out

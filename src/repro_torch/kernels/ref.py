@@ -289,3 +289,96 @@ def embed_gather_ref(table, indices):
     """Batched row gather: table [V, D] by indices [B, K] -> [B, K, D],
     the table's dtype kept (int32 token blocks stay int32)."""
     return table[indices.long()]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (``repro/kernels/flash_attention.py``)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """q: [B, H, Sq, D]; k/v: [B, Hkv, Sk, D] (GQA by head grouping).
+
+    The JAX package's oracle (``repro/kernels/ref.py:20``): the causal
+    mask keeps ``tril(Sk - Sq)``, aligned to the bottom right, where its
+    Pallas kernel aligns it to the top left; the two agree for Sq == Sk,
+    the only causal case the kernel's wrapper accepts."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, sq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v)
+    return out.reshape(b, h, sq, d)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv recurrence (``repro/kernels/rwkv_scan.py``,
+# ``repro/models/rwkv6.py``)
+# ---------------------------------------------------------------------------
+
+
+def wkv_chunk(r, k, v, logw, u, s0):
+    """One chunk of the wkv recurrence, batched over leading dims.
+
+    r/k/logw: [..., C, dk]; v: [..., C, dv]; u: [..., dk] (broadcast over
+    the leading dims); s0: [..., dk, dv].  Returns (o [..., C, dv], sC).
+    Every exponent is a difference of cumulative log-decays, <= 0; the
+    mask comes before the exp, so no masked (positive) exponent is taken.
+    """
+    cum = torch.cumsum(logw, dim=-2)                    # [..., C, dk] incl. t
+    cum_excl = cum - logw                               # through t - 1
+    diff = cum_excl[..., :, None, :] - cum[..., None, :, :]   # [..., t, s, dk]
+    c = r.shape[-2]
+    tri = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    dmat = torch.exp(torch.where(tri[:, :, None], diff,
+                                 torch.full_like(diff, float("-inf"))))
+    scores = (r[..., :, None, :] * k[..., None, :, :] * dmat).sum(-1)
+    diag = (r * u[..., None, :] * k).sum(-1)            # [..., C]
+    o = scores @ v + diag[..., None] * v
+    o = o + (r * torch.exp(cum_excl)) @ s0
+    k2 = k * torch.exp(cum[..., -1:, :] - cum)
+    s_c = torch.exp(cum[..., -1, :])[..., None] * s0 + k2.transpose(-1, -2) @ v
+    return o, s_c
+
+
+def wkv_chunked_ref(r, k, v, logw, u, s0, chunk: int = 32):
+    """The kernel's plain version: chunks of ``min(chunk, S)`` tokens in
+    a Python loop, each vectorised over (B, H).
+
+    r/k/logw: [B, S, H, dk]; v: [B, S, H, dv]; u: [H, dk]; s0:
+    [B, H, dk, dv].  Returns (o [B, S, H, dv], sT [B, H, dk, dv])."""
+    s = r.shape[1]
+    ck = min(chunk, s)
+    if s % ck:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {ck}")
+    rs, ks, vs, ws = (x.transpose(1, 2) for x in (r, k, v, logw))  # [B,H,S,*]
+    state, outs = s0, []
+    for c0 in range(0, s, ck):
+        part = slice(c0, c0 + ck)
+        o, state = wkv_chunk(rs[:, :, part], ks[:, :, part], vs[:, :, part],
+                             ws[:, :, part], u, state)
+        outs.append(o)
+    return torch.cat(outs, dim=2).transpose(1, 2).contiguous(), state
+
+
+def wkv_step(r, k, v, logw, u, state):
+    """One-token recurrence.  r/k/logw: [B, H, dk]; v: [B, H, dv]; u:
+    [H, dk]; state: [B, H, dk, dv].  Returns (o [B, H, dv], new state)."""
+    kv = k[..., :, None] * v[..., None, :]              # [B, H, dk, dv]
+    o = torch.einsum("bhk,bhkv->bhv", r, state + u[None, :, :, None] * kv)
+    return o, torch.exp(logw)[..., None] * state + kv
+
+
+def wkv_ref(r, k, v, logw, u, s0):
+    """Per-token oracle of the chunked form (``repro/kernels/ref.py:180``)."""
+    state, outs = s0, []
+    for t in range(r.shape[1]):
+        o, state = wkv_step(r[:, t], k[:, t], v[:, t], logw[:, t], u, state)
+        outs.append(o)
+    return torch.stack(outs, dim=1), state

@@ -1,9 +1,12 @@
 """Param conversion between the JAX package's pytree and the port.
 
 Both sides use the same nested-dict layout (stacked layers, ``[d_in,
-d_out]`` weights), so conversion is leaf by leaf.  The JAX side hands
-over plain ``np.ndarray`` leaves (``jax.device_get`` on its params), so
-this module needs neither JAX nor the JAX package.
+d_out]`` weights), so conversion is leaf by leaf, whatever the tree
+holds: the transformer's ``attn``/``mlp`` blocks and tied embedding, or
+RWKV6's stacked ``time_mix``/``channel_mix`` blocks, its ``ln0`` and its
+untied ``lm_head``.  The JAX side hands over plain ``np.ndarray`` leaves
+(``jax.device_get`` on its params), so this module needs neither JAX
+nor the JAX package.
 """
 from __future__ import annotations
 

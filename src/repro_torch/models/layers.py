@@ -5,7 +5,11 @@ tests compare like with like:
   * params are nested dicts of tensors; per-layer blocks are stacked
     along a leading layer dim;
   * weights are ``[d_in, d_out]`` and used as ``x @ w``;
-  * softmax and norms run in f32.
+  * softmax and norms run in f32;
+  * prefill and full-forward attention go through the flash-attention
+    kernel (``kernels.ops.flash_attention``); one-token decode attention
+    stays plain torch, as the JAX package computes it with ``einsum``
+    outside any kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -42,6 +48,17 @@ def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
+def init_norm(d: int, kind: str, *, lead=(), dtype=torch.float32,
+              device=None):
+    """Norm params: ``scale`` ones (and ``bias`` zeros for layernorm) of
+    shape ``lead + (d,)`` (``lead=(n_layers,)`` for a stacked block)."""
+    shape = (*lead, d)
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
 def apply_norm(p, x, kind, eps=1e-6):
     xf = x.float()
     if kind == "rmsnorm":
@@ -53,6 +70,14 @@ def apply_norm(p, x, kind, eps=1e-6):
         out = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float()
         out = out + p["bias"].float()
     return out.to(x.dtype)
+
+
+def group_norm_heads(x, scale, eps=1e-5):
+    """Per-head group norm of the RWKV6 wkv output.  x: [..., H, D]."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +120,60 @@ def _qkv(p, x, cfg):
         v = v + p["bv"].to(x.dtype)
     return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
+
+
+def chunked_attention(q, k, v, *, causal: bool):
+    """Prefill / full-sequence GQA attention over positions 0..S-1 on
+    both sides (the only way the JAX package's prefill and forward call
+    its ``chunked_attention``), through the flash-attention kernel.
+    q: [B, S, H, D]; k/v: [B, S, Hkv, D].  Returns [B, S, H, D]."""
+    out = ops.flash_attention(*(t.transpose(1, 2).float().contiguous()
+                                for t in (q, k, v)), causal=causal)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_block(p, x, cfg):
+    """Full (forward / prefill) attention incl. projections.  Returns
+    (attn_out [B, S, d], k, v [B, S, Hkv, D] after RoPE: what prefill
+    caches)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    if cfg.rope:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(q, k, v, causal=cfg.causal)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype), k, v
+
+
+def decode_attention(p, x, cfg, k_cache, v_cache, index: int):
+    """One-token decode against a dense KV cache, in plain torch.
+
+    x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S, D], written in place at
+    position ``index`` (the JAX package returns updated copies; its
+    serving step donates the old ones).  Returns (attn_out [B, 1, d],
+    k_cache, v_cache).  A bf16 cache is up-cast to f32 for the products,
+    as jnp's type promotion does."""
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = k_cache.shape[2]
+    q, k, v = _qkv(p, x, cfg)                                  # [B,1,*,D]
+    if cfg.rope:
+        pos = torch.full((b, 1), index, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    k_cache[:, :, index] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, :, index] = v[:, 0].to(v_cache.dtype)
+    qg = q.reshape(b, hkv, h // hkv, hd)
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg.float(),
+                          k_cache.float()) / math.sqrt(hd)
+    valid = torch.arange(s, device=x.device) <= index
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    vv = v_cache.to(torch.promote_types(probs.dtype, v_cache.dtype))
+    out = torch.einsum("bhgs,bhsd->bhgd", probs.to(vv.dtype), vv)
+    out = out.reshape(b, 1, h * hd).to(x.dtype) @ p["wo"].to(x.dtype)
+    return out, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

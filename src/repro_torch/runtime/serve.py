@@ -1,4 +1,5 @@
-"""Paged-KV serving runtime on torch: ``PagedServer``, greedy only.
+"""Serving runtime on torch: the dense path (``make_serving_fns``) and
+the paged-KV ``PagedServer``, greedy only.
 
 The port of ``repro.runtime.serve.PagedServer``: a host-side
 :class:`~repro_torch.core.kv_tier.PageTableManager` (LRU tiering,
@@ -37,6 +38,17 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_params
+
+
+def make_serving_fns(model, mesh=None):
+    """(prefill, decode_step) of the dense serving path: the model's own
+    methods, run eagerly (the JAX package jits them and donates the
+    cache; ``decode_step`` here writes the cache in place).  Sharding
+    over a mesh is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("make_serving_fns over a mesh (sharded "
+                                  "serving): not yet ported")
+    return model.prefill, model.decode_step
 
 
 def _pow2(n: int) -> int:

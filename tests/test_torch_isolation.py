@@ -59,7 +59,7 @@ def test_launcher_runs_on_cpu_when_asked():
     assert {k: len(v) for k, v in out.items()} == {0: 3, 1: 3}
 
 
-@pytest.mark.parametrize("flags", [["--pool", "--paged"], [],
+@pytest.mark.parametrize("flags", [["--pool", "--paged"],
                                    ["--paged", "--speculative"],
                                    ["--paged", "--temperature", "0.8"]])
 def test_launcher_paths_not_yet_ported_exit(flags):

@@ -86,4 +86,4 @@ def test_forward_matches_jax(arch, over):
 
 def test_other_block_types_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(get_arch("rwkv6_3b"))
+        get_model(get_arch("zamba2_1_2b"))
