@@ -11,9 +11,15 @@ one JSON line and any failure exits non-zero:
   build    nvcc builds every kernel source of the checkout (one nvcc per
            source, all started together), timed
   kernels  each kernel against its plain version, timed with CUDA events
-           beside its bound and a library call: paged attention at the
-           serving path's shapes (decode and prefill chunk; f32, int8 and
-           fp8 pages, within 1e-4); the scan over a TPC-H SF-1 lineitem
+           (device time: a sleep kernel holds the card while the host
+           enqueues) beside its bound and a library call: paged attention
+           at the serving path's shapes, f32, int8 and fp8 pages, within
+           1e-4: the decode form on three decode batches (ragged 0..1000,
+           the serve phase's 513..576, one row of 4,000), its per-split
+           partials against the plain split emulation, the combine
+           kernel alone, and a prefill chunk through the chunk form
+           (expanded page row) and the decode form (contiguous table);
+           the scan over a TPC-H SF-1 lineitem
            extent (6,001,215 rows x 16 f32 columns, page 128; five filter
            jobs on f32, int8 and fp8 pools, a pow2-padded table and an
            empty result), the top-k over a 1M x 768 corpus (k 4 and 128,
@@ -26,7 +32,9 @@ one JSON line and any failure exits non-zero:
            and at horizon 8 (tokens must be identical), the first decode
            step's logits against the plain-attention step_reference, then
            int8 and fp8 page passes; kernel launch counters reset just
-           before and read just after; a few horizon-1 steps under
+           before and read just after (every prefill chunk through the
+           chunk form, every decode step through the decode form, per
+           page type); a few horizon-1 steps under
            torch.profiler give the step's device busy time
   isp      the in-storage path through the port's entry points, launch
            counters reset just before and read just after: a 4-node
@@ -76,6 +84,9 @@ SERVE = {"arch": "granite-3-2b", "reduced": False, "requests": 8,
          "page": 16, "hbm_pages": 320}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+# clock cycles of the sleep kernel ahead of each timed call: about 1 ms
+# at the H100's clocks, more than the host takes to enqueue the call
+HOLD_CYCLES = 2_000_000
 KERNEL_TOL = 1e-4              # f32 outputs ~N(0,1); only the sum order differs
 # logits of the kernel path vs the plain-attention reference after 40
 # f32 layers: the attention sums differ in order (about 1e-6 relative per
@@ -85,8 +96,12 @@ SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 REPLACES = {"f32": "src/repro/kernels/paged_attention.py:39",
             "int8": "src/repro/kernels/paged_attention.py:77",
             "fp8": "src/repro/kernels/paged_attention.py:77"}
-KERNEL_OF = {"f32": "paged_attention_f32", "int8": "paged_attention_q8_int8",
-             "fp8": "paged_attention_q8_fp8"}
+# the wrappers' two forms, one compiled kernel each per page type
+DECODE_OF = {"f32": "paged_decode_f32", "int8": "paged_decode_q8_int8",
+             "fp8": "paged_decode_q8_fp8"}
+CHUNK_OF = {"f32": "paged_chunk_f32", "int8": "paged_chunk_q8_int8",
+            "fp8": "paged_chunk_q8_fp8"}
+COMBINE = "paged_combine_f32"
 
 
 def emit(obj):
@@ -135,13 +150,17 @@ def phase_build():
 def time_ms(torch, fn, flush, iters=30, warmup=3):
     """Median of ``iters`` CUDA-event timings of ``fn`` after warm-up,
     with the L2 cache flushed before each (the serving path finds a
-    layer's pages cold: a layer's weights pass through L2 in between)."""
+    layer's pages cold: a layer's weights pass through L2 in between).
+    A sleep kernel holds the card busy while the host enqueues the start
+    event, ``fn``'s launches and the end event, so the interval is the
+    device's time for ``fn`` alone, not the host's time to launch it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -154,8 +173,8 @@ def time_ms(torch, fn, flush, iters=30, warmup=3):
 
 def bound(torch, q, table, lengths, page, hkv, code_bytes, quantized):
     """Least time for the work on this run's data: bytes (each valid
-    k/v slot, its scales, q, out, table and lengths once) over the
-    memory rate, vs f32 operations (4*D per query head and valid
+    k/v slot, its scales, q, out, the table's entries and lengths once)
+    over the memory rate, vs f32 operations (4*D per query head and valid
     position) over the f32 rate."""
     b, h, d = q.shape
     pps = table.shape[1]
@@ -164,53 +183,62 @@ def bound(torch, q, table, lengths, page, hkv, code_bytes, quantized):
     slot = table.long().repeat_interleave(page, dim=1) * page + pos % page
     n_slots = int(torch.unique(slot[valid]).numel())
     per_slot = hkv * d * code_bytes * 2 + (hkv * 4 * 2 if quantized else 0)
-    n_bytes = (n_slots * per_slot + 2 * q.numel() * 4 + table.numel() * 4 +
+    table_entries = pps if table.stride(0) == 0 else table.numel()
+    n_bytes = (n_slots * per_slot + 2 * q.numel() * 4 + table_entries * 4 +
                lengths.numel() * 4)
     ops = int(lengths.long().sum()) * h * d * 4
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOPS * 1e3
-    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
-            else "operations")
+    return bytes_bound(n_bytes, ops)
 
 
-def kernel_cases(torch, np):
+def kernel_cases(np):
     """Inputs at the serving path's shapes for granite-3-2b (H=32,
-    Hkv=8, D=64, page 16): a decode batch with ragged lengths (0, 1, a
-    partial page, up to 1000 over a pow2 table of 64 pages) and a
+    Hkv=8, D=64, page 16), each (name, q, table, lengths, form):
+    decode batches through the decode form (ragged lengths 0..1000 over
+    a pow2 table of 64 pages; the serve phase's 513..576; one row of
+    4,000 of granite-3-2b's 4,096 positions over 256 pages), and a
     prefill chunk of 256 query positions of one sequence (the second
-    chunk of a 512-token prompt: lengths 257..512, one page row
-    broadcast over the chunk)."""
+    chunk of a 512-token prompt: lengths 257..512) with its page row
+    expanded over the chunk (the chunk form, as ``PagedServer`` passes
+    it) and materialised (the decode form)."""
     rng = np.random.default_rng(0)
     h, hkv, d, page, n_phys = 32, 8, 64, 16, 320
     k = rng.standard_normal((n_phys, page, hkv, d), dtype=np.float32)
     v = rng.standard_normal((n_phys, page, hkv, d), dtype=np.float32)
-    dec_len = np.array([0, 1, 9, 16, 100, 513, 777, 1000], np.int32)
-    dec_table = np.zeros((8, 64), np.int32)
-    perm = rng.permutation(n_phys)
-    used = 0
-    for i, n in enumerate(dec_len):
-        need = -(-int(n) // page)
-        dec_table[i, :need] = perm[used:used + need]
-        used += need
-    row = rng.permutation(n_phys)[:32].astype(np.int32)
-    pre_table = np.broadcast_to(row[None, :], (256, 32)).copy()
-    pre_len = np.arange(257, 513, dtype=np.int32)
+
+    def table_for(lengths, pps):
+        table = np.zeros((len(lengths), pps), np.int32)
+        perm = rng.permutation(n_phys)
+        used = 0
+        for i, n in enumerate(lengths):
+            need = -(-int(n) // page)
+            table[i, :need] = perm[used:used + need]
+            used += need
+        return table
     cases = []
-    for name, table, lens in (("decode B=8 pps=64", dec_table, dec_len),
-                              ("prefill chunk C=256 pps=32", pre_table,
-                               pre_len)):
+    for name, lens, pps in (
+            ("decode B=8 lengths 0..1000 pps=64",
+             np.array([0, 1, 9, 16, 100, 513, 777, 1000], np.int32), 64),
+            ("decode B=8 lengths 513..576 pps=64 (serve phase)",
+             np.array([513, 530, 544, 548, 560, 561, 575, 576], np.int32), 64),
+            ("decode B=1 length 4000 pps=256",
+             np.array([4000], np.int32), 256)):
         q = rng.standard_normal((len(lens), h, d), dtype=np.float32)
-        cases.append((name, q, table, lens))
+        cases.append((name, q, table_for(lens, pps), lens, "decode"))
+    row = rng.permutation(n_phys)[:32].astype(np.int32)
+    pre_len = np.arange(257, 513, dtype=np.int32)
+    q = rng.standard_normal((256, h, d), dtype=np.float32)
+    cases.append(("prefill chunk C=256 pps=32, expanded row", q, row,
+                  pre_len, "chunk"))
+    cases.append(("prefill chunk C=256 pps=32, contiguous table", q, row,
+                  pre_len, "decode"))
     return (k, v, page, hkv), cases
 
 
-def phase_kernels(torch, np):
-    import torch.nn.functional as F
+def paged_pages(torch, k, v):
+    """{page type: (k, v, k_scale, v_scale)} on the card, quantized by
+    the port's own page quantizer."""
     from repro_torch.core.kv_tier import quantize_page_kv
-    from repro_torch.kernels import ops
-
     dev = torch.device(DEVICE)
-    (k, v, page, hkv), cases = kernel_cases(torch, np)
     k_t, v_t = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
     pages = {"f32": (k_t, v_t, None, None)}
     for code, dtype, qmax in (("int8", torch.int8, 127.0),
@@ -218,33 +246,72 @@ def phase_kernels(torch, np):
         kq, ks = quantize_page_kv(k_t, qmax, dtype)
         vq, vs = quantize_page_kv(v_t, qmax, dtype)
         pages[code] = (kq, vq, ks, vs)
+    return pages
+
+
+def paged_fns(ops, q, kp, vp, ks, vs, table, lengths):
+    """(the wrapper, its plain version) on one case's inputs."""
+    if ks is None:
+        return (lambda: ops.paged_attention(q, kp, vp, table, lengths),
+                lambda: ops.ref.paged_attention_ref(q, kp, vp, table,
+                                                    lengths))
+    return (lambda: ops.paged_attention_q8(q, kp, vp, ks, vs, table,
+                                           lengths),
+            lambda: ops.ref.paged_attention_q8_ref(q, kp, vp, ks, vs, table,
+                                                   lengths))
+
+
+def check_split_partials(torch, q, kp, vp, ks, vs, table, lengths, what):
+    """The decode form's per-split partials, at the wrappers' own split
+    and at an uneven one of 3 pages, against the plain split emulation
+    (1e-4).  Returns (max error, the wrappers' pages a split)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    pps = table.shape[1]
+    _, per = pa.split_plan(q.shape[0], kp.shape[2], pps,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    errs = []
+    for pages in sorted({per, min(3, pps)}):
+        got = pa.split_partials(q, kp, vp, table, lengths, ks, vs,
+                                pages_per_split=pages)
+        torch.cuda.synchronize()
+        want = ref.paged_split_partials_ref(q, kp, vp, table, lengths, pages,
+                                            ks, vs)
+        for part, g, w in zip(("acc", "m", "l"), got, want):
+            err = float((g - w).abs().max())
+            check(err <= KERNEL_TOL, f"{what}: split partial {part} at "
+                  f"{pages} pages a split: max_abs_err {err}")
+            errs.append(err)
+    return max(errs), per
+
+
+def phase_kernels(torch, np):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = torch.device(DEVICE)
+    (k, v, page, hkv), cases = kernel_cases(np)
+    pages = paged_pages(torch, k, v)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     results = []
-    for case, q_np, table_np, len_np in cases:
+    for case, q_np, table_np, len_np, form in cases:
         q = torch.from_numpy(q_np).to(dev)
-        table = torch.from_numpy(table_np).to(dev)
         lengths = torch.from_numpy(len_np).to(dev)
+        table = torch.from_numpy(table_np).to(dev)
+        if table.dim() == 1:
+            table = table[None].expand(len(len_np), table.shape[0])
+            if form == "decode":
+                table = table.contiguous()
         for code, (kp, vp, ks, vs) in pages.items():
-            if ks is None:
-                def kernel():
-                    return ops.paged_attention(q, kp, vp, table, lengths)
-
-                def plain():
-                    return ops.ref.paged_attention_ref(q, kp, vp, table,
-                                                       lengths)
-                kd, vd = kp, vp
-            else:
-                def kernel():
-                    return ops.paged_attention_q8(q, kp, vp, ks, vs, table,
-                                                  lengths)
-
-                def plain():
-                    return ops.ref.paged_attention_q8_ref(q, kp, vp, ks, vs,
-                                                          table, lengths)
-                kd = kp.float() * ks[..., None]
-                vd = vp.float() * vs[..., None]
+            kernel, plain = paged_fns(ops, q, kp, vp, ks, vs, table, lengths)
+            name = (CHUNK_OF if form == "chunk" else DECODE_OF)[code]
+            before = ops.launch_counts()[name]
             got = kernel()
             torch.cuda.synchronize()
+            check(ops.launch_counts()[name] == before + 1,
+                  f"{case}: the wrapper took the {form} form")
             want = plain()
             err = float((got - want).abs().max())
             check(bool(torch.isfinite(got).all()), f"{code} {case}: finite")
@@ -252,6 +319,16 @@ def phase_kernels(torch, np):
                   f"{code} {case}: max_abs_err {err} > {KERNEL_TOL}")
             zero_rows = lengths == 0
             check(not bool(got[zero_rows].any()), "length-0 rows are zero")
+            split_err = split_ms = None
+            if form == "decode" and not case.startswith("prefill"):
+                split_err, per = check_split_partials(
+                    torch, q, kp, vp, ks, vs, table, lengths,
+                    f"{code} {case}")
+                split_ms = time_ms(torch, lambda: pa.split_partials(
+                    q, kp, vp, table, lengths, ks, vs,
+                    pages_per_split=per), flush)
+            kd, vd = (kp, vp) if ks is None else (
+                kp.float() * ks[..., None], vp.float() * vs[..., None])
             library_ms = time_ms(torch, library_call(torch, F, q, kd, vd,
                                                      table, lengths, page,
                                                      case), flush)
@@ -262,24 +339,153 @@ def phase_kernels(torch, np):
             results.append({
                 "name": ("paged_attention" if code == "f32"
                          else "paged_attention_q8"),
-                "kernel": KERNEL_OF[code], "pages": code, "case": case,
+                "kernel": name, "form": form, "pages": code, "case": case,
                 "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[code], "launches": None,
-                "max_abs_err": err, "tolerance": KERNEL_TOL,
+                "max_abs_err": err, "split_partials_max_abs_err": split_err,
+                "split_kernel_ms": split_ms,
+                "tolerance": KERNEL_TOL,
                 "ms": kernel_ms, "kernel_ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
                 "library": "torch.nn.functional.scaled_dot_product_attention"
-                           " on the gathered dense K/V"})
+                           " on the gathered dense K/V",
+                "note": ("wrapper time: split kernel and paged_combine_f32"
+                         if form == "decode" else "wrapper time")})
             emit({"phase": "kernels", **{k_: results[-1][k_] for k_ in (
-                "kernel", "case", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}})
+                "kernel", "case", "max_abs_err",
+                "split_partials_max_abs_err", "ms", "split_kernel_ms",
+                "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}})
+    results += combine_cases(torch, ops, pages, cases, flush)
+    chunk_padding_zeros(torch, np, ops, pages, cases)
+    other_shapes(torch, np, ops)
     return results
+
+
+# (H, Hkv, D, page): GQA groups 1, 8, 2, 4 and head dims 128, 96, 32, 256,
+# 160 beside granite's, so the kernels' shape-generic paths run on the
+# card (several lanes a token's dot, two tokens a lane, 2-wide output
+# vectors, 32-key chunk tiles, also over pages of 37, 48 and 64; decode
+# ring slots of half a page, 19 of 37 tokens and 32 of 64, where three
+# f32 pages at D 256 do not fit in shared memory)
+OTHER_SHAPES = ((8, 8, 128, 8), (32, 4, 96, 32), (4, 2, 32, 64),
+                (8, 2, 256, 16), (8, 1, 256, 64), (8, 2, 160, 48),
+                (4, 1, 256, 37))
+
+
+def other_shapes(torch, np, ops):
+    """Both forms at OTHER_SHAPES, every page type, within 1e-4 of the
+    plain versions; length-0 rows zero.  Not timed."""
+    rng = np.random.default_rng(5)
+    dev = torch.device(DEVICE)
+    worst = 0.0
+    for h, hkv, d, page in OTHER_SHAPES:
+        n_phys, pps = 40, 8
+        pages = paged_pages(torch, *(rng.standard_normal(
+            (n_phys, page, hkv, d), dtype=np.float32) for _ in range(2)))
+        dec_len = np.array([0, 1, page + 3, 5 * page, pps * page], np.int32)
+        dec_table = np.stack([rng.permutation(n_phys)[:pps]
+                              for _ in dec_len]).astype(np.int32)
+        c = 40
+        chunk_len = np.where(np.arange(c) < c - 3,
+                             3 * page + np.arange(c) + 1, 0).astype(np.int32)
+        row = torch.from_numpy(rng.permutation(n_phys)[:pps].astype(
+            np.int32)).to(dev)
+        for lens, table in ((dec_len, torch.from_numpy(dec_table).to(dev)),
+                            (chunk_len, row[None].expand(c, pps))):
+            lengths = torch.from_numpy(lens).to(dev)
+            q = torch.from_numpy(rng.standard_normal(
+                (len(lens), h, d), dtype=np.float32)).to(dev)
+            for code, (kp, vp, ks, vs) in pages.items():
+                kernel, plain = paged_fns(ops, q, kp, vp, ks, vs, table,
+                                          lengths)
+                got = kernel()
+                torch.cuda.synchronize()
+                err = float((got - plain()).abs().max())
+                what = (f"{code} H={h} Hkv={hkv} D={d} page={page} "
+                        f"B={len(lens)}")
+                check(err <= KERNEL_TOL, f"{what}: max_abs_err {err}")
+                check(not bool(got[lengths == 0].any()),
+                      f"{what}: length-0 rows zero")
+                worst = max(worst, err)
+    emit({"phase": "kernels", "check": "paged attention at other shapes",
+          "shapes_h_hkv_d_page": OTHER_SHAPES, "max_abs_err": worst,
+          "tolerance": KERNEL_TOL})
+
+
+def combine_cases(torch, ops, pages, cases, flush):
+    """paged_combine_f32 alone, on the f32 decode form's partials of the
+    first and the long decode case at the wrappers' split, against the
+    plain merge; timed with the partials warm in L2, where the split
+    kernel just wrote them on the serving path."""
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device(DEVICE)
+    kp, vp, _, _ = pages["f32"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    no_flush = torch.empty(1, dtype=torch.uint8, device=dev)
+    results = []
+    for case, q_np, table_np, len_np, _ in (cases[0], cases[2]):
+        q = torch.from_numpy(q_np).to(dev)
+        table = torch.from_numpy(table_np).to(dev)
+        lengths = torch.from_numpy(len_np).to(dev)
+        splits, per = pa.split_plan(q.shape[0], kp.shape[2], table.shape[1],
+                                    n_sm)
+        acc, m, l = pa.split_partials(q, kp, vp, table, lengths,
+                                      pages_per_split=per)
+
+        def kernel():
+            return pa.combine_splits(acc, m, l)
+
+        def plain():
+            return ops.ref.combine_splits_ref(acc, m, l)
+        got = kernel()
+        torch.cuda.synchronize()
+        err = float((got - plain()).abs().max())
+        check(err <= KERNEL_TOL, f"{COMBINE} {case}: max_abs_err {err}")
+        n_bytes = (acc.numel() + m.numel() + l.numel() + got.numel()) * 4
+        b_ms, b_by = bytes_bound(n_bytes, acc.numel() * 2 + m.numel() * 4)
+        results.append({
+            "name": "paged_attention", "kernel": COMBINE, "form": "combine",
+            "pages": "any (f32 partials)",
+            "case": f"{case}: {splits} splits of {per} pages",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES["f32"],
+            "launches": None, "max_abs_err": err, "tolerance": KERNEL_TOL,
+            "ms": time_ms(torch, kernel, no_flush), "plain_ms": time_ms(
+                torch, plain, no_flush), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call merges softmax partials",
+            "note": "the decode form's merge of its split partials (both "
+                    "paged-attention kernels use it)"})
+        results[-1]["kernel_ms"] = results[-1]["ms"]
+        emit({"phase": "kernels", **{k_: results[-1][k_] for k_ in (
+            "kernel", "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")}})
+    return results
+
+
+def chunk_padding_zeros(torch, np, ops, pages, cases):
+    """The chunk form on a chunk whose last 16 positions are padding
+    (length 0, as a short prompt's last chunk has): zeros there, and the
+    rest within 1e-4 of the plain version, for every page type."""
+    dev = torch.device(DEVICE)
+    _, q_np, row, len_np, _ = cases[3]
+    q = torch.from_numpy(q_np).to(dev)
+    lengths = torch.from_numpy(np.where(np.arange(len(len_np)) < 240, len_np,
+                                        0).astype(np.int32)).to(dev)
+    table = torch.from_numpy(row).to(dev)[None].expand(len(len_np), len(row))
+    for code, (kp, vp, ks, vs) in pages.items():
+        kernel, plain = paged_fns(ops, q, kp, vp, ks, vs, table, lengths)
+        got = kernel()
+        torch.cuda.synchronize()
+        err = float((got - plain()).abs().max())
+        check(err <= KERNEL_TOL, f"{code} chunk with padding: {err}")
+        check(not bool(got[240:].any()), f"{code} chunk: padding rows zero")
 
 
 def library_call(torch, F, q, kd, vd, table, lengths, page, case):
     """One SDPA call on dense K/V gathered (and dequantised) outside the
-    timing: per decode row a [S] masked key axis; for the prefill chunk,
+    timing: per decode row a [S] masked key axis; for a prefill chunk,
     whose rows share one page row, its 256 positions as the query axis
     of one sequence."""
     b, h, d = q.shape
@@ -883,6 +1089,9 @@ def phase_isp(torch, np, smi, served, data):
     counts = ops.launch_counts()
     for name in NEW_KERNELS:
         check(counts[name] > 0, f"{name} launched on the isp path")
+    # the RAG admissions' prefill chunks and decode steps
+    for name in (CHUNK_OF["f32"], DECODE_OF["f32"]):
+        check(counts[name] > 0, f"{name} launched on the isp path")
     emit({"phase": "isp", **out, "launches": counts,
           "phase_s": time.monotonic() - t_phase,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1291,13 +1500,25 @@ def phase_serve(torch, np, smi):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
 
+    # every prefill chunk of every layer through the chunk form, every
+    # decode step's layers through the decode form (f32: the horizon-1
+    # and horizon-8 servers; int8 and fp8: one server each)
     n_chunks = n_req * (-(-prompt_len // chunk))
-    need = cfg.n_layers * (2 * gen + 2 * n_chunks)
-    check(counts["paged_attention_f32"] >= need,
-          f"paged_attention_f32 launches {counts['paged_attention_f32']} "
-          f"< {need}")
-    for code in ("int8", "fp8"):
-        check(counts[KERNEL_OF[code]] > 0, f"{KERNEL_OF[code]} launched")
+    need = {}
+    for code, servers, steps in (("f32", 2, 2 * gen), ("int8", 1, q_gen),
+                                 ("fp8", 1, q_gen)):
+        need[CHUNK_OF[code]] = cfg.n_layers * servers * n_chunks
+        need[DECODE_OF[code]] = cfg.n_layers * steps
+        check(counts[CHUNK_OF[code]] == need[CHUNK_OF[code]],
+              f"{CHUNK_OF[code]} launches {counts[CHUNK_OF[code]]} != "
+              f"{need[CHUNK_OF[code]]} (one per layer and prefill chunk)")
+        check(counts[DECODE_OF[code]] >= need[DECODE_OF[code]],
+              f"{DECODE_OF[code]} launches {counts[DECODE_OF[code]]} < "
+              f"{need[DECODE_OF[code]]} (one per layer and decode step)")
+    n_decode = sum(counts[DECODE_OF[c]] for c in DECODE_OF)
+    check(counts[COMBINE] == n_decode,
+          f"{COMBINE} launches {counts[COMBINE]} != {n_decode} (one per "
+          f"decode-form launch)")
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
@@ -1310,7 +1531,7 @@ def phase_serve(torch, np, smi):
           "tokens_request0": tokens_h8[0],
           "first_step_logits_max_abs_err": logits_err,
           "logits_tol": LOGITS_TOL, "launches": counts,
-          "launches_needed_f32": need,
+          "launches_needed": need,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": "smoke run, not a benchmark"})

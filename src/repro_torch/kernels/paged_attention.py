@@ -2,13 +2,29 @@
 
 ``csrc/paged_attention.cu`` replaces the JAX package's Pallas TPU
 kernels ``_paged_kernel`` and ``_paged_q8_kernel``
-(``repro/kernels/paged_attention.py:39, :77``).  Each wrapper checks
-device, dtype, shape and contiguity and raises on what the kernel does
-not take, allocates the output with ``torch.empty``, launches on the
-current CUDA stream and raises if the launcher returns a CUDA error.
-For tensors on the CPU (and only there) it runs the plain version in
-``kernels.ref`` instead.  ``LAUNCHES`` counts kernel launches, one entry
-per compiled kernel; nothing else adds to it.
+(``repro/kernels/paged_attention.py:39, :77``) with two forms behind
+each wrapper; the function computed and the signature stay the Pallas
+kernel's whichever form runs:
+
+* the chunk form, when every row of ``page_table`` is the same row, seen
+  as ``page_table.stride(0) == 0`` (the view ``row[None].expand(C,
+  pps)`` gives; the prefill chunk of ``PagedServer`` passes it): one
+  block per (tile of query rows, kv head) shares each K/V tile across
+  the tile's rows;
+* the decode form, for a contiguous table: split-K over pages (the
+  split count chosen here from B, Hkv, pps and the SM count, never from
+  ``lengths``), then ``paged_combine_f32``'s kernel merges the split
+  partials (what :func:`combine_splits` does), also at one split; one
+  launcher call starts both kernels.
+
+Each wrapper checks device, dtype, shape and layout and raises on what
+the kernels do not take (a non-contiguous table other than an expanded
+row among it), allocates the output and the split workspace with
+``torch.empty``, launches on the current CUDA stream and raises if a
+launcher returns a CUDA error.  For tensors on the CPU (and only there)
+it runs the plain version in ``kernels.ref`` instead.  ``LAUNCHES``
+counts kernel launches, one entry per compiled kernel; nothing else adds
+to it.
 
 Page ids are trusted: the table's entries below ``ceil(length/page)``
 must name pages of ``k_pages`` (the serving path's ``PageTableManager``
@@ -23,23 +39,47 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"paged_attention_f32": 0, "paged_attention_q8_int8": 0,
-            "paged_attention_q8_fp8": 0}
+LAUNCHES = {"paged_decode_f32": 0, "paged_decode_q8_int8": 0,
+            "paged_decode_q8_fp8": 0, "paged_chunk_f32": 0,
+            "paged_chunk_q8_int8": 0, "paged_chunk_q8_fp8": 0,
+            "paged_combine_f32": 0}
 
-_CODE_KERNEL = {torch.int8: "paged_attention_q8_int8",
-                torch.float8_e4m3fn: "paged_attention_q8_fp8"}
+_CODE = {torch.float32: "f32", torch.int8: "q8_int8",
+         torch.float8_e4m3fn: "q8_fp8"}
 
+COMBINE = "paged_combine_f32"
 MAX_PAGE = 64
 MAX_GROUP = 32
+#: decode form: blocks per SM the split count aims for, and the fewest
+#: pages a split walks
+SPLIT_BLOCKS_PER_SM = 4
+MIN_SPLIT_PAGES = 2
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(name: str, n_pointers: int):
+def _bind(name: str, n_pointers: int, n_ints: int):
     fn = getattr(build.load_library("paged_attention"), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 +
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, hkv: int, pps: int, n_sm: int):
+    """(splits, pages a split walks) of the decode form: enough (b, kv
+    head, split) blocks for ``SPLIT_BLOCKS_PER_SM`` a SM, at least
+    ``MIN_SPLIT_PAGES`` pages a split (or one split), no split empty of
+    table columns."""
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sm // (b * hkv))
+    splits = max(1, min(want, pps // MIN_SPLIT_PAGES))
+    per = -(-pps // splits)
+    return -(-pps // per), per
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, code_dtypes):
@@ -68,24 +108,32 @@ def _check(q, k_pages, v_pages, page_table, lengths, code_dtypes):
     return b, h, d, n_phys, page, hkv
 
 
-def _check_cuda(tensors, b, h, d, page, hkv, pps):
+def _shared_row(page_table) -> bool:
+    """Every row of the table is one row: the chunk form's input."""
+    return page_table.stride(0) == 0 and page_table.stride(1) == 1
+
+
+def _check_cuda(tensors, page_table, d, page, group):
     dev = tensors[0].device
-    for t in tensors:
+    for t in (*tensors, page_table):
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}; one is on "
                              f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous inputs only")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA kernels take contiguous inputs only")
+    if not (page_table.is_contiguous() or _shared_row(page_table)):
+        raise ValueError("page_table must be contiguous, or one row "
+                         "expanded over the batch (stride (0, 1))")
     if any(t.data_ptr() % 16 for t in tensors[1:3]):
         raise ValueError("the page tensors must start 16-byte aligned "
-                         "(the kernel reads them in 16-byte vectors)")
+                         "(the kernels read them in 16-byte vectors)")
     if d % 32 or d > 256:
         raise ValueError(f"head_dim {d} must be a multiple of 32 up to 256")
     if page > MAX_PAGE:
         raise ValueError(f"page size {page} > {MAX_PAGE}")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"GQA group {h // hkv} > {MAX_GROUP}")
-    if b < 1 or pps < 1:
+    if group > MAX_GROUP:
+        raise ValueError(f"GQA group {group} > {MAX_GROUP}")
+    if tensors[0].shape[0] < 1 or page_table.shape[1] < 1:
         raise ValueError("empty batch or page table")
 
 
@@ -94,11 +142,134 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths):
+    """The launchers' input pointers (None for absent scales)."""
+    return (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+            lengths.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan(dtype, b, h, d, page, hkv, pps, per):
+    """The decode form at one shape and ``per`` pages a split: (launcher,
+    its name, its int arguments, floats of acc [B, H, S, D], floats of m
+    and of l [B, H, S]); the workspace holds acc, m, l in that order."""
+    splits = -(-pps // per)
+    name = f"paged_decode_{_CODE[dtype]}"
+    return (_bind(name, 11, 8), name, (b, h, hkv, d, pps, page, per, splits),
+            b * h * splits * d, b * h * splits)
+
+
+def _decode(q, args, plan, out, stream):
+    """Launch the decode form on ``plan`` (:func:`_decode_plan`) into a
+    new workspace of its partials; with ``out`` (an address) the same
+    launcher call then merges them into it (``paged_combine_f32``'s
+    kernel).  Returns the workspace; a caller may drop it once launched,
+    as the caching allocator hands its memory only to work queued later
+    on the same stream."""
+    fn, name, ints, n_acc, n_ml = plan
+    ws = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=q.device)
+    acc = ws.data_ptr()
+    _raise_on(fn(*args, acc, acc + 4 * n_acc, acc + 4 * (n_acc + n_ml), out,
+                 *ints, stream), name)
+    LAUNCHES[name] += 1
+    if out is not None:
+        LAUNCHES[COMBINE] += 1
+    return ws
+
+
+def _launch(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, b, h,
+            d, page, hkv):
+    pps = page_table.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = _args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths)
+    out = torch.empty_like(q)
+    if _shared_row(page_table):
+        name = f"paged_chunk_{_CODE[k_pages.dtype]}"
+        _raise_on(_bind(name, 8, 6)(*args, out.data_ptr(), b, h, hkv, d, pps,
+                                    page, stream), name)
+        LAUNCHES[name] += 1
+        return out
+    per = split_plan(b, hkv, pps, _sm_count(q.device))[1]
+    _decode(q, args, _decode_plan(k_pages.dtype, b, h, d, page, hkv, pps, per),
+            out.data_ptr(), stream)
+    return out
+
+
+def combine_splits(acc, m, l):
+    """Merge the decode form's split partials by max-rebase (the
+    reference's ``combine_partials``): acc [B, H, S, D], m/l [B, H, S]
+    f32 -> [B, H, D] = sum acc_s e^(m_s - m*) / max(sum l_s e^(m_s -
+    m*), 1e-30), m* = max m_s.  ``paged_combine_f32`` on the card,
+    ``ref.combine_splits_ref`` on the CPU."""
+    if acc.dim() != 4 or m.shape != acc.shape[:3] or l.shape != m.shape:
+        raise ValueError(f"acc must be [B, H, S, D] and m, l [B, H, S]; got "
+                         f"{tuple(acc.shape)}, {tuple(m.shape)}, "
+                         f"{tuple(l.shape)}")
+    if any(t.dtype != torch.float32 for t in (acc, m, l)):
+        raise TypeError("partials must be float32")
+    if acc.device.type == "cpu":
+        return ref.combine_splits_ref(acc, m, l)
+    if any(t.device != acc.device or not t.is_contiguous() for t in (m, l)) \
+            or not acc.is_contiguous():
+        raise ValueError("partials must be contiguous, on one device")
+    b, h, splits, d = acc.shape
+    out = torch.empty((b, h, d), dtype=torch.float32, device=acc.device)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    _raise_on(_bind(COMBINE, 4, 3)(acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                   out.data_ptr(), b * h, splits, d, stream),
+              COMBINE)
+    LAUNCHES[COMBINE] += 1
+    return out
+
+
+def split_partials(q, k_pages, v_pages, page_table, lengths, k_scale=None,
+                   v_scale=None, *, pages_per_split: int):
+    """The decode form's per-split partials at ``pages_per_split`` pages
+    a split: (acc [B, H, S, D], m [B, H, S], l [B, H, S]) f32, S =
+    ceil(pps / pages_per_split), un-normalised; a split past a row's
+    length is (0, -1e30, 0).  The wrappers merge them with
+    :func:`combine_splits`; this exposes them for checks against
+    ``ref.paged_split_partials_ref`` (which the CPU runs instead).
+    ``page_table`` must be contiguous on the card."""
+    quantized = k_scale is not None
+    codes = ((torch.int8, torch.float8_e4m3fn) if quantized
+             else (torch.float32,))
+    b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table,
+                                   lengths, codes)
+    if pages_per_split < 1:
+        raise ValueError("pages_per_split must be >= 1")
+    if q.device.type == "cpu":
+        return ref.paged_split_partials_ref(q, k_pages, v_pages, page_table,
+                                            lengths, pages_per_split,
+                                            k_scale, v_scale)
+    scales = (k_scale, v_scale) if quantized else ()
+    _check_cuda((q, k_pages, v_pages, *scales, lengths), page_table, d,
+                page, h // hkv)
+    if not page_table.is_contiguous():
+        raise ValueError("split_partials takes a contiguous page_table")
+    args = _args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths)
+    plan = _decode_plan(k_pages.dtype, b, h, d, page, hkv,
+                        page_table.shape[1], pages_per_split)
+    ws = _decode(q, args, plan, None,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _, _, ints, n_acc, n_ml = plan
+    splits = ints[-1]
+    return (ws[:n_acc].view(b, h, splits, d),
+            ws[n_acc:n_acc + n_ml].view(b, h, splits),
+            ws[n_acc + n_ml:].view(b, h, splits))
+
+
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
-    """GQA decode attention over a paged KV pool.
+    """GQA attention over a paged KV pool.
 
     q: [B, H, D] f32; k_pages/v_pages: [P, page, Hkv, D] f32;
-    page_table: [B, pps] int32 physical ids; lengths: [B] int32 valid
+    page_table: [B, pps] int32 physical ids, contiguous or one row
+    expanded over B (then the chunk form runs); lengths: [B] int32 valid
     positions (0 = padding row, returns zeros).  Returns [B, H, D] f32.
     """
     b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table,
@@ -106,18 +277,10 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table,
                                        lengths)
-    pps = page_table.shape[1]
-    _check_cuda((q, k_pages, v_pages, page_table, lengths), b, h, d, page,
-                hkv, pps)
-    out = torch.empty_like(q)
-    fn = _bind("paged_attention_f32", 6)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, hkv, d, pps, page, stream)
-    _raise_on(err, "paged_attention_f32")
-    LAUNCHES["paged_attention_f32"] += 1
-    return out
+    _check_cuda((q, k_pages, v_pages, lengths), page_table, d, page,
+                h // hkv)
+    return _launch(q, k_pages, v_pages, None, None, page_table, lengths, b,
+                   h, d, page, hkv)
 
 
 def paged_attention_q8(q, k_pages, v_pages, k_scale, v_scale, page_table,
@@ -130,7 +293,8 @@ def paged_attention_q8(q, k_pages, v_pages, k_scale, v_scale, page_table,
     the probabilities; no f32 page is materialised on the card.
     """
     b, h, d, n_phys, page, hkv = _check(q, k_pages, v_pages, page_table,
-                                        lengths, tuple(_CODE_KERNEL))
+                                        lengths, (torch.int8,
+                                                  torch.float8_e4m3fn))
     sshape = (n_phys, page, hkv)
     if tuple(k_scale.shape) != sshape or tuple(v_scale.shape) != sshape:
         raise ValueError(f"scales must be {sshape}")
@@ -139,18 +303,8 @@ def paged_attention_q8(q, k_pages, v_pages, k_scale, v_scale, page_table,
     if q.device.type == "cpu":
         return ref.paged_attention_q8_ref(q, k_pages, v_pages, k_scale,
                                           v_scale, page_table, lengths)
-    pps = page_table.shape[1]
-    _check_cuda((q, k_pages, v_pages, k_scale, v_scale, page_table, lengths),
-                b, h, d, page, hkv, pps)
-    out = torch.empty_like(q)
-    name = _CODE_KERNEL[k_pages.dtype]
-    fn = _bind(name, 8)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _check_cuda((q, k_pages, v_pages, k_scale, v_scale, lengths),
+                page_table, d, page, h // hkv)
     # fp8 codes: the bytes are handed over as-is and read as __nv_fp8_e4m3
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, h, hkv, d, pps, page,
-             stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out
+    return _launch(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                   lengths, b, h, d, page, hkv)

@@ -37,7 +37,12 @@ def _gather_pages(pages, safe_table):
     return pages[safe_table].float()
 
 
-def _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
+def _paged_partials(q, k_pages, v_pages, page_table, lengths, k_scale,
+                    v_scale, col_owned=None):
+    """Un-normalised online-softmax state over the table columns
+    ``col_owned`` [B, pps] selects (all when None): acc [B, H, D], m
+    [B, H], l [B, H] f32.  A row with no owned position below its length
+    gives (0, -1e30, 0)."""
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
     pps = page_table.shape[1]
@@ -46,6 +51,8 @@ def _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
     lengths = lengths.long()
     col = torch.arange(pps, device=q.device)
     page_live = col[None, :] * page < lengths[:, None]             # [B, pps]
+    if col_owned is not None:
+        page_live = page_live & col_owned
     safe = torch.where(page_live, page_table.long(),
                        torch.zeros_like(page_table, dtype=torch.long))
     k = _gather_pages(k_pages, safe)                  # [B, pps, page, Hkv, D]
@@ -57,7 +64,7 @@ def _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
         s = s * ks[:, :, None]
     s = s * sm_scale
     pos = col[:, None] * page + torch.arange(page, device=q.device)[None, :]
-    mask = pos[None] < lengths[:, None, None]                 # [B, pps, page]
+    mask = (pos[None] < lengths[:, None, None]) & page_live[:, :, None]
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     sf = s.reshape(b, hkv, g, pps * page)
     mf = mask.reshape(b, 1, 1, pps * page)
@@ -68,8 +75,14 @@ def _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
         vs = v_scale[safe].permute(0, 3, 1, 2).reshape(b, hkv, 1, pps * page)
         p = p * vs
     acc = torch.einsum("bkgt,btkd->bkgd", p, v.reshape(b, pps * page, hkv, d))
+    return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
+
+
+def _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
+    acc, _, l = _paged_partials(q, k_pages, v_pages, page_table, lengths,
+                                k_scale, v_scale)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.to(q.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
@@ -83,6 +96,38 @@ def paged_attention_q8_ref(q, k_pages, v_pages, k_scale, v_scale,
     """The same over int8 or fp8-e4m3 codes with per-slot f32 scales
     ``k_scale``/``v_scale`` [P, page, Hkv]."""
     return _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+
+
+def paged_split_partials_ref(q, k_pages, v_pages, page_table, lengths,
+                             pages_per_split: int, k_scale=None,
+                             v_scale=None):
+    """Plain emulation of the decode form's split arithmetic: split s
+    owns table columns [s * pages_per_split, (s + 1) * pages_per_split)
+    and gives its un-normalised (acc [B, H, S, D], m [B, H, S], l [B, H,
+    S]); a split past a row's length gives (0, -1e30, 0).  For tests and
+    ``chip_smoke.py``; :func:`combine_splits_ref` merges them."""
+    pps = page_table.shape[1]
+    col = torch.arange(pps, device=q.device)
+    parts = []
+    for c0 in range(0, pps, pages_per_split):
+        owned = ((col >= c0) & (col < c0 + pages_per_split))[None].expand(
+            q.shape[0], pps)
+        parts.append(_paged_partials(q, k_pages, v_pages, page_table,
+                                     lengths, k_scale, v_scale, owned))
+    acc, m, l = (torch.stack(x, dim=2) for x in zip(*parts))
+    return acc, m, l
+
+
+def combine_splits_ref(acc, m, l):
+    """Max-rebase merge of split partials (the reference's
+    ``combine_partials``): m* = max m_s, l = sum l_s e^(m_s - m*), out =
+    sum acc_s e^(m_s - m*) / max(l, 1e-30).  acc [B, H, S, D], m/l
+    [B, H, S] -> [B, H, D]."""
+    m_glob = m.amax(dim=-1, keepdim=True)
+    scale = torch.exp(m - m_glob)
+    l_glob = (l * scale).sum(dim=-1)
+    acc_glob = (acc * scale[..., None]).sum(dim=2)
+    return acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ runs between device steps; the device steps are eager PyTorch:
     in-place scatter per layer) and runs the paged-attention kernel
     over each layer's page slice;
   * prefill is chunked: each chunk writes its positions' pages and
-    attends over the paged context as decode-shaped queries with
-    per-position length ``pos + 1``;
+    attends over the paged context with per-position length ``pos + 1``,
+    every position seeing the sequence's one page row (an expanded
+    view, which the kernels take as their chunk form);
   * the fused decode horizon (``decode(horizon=H)``) runs H such steps
     with the argmax kept on the device, against pages reserved for the
     whole horizon, and moves one [H, B] tensor of emitted tokens to the
@@ -252,7 +253,8 @@ class PagedServer:
                            start: int, n_valid: int):
         """One prefill chunk: append the chunk's K/V into the sequence's
         pages, then attend every chunk position over the paged context
-        (cached prefix + the chunk, causally) as decode-shaped queries.
+        (cached prefix + the chunk, causally), every position
+        reading the one page row through an expanded (stride-0) table.
 
         page_row: [pps] int32 physical ids covering [0, start +
         n_valid); tokens: [1, C] int32 (C a pow2 bucket, garbage past
@@ -267,13 +269,13 @@ class PagedServer:
         phys_w = np.where(valid_w, page_row[pidx], self.hbm_pages)
         # per-position causal extent; 0 fully masks padding queries
         lengths_q = np.where(valid_w, wpos + 1, 0).astype(np.int32)
-        table = np.broadcast_to(page_row[None, :], (c, pps))
 
         positions = self._to_dev(wpos[None, :])
         tgt = self._to_dev(phys_w)
         offs = self._to_dev(wpos % self.page)
         lengths_t = self._to_dev(lengths_q)
-        table_t = self._to_dev(table)
+        # one row seen by every position (stride 0): the kernels' chunk form
+        table_t = self._to_dev(page_row)[None, :].expand(c, pps)
         h = L.embed_tokens(self.params["embed"], self._to_dev(tokens),
                            self.dtype)
         for li, lp in enumerate(self._layers):

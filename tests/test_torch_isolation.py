@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, ``ml_dtypes`` (a JAX dependency) or the
-JAX package, and its entry points refuse to fall back to the CPU when
-CUDA is asked for."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script of ``scripts/`` imports JAX,
+``ml_dtypes`` (a JAX dependency) or the JAX package, and its entry
+points refuse to fall back to the CPU when CUDA is asked for."""
 import ast
 from pathlib import Path
 
@@ -11,7 +11,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
