@@ -50,19 +50,23 @@ one JSON line and any failure exits non-zero:
   dense    the launcher's default (non-paged) path through get_model +
            make_serving_fns, launch counters reset just before and read
            just after each model: the serve phase's granite-3-2b on its 8
-           prompts of 512 tokens, then full-width rwkv6-3b (32 layers,
-           d_model 2560, random f32 weights) on 8 prompts of 512 tokens,
-           64 greedy tokens each; prefill and first decode-step logits
-           within 1e-3 of the same path with the plain kernel versions on
-           the card and greedy tokens identical to it; granite's first
-           decode step within 1e-3 of the paged serve phase's; one
-           prefill and a few decode steps of each under torch.profiler
+           prompts of 512 tokens, phi3-mini-3.8b at full width cut to 2
+           layers (head_dim 96) on 8 prompts of 512 tokens, 16 greedy
+           tokens, then full-width rwkv6-3b (32 layers, d_model 2560,
+           random f32 weights) on 8 prompts of 512 tokens, 64 greedy
+           tokens each; prefill and first decode-step logits within 1e-3
+           of the same path with the plain kernel versions on the card
+           and greedy tokens identical to it; granite's first decode step
+           within 1e-3 of the paged serve phase's; one prefill and a few
+           decode steps of each under torch.profiler
 
-The kernels phase also holds the flash-attention kernel (causal and not,
-at granite-3-2b's prefill shape) and the RWKV6 wkv-scan kernel (at
-rwkv6-3b's) against their plain versions.  Then the kernels line
-(launches: the serve, isp and dense phases' counts), the nvidia-smi
-line, and the last line ``{"ok": true, "device": {...}}``.
+The kernels phase also holds the flash-attention kernel (causal and not
+at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
+qwen2-72b's heads, each beside the bound of its 3xTF32 route and the
+f32 bound) and the RWKV6 wkv-scan kernel (at rwkv6-3b's) against their
+plain versions.  Then the kernels line (launches: the serve, isp and
+dense phases' counts), the nvidia-smi line, and the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -84,6 +88,7 @@ SERVE = {"arch": "granite-3-2b", "reduced": False, "requests": 8,
          "page": 16, "hbm_pages": 320}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 tensor cores, dense
 # clock cycles of the sleep kernel ahead of each timed call: about 1 ms
 # at the H100's clocks, more than the host takes to enqueue the call
 HOLD_CYCLES = 2_000_000
@@ -653,8 +658,6 @@ def scan_library(torch, flat, col, op, thr):
 def phase_isp_kernels(torch, np, data, flush):
     """The scan, top-k and embedding kernels against their plain versions
     at the isp phase's sizes; every case must agree bit for bit."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import embed_agg as emb
     from repro_torch.kernels import ops
 
     results = []
@@ -707,7 +710,18 @@ def phase_isp_kernels(torch, np, data, flush):
                         ISP_SOURCE)
         del flat
     del x
-    # -- top-k over the retrieval corpus -------------------------------------
+    results += topk_cases(torch, data, flush)
+    topk_other_shapes(torch, np)
+    results += embed_cases(torch, np, data, flush)
+    return results
+
+
+def topk_cases(torch, data, flush):
+    """The top-k over the 1M x 768 retrieval corpus on every page format,
+    k 4 and 128, dot and cosine, bit-identical to its plain version."""
+    from repro_torch.kernels import ops
+
+    results = []
     pr = CORPUS["page_rows"]
     x, table = on_pages(torch, data["corpus"], pr)
     n_rows, dim = data["corpus"].shape
@@ -754,7 +768,64 @@ def phase_isp_kernels(torch, np, data, flush):
         del flat
     del x, pages, scales
     torch.cuda.empty_cache()
-    # -- embedding bag and gather --------------------------------------------
+    return results
+
+
+# (page_rows, n_cols, page type, k, metric, n_rows): page rows that are not
+# a multiple of 32 (idle row threads), a last stage of part of a 128-byte
+# box (f32 48, int8 176 columns), rows narrower than a box (16 and 4),
+# 256 rows a page (a ring of 3 stages), k not a power of two, and fewer
+# rows than k
+TOPK_SHAPES = ((100, 48, "f32", 7, "dot", 3687),
+               (96, 176, "int8", 100, "cosine", 2001),
+               (256, 32, "fp8", 128, "dot", 3000),
+               (256, 32, "f32", 128, "cosine", 50),
+               (8, 4, "f32", 4, "dot", 301),
+               (128, 16, "int8", 1, "cosine", 5000))
+
+
+def topk_other_shapes(torch, np):
+    """The top-k at TOPK_SHAPES over a shuffled, pow2-padded page table,
+    each with a row copied at the first and last valid row, bit-identical
+    to the plain version.  Not timed."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(8)
+    for page_rows, n_cols, code, k, metric, n_rows in TOPK_SHAPES:
+        n_valid = -(-n_rows // page_rows)
+        n_phys = n_valid + 5
+        x = rng.standard_normal((n_phys * page_rows, n_cols),
+                                dtype=np.float32)
+        table = np.full(1 << (n_valid - 1).bit_length(), n_phys + 99,
+                        np.int32)
+        table[:n_valid] = rng.permutation(n_phys)[:n_valid]
+        first, last = (table[0] * page_rows,
+                       table[(n_rows - 1) // page_rows] * page_rows +
+                       (n_rows - 1) % page_rows)
+        x[last] = x[first]
+        pages, scales = quantized_pools(torch, torch.from_numpy(x).to(
+            DEVICE).view(n_phys, page_rows, n_cols))[code]
+        tab = torch.from_numpy(table).to(DEVICE)
+        q = torch.from_numpy(x[first].copy()).to(DEVICE)
+        got = ops.topk_scan(pages, tab, n_rows, q, k=k, metric=metric,
+                            scales=scales)
+        want = ops.ref.topk_scan_ref(pages, tab, n_rows, q, k=k,
+                                     metric=metric, scales=scales)
+        exact(torch, got, want, f"top-k {code} page {page_rows} x {n_cols}"
+              f" k={k} {metric} rows {n_rows}")
+    emit({"phase": "kernels", "check": "top-k at other shapes",
+          "shapes": TOPK_SHAPES, "bit_identical": True})
+
+
+def embed_cases(torch, np, data, flush):
+    """The embedding bag (4M x 128 table, Zipf bags) and the token-block
+    gather over the corpus's token blocks, bit-identical to their plain
+    versions."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embed_agg as emb
+    from repro_torch.kernels import ops
+
+    results = []
     rng = np.random.default_rng(2)
     table_e = torch.from_numpy(rng.standard_normal(
         (EMBED["rows"], EMBED["dim"]), dtype=np.float32)).to(DEVICE)
@@ -1111,13 +1182,30 @@ DENSE_REPLACES = {"flash_attention_f32":
 # granite-3-2b's dense prefill: 8 prompts of 512 tokens, 32 heads over 8
 # kv heads of 64
 FLASH = {"batch": 8, "heads": 32, "kv_heads": 8, "seq": 512, "head_dim": 64}
+# the flash kernel's cases, prompts of 512 tokens: granite-3-2b's prefill
+# (the dense phase's), phi3-mini-3.8b's (32 heads of 96, no grouping) and
+# qwen2-72b's heads (64 of 128 over 8 kv heads) on 4 prompts
+FLASH_CASES = (
+    ("granite-3-2b prefill", FLASH, (True, False)),
+    ("phi3-mini-3.8b prefill", {"batch": 8, "heads": 32, "kv_heads": 32,
+                                "seq": 512, "head_dim": 96}, (True,)),
+    ("qwen2-72b heads, G = 8", {"batch": 4, "heads": 64, "kv_heads": 8,
+                                "seq": 512, "head_dim": 128}, (True,)),
+)
 # rwkv6-3b's prefill: 8 prompts of 512 tokens, 40 heads of 64, chunk 32
 WKV = {"batch": 8, "seq": 512, "heads": 40, "dk": 64, "dv": 64, "chunk": 32}
 # the dense phase: the serve phase's granite-3-2b and prompts, then
 # rwkv6-3b; 64 greedy tokens a request, f32 caches
 DENSE = {"rwkv_arch": "rwkv6-3b", "rwkv_reduced": False, "requests": 8,
          "prompt_len": 512, "gen": 64, "profile_steps": 4}
+# phi3-mini-3.8b through the same path at full width (32 heads of 96),
+# cut to PHI3["layers"] layers: the flash kernel at head_dim 96
+PHI3 = {"arch": "phi3-mini-3.8b", "reduced": False, "layers": 2, "gen": 16}
 WKV_TOL = 1e-4           # times max(1, max |plain|), on o and on sT
+
+
+FLASH_ROUTE_NOTE = ("three TF32 products (hi*hi, hi*lo, lo*hi) per f32 "
+                    "product at 495 TFLOP/s dense")
 
 
 def flash_bound(b, h, hkv, s, d, causal):
@@ -1126,6 +1214,18 @@ def flash_bound(b, h, hkv, s, d, causal):
     pairs = s * (s + 1) // 2 if causal else s * s
     return bytes_bound(4 * (2 * b * h * s * d + 2 * b * hkv * s * d),
                        b * h * pairs * 4 * d)
+
+
+def flash_bounds(b, h, hkv, s, d, causal):
+    """(the bound of the kernel's route, the f32 bound): the same bytes
+    against three TF32 tensor-core products per f32 product (3xTF32) at
+    TF32_FLOPS, and against the f32 operations at F32_FLOPS."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    n_bytes = 4 * (2 * b * h * s * d + 2 * b * hkv * s * d)
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = 3 * b * h * pairs * 4 * d / TF32_FLOPS * 1e3
+    route = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    return route, flash_bound(b, h, hkv, s, d, causal)
 
 
 def wkv_ops_per_chunk(c, dk, dv):
@@ -1147,49 +1247,106 @@ def wkv_bound(b, s, h, dk, dv, chunk):
 
 
 def phase_dense_kernels(torch, np, flush):
-    """Flash attention (causal and not) at granite-3-2b's prefill shape
-    and the wkv scan at rwkv6-3b's, each against its plain version."""
+    """Flash attention and the wkv scan (at rwkv6-3b's prefill shape),
+    each against its plain version."""
+    results = flash_cases(torch, np, flush)
+    flash_other_shapes(torch, np)
+    return results + wkv_cases(torch, np, flush)
+
+
+def flash_cases(torch, np, flush):
+    """Flash attention against its plain version at FLASH_CASES' shapes,
+    each beside both bounds and SDPA on the same tensors."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
 
     results = []
     rng = np.random.default_rng(4)
-    b, h, hkv, s, d = (FLASH[k] for k in ("batch", "heads", "kv_heads", "seq",
-                                          "head_dim"))
-    q = torch.from_numpy(rng.standard_normal((b, h, s, d),
-                                             dtype=np.float32)).to(DEVICE)
-    k, v = (torch.from_numpy(rng.standard_normal(
-        (b, hkv, s, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
-    k_rep = k.repeat_interleave(h // hkv, dim=1)
-    v_rep = v.repeat_interleave(h // hkv, dim=1)
-    for causal in (True, False):
-        def kernel(causal=causal):
-            return ops.flash_attention(q, k, v, causal=causal)
+    for label, shape, causals in FLASH_CASES:
+        b, h, hkv, s, d = (shape[k] for k in ("batch", "heads", "kv_heads",
+                                              "seq", "head_dim"))
+        q = torch.from_numpy(rng.standard_normal(
+            (b, h, s, d), dtype=np.float32)).to(DEVICE)
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, hkv, s, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+        k_rep = k.repeat_interleave(h // hkv, dim=1)
+        v_rep = v.repeat_interleave(h // hkv, dim=1)
+        for causal in causals:
+            def kernel(causal=causal):
+                return ops.flash_attention(q, k, v, causal=causal)
 
-        def plain(causal=causal):
-            return ops.ref.flash_attention_ref(q, k, v, causal=causal)
+            def plain(causal=causal):
+                return ops.ref.flash_attention_ref(q, k, v, causal=causal)
 
-        def lib(causal=causal):
-            return F.scaled_dot_product_attention(q, k_rep, v_rep,
-                                                  is_causal=causal)
-        got = kernel()
+            def lib(causal=causal):
+                return F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                      is_causal=causal)
+            case = (f"{'causal' if causal else 'non-causal'} B={b} H={h} "
+                    f"Hkv={hkv} S={s} D={d} ({label})")
+            got = kernel()
+            torch.cuda.synchronize()
+            err = float((got - plain()).abs().max())
+            check(bool(torch.isfinite(got).all()), f"flash {case}: finite")
+            check(err <= KERNEL_TOL, f"flash {case}: max_abs_err {err} > "
+                  f"{KERNEL_TOL}")
+            route, f32 = flash_bounds(b, h, hkv, s, d, causal)
+            kernel_line(
+                results, "flash_attention_f32", case, err,
+                time_ms(torch, kernel, flush),
+                time_ms(torch, plain, flush, PLAIN_ITERS, 1), route,
+                time_ms(torch, lib, flush),
+                "torch.nn.functional.scaled_dot_product_attention(is_causal) "
+                "on f32 with the kv heads repeated (outside the timing)",
+                DENSE_SOURCE["flash_attention_f32"], KERNEL_TOL)
+            results[-1]["route_bound"] = "3xTF32 mma: " + FLASH_ROUTE_NOTE
+            results[-1]["bound_f32_ms"], results[-1]["bound_f32_by"] = f32
+        del q, k, v, k_rep, v_rep
+        torch.cuda.empty_cache()
+    return results
+
+
+# (B, H, Hkv, Sq, Sk, D, causal): ragged lengths, head dims padded to the
+# next multiple of 32 (80, 8), Q in shared memory (160 and up), GQA
+# groups that do not divide 64 (3, 12) and 64 heads a kv head, Sq != Sk
+FLASH_SHAPES = ((1, 4, 4, 100, 100, 32, True), (2, 6, 2, 77, 77, 80, True),
+                (1, 12, 1, 64, 64, 96, False), (1, 2, 2, 130, 70, 128, False),
+                (1, 4, 2, 96, 96, 160, True), (1, 2, 1, 64, 64, 192, True),
+                (1, 2, 2, 50, 50, 224, False), (1, 8, 1, 128, 128, 256, True),
+                (1, 64, 1, 40, 40, 8, True))
+
+
+def flash_other_shapes(torch, np):
+    """Flash attention at FLASH_SHAPES within 1e-4 of the plain version.
+    Not timed."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(9)
+    worst = 0.0
+    for b, h, hkv, sq, sk, d, causal in FLASH_SHAPES:
+        q = torch.from_numpy(rng.standard_normal(
+            (b, h, sq, d), dtype=np.float32)).to(DEVICE)
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, hkv, sk, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+        got = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err = float((got - plain()).abs().max())
-        check(bool(torch.isfinite(got).all()), "flash attention: finite")
-        check(err <= KERNEL_TOL, f"flash attention causal={causal}: "
-              f"max_abs_err {err} > {KERNEL_TOL}")
-        kernel_line(
-            results, "flash_attention_f32",
-            f"{'causal' if causal else 'non-causal'} B={b} H={h} Hkv={hkv} "
-            f"S={s} D={d} (granite-3-2b prefill)", err,
-            time_ms(torch, kernel, flush),
-            time_ms(torch, plain, flush, PLAIN_ITERS, 1),
-            flash_bound(b, h, hkv, s, d, causal), time_ms(torch, lib, flush),
-            "torch.nn.functional.scaled_dot_product_attention(is_causal) "
-            "on f32 with the kv heads repeated (outside the timing)",
-            DENSE_SOURCE["flash_attention_f32"], KERNEL_TOL)
-    del q, k, v, k_rep, v_rep
-    # -- the wkv scan ---------------------------------------------------------
+        err = float((got - ops.ref.flash_attention_ref(q, k, v, causal))
+                    .abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= KERNEL_TOL,
+              f"flash B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+              f"causal={causal}: max_abs_err {err}")
+        worst = max(worst, err)
+    emit({"phase": "kernels", "check": "flash attention at other shapes",
+          "shapes": FLASH_SHAPES, "max_abs_err": worst,
+          "tolerance": KERNEL_TOL})
+
+
+def wkv_cases(torch, np, flush):
+    """The wkv scan at rwkv6-3b's prefill shape against its plain
+    version."""
+    from repro_torch.kernels import ops
+
+    results = []
+    rng = np.random.default_rng(7)
     b, s, h, dk, dv, chunk = (WKV[k] for k in ("batch", "seq", "heads", "dk",
                                                "dv", "chunk"))
 
@@ -1375,6 +1532,7 @@ def phase_dense(torch, np, smi, served):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    phi3, p_counts = dense_phi3(torch, np, ops)
     rcfg = get_arch(DENSE["rwkv_arch"])
     if DENSE["rwkv_reduced"]:
         rcfg = rcfg.reduced()
@@ -1396,13 +1554,44 @@ def phase_dense(torch, np, smi, served):
           f"one rwkv6 prefill, not {rcfg.n_layers}")
     del run, params
     torch.cuda.empty_cache()
-    counts = {k: g_counts[k] + r_counts[k] for k in g_counts}
-    emit({"phase": "dense", "granite": granite, "rwkv6": rwkv,
+    counts = {k: g_counts[k] + p_counts[k] + r_counts[k] for k in g_counts}
+    emit({"phase": "dense", "granite": granite, "phi3_mini": phi3,
+          "rwkv6": rwkv,
           "launches": counts, "logits_tol": LOGITS_TOL,
           "phase_s": time.monotonic() - t_phase,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": "smoke run, not a benchmark"})
     return counts
+
+
+def dense_phi3(torch, np, ops):
+    """phi3-mini-3.8b (head_dim 96) at full width, depth cut, through the
+    dense path: one flash launch a layer, tokens equal to the plain
+    kernels' run."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.api import get_model
+
+    cfg = get_arch(PHI3["arch"])
+    cfg = cfg.reduced() if PHI3["reduced"] else dataclasses.replace(
+        cfg, n_layers=PHI3["layers"])
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (DENSE["requests"], DENSE["prompt_len"]),
+        dtype=np.int32)
+    out, counts, run = dense_model(torch, ops, "phi3-mini", model, params,
+                                   prompts, PHI3["gen"])
+    check(counts["flash_attention_f32"] == cfg.n_layers,
+          f"flash_attention_f32 launched {counts['flash_attention_f32']} "
+          f"times in one phi3-mini prefill, not {cfg.n_layers}")
+    out["head_dim"] = cfg.hd
+    out["depth_cut_from"] = get_arch(PHI3["arch"]).n_layers
+    del run, params
+    torch.cuda.empty_cache()
+    return out, counts
 
 
 # -- serve --------------------------------------------------------------------

@@ -1,0 +1,134 @@
+"""Check and time the top-k and flash-attention kernels on one card.
+
+    python scripts/redesign_check.py [topk] [flash] [swizzle] [--logs DIR]
+
+Builds every kernel source (``kernels.build.build_all``; with ``--logs``
+nvcc's ``-Xptxas -v`` report of each source is written to DIR), then
+runs ``chip_smoke.topk_cases`` (the 1M x 768 corpus on f32, int8 and fp8
+pages, k 4 and 128, dot and cosine, bit-identical to the plain version)
+and ``chip_smoke.flash_cases`` (flash attention at granite-3-2b's,
+phi3-mini's and a D = 128, G = 8 prefill shape, within 1e-4), each timed
+by ``chip_smoke.time_ms`` beside its bound and a library call, and each
+kernel's untimed check at other shapes (``topk_other_shapes``,
+``flash_other_shapes``).
+``swizzle`` times the top-k against a build of ``csrc/isp_scan.cu``
+whose stages are not swizzled (row t reads its 16-byte chunk j at j, so
+the eight rows of a quarter warp share four banks), in turns (as built,
+unswizzled, unswizzled, as built) on the corpus's f32 and int8 pools at
+k = 4, dot; both must give the plain version's block.  Prints one JSON
+line per case or reading, the kernels line, then the card's name and
+power limit.  With no case named, topk and flash run.  Card only.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+
+# the swizzle off: a plain box, and each row's chunks in place
+UNSWIZZLE = (("CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE"),
+             ("score_chunk<CODE, COS>(row, j ^ sw,",
+              "score_chunk<CODE, COS>(row, j,"))
+
+
+def unswizzled_library():
+    """ctypes handle of csrc/isp_scan.cu built with UNSWIZZLE applied."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    text = (build.CSRC / "isp_scan.cu").read_text()
+    for old, new in UNSWIZZLE:
+        if old not in text:
+            raise RuntimeError(f"isp_scan.cu no longer has {old!r}")
+        text = text.replace(old, new)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "isp_scan_unswizzled.cu"
+    src.write_text(text)
+    lib = build.BUILD_DIR / "libisp_scan_unswizzled.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(lib))
+
+
+def swizzle_readings(torch, np, cs, flush):
+    from repro_torch.kernels import isp_scan, ops
+
+    variant = unswizzled_library()
+    built = isp_scan._bind
+    data = cs.make_data(np)
+    pr = cs.CORPUS["page_rows"]
+    x, table = cs.on_pages(torch, data["corpus"], pr)
+    n_rows = data["corpus"].shape[0]
+    q = torch.from_numpy(data["corpus"][cs.DUP_IDS[0]].copy()).to(cs.DEVICE)
+    pools = cs.quantized_pools(torch, x)
+    for code in ("f32", "int8"):
+        pages, scales = pools[code]
+
+        def run():
+            return ops.topk_scan(pages, table, n_rows, q, k=4, scales=scales)
+        want = ops.ref.topk_scan_ref(pages, table, n_rows, q, k=4,
+                                     scales=scales)
+        for build_name in ("as built", "unswizzled", "unswizzled",
+                           "as built"):
+            isp_scan._bind = built if build_name == "as built" else (
+                lambda name: isp_scan.typed(getattr(variant, name), name))
+            cs.exact(torch, run(), want, f"{build_name} {code}")
+            print(json.dumps({"swizzle": build_name, "pages": code,
+                              "case": "1M x 768 corpus, k=4, dot",
+                              "ms": cs.time_ms(torch, run, flush)}),
+                  flush=True)
+        isp_scan._bind = built
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    logs_dir = None
+    if "--logs" in argv:
+        logs_dir = Path(argv[argv.index("--logs") + 1])
+        argv = [a for a in argv if a not in ("--logs", str(logs_dir))]
+    which = set(argv) or {"topk", "flash"}
+    if which - {"topk", "flash", "swizzle"}:
+        print(f"redesign_check: unknown case {which}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("redesign_check: no CUDA card", file=sys.stderr)
+        return 1
+    resolve_device("cuda")
+    smi = cs.phase_env(torch)
+    t0 = time.monotonic()
+    logs = build.build_all()
+    print(json.dumps({"build_s": time.monotonic() - t0}), flush=True)
+    if logs_dir is not None:
+        logs_dir.mkdir(parents=True, exist_ok=True)
+        for name, log in logs.items():
+            (logs_dir / f"{name}.ptxas.txt").write_text(log)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=cs.DEVICE)
+    results = []
+    if "topk" in which:
+        results += cs.topk_cases(torch, cs.make_data(np), flush)
+        cs.topk_other_shapes(torch, np)
+    if "flash" in which:
+        results += cs.flash_cases(torch, np, flush)
+        cs.flash_other_shapes(torch, np)
+    if "swizzle" in which:
+        swizzle_readings(torch, np, cs, flush)
+    print(json.dumps({"kernels": results}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -31,31 +31,42 @@
 //       min and max do not depend on the order (the count is a sum of
 //       integer-valued f32s: exact below 2^24 rows).  It writes the
 //       [8, n_cols] block (count broadcast, sum, min, max, zero rows).
-// topk_scan, three or four launches:
-//   (a) one block per contiguous group of valid pages (about two blocks
-//       per SM); one thread per page row carries its row's score chain
-//       s = w[0]; s = s + w[c] with w = x * q rounded first.  Column
-//       tiles of the page pass through shared memory for coalesced
-//       loads (16 bytes of f32 or 4 bytes of codes a load when rows are
-//       multiples of 4; the next tile's loads are in flight in registers
-//       while this one is scored), and the chain carries across tiles in
-//       order.  A page whose
-//       rows can beat the block's k-th best is merged into the block's
-//       running top-k by a bitonic sort under (score desc, id asc).  The
-//       block writes its k candidates.
-//   (b) rounds of merges under the same order, each block sorting 1024
-//       candidates (kSortMerge / k lists) into one list of k, until one
-//       block writes the [8, topk_pad(k)] block (two or three launches).
-//       Row ids are unique, so the order is total and the result equals
-//       the TPU's sequential merge.
+// topk_scan, one launch (the redesign for Hopper): bound by the valid
+//   pages' bytes (int8/fp8: 0.23 ms at 1M x 768 on 3.35 TB/s).  A row's
+//   score is one dependent add chain in column order, so parallelism is
+//   across rows and pages only; the work is to keep enough bytes in
+//   flight and spend few instructions a byte:
+//   * one or two persistent blocks an SM, each over a contiguous range
+//     of pages; one row thread a page row, plus a producer warp;
+//   * a stage is page_rows x 128 bytes (32 f32 columns, 128 codes), one
+//     TMA box of the pool viewed as 2-D [n_phys * page_rows, n_cols]
+//     (the page table gives the box's row), 128-byte swizzled, with the
+//     query's columns and, on a page's first stage, its row scales
+//     (cp.async.bulk) on the same mbarrier; a ring of up to 4 stages
+//     keeps ~48 KB a block in flight whatever the page format;
+//   * row t reads its 16-byte chunk j at j ^ (t & 7): a quarter warp's
+//     eight rows hit eight distinct 16-byte bank groups, no conflicts;
+//   * codes are converted in registers: int8 by one byte permute under
+//     the exponent of 2^23 and one exact subtraction, fp8 two at a time
+//     through f16x2; then code * scale, x * q and the add, in order;
+//   * at a page's end its rows that beat the block's running k-th best
+//     are appended to a shared candidate buffer, sorted in (bitonic) once
+//     max(k, 32) have gathered, so a page costs one barrier and a sort
+//     is short enough for the ring's stages in flight to cover;
+//   * the last block to finish (an atomic ticket after __threadfence)
+//     merges the blocks' sorted lists a position at a time, stopping at
+//     the first position where nothing beats its running k-th best,
+//     writes the [8, topk_pad(k)] block and resets the ticket.
+//   Row ids are unique, so (score desc, id asc) is a total order and the
+//   result equals the TPU's sequential merge.
 //
 // Known limits, for later work: (b) of the scan is one dependent add
-// chain per column over all pages (latency-bound, not byte-bound); the
-// top-k page loads are not TMA, and a block's pages are scored one after
-// another.
+// chain per column over all pages (latency-bound, not byte-bound).
 
-#include <cuda_runtime.h>
+#include <cuda.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -64,11 +75,6 @@ constexpr float kPosInf = 1e30f;
 constexpr float kNegInf = -1e30f;
 constexpr int kBigId = 1 << 30;
 constexpr int kMaxTopk = 128;
-constexpr int kTopkThreads = 256;  // >= page_rows
-constexpr int kTile = 32;          // columns per shared-memory tile
-constexpr int kSortPage = 512;     // pow2 >= kMaxTopk + kTopkThreads
-constexpr int kMergeThreads = 512;
-constexpr int kSortMerge = 1024;
 constexpr int kFoldThreads = 512;  // scan fold block
 constexpr int kFoldChunk = 256;    // pages staged per fold round
 constexpr int kFoldBatch = 16;     // shared-memory reads in flight
@@ -84,33 +90,6 @@ __device__ __forceinline__ float load_value(const T* __restrict__ pages,
                                             size_t elem, size_t row) {
   const float v = to_f32(pages[elem]);
   return Q ? __fmul_rn(v, scales[row]) : v;
-}
-
-// V consecutive elements of a row of the pool (V = 1, or 4 from one 16-byte
-// f32 or 4-byte code load), dequantised with the row's scale
-template <typename T, bool Q, int V>
-__device__ __forceinline__ void load_values(const T* __restrict__ pages,
-                                            const float* __restrict__ scales,
-                                            size_t elem, size_t row,
-                                            float* out) {
-  if constexpr (V == 1) {
-    out[0] = load_value<T, Q>(pages, scales, elem, row);
-  } else if constexpr (sizeof(T) == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(pages + elem);
-    out[0] = f.x;
-    out[1] = f.y;
-    out[2] = f.z;
-    out[3] = f.w;
-  } else {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(pages + elem);
-    const float sc = Q ? scales[row] : 1.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint8_t byte = (w >> (8 * e)) & 0xffu;
-      const float x = to_f32(*reinterpret_cast<const T*>(&byte));
-      out[e] = Q ? __fmul_rn(x, sc) : x;
-    }
-  }
 }
 
 // FILTER_OPS order: all, ge, lt, eq, ne
@@ -265,228 +244,502 @@ int launch_scan(const void* pages, const void* scales, const void* table,
 
 // ---------------------------------------------------------------- top-k
 
+constexpr int kStageRowBytes = 128;   // bytes of every page row in one stage
+constexpr int kMaxStages = 4;
+constexpr int kRingBytes = 96 * 1024; // the ring's budget: two blocks an SM
+constexpr int kMaxPageRows = 256;     // one row thread a page row
+constexpr int kSortCap = 1024;        // the best k, then the pending candidates
+constexpr int kFlushAt = 32;          // candidates that trigger a sort (or k)
+constexpr int kMaxTopkBlocks = 512;   // a merge round's k + blocks fit kSortCap
+constexpr int kMergePer = kMaxTopkBlocks / 32;   // lists a row thread merges
+constexpr int kRowsBar = 1;           // named barrier of the row threads
+
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
 }
 
-// Block-wide bitonic sort of n (a power of two) pairs in shared memory,
-// best first.  Callers synchronise before; it synchronises after.
-__device__ void bitonic_sort(float* s, int* id, int n) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of the pool's 2-D tensor map (columns c0.., rows r0..) into
+// shared memory, 128-byte swizzled, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int r0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void rows_sync(int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kRowsBar), "r"(n) : "memory");
+}
+
+// barrier of the row threads that returns how many of them passed `pred`
+__device__ __forceinline__ int rows_count(bool pred, int n) {
+  int c;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.popc.u32 %0, %2, %3, p;\n"
+      "}\n"
+      : "=r"(c)
+      : "r"((int)pred), "n"(kRowsBar), "r"(n)
+      : "memory");
+  return c;
+}
+
+// Bitonic sort of n (a power of two) pairs in shared memory, best first,
+// by the n_rt row threads, each taking compare-exchange pairs (i, i +
+// stride) directly; each pass ends on their barrier.
+__device__ void bitonic_rows(float* s, int* id, int n, int t, int n_rt) {
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const bool best_first = (i & size) == 0;
-          const bool swap = best_first ? better(s[j], id[j], s[i], id[i])
-                                       : better(s[i], id[i], s[j], id[j]);
-          if (swap) {
-            const float ts = s[i];
-            s[i] = s[j];
-            s[j] = ts;
-            const int ti = id[i];
-            id[i] = id[j];
-            id[j] = ti;
-          }
+      for (int p = t; p < n / 2; p += n_rt) {
+        const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
+        const int j = i + stride;
+        const bool best_first = (i & size) == 0;
+        const float si = s[i], sj = s[j];
+        const int ii = id[i], ij = id[j];
+        if (best_first ? better(sj, ij, si, ii) : better(si, ii, sj, ij)) {
+          s[i] = sj;
+          s[j] = si;
+          id[i] = ij;
+          id[j] = ii;
         }
       }
-      __syncthreads();
+      rows_sync(n_rt);
     }
   }
 }
 
-template <typename T, bool Q, int V>
-__global__ void __launch_bounds__(kTopkThreads)
-topk_pages_kernel(const T* __restrict__ pages,
-                  const float* __restrict__ scales,
-                  const float* __restrict__ query,
-                  const int* __restrict__ table, float* __restrict__ cand_s,
-                  int* __restrict__ cand_i, int n_valid, int page_rows,
-                  int n_cols, long long n_rows, int k, int cosine,
-                  int n_blocks) {
-  // a step is one column tile of one page; a thread loads V columns
-  // from col_in of rows row_in, row_in + kRowStep, ... of the tile
-  constexpr int kLanesPerRow = kTile / V;
-  constexpr int kRowStep = kTopkThreads / kLanesPerRow;
-  constexpr int kLoads = kTopkThreads / kRowStep;
-  __shared__ float tile[kTopkThreads][kTile + 1];
-  __shared__ float q_sh[kTile];
-  // [0, k) the block's running best, [k, k + page_rows) a page's rows
-  __shared__ float srt_s[kSortPage];
-  __shared__ int srt_i[kSortPage];
+// Sort the best k [0, k) and the pending candidates [k, k + pending)
+// together (called by all row threads after their barrier); the k best
+// end up in [0, k).
+__device__ void flush(float* s, int* id, int k, int pending, int t, int n_rt) {
+  int n = 1;
+  while (n < k + pending) n <<= 1;
+  for (int i = k + pending + t; i < n; i += n_rt) {
+    s[i] = kNegInf;
+    id[i] = kBigId;
+  }
+  rows_sync(n_rt);
+  bitonic_rows(s, id, n, t, n_rt);
+}
+
+// The warp's winners take the next free candidate slots; `base` is the
+// running count at the last flush (slots k.. hold what came since).
+__device__ __forceinline__ void append(bool wins, float score, int pos,
+                                       float* s, int* id, int* count, int k,
+                                       int base) {
+  const unsigned m = __ballot_sync(0xffffffffu, wins);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31;
+  int first = 0;
+  if (lane == 0) first = atomicAdd(count, __popc(m));
+  first = __shfl_sync(0xffffffffu, first, 0);
+  if (wins) {
+    const int slot = k + first - base + __popc(m & ((1u << lane) - 1u));
+    s[slot] = score;
+    id[slot] = pos;
+  }
+}
+
+template <bool COS>
+__device__ __forceinline__ void score_step(float x, float q, float& s,
+                                           float& nrm) {
+  s = __fadd_rn(s, __fmul_rn(x, q));
+  if (COS) nrm = __fadd_rn(nrm, __fmul_rn(x, x));
+}
+
+// four codes of a 32-bit word as exact f32 values
+template <int CODE>
+__device__ __forceinline__ void decode4(uint32_t w, float* x) {
+  if constexpr (CODE == 1) {
+    // int8: the biased byte under the exponent of 2^23 is 2^23 + code +
+    // 128; one byte permute and one exact subtraction a code
+    const uint32_t u = w ^ 0x80808080u;
+    x[0] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)), 8388736.f);
+    x[1] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)), 8388736.f);
+    x[2] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)), 8388736.f);
+    x[3] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)), 8388736.f);
+  } else {
+    // fp8-e4m3: two codes a conversion to f16x2 (exact), then to f32
+    const __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3);
+    const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3);
+    const float2 a = __half22float2(__half2(lo));
+    const float2 b = __half22float2(__half2(hi));
+    x[0] = a.x;
+    x[1] = a.y;
+    x[2] = b.x;
+    x[3] = b.y;
+  }
+}
+
+// one 16-byte chunk of a row (physical chunk `phys` of the swizzled row,
+// logical columns of `qs`), its columns added to the chains in order
+template <int CODE, bool COS>
+__device__ __forceinline__ void score_chunk(const uint8_t* row, int phys,
+                                            const float* qs, float sc,
+                                            float& s, float& nrm) {
+  const uint4 w = *reinterpret_cast<const uint4*>(row + phys * 16);
+  if constexpr (CODE == 0) {
+    const float4 q = *reinterpret_cast<const float4*>(qs);
+    score_step<COS>(__uint_as_float(w.x), q.x, s, nrm);
+    score_step<COS>(__uint_as_float(w.y), q.y, s, nrm);
+    score_step<COS>(__uint_as_float(w.z), q.z, s, nrm);
+    score_step<COS>(__uint_as_float(w.w), q.w, s, nrm);
+  } else {
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 q = *reinterpret_cast<const float4*>(qs + 4 * e);
+      float x[4];
+      decode4<CODE>(words[e], x);
+      score_step<COS>(__fmul_rn(x[0], sc), q.x, s, nrm);
+      score_step<COS>(__fmul_rn(x[1], sc), q.y, s, nrm);
+      score_step<COS>(__fmul_rn(x[2], sc), q.z, s, nrm);
+      score_step<COS>(__fmul_rn(x[3], sc), q.w, s, nrm);
+    }
+  }
+}
+
+// CODE: 0 f32 pages, 1 int8 codes, 2 fp8-e4m3 codes (with row scales).
+// Block: round_up(page_rows, 32) row threads, then one producer warp.
+template <int CODE, bool COS>
+__global__ void __launch_bounds__(kMaxPageRows + 32)
+topk_stream_kernel(const __grid_constant__ CUtensorMap pool,
+                   const float* __restrict__ scales,
+                   const float* __restrict__ query,
+                   const int* __restrict__ table, float* __restrict__ list_s,
+                   int* __restrict__ list_i, unsigned int* __restrict__ done,
+                   float* __restrict__ out, int n_valid, int page_rows,
+                   int n_cols, long long n_rows, int k, int kpad,
+                   int n_stages) {
+  constexpr bool Q = CODE != 0;
+  constexpr int kElem = CODE == 0 ? 4 : 1;
+  constexpr int kW = kStageRowBytes / kElem;      // columns a stage
+  __shared__ float srt_s[kSortCap];
+  __shared__ int srt_i[kSortCap];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  __shared__ int count, last;
+  extern __shared__ __align__(16) uint8_t dyn[];
+  // the ring of stages [rows8][128 B] from a 1024-byte boundary (the
+  // swizzle's period), then each stage's query slice and page scales
+  uint8_t* ring = dyn + ((1024u - (smem_u32(dyn) & 1023u)) & 1023u);
+  const int rows8 = (page_rows + 7) & ~7;
+  const int rows4 = (page_rows + 3) & ~3;
+  const int stage_bytes = rows8 * kStageRowBytes;
+  float* q_sl = reinterpret_cast<float*>(ring + (size_t)n_stages * stage_bytes);
+  float* sc_sl = q_sl + n_stages * kW;
 
   const int t = threadIdx.x;
-  const int col_in = (t % kLanesPerRow) * V, row_in = t / kLanesPerRow;
-  const int p0 = (int)((long long)n_valid * blockIdx.x / n_blocks);
-  const int p1 = (int)((long long)n_valid * (blockIdx.x + 1) / n_blocks);
-  const int n_tiles = (n_cols + kTile - 1) / kTile;
-  const int n_steps = (p1 - p0) * n_tiles;
-  int n_sort = 1;
-  while (n_sort < k + page_rows) n_sort <<= 1;
-  for (int i = t; i < kSortPage; i += blockDim.x) {
+  const int n_rt = blockDim.x - 32;
+  const int n_tiles = (n_cols + kW - 1) / kW;
+  const int p0 = (int)((long long)n_valid * blockIdx.x / gridDim.x);
+  const int p1 = (int)((long long)n_valid * (blockIdx.x + 1) / gridDim.x);
+
+  if (t == 0) {
+    for (int i = 0; i < n_stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], n_rt / 32);
+    }
+    count = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  for (int i = t; i < kSortCap; i += blockDim.x) {
     srt_s[i] = kNegInf;
     srt_i[i] = kBigId;
   }
+  __syncthreads();
 
-  // the next step's tile is loaded into registers while this one is
-  // scored from shared memory
-  float v[kLoads][V];
-  auto load_step = [&](int step) {
-    const size_t row0 = (size_t)table[p0 + step / n_tiles] * page_rows;
-    const int c = (step % n_tiles) * kTile + col_in;
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int r = row_in + kRowStep * j;
-      if (r < page_rows && c < n_cols) {
-        load_values<T, Q, V>(pages, scales, (row0 + r) * n_cols + c,
-                             row0 + r, v[j]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) v[j][e] = 0.f;
-      }
-    }
-  };
-  if (n_steps > 0) load_step(0);
-  float s = 0.f, nrm = 0.f;
-  for (int step = 0; step < n_steps; ++step) {
-    const int p = p0 + step / n_tiles;
-    const int c0 = (step % n_tiles) * kTile;
-    const int tc = n_cols - c0 < kTile ? n_cols - c0 : kTile;
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int r = row_in + kRowStep * j;
-      if (r < page_rows) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) tile[r][col_in + e] = v[j][e];
-      }
-    }
-    if (t < tc) q_sh[t] = query[c0 + t];
-    __syncthreads();
-    if (step + 1 < n_steps) load_step(step + 1);
-    if (t < page_rows) {
-      for (int c = 0; c < tc; ++c) {
-        const float x = tile[t][c];
-        const float w = __fmul_rn(x, q_sh[c]);
-        const float xx = __fmul_rn(x, x);
-        if (c0 + c == 0) {
-          s = w;
-          nrm = xx;
-        } else {
-          s = __fadd_rn(s, w);
-          nrm = __fadd_rn(nrm, xx);
+  if (t >= n_rt) {
+    // producer: one lane keeps the ring full, a stage being one box of
+    // page_rows x 128 bytes, the query's columns of the box, and on a
+    // page's first box the page's row scales
+    if (t == n_rt) {
+      int step = 0;
+      for (int p = p0; p < p1; ++p) {
+        const int row0 = table[p] * page_rows;
+        for (int tile = 0; tile < n_tiles; ++tile, ++step) {
+          const int slot = step % n_stages;
+          if (step >= n_stages)
+            mbar_wait(&empty[slot], ((step / n_stages) + 1) & 1);
+          const int c0 = tile * kW;
+          const int q_bytes = (n_cols - c0 < kW ? n_cols - c0 : kW) * 4;
+          const bool with_sc = Q && tile == 0;
+          mbar_expect_tx(&full[slot], page_rows * kStageRowBytes + q_bytes +
+                                          (with_sc ? page_rows * 4 : 0));
+          tma_load_2d(ring + (size_t)slot * stage_bytes, &pool, c0, row0,
+                      &full[slot]);
+          bulk_load(q_sl + slot * kW, query + c0, q_bytes, &full[slot]);
+          if (with_sc)
+            bulk_load(sc_sl + slot * rows4, scales + row0, page_rows * 4,
+                      &full[slot]);
         }
       }
     }
-    __syncthreads();
-    if (c0 + tc < n_cols) continue;       // the page's last tile is done
-    const long long pos = (long long)p * page_rows + t;
-    const bool valid = t < page_rows && pos < n_rows;
-    const float score =
-        cosine ? __fdiv_rn(s, fmaxf(__fsqrt_rn(nrm), 1e-6f)) : s;
-    // merge only a page that has a row the running k-th best loses to
-    const bool wins = valid && better(score, (int)pos, srt_s[k - 1],
-                                      srt_i[k - 1]);
-    if (__syncthreads_or(wins)) {
-      if (t < page_rows) {
-        srt_s[k + t] = valid ? score : kNegInf;
-        srt_i[k + t] = valid ? (int)pos : kBigId;
-      }
-      __syncthreads();
-      bitonic_sort(srt_s, srt_i, n_sort);
-      for (int i = k + t; i < n_sort; i += blockDim.x) {
-        srt_s[i] = kNegInf;
-        srt_i[i] = kBigId;
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-  for (int i = t; i < k; i += blockDim.x) {
-    cand_s[(size_t)blockIdx.x * k + i] = srt_s[i];
-    cand_i[(size_t)blockIdx.x * k + i] = srt_i[i];
-  }
-}
-
-// One round of the merge: each block takes kSortMerge / k of the sorted
-// candidate lists, sorts them together and keeps the k best as one list
-// (or, in the last round, writes the [8, kpad] block).  Any grouping
-// gives the same k: the order is total.
-__global__ void __launch_bounds__(kMergeThreads)
-topk_merge_kernel(const float* __restrict__ cand_s,
-                  const int* __restrict__ cand_i, int n_lists, int k,
-                  int kpad, float* __restrict__ next_s,
-                  int* __restrict__ next_i, float* __restrict__ out) {
-  __shared__ float s[kSortMerge];
-  __shared__ int id[kSortMerge];
-  const int group = kSortMerge / k;
-  const int first = blockIdx.x * group;
-  const int n = (n_lists - first < group ? n_lists - first : group) * k;
-  const size_t base = (size_t)first * k;
-  for (int i = threadIdx.x; i < kSortMerge; i += blockDim.x) {
-    s[i] = i < n ? cand_s[base + i] : kNegInf;
-    id[i] = i < n ? cand_i[base + i] : kBigId;
-  }
-  __syncthreads();
-  bitonic_sort(s, id, kSortMerge);
-  if (out == nullptr) {
-    for (int i = threadIdx.x; i < k; i += blockDim.x) {
-      next_s[(size_t)blockIdx.x * k + i] = s[i];
-      next_i[(size_t)blockIdx.x * k + i] = id[i];
-    }
     return;
   }
-  for (int i = threadIdx.x; i < 8 * kpad; i += blockDim.x) {
+
+  // row threads: thread t carries row t's chains through the page's
+  // stages in column order; row t's 16-byte chunk j sits at j ^ (t & 7)
+  const int lane = t & 31;
+  const bool live = t < page_rows;
+  const int sw = t & 7;
+  float s = -0.f, nrm = -0.f, sc = 1.f;   // -0 + w == w: the chain's start
+  float thr_s = kNegInf;
+  int thr_i = kBigId;
+  int total = 0, base = 0;   // candidates appended, and at the last flush
+  // sort candidates in once max(k, kFlushAt) have gathered: small sorts
+  // that the ring's stages in flight cover (or when the next page's rows
+  // might not fit)
+  const int cap = kSortCap - k - n_rt;
+  const int flush_at = k > kFlushAt ? k : kFlushAt;
+  int step = 0;
+  for (int p = p0; p < p1; ++p) {
+    for (int tile = 0; tile < n_tiles; ++tile, ++step) {
+      const int slot = step % n_stages;
+      mbar_wait(&full[slot], (step / n_stages) & 1);
+      if (live) {
+        if (Q && tile == 0) sc = sc_sl[slot * rows4 + t];
+        const uint8_t* row =
+            ring + (size_t)slot * stage_bytes + t * kStageRowBytes;
+        const float* qs = q_sl + slot * kW;
+        const int c0 = tile * kW;
+        const int n_chunks = (n_cols - c0 < kW ? n_cols - c0 : kW) * kElem / 16;
+        if (n_chunks == kStageRowBytes / 16) {
+#pragma unroll
+          for (int j = 0; j < kStageRowBytes / 16; ++j)
+            score_chunk<CODE, COS>(row, j ^ sw, qs + j * (16 / kElem), sc, s,
+                                   nrm);
+        } else {
+          for (int j = 0; j < n_chunks; ++j)
+            score_chunk<CODE, COS>(row, j ^ sw, qs + j * (16 / kElem), sc, s,
+                                   nrm);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+    // the page is scored: rows that beat the running k-th best become
+    // candidates; they are sorted in only when the buffer would overflow
+    const long long pos = (long long)p * page_rows + t;
+    const bool valid = live && pos < n_rows;
+    const float score =
+        COS ? __fdiv_rn(s, fmaxf(__fsqrt_rn(nrm), 1e-6f)) : s;
+    s = -0.f;
+    nrm = -0.f;
+    const bool wins = valid && better(score, (int)pos, thr_s, thr_i);
+    append(wins, score, (int)pos, srt_s, srt_i, &count, k, base);
+    total += rows_count(wins, n_rt);
+    if (total - base >= flush_at || total - base > cap) {
+      flush(srt_s, srt_i, k, total - base, t, n_rt);
+      thr_s = srt_s[k - 1];
+      thr_i = srt_i[k - 1];
+      base = total;
+    }
+  }
+  if (total > base) flush(srt_s, srt_i, k, total - base, t, n_rt);
+  base = total;
+  for (int i = t; i < k; i += n_rt) {
+    list_s[(size_t)blockIdx.x * k + i] = srt_s[i];
+    list_i[(size_t)blockIdx.x * k + i] = srt_i[i];
+  }
+  __threadfence();
+  rows_sync(n_rt);
+  if (t == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  rows_sync(n_rt);
+  if (!last) return;
+
+  // the last block to finish merges the block lists.  Each is sorted, so
+  // position r of every list is taken at once, r = 0, 1, ...: once no
+  // entry at a position beats the k-th best of the last sort, no later
+  // one can.  The candidates are sorted in once k have gathered (or the
+  // next round might not fit).
+  __threadfence();
+  for (int i = t; i < k; i += n_rt) {
+    srt_s[i] = kNegInf;
+    srt_i[i] = kBigId;
+  }
+  thr_s = kNegInf;
+  thr_i = kBigId;
+  rows_sync(n_rt);
+  const int nb = gridDim.x;
+  const int per = (nb + n_rt - 1) / n_rt;   // <= kMergePer
+  for (int r = 0; r < k; ++r) {
+    // this position of every list this thread takes, loads in flight
+    // together
+    float cs[kMergePer];
+    int ci[kMergePer];
+#pragma unroll
+    for (int j = 0; j < kMergePer; ++j) {
+      const int b = j * n_rt + t;
+      cs[j] = kNegInf;
+      ci[j] = kBigId;
+      if (j < per && b < nb) {
+        cs[j] = __ldcg(list_s + (size_t)b * k + r);
+        ci[j] = __ldcg(list_i + (size_t)b * k + r);
+      }
+    }
+    int won = 0;
+#pragma unroll
+    for (int j = 0; j < kMergePer; ++j) {
+      if (j == per) break;
+      const bool wins =
+          j * n_rt + t < nb && better(cs[j], ci[j], thr_s, thr_i);
+      append(wins, cs[j], ci[j], srt_s, srt_i, &count, k, base);
+      won += rows_count(wins, n_rt);
+    }
+    if (won == 0) break;
+    total += won;
+    if (total - base >= k || total - base + nb > kSortCap - k) {
+      flush(srt_s, srt_i, k, total - base, t, n_rt);
+      thr_s = srt_s[k - 1];
+      thr_i = srt_i[k - 1];
+      base = total;
+    }
+  }
+  if (total > base) flush(srt_s, srt_i, k, total - base, t, n_rt);
+  for (int i = t; i < 8 * kpad; i += n_rt) {
     const int r = i / kpad, c = i % kpad;
     float v = 0.f;
-    if (c < k && r == 0) v = s[c];
-    if (c < k && r == 1) v = static_cast<float>(id[c]);
+    if (c < k && r == 0) v = srt_s[c];
+    if (c < k && r == 1) v = static_cast<float>(srt_i[c]);
     out[i] = v;
   }
+  if (t == 0) *done = 0u;   // the next launch on this stream starts at 0
 }
 
-template <typename T, bool Q>
-int launch_topk(const void* pages, const void* scales, const void* query,
-                const void* table, void* cand_s, void* cand_i, void* out,
-                int n_valid, int page_rows, int n_cols, long long n_rows,
-                int k, int kpad, int cosine, int n_blocks, void* stream) {
-  if (n_valid < 1 || page_rows < 1 || page_rows > kTopkThreads ||
-      n_cols < 1 || k < 1 || k > kMaxTopk || kpad < k || n_blocks < 1 ||
-      n_blocks > n_valid || (Q && scales == nullptr))
-    return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  // cand_s / cand_i hold two [n_blocks, k] halves: the merge rounds
-  // ping-pong between them
-  float* src_s = static_cast<float*>(cand_s);
-  int* src_i = static_cast<int*>(cand_i);
-  float* dst_s = src_s + (size_t)n_blocks * k;
-  int* dst_i = src_i + (size_t)n_blocks * k;
-  // rows of 4-element multiples, and an aligned pool, take wide loads
-  auto kernel = n_cols % 4 == 0 &&
-                reinterpret_cast<uintptr_t>(pages) % (4 * sizeof(T)) == 0
-                    ? topk_pages_kernel<T, Q, 4>
-                    : topk_pages_kernel<T, Q, 1>;
-  kernel<<<n_blocks, kTopkThreads, 0, st>>>(
-      static_cast<const T*>(pages), static_cast<const float*>(scales),
-      static_cast<const float*>(query), static_cast<const int*>(table),
-      src_s, src_i, n_valid, page_rows, n_cols, n_rows, k, cosine, n_blocks);
-  cudaError_t err = cudaGetLastError();
-  const int group = kSortMerge / k;
-  for (int n = n_blocks; err == cudaSuccess;) {
-    const int blocks = (n + group - 1) / group;
-    topk_merge_kernel<<<blocks, kMergeThreads, 0, st>>>(
-        src_s, src_i, n, k, kpad, dst_s, dst_i,
-        blocks == 1 ? static_cast<float*>(out) : nullptr);
-    err = cudaGetLastError();
-    if (blocks == 1) break;
-    float* ts = src_s;
-    src_s = dst_s;
-    dst_s = ts;
-    int* ti = src_i;
-    src_i = dst_i;
-    dst_i = ti;
-    n = blocks;
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
+// libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
   }
-  return (int)err;
+  return fn;
+}
+
+template <int CODE>
+int launch_topk(const void* pages, const void* scales, const void* query,
+                const void* table, void* list_s, void* list_i, void* done,
+                void* out, int n_phys, int n_valid, int page_rows, int n_cols,
+                long long n_rows, int k, int kpad, int cosine, int n_blocks,
+                void* stream) {
+  constexpr bool Q = CODE != 0;
+  constexpr int kElem = CODE == 0 ? 4 : 1;
+  if (n_valid < 1 || n_phys < 1 || page_rows < 1 ||
+      page_rows > kMaxPageRows || n_cols < 1 || (n_cols * kElem) % 16 ||
+      reinterpret_cast<uintptr_t>(pages) % 16 ||
+      reinterpret_cast<uintptr_t>(query) % 16 || k < 1 || k > kMaxTopk ||
+      kpad < k || n_blocks < 1 || n_blocks > n_valid ||
+      n_blocks > kMaxTopkBlocks || done == nullptr ||
+      (Q && (scales == nullptr || page_rows % 4 ||
+             reinterpret_cast<uintptr_t>(scales) % 16)))
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  // the pool as a 2-D tensor [n_phys * page_rows, n_cols]; a box is one
+  // page's rows x 128 bytes of columns (zero past the last column)
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)n_cols,
+                              (cuuint64_t)n_phys * (cuuint64_t)page_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_cols * kElem};
+  const cuuint32_t box[2] = {(cuuint32_t)(kStageRowBytes / kElem),
+                             (cuuint32_t)page_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      &map, CODE == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(pages), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  const int rows8 = (page_rows + 7) & ~7, rows4 = (page_rows + 3) & ~3;
+  const int stage_bytes = rows8 * kStageRowBytes;
+  int n_stages = kRingBytes / stage_bytes;
+  n_stages = n_stages < 2 ? 2 : n_stages > kMaxStages ? kMaxStages : n_stages;
+  const size_t smem = 1024 + (size_t)n_stages * (stage_bytes +
+                                                 kStageRowBytes / kElem * 4 +
+                                                 rows4 * 4);
+  const int threads = (page_rows + 31) / 32 * 32 + 32;
+  auto kernel = cosine ? topk_stream_kernel<CODE, true>
+                       : topk_stream_kernel<CODE, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<const float*>(scales), static_cast<const float*>(query),
+      static_cast<const int*>(table), static_cast<float*>(list_s),
+      static_cast<int*>(list_i), static_cast<unsigned int*>(done),
+      static_cast<float*>(out), n_valid, page_rows, n_cols, n_rows, k, kpad,
+      n_stages);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -510,18 +763,19 @@ SCAN(scan_filter_reduce_int8, int8_t, true)
 SCAN(scan_filter_reduce_fp8, __nv_fp8_e4m3, true)
 #undef SCAN
 
-#define TOPK(NAME, T, Q)                                                    \
-  int NAME(const void* pages, const void* scales, const void* query,      \
-           const void* table, void* cand_s, void* cand_i, void* out,       \
-           int n_valid, int page_rows, int n_cols, long long n_rows, int k, \
-           int kpad, int cosine, int n_blocks, void* stream) {             \
-    return launch_topk<T, Q>(pages, scales, query, table, cand_s, cand_i,  \
-                             out, n_valid, page_rows, n_cols, n_rows, k,   \
-                             kpad, cosine, n_blocks, stream);              \
+#define TOPK(NAME, CODE)                                                    \
+  int NAME(const void* pages, const void* scales, const void* query,       \
+           const void* table, void* list_s, void* list_i, void* done,      \
+           void* out, int n_phys, int n_valid, int page_rows, int n_cols,  \
+           long long n_rows, int k, int kpad, int cosine, int n_blocks,    \
+           void* stream) {                                                  \
+    return launch_topk<CODE>(pages, scales, query, table, list_s, list_i,   \
+                             done, out, n_phys, n_valid, page_rows, n_cols, \
+                             n_rows, k, kpad, cosine, n_blocks, stream);    \
   }
-TOPK(topk_scan_f32, float, false)
-TOPK(topk_scan_int8, int8_t, true)
-TOPK(topk_scan_fp8, __nv_fp8_e4m3, true)
+TOPK(topk_scan_f32, 0)
+TOPK(topk_scan_int8, 1)
+TOPK(topk_scan_fp8, 2)
 #undef TOPK
 
 }  // extern "C"

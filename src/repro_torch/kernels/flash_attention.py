@@ -1,7 +1,9 @@
 """Wrapper of the hand-written flash-attention CUDA kernel.
 
 ``csrc/flash_attention.cu`` replaces the JAX package's Pallas TPU kernel
-``_flash_kernel`` (``repro/kernels/flash_attention.py:26``).  As in
+``_flash_kernel`` (``repro/kernels/flash_attention.py:26``); its
+products run on the tensor cores as 3xTF32 (f32 accuracy, see
+``ref.flash_attention_3xtf32``).  As in
 ``kernels.paged_attention``: the wrapper checks device, dtype, shape,
 contiguity and alignment and raises on what the kernel does not take,
 allocates the output with ``torch.empty``, launches on the current CUDA
@@ -20,8 +22,22 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"flash_attention_f32": 0}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = 256
 MAX_GROUP = 64
+
+
+def kernel_takes(head_dim: int, group: int) -> bool:
+    """Whether the CUDA kernel takes this head_dim and GQA group: D a
+    multiple of 8 in [8, 256] (one instantiation a multiple of 32, the
+    columns past D zero-filled) and G = H / Hkv in [1, 64] (a block's 64
+    rows are the G heads of one kv head)."""
+    return (head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM and
+            1 <= group <= MAX_GROUP)
+
+
+#: keys of the kernel's K/V tiles (the plain 3xTF32 emulation
+#: ``ref.flash_attention_3xtf32`` walks the same tiles)
+KEY_TILE = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,10 +92,10 @@ def flash_attention(q, k, v, causal: bool = True):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the CUDA kernel takes contiguous inputs that "
                              "start 16-byte aligned")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"GQA group {h // hkv} > {MAX_GROUP}")
+    if not kernel_takes(d, h // hkv):
+        raise ValueError(f"the kernel takes head_dim a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}] and a GQA group in [1, "
+                         f"{MAX_GROUP}]; got head_dim {d}, group {h // hkv}")
     if b > 65535 or hkv > 65535:
         raise ValueError("B and Hkv must be at most 65535 (grid limits)")
     out = torch.empty_like(q)

@@ -3,14 +3,14 @@
 ``csrc/isp_scan.cu`` replaces the JAX package's Pallas TPU kernels
 ``_scan_kernel``/``_scan_q_kernel`` and ``_topk_kernel``/
 ``_topk_q_kernel`` (``repro/kernels/isp_scan.py:120, :162, :376,
-:414``).  Each wrapper checks device, dtype, shape and contiguity and
-raises on what the kernel does not take, allocates the output and the
-per-block partials with ``torch.empty``, launches on the current CUDA
-stream and raises if the launcher returns a CUDA error.  For tensors on
-the CPU (and only there) it runs the plain version in ``kernels.ref``.
-``LAUNCHES`` counts wrapper calls that launched their kernels (the pages
-launch, then the ordered fold or the merge rounds), one entry per
-compiled page format.
+:414``).  Each wrapper checks device, dtype, shape, contiguity and
+alignment and raises on what the kernel does not take, allocates the
+output and the per-block partials with ``torch.empty``, launches on the
+current CUDA stream and raises if the launcher returns a CUDA error.
+For tensors on the CPU (and only there) it runs the plain version in
+``kernels.ref``.  ``LAUNCHES`` counts wrapper calls that launched their
+kernels (the scan's pages and fold launches; the top-k's one launch),
+one entry per compiled page format.
 
 ``n_rows`` and ``threshold`` are host scalars: nothing here waits for
 the card.  Page ids are trusted: the table's first ``n_valid_pages``
@@ -39,6 +39,9 @@ _CODE = {torch.float32: "f32", torch.int8: "int8",
 
 #: the top-k kernel keeps one thread per page row
 MAX_TOPK_PAGE_ROWS = 256
+#: persistent top-k blocks a streaming multiprocessor (two fit its
+#: shared memory at page 128)
+TOPK_BLOCKS_PER_SM = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
@@ -46,15 +49,21 @@ _LL = ctypes.c_longlong
 
 @functools.lru_cache(maxsize=None)
 def _bind(name: str):
-    fn = getattr(build.load_library("isp_scan"), name)
+    return typed(getattr(build.load_library("isp_scan"), name), name)
+
+
+def typed(fn, name: str):
+    """``fn``, the launcher ``name`` of a build of ``csrc/isp_scan.cu``,
+    with its ctypes signature set."""
     if name.startswith("scan"):
         # pages, scales, table, partials, out, n_valid, page_rows,
         # n_cols, n_rows, threshold, filter_col, filter_op, stream
         fn.argtypes = [_P] * 5 + [_I, _I, _I, _LL, _F, _I, _I, _P]
     else:
-        # pages, scales, query, table, cand_s, cand_i, out, n_valid,
-        # page_rows, n_cols, n_rows, k, kpad, cosine, n_blocks, stream
-        fn.argtypes = [_P] * 7 + [_I, _I, _I, _LL, _I, _I, _I, _I, _P]
+        # pages, scales, query, table, list_s, list_i, done, out, n_phys,
+        # n_valid, page_rows, n_cols, n_rows, k, kpad, cosine, n_blocks,
+        # stream
+        fn.argtypes = [_P] * 8 + [_I, _I, _I, _I, _LL, _I, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -62,6 +71,38 @@ def _bind(name: str):
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: the top-k's last-block tickets, one zeroed int32 a (device, stream);
+#: the kernel's last block resets its ticket
+_TICKETS = {}
+
+
+def _ticket(device, stream: int):
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def check_topk_pool(pages, scales, query):
+    """Raise on a pool the top-k kernel does not take: rows of a
+    multiple of 16 bytes, at most 256 rows a page, the pool, its scales
+    and the query 16-byte aligned, quantized pages of a multiple of 4
+    rows (a page's scales are one 16-byte-aligned copy)."""
+    n_phys, page_rows, n_cols = pages.shape
+    if page_rows > MAX_TOPK_PAGE_ROWS:
+        raise ValueError(f"page_rows {page_rows} > {MAX_TOPK_PAGE_ROWS}")
+    if n_cols * pages.element_size() % 16:
+        raise ValueError(f"top-k rows must be a multiple of 16 bytes; got "
+                         f"{n_cols} x {pages.element_size()}")
+    if scales is not None and page_rows % 4:
+        raise ValueError(f"quantized top-k pages need a multiple of 4 "
+                         f"rows; got {page_rows}")
+    for t in (pages, scales, query):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the top-k kernel takes a pool, scales and "
+                             "query that start 16-byte aligned")
 
 
 def _check_pool(pages, page_table, scales):
@@ -182,23 +223,22 @@ def topk_scan(pages, page_table, n_rows, query, *, k: int,
                                  metric=metric, scales=scales)
     query = query.reshape(n_cols)
     _check_cuda(pages, page_table, scales, query)
-    if page_rows > MAX_TOPK_PAGE_ROWS:
-        raise ValueError(f"page_rows {page_rows} > {MAX_TOPK_PAGE_ROWS}")
+    check_topk_pool(pages, scales, query)
     n_valid = n_valid_pages(n_rows, page_rows, page_table.shape[0])
-    n_blocks = min(n_valid, 2 * _sm_count(pages.device.index or 0))
     dev = pages.device
-    # two halves: the merge rounds ping-pong between them
-    cand_s = torch.empty((2, n_blocks, k), device=dev)
-    cand_i = torch.empty((2, n_blocks, k), dtype=torch.int32, device=dev)
+    n_blocks = min(n_valid, TOPK_BLOCKS_PER_SM * _sm_count(dev.index or 0))
+    # the blocks' sorted lists: scores, then ids
+    lists = torch.empty((2, n_blocks, k), dtype=torch.int32, device=dev)
     kpad = topk_pad(k)
     out = torch.empty((REDUCE_ROWS, kpad), device=dev)
     name = f"topk_scan_{_CODE[pages.dtype]}"
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bind(name)(pages.data_ptr(), _ptr(scales), query.data_ptr(),
-                      page_table.data_ptr(), cand_s.data_ptr(),
-                      cand_i.data_ptr(), out.data_ptr(), n_valid, page_rows,
-                      n_cols, n_rows, k, kpad, int(metric == "cosine"),
-                      n_blocks, stream)
+                      page_table.data_ptr(), lists[0].data_ptr(),
+                      lists[1].data_ptr(), _ticket(dev, stream).data_ptr(),
+                      out.data_ptr(), n_phys, n_valid, page_rows, n_cols,
+                      n_rows, k, kpad, int(metric == "cosine"), n_blocks,
+                      stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out

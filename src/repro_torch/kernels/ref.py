@@ -262,20 +262,26 @@ def _chain(cols, scale):
     return s
 
 
+def _row_scores(x, query, metric: str):
+    """Scores of rows x [R, C] against query [C]: the column add chain of
+    their products (``cosine``: over max(sqrt(chain(x*x)), 1e-6))."""
+    if metric not in TOPK_METRICS:
+        raise ValueError(f"metric must be one of {TOPK_METRICS}, "
+                         f"got {metric!r}")
+    cols = x.t().contiguous()                      # one column per step
+    s = _chain(cols, query.reshape(-1).float().to(x.device))
+    if metric == "cosine":
+        s = s / torch.clamp(torch.sqrt(_chain(cols, cols)), min=1e-6)
+    return s
+
+
 def _topk_rows(x, n_rows: int, query, k: int, metric: str):
     """Score rows x [R, C] (row id = index) against query [C] and keep
     the k best by (score descending, id ascending); rows at or past
     n_rows are empty slots (NEG_INF, BIG_ID).  Returns [8, topk_pad(k)]
     f32: scores on row 0, ids (as f32) on row 1."""
-    if metric not in TOPK_METRICS:
-        raise ValueError(f"metric must be one of {TOPK_METRICS}, "
-                         f"got {metric!r}")
     dev = x.device
-    cols = x.t().contiguous()                      # one column per step
-    q = query.reshape(-1).float().to(dev)
-    s = _chain(cols, q)
-    if metric == "cosine":
-        s = s / torch.clamp(torch.sqrt(_chain(cols, cols)), min=1e-6)
+    s = _row_scores(x, query, metric)
     pos = torch.arange(x.shape[0], device=dev)
     valid = pos < n_rows
     s = torch.where(valid, s, NEG_INF)
@@ -300,6 +306,89 @@ def topk_scan_ref(pages, page_table, n_rows: int, query, *, k: int,
     nv = n_valid_pages(n_rows, page_rows, page_table.shape[0])
     x = pool_rows(pages, scales, page_table[:nv].long())
     return _topk_rows(x.reshape(-1, n_cols), n_rows, query, k, metric)
+
+
+def topk_blocks_emulated(pages, page_table, n_rows: int, query, *, k: int,
+                         metric: str = "dot", scales=None, n_blocks: int,
+                         sort_cap: int = 1024, flush_at: int = None,
+                         stats=None):
+    """A plain emulation of the CUDA top-k's split (``csrc/isp_scan.cu``,
+    ``topk_stream_kernel``), equal to :func:`topk_scan_ref` bit for bit.
+
+    Block b takes the valid pages [nv*b//n_blocks, nv*(b+1)//n_blocks).
+    At each page's end the rows that beat the block's running k-th best
+    (score desc, id asc) join a candidate buffer, sorted in once it holds
+    ``flush_at`` (the kernel's: max(k, 32)) or more than ``sort_cap - k -
+    row_threads`` (row threads: page_rows rounded up to 32); the block's
+    sorted k best are its list.  The last block merges the lists a
+    position at a time, stopping at the first position where no entry
+    beats the k-th best of its last sort; it sorts its candidates in once
+    k have gathered (or when the next round might not fit).  ``stats``, a dict, receives the sorts (``flushes``),
+    those mid-block (``stream_flushes``), those of a full buffer among
+    them (``buffer_full``) and the merge rounds."""
+    n_phys, page_rows, n_cols = pages.shape
+    nv = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+    if not 1 <= n_blocks <= nv:
+        raise ValueError(f"n_blocks must be in [1, {nv}], got {n_blocks}")
+    x = pool_rows(pages, scales, page_table[:nv].long())
+    scores = _row_scores(x.reshape(-1, n_cols), query, metric).tolist()
+    row_threads = -(-page_rows // 32) * 32
+    cap = sort_cap - k - row_threads
+    if flush_at is None:
+        flush_at = max(k, 32)
+    if cap < 1 or k + n_blocks > sort_cap:
+        raise ValueError(f"sort_cap {sort_cap} too small for k={k}, "
+                         f"{row_threads} row threads, {n_blocks} blocks")
+    empty = (NEG_INF, int(BIG_ID))
+
+    def key(c):
+        return (-c[0], c[1])
+
+    def beats(c, thr):
+        return key(c) < key(thr)
+
+    def sort_in(best, pending):
+        if stats is not None:
+            stats["flushes"] = stats.get("flushes", 0) + 1
+        return sorted(best + pending, key=key)[:k]
+
+    lists = []
+    for b in range(n_blocks):
+        best, pending = [empty] * k, []
+        for p in range(nv * b // n_blocks, nv * (b + 1) // n_blocks):
+            for r in range(page_rows):
+                pos = p * page_rows + r
+                c = (scores[pos], pos)
+                if pos < n_rows and beats(c, best[k - 1]):
+                    pending.append(c)
+            if len(pending) >= flush_at or len(pending) > cap:
+                if stats is not None:
+                    stats["stream_flushes"] = stats.get(
+                        "stream_flushes", 0) + 1
+                    stats["buffer_full"] = stats.get("buffer_full", 0) + (
+                        len(pending) > cap)
+                best, pending = sort_in(best, pending), []
+        if pending:
+            best = sort_in(best, pending)
+        lists.append(best)
+    best, pending = [empty] * k, []
+    rounds = 0
+    for r in range(k):
+        won = [lst[r] for lst in lists if beats(lst[r], best[k - 1])]
+        rounds += 1
+        if not won:
+            break
+        pending += won
+        if len(pending) >= k or len(pending) + n_blocks > sort_cap - k:
+            best, pending = sort_in(best, pending), []
+    if pending:
+        best = sort_in(best, pending)
+    if stats is not None:
+        stats["merge_rounds"] = rounds
+    out = torch.zeros((REDUCE_ROWS, topk_pad(k)), device=x.device)
+    out[0, :k] = torch.tensor([c[0] for c in best], dtype=torch.float32)
+    out[1, :k] = torch.tensor([float(c[1]) for c in best])
+    return out
 
 
 def topk_scan_host(data, query, *, page_rows: int, k: int,
@@ -358,6 +447,61 @@ def flash_attention_ref(q, k, v, causal: bool = True):
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v)
+    return out.reshape(b, h, sq, d)
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on f32 ``x``: the nearest TF32 value (10
+    explicit mantissa bits, the low 13 bits of the f32 zero), ties away
+    from zero; for finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """``a @ b`` as the flash kernel's 3xTF32 products compute it: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), then lo*hi +
+    hi*lo + hi*hi (each product exact in f32, sums in f32; lo*lo, about
+    2^-22 relative, dropped)."""
+    a_hi = tf32_rna(a)
+    a_lo = tf32_rna(a - a_hi)
+    b_hi = tf32_rna(b)
+    b_lo = tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def flash_attention_3xtf32(q, k, v, causal: bool = True, *, block_k: int):
+    """A plain emulation of the CUDA flash kernel's arithmetic
+    (``csrc/flash_attention.cu``) in f32: key tiles of ``block_k``, scores
+    ``mm_3xtf32(q, k^T) * log2(e) / sqrt(D)`` masked to -1e30 (causal from
+    the top left), an online softmax in base 2, P V by ``mm_3xtf32``,
+    out = acc / max(l, 1e-30).  q: [B, H, Sq, D]; k/v: [B, Hkv, Sk, D]."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    f32 = torch.float32
+    scale = (torch.tensor(math.log2(math.e), dtype=f32) /
+             torch.sqrt(torch.tensor(float(d), dtype=f32)))
+    rows = q.reshape(b, hkv, g * sq, d).float()
+    pos = torch.arange(sq, device=q.device).repeat(g)
+    m = torch.full((b, hkv, g * sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g * sq), device=q.device)
+    acc = torch.zeros((b, hkv, g * sq, d), device=q.device)
+    for k0 in range(0, sk, block_k):
+        kt = k[:, :, k0:k0 + block_k].float()
+        vt = v[:, :, k0:k0 + block_k].float()
+        s = mm_3xtf32(rows, kt.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            s = torch.where(cols[None, :] <= pos[:, None], s,
+                            torch.full_like(s, NEG_INF))
+        mx = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + mm_3xtf32(p, vt)
+        m = mx
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, h, sq, d)
 
 
