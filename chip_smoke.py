@@ -19,13 +19,18 @@ one JSON line and any failure exits non-zero:
            partials against the plain split emulation, the combine
            kernel alone, and a prefill chunk through the chunk form
            (expanded page row) and the decode form (contiguous table);
+           both forms untimed at OTHER_SHAPES (head dims 8-256 that are
+           multiples of 8, pages up to 256 tokens, groups up to 64);
            the scan over a TPC-H SF-1 lineitem
            extent (6,001,215 rows x 16 f32 columns, page 128; five filter
            jobs on f32, int8 and fp8 pools, a pow2-padded table and an
            empty result), the top-k over a 1M x 768 corpus (k 4 and 128,
            dot and cosine, planted duplicate rows), the embedding bag
            (4M x 128 table, 2048 Zipf bags of 16) and the token-block
-           gather, each bit-identical to its plain version
+           gather, each bit-identical to its plain version; the top-k
+           also over the corpus on pages of 2,048 rows, the lineitem
+           extent in an int8 store of 24 columns and on int8 pages of 6
+           rows (timed), and untimed at TOPK_SHAPES
   serve    PagedServer over full-width granite-3-2b (40 layers, random
            f32 weights from a seeded torch.Generator): 8 prompts of 512
            tokens, prefill chunks of 256, 64 greedy tokens at horizon 1
@@ -36,6 +41,11 @@ one JSON line and any failure exits non-zero:
            chunk form, every decode step through the decode form, per
            page type); a few horizon-1 steps under
            torch.profiler give the step's device busy time
+  serve_reduced
+           the launcher's --paged --reduced path (granite-3-2b reduced,
+           head_dim 16) at pages of 16 and of 128 tokens: tokens
+           identical at horizon 1 and 8, the first step's logits within
+           1e-3 of step_reference; launch counters reset and read
   isp      the in-storage path through the port's entry points, launch
            counters reset just before and read just after: a 4-node
            StoragePool pulls the analytics image, a node ingests a table
@@ -43,9 +53,11 @@ one JSON line and any failure exits non-zero:
            SF-1 extent is scanned in storage through one JOB frame, the
            OffloadPlanner runs jobs on the device and on the host (blocks
            bit-identical), the extent on int8 and fp8 pools takes a scan
-           and a top-k job, a dlrm-embed container runs, and RAG over the
-           1M x 768 corpus feeds the serve phase's granite-3-2b in two
-           waves (the second rides the prefix cache)
+           and a top-k job, top-k jobs run over f32 pages of 1,024 rows
+           and an int8 store of 24 columns, a dlrm-embed container
+           runs, and RAG over the 1M x 768 corpus feeds the serve
+           phase's granite-3-2b in two waves (the second rides the
+           prefix cache)
 
   dense    the launcher's default (non-paged) path through get_model +
            make_serving_fns, launch counters reset just before and read
@@ -63,9 +75,10 @@ one JSON line and any failure exits non-zero:
 The kernels phase also holds the flash-attention kernel (causal and not
 at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
 qwen2-72b's heads, each beside the bound of its 3xTF32 route and the
-f32 bound) and the RWKV6 wkv-scan kernel (at rwkv6-3b's) against their
-plain versions.  Then the kernels line (launches: the serve, isp and
-dense phases' counts), the nvidia-smi line, and the last line
+f32 bound) and the RWKV6 wkv-scan kernel (at rwkv6-3b's, and untimed at
+WKV_SHAPES) against their plain versions.  Then the kernels line
+(launches: the serve, serve_reduced, isp and dense phases' counts), the
+nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -373,10 +386,16 @@ def phase_kernels(torch, np):
 # card (several lanes a token's dot, two tokens a lane, 2-wide output
 # vectors, 32-key chunk tiles, also over pages of 37, 48 and 64; decode
 # ring slots of half a page, 19 of 37 tokens and 32 of 64, where three
-# f32 pages at D 256 do not fit in shared memory)
+# f32 pages at D 256 do not fit in shared memory); then head dims that
+# are not a multiple of 32 (16: the reduced configs', 80: hubert-xlarge's,
+# 24: codes copied in 8-byte pieces), pages of 128 and 256 tokens (two
+# and four decode tiles a page) and a GQA group of 64 (two decode blocks
+# a kv head)
 OTHER_SHAPES = ((8, 8, 128, 8), (32, 4, 96, 32), (4, 2, 32, 64),
                 (8, 2, 256, 16), (8, 1, 256, 64), (8, 2, 160, 48),
-                (4, 1, 256, 37))
+                (4, 1, 256, 37), (8, 2, 16, 16), (16, 4, 16, 128),
+                (8, 2, 80, 16), (8, 4, 24, 16), (64, 1, 16, 8),
+                (64, 1, 128, 256), (48, 1, 80, 128))
 
 
 def other_shapes(torch, np, ops):
@@ -712,6 +731,7 @@ def phase_isp_kernels(torch, np, data, flush):
     del x
     results += topk_cases(torch, data, flush)
     topk_other_shapes(torch, np)
+    results += topk_pool_cases(torch, np, data, flush)
     results += embed_cases(torch, np, data, flush)
     return results
 
@@ -775,13 +795,20 @@ def topk_cases(torch, data, flush):
 # a multiple of 32 (idle row threads), a last stage of part of a 128-byte
 # box (f32 48, int8 176 columns), rows narrower than a box (16 and 4),
 # 256 rows a page (a ring of 3 stages), k not a power of two, and fewer
-# rows than k
+# rows than k; then pages of several units (300 rows: 256 + 44; 1,030),
+# rows that fit no tensor map (int8 40, f32 7, fp8 33 columns: the direct
+# path) and fp8 pages of 6 rows (row scales loaded by the row threads)
 TOPK_SHAPES = ((100, 48, "f32", 7, "dot", 3687),
                (96, 176, "int8", 100, "cosine", 2001),
                (256, 32, "fp8", 128, "dot", 3000),
                (256, 32, "f32", 128, "cosine", 50),
                (8, 4, "f32", 4, "dot", 301),
-               (128, 16, "int8", 1, "cosine", 5000))
+               (128, 16, "int8", 1, "cosine", 5000),
+               (300, 16, "f32", 5, "dot", 1190),
+               (300, 40, "int8", 9, "cosine", 2000),
+               (6, 16, "fp8", 3, "dot", 500),
+               (5, 7, "f32", 2, "dot", 333),
+               (1030, 33, "fp8", 128, "dot", 4000))
 
 
 def topk_other_shapes(torch, np):
@@ -815,6 +842,93 @@ def topk_other_shapes(torch, np):
               f" k={k} {metric} rows {n_rows}")
     emit({"phase": "kernels", "check": "top-k at other shapes",
           "shapes": TOPK_SHAPES, "bit_identical": True})
+
+
+# the pools the top-k took only through its plain version before: the
+# corpus re-paged at 2,048 rows (eight units a page), the lineitem extent
+# in an int8 store of 24 columns (24-byte rows: the direct path) and on
+# int8 pages of 6 rows (row scales loaded by the row threads)
+TOPK_REPAGED = 2048
+TOPK_NARROW = {"cols": 24, "page_rows": 128}
+TOPK_SHORT_PAGE = 6
+
+
+def topk_pool_cases(torch, np, data, flush):
+    """The top-k on TOPK_REPAGED / TOPK_NARROW / TOPK_SHORT_PAGE pools,
+    bit-identical to its plain version, each timed beside its bound and
+    ``torch.topk`` on the f32 rows."""
+    from repro_torch.kernels import isp_scan, ops
+
+    results = []
+    cases = []
+    n_rows, dim = data["corpus"].shape
+    x, table = on_pages(torch, data["corpus"], TOPK_REPAGED)
+    pools = quantized_pools(torch, x)
+    q = torch.from_numpy(data["corpus"][DUP_IDS[0]].copy()).to(DEVICE)
+    for code in ("f32", "int8"):
+        for k in (4, 128):
+            cases.append((f"1M x 768 corpus on pages of {TOPK_REPAGED} rows, "
+                          f"k={k}, dot ({code})", *pools[code], table,
+                          n_rows, q, k, True))
+    del x
+    li = data["lineitem"]
+    wide = np.zeros((li.shape[0], TOPK_NARROW["cols"]), np.float32)
+    wide[:, :li.shape[1]] = li
+    rng = np.random.default_rng(10)
+    lq = np.zeros(TOPK_NARROW["cols"], np.float32)
+    lq[:li.shape[1]] = rng.standard_normal(li.shape[1])
+    lq = torch.from_numpy(lq).to(DEVICE)
+    for cols, pr, label in ((TOPK_NARROW["cols"], TOPK_NARROW["page_rows"],
+                             f"int8 store of {TOPK_NARROW['cols']} columns"),
+                            (li.shape[1], TOPK_SHORT_PAGE,
+                             f"int8 pages of {TOPK_SHORT_PAGE} rows")):
+        xl, tl = on_pages(torch, wide[:, :cols], pr)
+        pages, scales = quantized_pools(torch, xl)["int8"]
+        del xl
+        for metric in ("dot", "cosine"):
+            cases.append((f"SF-1 lineitem, {label}, k=4, {metric}", pages,
+                          scales, tl, li.shape[0], lq[:cols], 4,
+                          metric == "dot"))
+    for case, pages, scales, tab, rows, query, k, dot in cases:
+        metric = "dot" if dot else "cosine"
+        code = isp_scan._CODE[pages.dtype]
+        kernel = f"topk_scan_{code}"
+        path = isp_scan.check_topk_pool(pages, scales, query)
+
+        def run(fn=ops.topk_scan, pages=pages, scales=scales, tab=tab,
+                rows=rows, query=query, k=k, metric=metric):
+            return fn(pages, tab, rows, query, k=k, metric=metric,
+                      scales=scales)
+        before = ops.launch_counts()[kernel]
+        got = run()
+        check(ops.launch_counts()[kernel] == before + 1,
+              f"{case}: the kernel launched")
+        err = exact(torch, got, run(ops.ref.topk_scan_ref), case)
+        n_valid = tab.numel()
+        flat = ops.ref.pool_rows(pages, scales, tab.long()).reshape(
+            -1, pages.shape[2])[:rows]
+
+        def lib(flat=flat, query=query, k=k, dot=dot):
+            s_ = flat @ query
+            return torch.topk(s_ if dot else s_ / torch.clamp(
+                flat.norm(dim=1), min=1e-6), k)
+        kernel_line(results, kernel, f"{case} [{path} path]", err,
+                    time_ms(torch, run, flush, 10, 2),
+                    time_ms(torch, lambda: run(ops.ref.topk_scan_ref),
+                            flush, PLAIN_ITERS, 1),
+                    pool_bound(n_valid, pages.shape[1], pages.shape[2],
+                               pages, scales is not None, 2 if dot else 4,
+                               pages.shape[2] * 4 + 8 * ops.topk_pad(k) * 4),
+                    time_ms(torch, lib, flush, 10, 2),
+                    ("torch.topk(rows @ q, k): 2 PyTorch calls" if dot else
+                     "torch.topk((rows @ q) / clamp(rows.norm(1)), k): 5 "
+                     "PyTorch calls") + " on the f32 rows (dequantised "
+                    "outside the timing)", ISP_SOURCE)
+        results[-1]["path"] = path
+        del flat
+    del cases, pools
+    torch.cuda.empty_cache()
+    return results
 
 
 def embed_cases(torch, np, data, flush):
@@ -1070,6 +1184,35 @@ def phase_isp(torch, np, smi, served, data):
             "extent_bytes": qstore.extents["lineitem"].nbytes,
             "wire_bytes": wire(qpool.driver.stats)}
         del qpool, qstore
+    # 6b. top-k JOBs over pools the card took only through the plain
+    # version before: f32 pages of 1,024 rows (four units a page) and an
+    # int8 store of 24 columns (rows no tensor map describes)
+    out["topk_pools"] = {}
+    for label, cfg_over in (("f32 pages of 1024 rows",
+                             {"page_rows": 1024}),
+                            ("int8 store of 24 columns",
+                             {"n_cols": TOPK_NARROW["cols"],
+                              "page_dtype": "int8"})):
+        tcfg = {**ext_cfg, **cfg_over}
+        tcfg["n_pages"] = -(-li.shape[0] // tcfg["page_rows"]) + 1
+        tpool = StoragePool(1, extent_cfg=tcfg)
+        tpool.broadcast_pull("isp-analytics", analytics_blob())
+        tip = tpool.alive_nodes()[0]
+        tstore = tpool.nodes[tip].extents
+        tstore.put("lineitem", li)
+        tjob = AnalyticsJob(extent="lineitem", reduce="topk", k=8,
+                            query=[float(v) for v in
+                                   rng.standard_normal(n_cols)], job_id=0)
+        t0 = time.monotonic()
+        tb = from_jsonable(tpool.driver.submit_jobs(tip, [tjob.to_dict()]))
+        secs = time.monotonic() - t0
+        check(np.array_equal(tb[0], plain_topk(tstore, "lineitem", tjob)),
+              f"top-k JOB over {label} != plain version")
+        out["topk_pools"][label] = {
+            "frame_wall_s": secs, "topk_ids": tb[0][1, :8].tolist(),
+            "page_rows": tstore.page_rows, "n_cols": tstore.n_cols,
+            "equals_plain_version": True}
+        del tpool, tstore
     # 7. the DLRM embed container on node 2
     pool.broadcast_pull("dlrm-embed", make_blob(
         ImageManifest("dlrm-embed", "dlrm-embed", ["rootfs-layer0"]),
@@ -1251,7 +1394,9 @@ def phase_dense_kernels(torch, np, flush):
     each against its plain version."""
     results = flash_cases(torch, np, flush)
     flash_other_shapes(torch, np)
-    return results + wkv_cases(torch, np, flush)
+    results += wkv_cases(torch, np, flush)
+    wkv_other_shapes(torch, np)
+    return results
 
 
 def flash_cases(torch, np, flush):
@@ -1383,8 +1528,82 @@ def wkv_cases(torch, np, flush):
         "none: no single PyTorch call computes the wkv recurrence",
         DENSE_SOURCE["rwkv_scan_f32"],
         f"{WKV_TOL} x max(1, max|plain|) on o and sT")
+    # both against the float64 per-token recurrence (a reading, no gate)
+    exact = ops.ref.wkv_ref(*(x.double() for x in (r, k, v, logw, u, s0)))
+    results[-1]["vs_float64"] = {
+        name: {"kernel": float((g.double() - x).abs().max()),
+               "plain": float((w.double() - x).abs().max())}
+        for name, g, w, x in (("o", o, o_p, exact[0]),
+                              ("sT", s_t, s_p, exact[1]))}
+    emit({"phase": "kernels", "kernel": "rwkv_scan_f32",
+          "vs_float64": results[-1]["vs_float64"]})
+    del exact
     torch.cuda.empty_cache()
     return results
+
+
+# (B, S, H, dk, dv, chunk, sigma): logw = -exp(N(0, sigma)); steps of 8
+# and 16 tokens (chunks 8, 16, 64), dk != dv both ways, one (b, h) of one
+# chunk, harsher decays, a chunk of 20 (steps of 10: the product's rows
+# padded to 12), a 128 x 128 state (160 KB of shared memory), and tokens
+# that do not decay (logw = 0 at every fifth token of the last case)
+WKV_SHAPES = ((2, 128, 4, 64, 64, 8, 1.0), (2, 128, 4, 64, 64, 16, 1.0),
+              (2, 256, 4, 64, 64, 64, 1.0), (2, 128, 3, 64, 32, 32, 1.0),
+              (1, 96, 2, 32, 96, 32, 1.0), (1, 32, 1, 64, 64, 32, 1.0),
+              (2, 128, 4, 64, 64, 32, 2.0), (1, 60, 2, 16, 16, 20, 1.0),
+              (1, 64, 1, 128, 128, 32, 1.0), (2, 64, 2, 64, 64, 32, 1.0))
+
+
+def wkv_other_shapes(torch, np):
+    """The wkv scan at WKV_SHAPES within 1e-4 x max(1, max |plain|) of
+    its plain version on o and sT; at the harsher decays (sigma 2), where
+    the plain version's own f32 error against the float64 per-token
+    recurrence exceeds that limit, no farther from the float64 recurrence
+    than the plain version is (or within the limit).  Not timed."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(11)
+    worst, harsh = 0.0, []
+    for i, (b, s, h, dk, dv, chunk, sigma) in enumerate(WKV_SHAPES):
+        def dev(x):
+            return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+        r, k = (dev(rng.standard_normal((b, s, h, dk))) for _ in range(2))
+        v = dev(rng.standard_normal((b, s, h, dv)))
+        lw = -np.exp(sigma * rng.standard_normal((b, s, h, dk)))
+        if i == len(WKV_SHAPES) - 1:
+            lw[:, ::5] = 0.0
+        logw = dev(lw)
+        u = dev(rng.standard_normal((h, dk)))
+        s0 = dev(rng.standard_normal((b, h, dk, dv)))
+        got = ops.rwkv_scan(r, k, v, logw, u, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ops.ref.wkv_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+        exact = (ops.ref.wkv_ref(*(x.double() for x in (r, k, v, logw, u,
+                                                        s0)))
+                 if sigma > 1 else (None, None))
+        what = (f"rwkv_scan B={b} S={s} H={h} dk={dk} dv={dv} chunk "
+                f"{chunk} sigma {sigma}")
+        for name, g, w, x in zip(("o", "sT"), got, want, exact):
+            err = float((g - w).abs().max())
+            lim = WKV_TOL * max(1.0, float(w.abs().max()))
+            check(bool(torch.isfinite(g).all()), f"{what}: {name} finite")
+            if x is None:
+                check(err <= lim, f"{what}: {name} max_abs_err {err} > {lim}")
+                worst = max(worst, err / lim)
+                continue
+            k_err = float((g.double() - x).abs().max())
+            p_err = float((w.double() - x).abs().max())
+            check(err <= lim or k_err <= p_err,
+                  f"{what}: {name} max_abs_err {err} > {lim} and "
+                  f"{k_err} from the float64 recurrence > the plain "
+                  f"version's {p_err}")
+            harsh.append({"case": what, "out": name, "vs_plain": err,
+                          "limit": lim, "kernel_vs_float64": k_err,
+                          "plain_vs_float64": p_err})
+    emit({"phase": "kernels", "check": "wkv scan at other shapes",
+          "shapes_b_s_h_dk_dv_chunk_sigma": WKV_SHAPES,
+          "worst_err_over_limit": worst, "harsh_decays": harsh,
+          "tolerance": f"{WKV_TOL} x max(1, max|plain|)"})
 
 
 @contextlib.contextmanager
@@ -1730,6 +1949,77 @@ def phase_serve(torch, np, smi):
     return counts, served
 
 
+# the launcher's --paged --reduced path (head_dim 16) at the serving page
+# and at pages of 128: 4 prompts of 300 tokens, chunks of 128, 16 tokens
+SERVE_REDUCED = {"arch": "granite-3-2b", "requests": 4, "prompt_len": 300,
+                 "gen": 16, "chunk": 128, "pages": (16, 128),
+                 "window_tokens": 4096}
+
+
+def phase_serve_reduced(torch, np, smi):
+    """PagedServer over reduced granite-3-2b (head_dim 16, which the
+    paged kernels refused before) at each of SERVE_REDUCED's pages:
+    greedy tokens identical at horizon 1 and 8, the first decode step's
+    logits within 1e-3 of step_reference; launch counters reset just
+    before and read just after."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    from repro_torch.runtime.serve import PagedServer
+
+    cfg = get_arch(SERVE_REDUCED["arch"]).reduced()
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(1),
+                        device=DEVICE)
+    n_req, plen, gen, chunk = (SERVE_REDUCED[k] for k in (
+        "requests", "prompt_len", "gen", "chunk"))
+    prompts = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (n_req, plen), dtype=np.int32)
+    ops.reset_launch_counts()
+    runs = {}
+    for page in SERVE_REDUCED["pages"]:
+        hbm = SERVE_REDUCED["window_tokens"] // page
+        tokens = {}
+        for horizon in (1, 8):
+            server = PagedServer(model, params, page_size=page,
+                                 hbm_pages=hbm, device=DEVICE)
+            for i, prompt in enumerate(prompts):
+                server.add_request(i, prompt, chunk=chunk)
+            if horizon == 1:
+                pending = server.pending_tokens()
+                want = server.step_reference(pending)
+                seqs, logits = server.step_batch(pending)
+                err = float((logits - want).abs().max())
+                check(bool(torch.isfinite(logits).all()) and
+                      err <= LOGITS_TOL, f"reduced granite, page {page}: "
+                      f"step_batch vs step_reference {err}")
+                first = logits.argmax(-1).cpu().tolist()
+                for sq, tok in zip(seqs, first):
+                    server.set_pending(sq, tok)
+                rest = server.decode(gen - 1)
+                tokens[1] = {sq: [first[i]] + rest[sq]
+                             for i, sq in enumerate(seqs)}
+            else:
+                tokens[8] = server.decode(gen, horizon=8)
+            del server
+        check(tokens[1] == tokens[8], f"reduced granite, page {page}: "
+              "greedy tokens differ between horizon 1 and 8")
+        runs[page] = {"hbm_pages": hbm, "step1_logits_max_abs_err": err,
+                      "tokens_identical_h1_h8": True,
+                      "tokens_request0": tokens[8][0]}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in (CHUNK_OF["f32"], DECODE_OF["f32"], COMBINE):
+        check(counts[name] > 0, f"{name} launched on the reduced serve path")
+    emit({"phase": "serve_reduced", "arch": cfg.name, "head_dim": cfg.hd,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "n_layers": cfg.n_layers, "requests": n_req, "prompt_len": plen,
+          "gen": gen, "prefill_chunk": chunk, "runs": runs,
+          "launches": counts, "logits_tol": LOGITS_TOL,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return counts
+
+
 def profile_decode(torch, server, n_steps):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -1806,12 +2096,13 @@ def main() -> int:
     kernels += phase_dense_kernels(torch, np, flush)
     del flush
     counts, served = phase_serve(torch, np, smi)
+    reduced_counts = phase_serve_reduced(torch, np, smi)
     isp_counts = phase_isp(torch, np, smi, served, data)
     del data
     dense_counts = phase_dense(torch, np, smi, served)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
-            counts, isp_counts, dense_counts))
+            counts, reduced_counts, isp_counts, dense_counts))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

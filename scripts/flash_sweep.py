@@ -118,7 +118,10 @@ def build_variant(index, edits, source):
     """The source with ``edits`` applied, built into build/repro_torch/."""
     from repro_torch.kernels import build
 
-    text = source.read_text()
+    # the shared header inlined, so that an edit may reach its helpers
+    header = build.CSRC / "tf32_mma.cuh"
+    text = source.read_text().replace('#include "tf32_mma.cuh"',
+                                      header.read_text())
     for old, new in edits:
         if old not in text:
             raise RuntimeError(f"{source.name} no longer has {old!r}")

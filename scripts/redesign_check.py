@@ -1,6 +1,8 @@
-"""Check and time the top-k and flash-attention kernels on one card.
+"""Check and time the top-k, paged-attention, flash and wkv kernels on
+one card.
 
-    python scripts/redesign_check.py [topk] [flash] [swizzle] [--logs DIR]
+    python scripts/redesign_check.py [topk] [pools] [paged] [flash] [wkv]
+                                     [swizzle] [--logs DIR]
 
 Builds every kernel source (``kernels.build.build_all``; with ``--logs``
 nvcc's ``-Xptxas -v`` report of each source is written to DIR), then
@@ -10,7 +12,12 @@ and ``chip_smoke.flash_cases`` (flash attention at granite-3-2b's,
 phi3-mini's and a D = 128, G = 8 prefill shape, within 1e-4), each timed
 by ``chip_smoke.time_ms`` beside its bound and a library call, and each
 kernel's untimed check at other shapes (``topk_other_shapes``,
-``flash_other_shapes``).
+``flash_other_shapes``).  ``pools`` runs ``chip_smoke.topk_pool_cases``
+(the corpus on pages of 2,048 rows, the lineitem extent in an int8 store
+of 24 columns and on int8 pages of 6 rows) and ``topk_other_shapes``;
+``paged`` runs ``chip_smoke.phase_kernels`` (paged attention at the
+serving shapes, timed, and at ``OTHER_SHAPES``); ``wkv`` runs
+``chip_smoke.wkv_cases`` and ``wkv_other_shapes``.
 ``swizzle`` times the top-k against a build of ``csrc/isp_scan.cu``
 whose stages are not swizzled (row t reads its 16-byte chunk j at j, so
 the eight rows of a quarter warp share four banks), in turns (as built,
@@ -100,7 +107,7 @@ def main(argv) -> int:
         logs_dir = Path(argv[argv.index("--logs") + 1])
         argv = [a for a in argv if a not in ("--logs", str(logs_dir))]
     which = set(argv) or {"topk", "flash"}
-    if which - {"topk", "flash", "swizzle"}:
+    if which - {"topk", "pools", "paged", "flash", "wkv", "swizzle"}:
         print(f"redesign_check: unknown case {which}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -120,6 +127,14 @@ def main(argv) -> int:
     if "topk" in which:
         results += cs.topk_cases(torch, cs.make_data(np), flush)
         cs.topk_other_shapes(torch, np)
+    if "pools" in which:
+        results += cs.topk_pool_cases(torch, np, cs.make_data(np), flush)
+        cs.topk_other_shapes(torch, np)
+    if "paged" in which:
+        results += cs.phase_kernels(torch, np)
+    if "wkv" in which:
+        results += cs.wkv_cases(torch, np, flush)
+        cs.wkv_other_shapes(torch, np)
     if "flash" in which:
         results += cs.flash_cases(torch, np, flush)
         cs.flash_other_shapes(torch, np)

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface,
 ``<checkout>/build/repro_torch/lib<name>_<hash>.so``, where the hash
-covers the source and the flags, and loaded with ``ctypes``.  The build
-runs at first use (or ahead, from :func:`build_all`, one ``nvcc`` per
-source, all started together); a failed build or load raises, and no
-caller falls back to the plain version.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, and
+loaded with ``ctypes``.  The build runs at first use (or ahead, from
+:func:`build_all`, one ``nvcc`` per source, all started together); a
+failed build or load raises, and no caller falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -21,8 +22,11 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -I csrc: the shared headers (csrc/*.cuh), also for copies of a source
+# built elsewhere (the phase probe, the sweeps)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC)]
 
 
 def _nvcc() -> str:
@@ -40,6 +44,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

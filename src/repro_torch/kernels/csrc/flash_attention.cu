@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -101,28 +103,6 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// cvt.rna.tf32.f32 for finite x: add half a TF32 ulp to the magnitude
-// bits and clear the 13 bits below the TF32 mantissa (round to nearest,
-// ties away from zero).  Two integer operations at the full rate, where
-// the conversion instruction runs on the slower conversion pipe.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo with hi, lo TF32 values (lo holds the next 11 bits)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // an A fragment split once, for every n-tile it multiplies
 struct SplitA {
   uint32_t hi[4], lo[4];
@@ -163,9 +143,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Fragment layouts of m16n8k8 (lane = 4 g + tg): A a0 (g, tg), a1 (g+8,
-// tg), a2 (g, tg+4), a3 (g+8, tg+4); B b0 (k tg, n g), b1 (k tg+4, n g);
-// C c0 (g, 2tg), c1 (g, 2tg+1), c2 (g+8, 2tg), c3 (g+8, 2tg+1).
+// Fragment layouts of m16n8k8: tf32_mma.cuh.
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,

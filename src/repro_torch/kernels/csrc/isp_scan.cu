@@ -59,6 +59,23 @@
 //     writes the [8, topk_pad(k)] block and resets the ticket.
 //   Row ids are unique, so (score desc, id asc) is a total order and the
 //   result equals the TPU's sequential merge.
+//   Any pool the reference takes: a page is walked as units of at most
+//   kMaxUnitRows (256) rows in row order (a TMA box has at most 256 rows;
+//   one row thread a unit row), the blocks taking contiguous ranges of
+//   units, candidates gathered at each unit's end (ids stay page *
+//   page_rows + row).  Rows whose bytes are not a multiple of 16 (or a
+//   pool or query not 16-byte aligned), and code pages of rows not a
+//   multiple of 4 (their scales are no 16-byte copy), go to the direct
+//   instantiation: no ring and no producer warp, each row thread reads
+//   its row from device memory through L1 (32-bit words of codes where
+//   rows are a multiple of 4 bytes, else elements), the query by
+//   broadcast loads, its scale itself (a unit ahead, the page id two
+//   units ahead); there pages of at most kGroupMax (128) rows go as many
+//   whole pages a unit as fit in 256 rows, so a unit's barrier and
+//   candidate round serve up to 256 rows, not a few, and a block has up
+//   to 8 warps.  Every path adds a row's columns in
+//   order, the chain of ref.topk_blocks_emulated, so all agree bit for
+//   bit.
 //
 // Known limits, for later work: (b) of the scan is one dependent add
 // chain per column over all pages (latency-bound, not byte-bound).
@@ -247,7 +264,8 @@ int launch_scan(const void* pages, const void* scales, const void* table,
 constexpr int kStageRowBytes = 128;   // bytes of every page row in one stage
 constexpr int kMaxStages = 4;
 constexpr int kRingBytes = 96 * 1024; // the ring's budget: two blocks an SM
-constexpr int kMaxPageRows = 256;     // one row thread a page row
+constexpr int kMaxUnitRows = 256;     // one row thread a unit row (TMA box <= 256)
+constexpr int kGroupMax = 128;        // direct: pages of up to this many rows grouped
 constexpr int kSortCap = 1024;        // the best k, then the pending candidates
 constexpr int kFlushAt = 32;          // candidates that trigger a sort (or k)
 constexpr int kMaxTopkBlocks = 512;   // a merge round's k + blocks fit kSortCap
@@ -422,6 +440,48 @@ __device__ __forceinline__ void decode4(uint32_t w, float* x) {
   }
 }
 
+// one code as an exact f32 value
+template <int CODE>
+__device__ __forceinline__ float decode1(uint8_t b) {
+  if constexpr (CODE == 1) {
+    return static_cast<float>(static_cast<int8_t>(b));
+  } else {
+    __nv_fp8_e4m3 x;
+    x.__x = b;
+    return static_cast<float>(x);
+  }
+}
+
+// row `row` of the pool read straight from device memory, its columns
+// added to the chains in order (the direct instantiation)
+template <int CODE, bool COS>
+__device__ __forceinline__ void score_row(const void* __restrict__ pool,
+                                          size_t row, int n_cols, bool words,
+                                          const float* __restrict__ query,
+                                          float sc, float& s, float& nrm) {
+  if constexpr (CODE == 0) {
+    const float* x = static_cast<const float*>(pool) + row * n_cols;
+    for (int c = 0; c < n_cols; ++c)
+      score_step<COS>(__ldg(x + c), __ldg(query + c), s, nrm);
+  } else {
+    const uint8_t* x = static_cast<const uint8_t*>(pool) + row * n_cols;
+    if (words) {
+      const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+      for (int w = 0; w < n_cols / 4; ++w) {
+        float v[4];
+        decode4<CODE>(__ldg(xw + w), v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          score_step<COS>(__fmul_rn(v[e], sc), __ldg(query + 4 * w + e), s, nrm);
+      }
+    } else {
+      for (int c = 0; c < n_cols; ++c)
+        score_step<COS>(__fmul_rn(decode1<CODE>(__ldg(x + c)), sc),
+                        __ldg(query + c), s, nrm);
+    }
+  }
+}
+
 // one 16-byte chunk of a row (physical chunk `phys` of the swizzled row,
 // logical columns of `qs`), its columns added to the chains in order
 template <int CODE, bool COS>
@@ -451,17 +511,22 @@ __device__ __forceinline__ void score_chunk(const uint8_t* row, int phys,
 }
 
 // CODE: 0 f32 pages, 1 int8 codes, 2 fp8-e4m3 codes (with row scales).
-// Block: round_up(page_rows, 32) row threads, then one producer warp.
-template <int CODE, bool COS>
-__global__ void __launch_bounds__(kMaxPageRows + 32)
+// TMA: rows staged through the ring of tensor-map boxes; else the direct
+// instantiation (rows read from device memory by their row threads).
+// Block: round_up(unit_rows, 32) row threads, then (TMA) one producer
+// warp.  sc_bulk: a unit's scales come as one bulk copy with its first
+// box (TMA only).
+template <int CODE, bool COS, bool TMA>
+__global__ void __launch_bounds__(kMaxUnitRows + 32)
 topk_stream_kernel(const __grid_constant__ CUtensorMap pool,
+                   const void* __restrict__ raw,
                    const float* __restrict__ scales,
                    const float* __restrict__ query,
                    const int* __restrict__ table, float* __restrict__ list_s,
                    int* __restrict__ list_i, unsigned int* __restrict__ done,
                    float* __restrict__ out, int n_valid, int page_rows,
-                   int n_cols, long long n_rows, int k, int kpad,
-                   int n_stages) {
+                   int unit_rows, int group, int n_cols, long long n_rows,
+                   int k, int kpad, int n_stages, int sc_bulk) {
   constexpr bool Q = CODE != 0;
   constexpr int kElem = CODE == 0 ? 4 : 1;
   constexpr int kW = kStageRowBytes / kElem;      // columns a stage
@@ -474,22 +539,31 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap pool,
   // the ring of stages [rows8][128 B] from a 1024-byte boundary (the
   // swizzle's period), then each stage's query slice and page scales
   uint8_t* ring = dyn + ((1024u - (smem_u32(dyn) & 1023u)) & 1023u);
-  const int rows8 = (page_rows + 7) & ~7;
-  const int rows4 = (page_rows + 3) & ~3;
+  const int rows8 = (unit_rows + 7) & ~7;
+  const int rows4 = (unit_rows + 3) & ~3;
   const int stage_bytes = rows8 * kStageRowBytes;
   float* q_sl = reinterpret_cast<float*>(ring + (size_t)n_stages * stage_bytes);
   float* sc_sl = q_sl + n_stages * kW;
 
   const int t = threadIdx.x;
-  const int n_rt = blockDim.x - 32;
+  const int n_rt = TMA ? blockDim.x - 32 : blockDim.x;
   const int n_tiles = (n_cols + kW - 1) / kW;
-  const int p0 = (int)((long long)n_valid * blockIdx.x / gridDim.x);
-  const int p1 = (int)((long long)n_valid * (blockIdx.x + 1) / gridDim.x);
+  // this block's units: unit u is rows [r0, r0 + unit_rows) of valid page
+  // u / parts, r0 = (u % parts) * unit_rows; or (group > 1, pages of a
+  // few rows, direct only) the `group` whole valid pages from u * group,
+  // row thread t on row t % page_rows of the page t / page_rows
+  const int parts = (page_rows + unit_rows - 1) / unit_rows;
+  const long long n_units = group > 1 ? ((long long)n_valid + group - 1) / group
+                                      : (long long)n_valid * parts;
+  const int u0 = (int)(n_units * blockIdx.x / gridDim.x);
+  const int u1 = (int)(n_units * (blockIdx.x + 1) / gridDim.x);
 
   if (t == 0) {
-    for (int i = 0; i < n_stages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], n_rt / 32);
+    if (TMA) {
+      for (int i = 0; i < n_stages; ++i) {
+        mbar_init(&full[i], 1);
+        mbar_init(&empty[i], n_rt / 32);
+      }
     }
     count = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -501,28 +575,31 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap pool,
   }
   __syncthreads();
 
-  if (t >= n_rt) {
+  if (TMA && t >= n_rt) {
     // producer: one lane keeps the ring full, a stage being one box of
-    // page_rows x 128 bytes, the query's columns of the box, and on a
-    // page's first box the page's row scales
+    // unit_rows x 128 bytes, the query's columns of the box, and on a
+    // unit's first box (sc_bulk) the unit's row scales
     if (t == n_rt) {
       int step = 0;
-      for (int p = p0; p < p1; ++p) {
-        const int row0 = table[p] * page_rows;
+      for (int u = u0; u < u1; ++u) {
+        const int p = u / parts;
+        const int r0 = (u - p * parts) * unit_rows;
+        const int nr = page_rows - r0 < unit_rows ? page_rows - r0 : unit_rows;
+        const int row0 = table[p] * page_rows + r0;
         for (int tile = 0; tile < n_tiles; ++tile, ++step) {
           const int slot = step % n_stages;
           if (step >= n_stages)
             mbar_wait(&empty[slot], ((step / n_stages) + 1) & 1);
           const int c0 = tile * kW;
           const int q_bytes = (n_cols - c0 < kW ? n_cols - c0 : kW) * 4;
-          const bool with_sc = Q && tile == 0;
-          mbar_expect_tx(&full[slot], page_rows * kStageRowBytes + q_bytes +
-                                          (with_sc ? page_rows * 4 : 0));
+          const bool with_sc = Q && sc_bulk && tile == 0;
+          mbar_expect_tx(&full[slot], unit_rows * kStageRowBytes + q_bytes +
+                                          (with_sc ? nr * 4 : 0));
           tma_load_2d(ring + (size_t)slot * stage_bytes, &pool, c0, row0,
                       &full[slot]);
           bulk_load(q_sl + slot * kW, query + c0, q_bytes, &full[slot]);
           if (with_sc)
-            bulk_load(sc_sl + slot * rows4, scales + row0, page_rows * 4,
+            bulk_load(sc_sl + slot * rows4, scales + row0, nr * 4,
                       &full[slot]);
         }
       }
@@ -530,12 +607,52 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap pool,
     return;
   }
 
-  // row threads: thread t carries row t's chains through the page's
+  // row threads: thread t carries row t's chains through the unit's
   // stages in column order; row t's 16-byte chunk j sits at j ^ (t & 7)
   const int lane = t & 31;
-  const bool live = t < page_rows;
   const int sw = t & 7;
   float s = -0.f, nrm = -0.f, sc = 1.f;   // -0 + w == w: the chain's start
+  // page ids (two units ahead) and row scales (one ahead) that the row
+  // threads load themselves: every unit in the direct instantiation, the
+  // scales where they are not bulk-copied
+  const bool row_scales = Q && !(TMA && sc_bulk);
+  const bool own_phys = !TMA || row_scales;
+  const bool words = (n_cols & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(raw) & 3) == 0;
+  const int t_page = t / page_rows, t_row = t - t_page * page_rows;
+  // this thread's row of unit u: its valid page (the return value), row
+  // within the page, and whether the row exists
+  auto locate = [&](int u, int& row, bool& live) {
+    if (group > 1) {
+      const int pg = u * group + t_page;
+      row = t_row;
+      live = t < unit_rows && pg < n_valid;
+      return live ? pg : u * group;
+    }
+    const int pg = u / parts;
+    const int r0 = (u - pg * parts) * unit_rows;
+    row = r0 + t;
+    live = t < (page_rows - r0 < unit_rows ? page_rows - r0 : unit_rows);
+    return pg;
+  };
+  auto row_scale = [&](int phys, int u) {
+    int row;
+    bool live;
+    locate(u, row, live);
+    return live ? __ldg(scales + (size_t)phys * page_rows + row) : 1.f;
+  };
+  auto page_id = [&](int u) {
+    int row;
+    bool live;
+    return __ldg(table + locate(u, row, live));
+  };
+  int ph_cur = 0, ph_next = 0;
+  float sc_cur = 1.f;
+  if (own_phys && u0 < u1) {
+    ph_cur = page_id(u0);
+    if (u0 + 1 < u1) ph_next = page_id(u0 + 1);
+    if (row_scales) sc_cur = row_scale(ph_cur, u0);
+  }
   float thr_s = kNegInf;
   int thr_i = kBigId;
   int total = 0, base = 0;   // candidates appended, and at the last flush
@@ -545,34 +662,54 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap pool,
   const int cap = kSortCap - k - n_rt;
   const int flush_at = k > kFlushAt ? k : kFlushAt;
   int step = 0;
-  for (int p = p0; p < p1; ++p) {
-    for (int tile = 0; tile < n_tiles; ++tile, ++step) {
-      const int slot = step % n_stages;
-      mbar_wait(&full[slot], (step / n_stages) & 1);
-      if (live) {
-        if (Q && tile == 0) sc = sc_sl[slot * rows4 + t];
-        const uint8_t* row =
-            ring + (size_t)slot * stage_bytes + t * kStageRowBytes;
-        const float* qs = q_sl + slot * kW;
-        const int c0 = tile * kW;
-        const int n_chunks = (n_cols - c0 < kW ? n_cols - c0 : kW) * kElem / 16;
-        if (n_chunks == kStageRowBytes / 16) {
-#pragma unroll
-          for (int j = 0; j < kStageRowBytes / 16; ++j)
-            score_chunk<CODE, COS>(row, j ^ sw, qs + j * (16 / kElem), sc, s,
-                                   nrm);
-        } else {
-          for (int j = 0; j < n_chunks; ++j)
-            score_chunk<CODE, COS>(row, j ^ sw, qs + j * (16 / kElem), sc, s,
-                                   nrm);
-        }
+  for (int u = u0; u < u1; ++u) {
+    int row;
+    bool live;
+    const int p = locate(u, row, live);
+    const int phys = ph_cur;
+    if (own_phys) {
+      // the next unit's scale (its page id came a unit ago), then the
+      // page id of the one after
+      if (row_scales) {
+        sc = sc_cur;
+        if (u + 1 < u1) sc_cur = row_scale(ph_next, u + 1);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[slot]);
+      ph_cur = ph_next;
+      if (u + 2 < u1) ph_next = page_id(u + 2);
     }
-    // the page is scored: rows that beat the running k-th best become
+    if constexpr (TMA) {
+      for (int tile = 0; tile < n_tiles; ++tile, ++step) {
+        const int slot = step % n_stages;
+        mbar_wait(&full[slot], (step / n_stages) & 1);
+        if (live) {
+          if (Q && sc_bulk && tile == 0) sc = sc_sl[slot * rows4 + t];
+          const uint8_t* row =
+              ring + (size_t)slot * stage_bytes + t * kStageRowBytes;
+          const float* qs = q_sl + slot * kW;
+          const int c0 = tile * kW;
+          const int n_chunks = (n_cols - c0 < kW ? n_cols - c0 : kW) * kElem / 16;
+          if (n_chunks == kStageRowBytes / 16) {
+#pragma unroll
+            for (int j = 0; j < kStageRowBytes / 16; ++j)
+              score_chunk<CODE, COS>(row, j ^ sw, qs + j * (16 / kElem), sc,
+                                     s, nrm);
+          } else {
+            for (int j = 0; j < n_chunks; ++j)
+              score_chunk<CODE, COS>(row, j ^ sw, qs + j * (16 / kElem), sc,
+                                     s, nrm);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[slot]);
+      }
+    } else {
+      if (live)
+        score_row<CODE, COS>(raw, (size_t)phys * page_rows + row, n_cols,
+                             words, query, sc, s, nrm);
+    }
+    // the unit is scored: rows that beat the running k-th best become
     // candidates; they are sorted in only when the buffer would overflow
-    const long long pos = (long long)p * page_rows + t;
+    const long long pos = (long long)p * page_rows + row;
     const bool valid = live && pos < n_rows;
     const float score =
         COS ? __fdiv_rn(s, fmaxf(__fsqrt_rn(nrm), 1e-6f)) : s;
@@ -686,6 +823,29 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+template <int CODE, bool TMA>
+cudaError_t start_topk(const CUtensorMap& map, const void* pages,
+                       const void* scales, const void* query,
+                       const void* table, void* list_s, void* list_i,
+                       void* done, void* out, int n_valid, int page_rows,
+                       int unit_rows, int group, int n_cols, long long n_rows,
+                       int k, int kpad, int cosine, int n_blocks, int n_stages,
+                       int sc_bulk, size_t smem, cudaStream_t stream) {
+  auto kernel = cosine ? topk_stream_kernel<CODE, true, TMA>
+                       : topk_stream_kernel<CODE, false, TMA>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = (unit_rows + 31) / 32 * 32 + (TMA ? 32 : 0);
+  kernel<<<n_blocks, threads, smem, stream>>>(
+      map, pages, static_cast<const float*>(scales),
+      static_cast<const float*>(query), static_cast<const int*>(table),
+      static_cast<float*>(list_s), static_cast<int*>(list_i),
+      static_cast<unsigned int*>(done), static_cast<float*>(out), n_valid,
+      page_rows, unit_rows, group, n_cols, n_rows, k, kpad, n_stages, sc_bulk);
+  return cudaGetLastError();
+}
+
 template <int CODE>
 int launch_topk(const void* pages, const void* scales, const void* query,
                 const void* table, void* list_s, void* list_i, void* done,
@@ -694,25 +854,47 @@ int launch_topk(const void* pages, const void* scales, const void* query,
                 void* stream) {
   constexpr bool Q = CODE != 0;
   constexpr int kElem = CODE == 0 ? 4 : 1;
-  if (n_valid < 1 || n_phys < 1 || page_rows < 1 ||
-      page_rows > kMaxPageRows || n_cols < 1 || (n_cols * kElem) % 16 ||
-      reinterpret_cast<uintptr_t>(pages) % 16 ||
-      reinterpret_cast<uintptr_t>(query) % 16 || k < 1 || k > kMaxTopk ||
-      kpad < k || n_blocks < 1 || n_blocks > n_valid ||
+  // the ring takes rows of a multiple of 16 bytes from a 16-byte-aligned
+  // pool, with a 16-byte-aligned query, and (codes) pages of a multiple
+  // of 4 rows, whose scales are one bulk copy; else the direct
+  // instantiation, where pages of at most kGroupMax rows go kMaxUnitRows
+  // rows' worth of whole pages a unit (the same rule as
+  // kernels/ref.topk_unit_pages)
+  const bool tma = (n_cols * kElem) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(pages) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(query) % 16 == 0 &&
+                   !(Q && page_rows % 4);
+  const int group = !tma && page_rows <= kGroupMax ? kMaxUnitRows / page_rows : 1;
+  const int unit_rows = group > 1 ? group * page_rows
+                        : page_rows < kMaxUnitRows ? page_rows : kMaxUnitRows;
+  const long long n_units =
+      group > 1 ? ((long long)n_valid + group - 1) / group
+                : (long long)n_valid * ((page_rows + unit_rows - 1) / unit_rows);
+  if (n_valid < 1 || n_phys < 1 || page_rows < 1 || n_cols < 1 ||
+      reinterpret_cast<uintptr_t>(pages) % kElem ||
+      reinterpret_cast<uintptr_t>(query) % 4 || k < 1 || k > kMaxTopk ||
+      kpad < k || n_blocks < 1 || n_blocks > n_units ||
       n_blocks > kMaxTopkBlocks || done == nullptr ||
-      (Q && (scales == nullptr || page_rows % 4 ||
-             reinterpret_cast<uintptr_t>(scales) % 16)))
+      (long long)n_phys * page_rows > 0x7fffffffLL ||
+      (Q && (scales == nullptr || reinterpret_cast<uintptr_t>(scales) % 4)))
     return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  CUtensorMap map = {};
+  if (!tma)
+    return (int)start_topk<CODE, false>(
+        map, pages, scales, query, table, list_s, list_i, done, out, n_valid,
+        page_rows, unit_rows, group, n_cols, n_rows, k, kpad, cosine,
+        n_blocks, 0, 0, 0, st);
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   // the pool as a 2-D tensor [n_phys * page_rows, n_cols]; a box is one
-  // page's rows x 128 bytes of columns (zero past the last column)
-  CUtensorMap map;
+  // unit's rows x 128 bytes of columns (zero past the last column, or the
+  // last row of the pool)
   const cuuint64_t dims[2] = {(cuuint64_t)n_cols,
                               (cuuint64_t)n_phys * (cuuint64_t)page_rows};
   const cuuint64_t strides[1] = {(cuuint64_t)n_cols * kElem};
   const cuuint32_t box[2] = {(cuuint32_t)(kStageRowBytes / kElem),
-                             (cuuint32_t)page_rows};
+                             (cuuint32_t)unit_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = encode(
       &map, CODE == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
@@ -720,26 +902,19 @@ int launch_topk(const void* pages, const void* scales, const void* query,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  const int rows8 = (page_rows + 7) & ~7, rows4 = (page_rows + 3) & ~3;
+  // a unit's scales in one bulk copy where they are 16-byte aligned
+  const int sc_bulk = Q && reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  const int rows8 = (unit_rows + 7) & ~7, rows4 = (unit_rows + 3) & ~3;
   const int stage_bytes = rows8 * kStageRowBytes;
   int n_stages = kRingBytes / stage_bytes;
   n_stages = n_stages < 2 ? 2 : n_stages > kMaxStages ? kMaxStages : n_stages;
   const size_t smem = 1024 + (size_t)n_stages * (stage_bytes +
                                                  kStageRowBytes / kElem * 4 +
                                                  rows4 * 4);
-  const int threads = (page_rows + 31) / 32 * 32 + 32;
-  auto kernel = cosine ? topk_stream_kernel<CODE, true>
-                       : topk_stream_kernel<CODE, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<n_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const float*>(scales), static_cast<const float*>(query),
-      static_cast<const int*>(table), static_cast<float*>(list_s),
-      static_cast<int*>(list_i), static_cast<unsigned int*>(done),
-      static_cast<float*>(out), n_valid, page_rows, n_cols, n_rows, k, kpad,
-      n_stages);
-  return (int)cudaGetLastError();
+  return (int)start_topk<CODE, true>(
+      map, pages, scales, query, table, list_s, list_i, done, out, n_valid,
+      page_rows, unit_rows, 1, n_cols, n_rows, k, kpad, cosine, n_blocks,
+      n_stages, sc_bulk, smem, st);
 }
 
 }  // namespace

@@ -34,7 +34,10 @@
 //     converted where they are read, the tile's scales beside them;
 //   * one warp per query head of the kv head, lanes over tokens for the
 //     scores (a tile of 16 splits each dot over two lanes), lanes over D
-//     for P.V; the G heads share each staged tile.
+//     for P.V; the G heads share each staged tile.  A group above 32
+//     heads is cut into ceil(G / 32) equal parts, one block each (grid
+//     (B, Hkv * parts, S)); each part stages the tiles itself;
+//   * pages above kMaxTile (64) tokens are staged as several tiles.
 //
 // Chunk form (a table whose rows are all one row, page_table.stride(0)
 // == 0: the rows of one prefill chunk): grid (ceil(C / R), Hkv).  Bound:
@@ -55,12 +58,19 @@
 //     falls out of the lengths; tiles past the block's largest length
 //     are never loaded.
 //
-// Layouts (row-major): q/out [B, H, D] f32; k/v pages [P, page, Hkv, D]
-// of T, 16-byte aligned; scales [P, page, Hkv] f32; page_table [B, pps]
-// int32 (the chunk form reads one row); lengths [B] int32; partials
-// acc [B, H, S, D], m/l [B, H, S] f32.  D = 32*NV with NV in 1..8,
-// page <= 64, G <= 32.  Page ids named below ceil(length/page) must lie
-// in [0, P); entries past it are never read.
+// Head dims: any multiple of 8 from 8 to 256 (kernel_takes in
+// kernels/paged_attention.py).  Both forms are instantiated at D = 32*NV,
+// NV = ceil(d / 32) in 1..8; the columns d..D-1 of every staged row (and
+// of q) are zero, so they add nothing to a dot, and only the d real
+// columns are read and written.  A row of codes whose d bytes are not a
+// multiple of 16 (int8/fp8 at d = 8 mod 16) is copied in 8-byte pieces.
+//
+// Layouts (row-major): q/out [B, H, d] f32; k/v pages [P, page, Hkv, d]
+// of T, 16-byte aligned (8 for such rows of codes); scales [P, page, Hkv]
+// f32; page_table [B, pps] int32 (the chunk form reads one row); lengths
+// [B] int32; partials acc [B, H, S, d], m/l [B, H, S] f32.  page <=
+// kMaxPage, G <= kMaxGroup.  Page ids named below ceil(length/page) must
+// lie in [0, P); entries past it are never read.
 
 #include <cmath>
 
@@ -71,10 +81,12 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxPage = 64;
-constexpr int kMaxGroup = 32;
+constexpr int kMaxPage = 1024;
+constexpr int kMaxGroup = 64;
+constexpr int kBlockHeads = 32;    // decode form: query heads (warps) a block
+constexpr int kMaxTile = 64;       // decode form: tokens of a ring slot
 constexpr int kMaxSmem = 232448;   // bytes a block can use on sm_90
-constexpr int kStages = 3;         // decode form: pages in the ring
+constexpr int kStages = 3;         // decode form: tiles in the ring
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
@@ -88,6 +100,10 @@ __device__ __forceinline__ float elem(const uint4& raw, int e) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -133,23 +149,28 @@ __host__ __device__ __forceinline__ size_t slot_bytes(int tile) {
 }
 
 template <typename T, bool Q, int NV>
-size_t decode_smem(int tile, int group) {
+size_t decode_smem(int tile, int heads) {
   return kStages * slot_bytes<T, Q, NV>(tile) +
-         sizeof(float) * ((size_t)group * NV * 32 + (size_t)group * tile);
+         sizeof(float) * ((size_t)heads * NV * 32 + (size_t)heads * tile);
 }
 
-// tokens of a ring slot: the page, or the largest half, quarter, ... of
-// it at which the block's shared memory fits
+// tokens of a ring slot: the page (at most kMaxTile), or the largest
+// half, quarter, ... of it at which the block's shared memory fits
 template <typename T, bool Q, int NV>
-int decode_tile(int page, int group) {
-  int tile = page;
-  while (tile > 1 && decode_smem<T, Q, NV>(tile, group) > (size_t)kMaxSmem)
+int decode_tile(int page, int heads) {
+  int tile = page < kMaxTile ? page : kMaxTile;
+  while (tile > 1 && decode_smem<T, Q, NV>(tile, heads) > (size_t)kMaxSmem)
     tile = (tile + 1) / 2;
   return tile;
 }
 
-template <typename T, bool Q, int NV>
-__global__ void __launch_bounds__(kMaxGroup * 32)
+// Block (b, kv head * parts + part, split): `heads` warps, the query heads
+// part * heads .. of the kv head's group (a warp past the group idles but
+// helps stage the tiles).  d: the head dim, D = 32 * NV >= d.  FULL:
+// d == D and one part (the instantiation every configuration's full
+// width takes: constants where the general one has runtime values).
+template <typename T, bool Q, int NV, bool FULL>
+__global__ void __launch_bounds__(kBlockHeads * 32)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const float* __restrict__ k_scale,
@@ -157,21 +178,26 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lengths, float* __restrict__ p_acc,
                     float* __restrict__ p_m, float* __restrict__ p_l, int pps,
-                    int page, int tile, int hkv, int group, int per,
-                    float sm_scale) {
+                    int page, int tile, int hkv, int group, int parts, int d_,
+                    int per, float sm_scale) {
   constexpr int D = NV * 32;
+  const int d = FULL ? D : d_;
   constexpr int kVec = 16 / (int)sizeof(T);   // elements per 16-byte chunk
   constexpr int CH = Row<T, NV>::kChunks;
   constexpr int RB = Row<T, NV>::kBytes;
   extern __shared__ __align__(16) unsigned char ring_sh[];
   const size_t slot_b = slot_bytes<T, Q, NV>(tile);
-  float* q_sh = reinterpret_cast<float*>(ring_sh + kStages * slot_b);      // [G][D]
-  float* p_sh = q_sh + group * D;                                       // [G][tile]
+  const int heads = blockDim.x >> 5;
+  float* q_sh = reinterpret_cast<float*>(ring_sh + kStages * slot_b);      // [heads][D]
+  float* p_sh = q_sh + heads * D;                                       // [heads][tile]
 
-  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
+  const int b = blockIdx.x, split = blockIdx.z;
+  const int kvh = FULL ? blockIdx.y : blockIdx.y / parts;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = hkv * group;
-  const int head = kvh * group + warp;
+  const int gh = FULL ? warp : (blockIdx.y - kvh * parts) * heads + warp;   // head in the group
+  const bool active = FULL || gh < group;
+  const int head = kvh * group + (active ? gh : 0);
   const int length = lengths[b];
   int n_pages = (length + page - 1) / page;
   n_pages = n_pages < pps ? n_pages : pps;
@@ -187,12 +213,28 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
   const size_t ps = row * gridDim.z + split;   // this split's partial
 
   if (n <= 0) {                           // past the row's length: (0, -inf, 0)
-    for (int d = lane; d < D; d += 32) p_acc[ps * D + d] = 0.f;
+    if (!active) return;
+    for (int c = lane; c < d; c += 32) p_acc[ps * d + c] = 0.f;
     if (lane == 0) { p_m[ps] = kNegInf; p_l[ps] = 0.f; }
     return;
   }
 
-  const size_t tok_stride = (size_t)hkv * D;
+  // a staged row holds the d real columns; the rest of its CH chunks stay
+  // zero (set once here: the copies never write them)
+  const int rb = d * (int)sizeof(T);
+  const bool narrow = rb % 16 != 0;      // codes at d = 8 mod 16: 8-byte copies
+  const int n_units = narrow ? rb / 8 : rb / 16;
+  if (rb < CH * 16) {
+    const int pad = CH * 16 - rb;        // a multiple of 8
+    for (int e = threadIdx.x; e < kStages * 2 * tile * (pad / 8); e += blockDim.x) {
+      const int r = e / (pad / 8), o = e % (pad / 8);
+      const int s_ = r / (2 * tile), rr = r % (2 * tile);
+      *reinterpret_cast<uint2*>(ring_sh + s_ * slot_b + rr * RB + rb + o * 8) =
+          make_uint2(0u, 0u);
+    }
+  }
+
+  const size_t tok_stride = (size_t)hkv * d;
   const int* tab = page_table + (size_t)b * pps + p0;
   // tile j: its page within the split, its first token in that page and
   // its tokens below the length (no division where a tile is a page)
@@ -208,12 +250,28 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     int pg, t0;
     const int nv = locate(j, pg, t0);
     const size_t slot0 = (size_t)tab[pg] * page + t0;
-    const size_t base = slot0 * tok_stride + (size_t)kvh * D;
-    for (int e = threadIdx.x; e < nv * CH; e += blockDim.x) {
-      const int t = e / CH, c = e % CH;
-      const size_t g = base + (size_t)t * tok_stride + (size_t)c * kVec;
-      cp_async16(slot + t * RB + c * 16, k_pages + g);
-      cp_async16(slot + (tile + t) * RB + c * 16, v_pages + g);
+    const size_t base = slot0 * tok_stride + (size_t)kvh * d;
+    if (rb == CH * 16) {                 // full rows: a constant divisor
+      for (int e = threadIdx.x; e < nv * CH; e += blockDim.x) {
+        const int t = e / CH, c = e % CH;
+        const size_t g = base + (size_t)t * tok_stride + (size_t)c * kVec;
+        cp_async16(slot + t * RB + c * 16, k_pages + g);
+        cp_async16(slot + (tile + t) * RB + c * 16, v_pages + g);
+      }
+    } else if (!narrow) {
+      for (int e = threadIdx.x; e < nv * n_units; e += blockDim.x) {
+        const int t = e / n_units, c = e % n_units;
+        const size_t g = base + (size_t)t * tok_stride + (size_t)c * kVec;
+        cp_async16(slot + t * RB + c * 16, k_pages + g);
+        cp_async16(slot + (tile + t) * RB + c * 16, v_pages + g);
+      }
+    } else {
+      for (int e = threadIdx.x; e < nv * n_units; e += blockDim.x) {
+        const int t = e / n_units, c = e % n_units;
+        const size_t g = base + (size_t)t * tok_stride + (size_t)c * (kVec / 2);
+        cp_async8(slot + t * RB + c * 8, k_pages + g);
+        cp_async8(slot + (tile + t) * RB + c * 8, v_pages + g);
+      }
     }
     if (Q) {
       float* sc = reinterpret_cast<float*>(slot + 2 * tile * RB);
@@ -230,7 +288,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     if (j < n) issue(j);
     cp_async_commit();
   }
-  for (int d = lane; d < D; d += 32) q_sh[warp * D + d] = q[row * D + d];
+  for (int c = lane; c < D; c += 32) q_sh[warp * D + c] = c < d ? q[row * d + c] : 0.f;
 
   // scores: `sub` lanes share a token's dot (chunks split between them)
   int sub = 1;
@@ -252,6 +310,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     __syncthreads();                      // ... everyone's; slot j-1 is free
     if (j + kStages - 1 < n) issue(j + kStages - 1);
     cp_async_commit();
+    if (!active) continue;                // the warp only helps stage tiles
 
     const unsigned char* slot = ring_sh + (j % kStages) * slot_b;
     const float* sc = reinterpret_cast<const float*>(slot + 2 * tile * RB);
@@ -307,10 +366,12 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     __syncwarp();                         // pw is rewritten by the next tile
   }
   cp_async_wait<0>();
+  if (!active) return;
 
   l = warp_sum(l);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) p_acc[ps * D + lane + 32 * i] = acc[i];
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < d) p_acc[ps * d + lane + 32 * i] = acc[i];
   if (lane == 0) { p_m[ps] = m; p_l[ps] = l; }
 }
 
@@ -411,6 +472,21 @@ __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
+// chunk c of a staged row of d elements of T at p (the row's start):
+// 16 bytes, or two 8-byte pieces for codes at d = 8 mod 16 (the row is
+// only 8-byte aligned; its last chunk is half a chunk, zero above)
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* p, int c, int d, bool narrow) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if (sizeof(T) == 4 || !narrow)
+    return __ldg(reinterpret_cast<const uint4*>(p + c * kVec));
+  const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p + c * kVec));
+  const uint2 hi = (c + 1) * kVec <= d
+                       ? __ldg(reinterpret_cast<const uint2*>(p + c * kVec + kVec / 2))
+                       : make_uint2(0u, 0u);
+  return make_uint4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // 16 bytes of T -> 16/sizeof(T) floats at dst (16-byte aligned)
 __device__ __forceinline__ void cvt_store(float* dst, const uint4& raw, float) {
   *reinterpret_cast<uint4*>(dst) = raw;
@@ -424,7 +500,7 @@ __device__ __forceinline__ void cvt_store(float* dst, const uint4& raw, T) {
                     elem<T>(raw, e + 3));
 }
 
-template <typename T, bool Q, int D>
+template <typename T, bool Q, int D, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages, const float* __restrict__ k_scale,
@@ -432,7 +508,8 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                    const int* __restrict__ table_row,
                    const int* __restrict__ lengths, float* __restrict__ out,
                    int c_rows, int pps, int page, int hkv, int group, int bq,
-                   float sm_scale) {
+                   int d_, float sm_scale) {
+  const int d = FULL ? D : d_;
   using S = Chunk<D>;
   constexpr int KT = S::KT, KJ = S::KJ, LD = S::LD, LDP = S::LDP;
   constexpr int VW = S::VW, NG = S::NG, NV4 = D / 4;
@@ -451,15 +528,18 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * bq;     // longest rows first
   const int h = hkv * group;
   const int rows = group * bq;
-  const size_t tok_stride = (size_t)hkv * D;
+  const size_t tok_stride = (size_t)hkv * d;
+  // chunks of a row holding real columns (the rest are staged as zeros)
+  const int ch_real = (d + kVec - 1) / kVec;
+  const bool narrow = d % kVec != 0;
 
   for (int e = tid; e < kRows * NV4; e += kThreads) {
     const int r = e / NV4, d4 = (e % NV4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && q0 + r % bq < c_rows) {
+    if (r < rows && q0 + r % bq < c_rows && d4 < d) {
       const int head = kvh * group + r / bq;
       x = __ldg(reinterpret_cast<const float4*>(
-          q + ((size_t)(q0 + r % bq) * h + head) * D + d4));
+          q + ((size_t)(q0 + r % bq) * h + head) * d + d4));
     }
     *reinterpret_cast<float4*>(q_sh + r * LD + d4) = x;
   }
@@ -490,12 +570,12 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
       const int c = e / CH, ch = e % CH;
       const int pos = it * KT + c;
       kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < KT * CH && pos < kmax) {
+      if (e < KT * CH && pos < kmax && ch < ch_real) {
         const int phys = table_row[pos / page];
         const size_t g = ((size_t)phys * page + pos % page) * tok_stride +
-                         (size_t)kvh * D + (size_t)ch * kVec;
-        kr[j] = __ldg(reinterpret_cast<const uint4*>(k_pages + g));
-        vr[j] = __ldg(reinterpret_cast<const uint4*>(v_pages + g));
+                         (size_t)kvh * d;
+        kr[j] = load_chunk(k_pages + g, ch, d, narrow);
+        vr[j] = load_chunk(v_pages + g, ch, d, narrow);
       }
     }
     if (Q && tid < KT) {
@@ -626,12 +706,13 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     const int pos = q0 + r % bq;
     if (r >= rows || pos >= c_rows) continue;
     const int head = kvh * group + r / bq;
-    float* o_row = out + ((size_t)pos * h + head) * D;
+    float* o_row = out + ((size_t)pos * h + head) * d;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int w = 0; w < VW; ++w)
-        o_row[tx * VW + g * 16 * VW + w] = acc[i][g * VW + w] / denom;
+        if (tx * VW + g * 16 * VW + w < d)
+          o_row[tx * VW + g * 16 * VW + w] = acc[i][g * VW + w] / denom;
   }
 }
 
@@ -654,35 +735,41 @@ template <typename T, bool Q, int NV>
 cudaError_t decode_nv(const void* q, const void* k, const void* v,
                       const void* ks, const void* vs, const void* table,
                       const void* lengths, void* pacc, void* pm, void* pl,
-                      int b, int hkv, int group, int pps, int page, int per,
-                      int n_split, cudaStream_t stream) {
-  auto kernel = paged_decode_kernel<T, Q, NV>;
-  const int tile = decode_tile<T, Q, NV>(page, group);
-  const size_t smem = decode_smem<T, Q, NV>(tile, group);
-  static size_t granted = 0;
-  cudaError_t err = allow_smem(kernel, smem, granted);
+                      int b, int hkv, int group, int d, int pps, int page,
+                      int per, int n_split, cudaStream_t stream) {
+  // the group in equal parts of at most kBlockHeads heads, a block each
+  const int parts = (group + kBlockHeads - 1) / kBlockHeads;
+  const int heads = (group + parts - 1) / parts;
+  const bool full = d == NV * 32 && parts == 1;
+  auto kernel = full ? paged_decode_kernel<T, Q, NV, true>
+                     : paged_decode_kernel<T, Q, NV, false>;
+  const int tile = decode_tile<T, Q, NV>(page, heads);
+  const size_t smem = decode_smem<T, Q, NV>(tile, heads);
+  static size_t granted[2] = {0, 0};
+  cudaError_t err = allow_smem(kernel, smem, granted[full]);
   if (err != cudaSuccess) return err;
-  dim3 grid(b, hkv, n_split);
-  kernel<<<grid, group * 32, smem, stream>>>(
+  dim3 grid(b, hkv * parts, n_split);
+  kernel<<<grid, heads * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<float*>(pacc),
       static_cast<float*>(pm), static_cast<float*>(pl), pps, page, tile, hkv,
-      group, per, 1.0f / sqrtf((float)(NV * 32)));
+      group, parts, d, per, 1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
 template <typename T, bool Q, int NV>
 cudaError_t chunk_nv(const void* q, const void* k, const void* v, const void* ks,
                      const void* vs, const void* table_row, const void* lengths,
-                     void* out, int c, int hkv, int group, int pps, int page,
-                     cudaStream_t stream) {
+                     void* out, int c, int hkv, int group, int d, int pps,
+                     int page, cudaStream_t stream) {
   constexpr int D = NV * 32;
-  auto kernel = paged_chunk_kernel<T, Q, D>;
+  auto kernel = d == D ? paged_chunk_kernel<T, Q, D, true>
+                       : paged_chunk_kernel<T, Q, D, false>;
   const size_t smem = Chunk<D>::kSmem;
-  static size_t granted = 0;
-  cudaError_t err = allow_smem(kernel, smem, granted);
+  static size_t granted[2] = {0, 0};
+  cudaError_t err = allow_smem(kernel, smem, granted[d == D]);
   if (err != cudaSuccess) return err;
   const int bq = kRows / group;
   dim3 grid((c + bq - 1) / bq, hkv);
@@ -691,14 +778,15 @@ cudaError_t chunk_nv(const void* q, const void* k, const void* v, const void* ks
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table_row),
       static_cast<const int*>(lengths), static_cast<float*>(out), c, pps, page,
-      hkv, group, bq, 1.0f / sqrtf((float)D));
+      hkv, group, bq, d, 1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
+// the rule of kernel_takes (kernels/paged_attention.py), and the grid's
 bool bad_shape(int b, int h, int hkv, int d, int pps, int page) {
-  return hkv <= 0 || h % hkv || h / hkv > kMaxGroup || d % 32 || d < 32 ||
+  return hkv <= 0 || h % hkv || h / hkv > kMaxGroup || d % 8 || d < 8 ||
          d > 256 || page < 1 || page > kMaxPage || pps < 1 || b < 1 ||
-         hkv > 65535;
+         hkv > 65535 / 2;
 }
 
 int combine(const void* pacc, const void* pm, const void* pl, void* out,
@@ -727,11 +815,11 @@ int decode(const void* q, const void* k, const void* v, const void* ks,
   const int group = h / hkv;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  switch (d / 32) {
+  switch ((d + 31) / 32) {
 #define CASE(NV) \
     case NV: err = decode_nv<T, Q, NV>(q, k, v, ks, vs, table, lengths, pacc, \
-                                       pm, pl, b, hkv, group, pps, page, per, \
-                                       n_split, st); break;
+                                       pm, pl, b, hkv, group, d, pps, page,   \
+                                       per, n_split, st); break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
   }
@@ -746,10 +834,10 @@ int chunk(const void* q, const void* k, const void* v, const void* ks,
   if (bad_shape(c, h, hkv, d, pps, page)) return (int)cudaErrorInvalidValue;
   const int group = h / hkv;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (d / 32) {
+  switch ((d + 31) / 32) {
 #define CASE(NV) \
     case NV: return (int)chunk_nv<T, Q, NV>(q, k, v, ks, vs, table_row, lengths, \
-                                            out, c, hkv, group, pps, page, st);
+                                            out, c, hkv, group, d, pps, page, st);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
   }

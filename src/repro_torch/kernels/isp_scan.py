@@ -37,8 +37,6 @@ LAUNCHES = {f"{kind}_{code}": 0 for kind in ("scan_filter_reduce",
 _CODE = {torch.float32: "f32", torch.int8: "int8",
          torch.float8_e4m3fn: "fp8"}
 
-#: the top-k kernel keeps one thread per page row
-MAX_TOPK_PAGE_ROWS = 256
 #: persistent top-k blocks a streaming multiprocessor (two fit its
 #: shared memory at page 128)
 TOPK_BLOCKS_PER_SM = 2
@@ -85,24 +83,23 @@ def _ticket(device, stream: int):
     return _TICKETS[key]
 
 
-def check_topk_pool(pages, scales, query):
-    """Raise on a pool the top-k kernel does not take: rows of a
-    multiple of 16 bytes, at most 256 rows a page, the pool, its scales
-    and the query 16-byte aligned, quantized pages of a multiple of 4
-    rows (a page's scales are one 16-byte-aligned copy)."""
+def check_topk_pool(pages, scales, query) -> str:
+    """The top-k kernel's path for this pool, as ``launch_topk`` in
+    ``csrc/isp_scan.cu`` picks it (``ref.topk_tma_path``): ``"tma"``
+    (the ring of tensor-map boxes) for rows of a multiple of 16 bytes
+    with the pool and query 16-byte aligned and code pages of a multiple
+    of 4 rows, else ``"direct"`` (each row thread reads its row); any
+    page_rows and row count.  Raises only where no path can read the
+    tensors: a pointer not aligned to its element."""
     n_phys, page_rows, n_cols = pages.shape
-    if page_rows > MAX_TOPK_PAGE_ROWS:
-        raise ValueError(f"page_rows {page_rows} > {MAX_TOPK_PAGE_ROWS}")
-    if n_cols * pages.element_size() % 16:
-        raise ValueError(f"top-k rows must be a multiple of 16 bytes; got "
-                         f"{n_cols} x {pages.element_size()}")
-    if scales is not None and page_rows % 4:
-        raise ValueError(f"quantized top-k pages need a multiple of 4 "
-                         f"rows; got {page_rows}")
     for t in (pages, scales, query):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError("the top-k kernel takes a pool, scales and "
-                             "query that start 16-byte aligned")
+        if t is not None and t.data_ptr() % t.element_size():
+            raise ValueError("the top-k kernel reads the pool, scales and "
+                             "query aligned to their elements")
+    aligned = pages.data_ptr() % 16 == 0 and query.data_ptr() % 16 == 0
+    tma = ref.topk_tma_path(page_rows, n_cols, pages.element_size(),
+                            scales is not None, aligned)
+    return "tma" if tma else "direct"
 
 
 def _check_pool(pages, page_table, scales):
@@ -203,7 +200,8 @@ def topk_scan(pages, page_table, n_rows, query, *, k: int,
     max(sqrt(chain(x*x)), 1e-6)); the k best by (score descending, row
     id ascending) are kept, k in [1, 128].  Returns [8, topk_pad(k)]
     f32: scores on row 0, row ids as f32 on row 1, empty slots
-    (-1e30, 2^30).  Bit-identical to ``ref.topk_scan_ref``.
+    (-1e30, 2^30).  Bit-identical to ``ref.topk_scan_ref``.  Any
+    page_rows and n_cols; :func:`check_topk_pool` names the kernel's path.
     """
     if metric not in TOPK_METRICS:
         raise ValueError(f"metric must be one of {TOPK_METRICS}, "
@@ -223,10 +221,11 @@ def topk_scan(pages, page_table, n_rows, query, *, k: int,
                                  metric=metric, scales=scales)
     query = query.reshape(n_cols)
     _check_cuda(pages, page_table, scales, query)
-    check_topk_pool(pages, scales, query)
+    path = check_topk_pool(pages, scales, query)
     n_valid = n_valid_pages(n_rows, page_rows, page_table.shape[0])
     dev = pages.device
-    n_blocks = min(n_valid, TOPK_BLOCKS_PER_SM * _sm_count(dev.index or 0))
+    n_blocks = min(ref.topk_units(n_valid, page_rows, path == "tma"),
+                   TOPK_BLOCKS_PER_SM * _sm_count(dev.index or 0))
     # the blocks' sorted lists: scores, then ids
     lists = torch.empty((2, n_blocks, k), dtype=torch.int32, device=dev)
     kpad = topk_pad(k)

@@ -48,8 +48,10 @@ _CODE = {torch.float32: "f32", torch.int8: "q8_int8",
          torch.float8_e4m3fn: "q8_fp8"}
 
 COMBINE = "paged_combine_f32"
-MAX_PAGE = 64
-MAX_GROUP = 32
+#: the shapes the kernels take (:func:`kernel_takes`)
+MAX_HEAD_DIM = 256
+MAX_PAGE = 1024
+MAX_GROUP = 64
 #: decode form: blocks per SM the split count aims for, and the fewest
 #: pages a split walks
 SPLIT_BLOCKS_PER_SM = 4
@@ -108,6 +110,17 @@ def _check(q, k_pages, v_pages, page_table, lengths, code_dtypes):
     return b, h, d, n_phys, page, hkv
 
 
+def kernel_takes(head_dim: int, page: int, group: int) -> bool:
+    """Whether both forms take this shape: a head_dim that is a multiple
+    of 8 from 8 to 256 (instantiated at the next multiple of 32, the
+    columns past it zero), pages of 1 to ``MAX_PAGE`` tokens (the decode
+    form stages a page above 64 tokens as several tiles), a GQA group of
+    1 to ``MAX_GROUP`` heads (the decode form gives a group above 32 two
+    blocks).  The same rule as ``bad_shape`` in ``csrc/paged_attention.cu``."""
+    return (head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM and
+            1 <= page <= MAX_PAGE and 1 <= group <= MAX_GROUP)
+
+
 def _shared_row(page_table) -> bool:
     """Every row of the table is one row: the chunk form's input."""
     return page_table.stride(0) == 0 and page_table.stride(1) == 1
@@ -127,12 +140,12 @@ def _check_cuda(tensors, page_table, d, page, group):
     if any(t.data_ptr() % 16 for t in tensors[1:3]):
         raise ValueError("the page tensors must start 16-byte aligned "
                          "(the kernels read them in 16-byte vectors)")
-    if d % 32 or d > 256:
-        raise ValueError(f"head_dim {d} must be a multiple of 32 up to 256")
-    if page > MAX_PAGE:
-        raise ValueError(f"page size {page} > {MAX_PAGE}")
-    if group > MAX_GROUP:
-        raise ValueError(f"GQA group {group} > {MAX_GROUP}")
+    if not kernel_takes(d, page, group):
+        raise ValueError(f"head_dim {d}, page {page}, GQA group {group}: "
+                         f"the kernels take a head_dim that is a multiple of "
+                         f"8 from 8 to {MAX_HEAD_DIM}, pages of at most "
+                         f"{MAX_PAGE} tokens and groups of at most "
+                         f"{MAX_GROUP} heads")
     if tensors[0].shape[0] < 1 or page_table.shape[1] < 1:
         raise ValueError("empty batch or page table")
 

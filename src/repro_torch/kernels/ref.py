@@ -153,6 +153,39 @@ BIG_ID = float(2 ** 30)
 #: widest supported k
 MAX_TOPK = 128
 
+#: the CUDA top-k walks a page as units of at most this many rows
+TOPK_UNIT_ROWS = 256
+#: pages of at most this many rows go several whole pages a unit (direct
+#: path)
+TOPK_GROUP_MAX = 128
+
+
+def topk_tma_path(page_rows: int, n_cols: int, elem_size: int,
+                  quantized: bool, aligned: bool = True) -> bool:
+    """Whether the CUDA top-k streams this pool through its TMA ring:
+    rows of a multiple of 16 bytes, the pool and query 16-byte aligned,
+    and code pages of a multiple of 4 rows (a unit's scales one bulk
+    copy); else its direct path (``csrc/isp_scan.cu``, ``launch_topk``)."""
+    return (n_cols * elem_size % 16 == 0 and aligned and
+            not (quantized and page_rows % 4))
+
+
+def topk_unit_pages(page_rows: int, tma: bool) -> int:
+    """Whole pages a unit of the CUDA top-k: on the direct path pages of
+    at most ``TOPK_GROUP_MAX`` rows go as many a unit as fit in
+    ``TOPK_UNIT_ROWS`` rows; else 1 (a page is one or more units)."""
+    if not tma and page_rows <= TOPK_GROUP_MAX:
+        return TOPK_UNIT_ROWS // page_rows
+    return 1
+
+
+def topk_units(n_valid: int, page_rows: int, tma: bool) -> int:
+    """Units of the valid pages the CUDA top-k's blocks share out."""
+    group = topk_unit_pages(page_rows, tma)
+    if group > 1:
+        return -(-n_valid // group)
+    return n_valid * -(-page_rows // min(page_rows, TOPK_UNIT_ROWS))
+
 
 def topk_pad(k: int) -> int:
     """Width of the top-k block: pow2-bucketed with a floor of 128, the
@@ -315,11 +348,15 @@ def topk_blocks_emulated(pages, page_table, n_rows: int, query, *, k: int,
     """A plain emulation of the CUDA top-k's split (``csrc/isp_scan.cu``,
     ``topk_stream_kernel``), equal to :func:`topk_scan_ref` bit for bit.
 
-    Block b takes the valid pages [nv*b//n_blocks, nv*(b+1)//n_blocks).
-    At each page's end the rows that beat the block's running k-th best
+    A valid page is ``parts`` units of ``unit = min(page_rows,
+    TOPK_UNIT_ROWS)`` rows in row order (the last one shorter), or, on
+    the kernel's direct path (:func:`topk_tma_path`), pages of at most
+    ``TOPK_GROUP_MAX`` rows go :func:`topk_unit_pages` whole pages a
+    unit; block b takes the units [nu*b//n_blocks, nu*(b+1)//n_blocks).
+    At each unit's end the rows that beat the block's running k-th best
     (score desc, id asc) join a candidate buffer, sorted in once it holds
     ``flush_at`` (the kernel's: max(k, 32)) or more than ``sort_cap - k -
-    row_threads`` (row threads: page_rows rounded up to 32); the block's
+    row_threads`` (row threads: ``unit`` rounded up to 32); the block's
     sorted k best are its list.  The last block merges the lists a
     position at a time, stopping at the first position where no entry
     beats the k-th best of its last sort; it sorts its candidates in once
@@ -328,11 +365,17 @@ def topk_blocks_emulated(pages, page_table, n_rows: int, query, *, k: int,
     them (``buffer_full``) and the merge rounds."""
     n_phys, page_rows, n_cols = pages.shape
     nv = n_valid_pages(n_rows, page_rows, page_table.shape[0])
-    if not 1 <= n_blocks <= nv:
-        raise ValueError(f"n_blocks must be in [1, {nv}], got {n_blocks}")
+    tma = topk_tma_path(page_rows, n_cols, pages.element_size(),
+                        scales is not None)
+    group = topk_unit_pages(page_rows, tma)
+    unit = group * page_rows if group > 1 else min(page_rows, TOPK_UNIT_ROWS)
+    parts = -(-page_rows // unit)
+    nu = topk_units(nv, page_rows, tma)
+    if not 1 <= n_blocks <= nu:
+        raise ValueError(f"n_blocks must be in [1, {nu}], got {n_blocks}")
     x = pool_rows(pages, scales, page_table[:nv].long())
     scores = _row_scores(x.reshape(-1, n_cols), query, metric).tolist()
-    row_threads = -(-page_rows // 32) * 32
+    row_threads = -(-unit // 32) * 32
     cap = sort_cap - k - row_threads
     if flush_at is None:
         flush_at = max(k, 32)
@@ -355,9 +398,15 @@ def topk_blocks_emulated(pages, page_table, n_rows: int, query, *, k: int,
     lists = []
     for b in range(n_blocks):
         best, pending = [empty] * k, []
-        for p in range(nv * b // n_blocks, nv * (b + 1) // n_blocks):
-            for r in range(page_rows):
-                pos = p * page_rows + r
+        for u in range(nu * b // n_blocks, nu * (b + 1) // n_blocks):
+            if group > 1:
+                first = u * group * page_rows
+                rows = range(first, min(first + unit, nv * page_rows))
+            else:
+                p, r0 = divmod(u, parts)
+                rows = range(p * page_rows + r0 * unit,
+                             p * page_rows + min((r0 + 1) * unit, page_rows))
+            for pos in rows:
                 c = (scores[pos], pos)
                 if pos < n_rows and beats(c, best[k - 1]):
                     pending.append(c)
@@ -553,6 +602,87 @@ def wkv_chunked_ref(r, k, v, logw, u, s0, chunk: int = 32):
         o, state = wkv_chunk(rs[:, :, part], ks[:, :, part], vs[:, :, part],
                              ws[:, :, part], u, state)
         outs.append(o)
+    return torch.cat(outs, dim=2).transpose(1, 2).contiguous(), state
+
+
+#: the CUDA wkv scan's longest step (one scan segment of 16 lanes)
+WKV_MAX_STEP = 16
+
+
+def wkv_step_tokens(chunk: int) -> int:
+    """Tokens a step of the CUDA wkv scan (``csrc/rwkv_scan.cu``): the
+    largest divisor of ``chunk`` up to ``WKV_MAX_STEP``."""
+    step = min(chunk, WKV_MAX_STEP)
+    while chunk % step:
+        step -= 1
+    return step
+
+
+def wkv_mma_products(dk: int, dv: int, step: int) -> bool:
+    """Whether the CUDA wkv scan runs its products as 3xTF32 ``mma.sync``
+    (the 64 x 64 instantiation, steps of a multiple of 8 tokens) rather
+    than f32 FMAs."""
+    return dk == 64 and dv == 64 and step % 8 == 0
+
+
+def wkv_steps_emulated(r, k, v, logw, u, s0, chunk: int = 32):
+    """A plain emulation of the CUDA wkv scan's arithmetic: steps of
+    ``wkv_step_tokens(min(chunk, S))`` tokens, log-decays scaled by
+    log2(e) in f32, their cumulative sums kept to double precision (the
+    kernel's double-float scans) and every exponent a difference of two
+    of them rounded to f32, exps as 2^x, the scores of a step's pairs
+    s < t as dots of rows anchored at each level of the step's index bits
+    (a pair at level b, its highest differing bit, anchored at the last
+    token of the lower half of its 2^(b+1)-block), then o = [A | r *
+    2^cx] [v ; S] and S <- 2^cum[-1] S + (k * 2^(cum[-1] - cum))^T v, in
+    f32; the two products as :func:`mm_3xtf32` where the kernel runs
+    them on the tensor cores (:func:`wkv_mma_products`).  The kernel's
+    ex2.approx is within 2 ulp of ``exp2`` and its sums run in another
+    order, so it is held to this within a tolerance, not bit for bit.
+    Same operands and result as :func:`wkv_chunked_ref`."""
+    b, s, h, dk = r.shape
+    ck = min(chunk, s)
+    if s % ck:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {ck}")
+    step = wkv_step_tokens(ck)
+    mm = (mm_3xtf32 if wkv_mma_products(dk, v.shape[-1], step)
+          else torch.matmul)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    rs, ks, vs, ws = (x.transpose(1, 2).float() for x in (r, k, v, logw))
+    state, outs = s0.float(), []
+    tri = torch.ones((step, step), dtype=torch.bool,
+                     device=r.device).tril(-1)
+    idx = torch.arange(step, device=r.device)
+    for c0 in range(0, s, step):
+        part = slice(c0, c0 + step)
+        rr, kk, vv = rs[:, :, part], ks[:, :, part], vs[:, :, part]
+        w2 = ws[:, :, part] * log2e
+        cum = torch.cumsum(w2.double(), dim=-2)         # [B, H, L, dk]
+        cx = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
+                       dim=-2)                          # the sum before t
+        # pair s < t at level b (its highest differing index bit): the dot
+        # of r[t] 2^(P[t-1] - P[m]) and k[s] 2^(P[m] - P[s]), m the last
+        # token of the lower half of its 2^(b+1)-block (b = 0: 2^0)
+        a = torch.diag_embed((rr * u[None, :, None, :] * kk).sum(-1))
+        for b in range(max(step - 1, 0).bit_length()):
+            level = tri & (((idx[:, None] ^ idx[None, :]) >> b) == 1)
+            if b == 0:
+                r_hat, k_hat = rr, kk
+            else:
+                m_t = ((idx >> b) << b) - 1              # t in the upper half
+                m_s = torch.clamp(idx | ((1 << b) - 1), max=step - 1)
+                r_hat = rr * torch.exp2((cx - cum[..., m_t.clamp(min=0),
+                                                  :]).float())
+                k_hat = kk * torch.exp2((cum[..., m_s, :] - cum).float())
+            a = a + torch.where(level, r_hat @ k_hat.transpose(-1, -2),
+                                torch.zeros((), dtype=a.dtype))
+        r_dec = rr * torch.exp2(cx.float())
+        outs.append(mm(torch.cat([a, r_dec], dim=-1),
+                       torch.cat([vv, state], dim=-2)))
+        k_dec = kk * torch.exp2((cum[..., -1:, :] - cum).float())
+        state = (torch.exp2(cum[..., -1, :].float())[..., None] * state +
+                 mm(k_dec.transpose(-1, -2), vv))
     return torch.cat(outs, dim=2).transpose(1, 2).contiguous(), state
 
 

@@ -2,10 +2,13 @@
 
 Builds a copy of ``csrc/rwkv_scan.cu`` in which thread 0 of every block
 reads ``clock64()`` at each ``__syncthreads()`` and adds the cycles since
-the previous one to the phase that just ended: load, cumsum, scores,
-decays, output, and state (the state update plus the loop's top).  The
-kernel itself is not changed.  Runs it at rwkv6-3b's prefill shape
-(B=8, S=512, H=40, dk=dv=64, chunk 32), checks the copy's outputs
+the previous one to the phase that just ended, one a step of the kernel:
+``state`` (the previous step's partial sums and state update, then the
+wait for this step's copies; the set-up), ``scan`` (the warp scans, the
+decays and the anchored rows, and the next step's copies issued),
+``scores`` (the dots of the step's pairs) and ``products`` (the output
+product).  The kernel itself is not changed.  Runs it at rwkv6-3b's
+prefill shape (B=8, S=512, H=40, dk=dv=64, chunk 32), checks the copy's outputs
 against the unmodified kernel's (within 1e-4 relative), and prints one
 JSON line: each phase's share of the summed cycles, cycles per block,
 both kernels' times (CUDA events, mean of 20 launches after 3 warm-ups)
@@ -25,11 +28,11 @@ import torch
 
 from repro_torch.kernels import build, ops
 
-PHASES = ("load", "cumsum", "scores", "decays", "output", "state")
+PHASES = ("state", "scan", "scores", "products")
 # the phase each __syncthreads() of the kernel closes, in source order:
-# the loop's top, then after the loads, the cumsum, the scores, the
-# decays, the outputs; the last one follows the loop
-SYNC_PHASES = (5, 0, 1, 2, 3, 4, 5)
+# the loop's top (after the wait for the step's copies), then after the
+# scans, the scores, the products; the last one follows the loop
+SYNC_PHASES = (0, 1, 2, 3, 0)
 SHAPE = {"b": 8, "s": 512, "h": 40, "dk": 64, "dv": 64, "chunk": 32}
 
 
@@ -37,19 +40,22 @@ def instrumented_source() -> str:
     src = (build.CSRC / "rwkv_scan.cu").read_text()
     head = "#include <cuda_runtime.h>\n"
     src = src.replace(head, head + """
-__device__ unsigned long long wkv_phase_cycles[6];
+__device__ unsigned long long wkv_phase_cycles[4];
 extern "C" int wkv_phase_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, wkv_phase_cycles,
                                    sizeof(wkv_phase_cycles));
 }
 extern "C" int wkv_phase_zero() {
-  const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  const unsigned long long zero[4] = {0, 0, 0, 0};
   return (int)cudaMemcpyToSymbol(wkv_phase_cycles, zero, sizeof(zero));
 }
 """, 1)
-    start = "  const int tid = threadIdx.x;\n"
+    start = "  const int bh = blockIdx.x;\n"
+    if start not in src:
+        raise RuntimeError("rwkv_scan.cu's kernel no longer has the line "
+                           "the probe starts its clock at")
     src = src.replace(start, start + "  long long prof_last = clock64(), "
-                      "prof_acc[6] = {0, 0, 0, 0, 0, 0};\n", 1)
+                      "prof_acc[4] = {0, 0, 0, 0};\n", 1)
     body = src.index("rwkv_scan_kernel(")
     parts = src[body:].split("__syncthreads();")
     if len(parts) != len(SYNC_PHASES) + 1:
@@ -62,7 +68,7 @@ extern "C" int wkv_phase_zero() {
                 f"clock64(); prof_acc[{phase}] += now - prof_last; "
                 f"prof_last = now; }}")
         if i == len(SYNC_PHASES) - 1:
-            mark += (" if (tid == 0) for (int p = 0; p < 6; ++p) "
+            mark += (" if (tid == 0) for (int p = 0; p < 4; ++p) "
                      "atomicAdd(&wkv_phase_cycles[p], "
                      "(unsigned long long)prof_acc[p]);")
         out += mark + rest
@@ -127,7 +133,7 @@ def main():
         raise RuntimeError("could not zero the phase counters")
     probed()
     torch.cuda.synchronize()
-    cycles = (ctypes.c_ulonglong * 6)()
+    cycles = (ctypes.c_ulonglong * len(PHASES))()
     if lib.wkv_phase_read(cycles):
         raise RuntimeError("could not read the phase counters")
     diff = max(float((o - want_o).abs().max()),

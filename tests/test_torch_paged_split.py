@@ -5,7 +5,10 @@ paged_split_partials_ref``) against the reference's
 reference's ``combine_partials`` and the Pallas kernels in interpret
 mode, the wrappers over an expanded (stride-0) table against a
 contiguous one, and ``PagedServer`` prefill through the expanded table
-against the JAX server, all on the same numpy inputs."""
+against the JAX server, all on the same numpy inputs.  Also the shapes
+the kernels take (``kernel_takes``): every configuration's, full and
+reduced, and the split arithmetic at head_dim 16, pages of 128 and a
+group of 64."""
 import dataclasses
 import functools
 
@@ -22,7 +25,8 @@ from repro.models.api import get_model as jget_model  # noqa: E402
 from repro.runtime.serve import PagedServer as JServer  # noqa: E402
 from repro.runtime.serve import combine_partials  # noqa: E402
 from repro.runtime.serve import paged_attention_partial  # noqa: E402
-from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.configs.base import ARCH_IDS, ArchConfig  # noqa: E402
+from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.core import kv_tier as tkv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
@@ -40,16 +44,17 @@ LENGTHS = [0, 1, 5, 13, 32, 20, 9]
 DTYPES = ["f32", "int8", "fp8"]
 
 
-def _inputs(seed, lengths=LENGTHS, pps=PPS):
+def _inputs(seed, lengths=LENGTHS, pps=PPS, h=H, hkv=HKV, d=D, page=PAGE,
+            n_phys=N_PHYS):
     rng = np.random.default_rng(seed)
     b = len(lengths)
-    q = rng.standard_normal((b, H, D)).astype(np.float32)
-    k = rng.standard_normal((N_PHYS, PAGE, HKV, D)).astype(np.float32)
-    v = rng.standard_normal((N_PHYS, PAGE, HKV, D)).astype(np.float32)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32)
     table = np.zeros((b, pps), np.int32)
     for i, n in enumerate(lengths):
-        used = -(-n // PAGE)
-        table[i, :used] = rng.choice(N_PHYS, used, replace=False)
+        used = -(-n // page)
+        table[i, :used] = rng.choice(n_phys, used, replace=False)
     return q, k, v, table, np.asarray(lengths, np.int32)
 
 
@@ -154,6 +159,84 @@ def test_split_merge_matches_combine_partials_and_pallas(n_splits, dtype):
                                        interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
     assert not got[lens == 0].any()
+
+
+# (H, Hkv, D, page, pps, lengths): the reduced configs' head_dim 16 over
+# pages of 128 (two decode tiles a page), a GQA group of 64 (two decode
+# blocks a kv head), head_dim 80 (hubert-xlarge; an instantiation of 96
+# with 16 zero columns), head_dim 24 (codes copied in 8-byte pieces)
+WIDE_SHAPES = [(4, 1, 16, 128, 4, [0, 1, 127, 128, 300, 512]),
+               (64, 1, 16, 8, 6, [0, 5, 8, 47, 48]),
+               (128, 2, 16, 16, 4, [3, 64, 17]),
+               (8, 2, 80, 16, 4, [0, 16, 40, 64]),
+               (8, 4, 24, 8, 4, [1, 9, 32])]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=[
+    f"H{s[0]}-Hkv{s[1]}-D{s[2]}-page{s[3]}" for s in WIDE_SHAPES])
+def test_split_arithmetic_at_the_shapes_the_kernels_now_take(shape, dtype):
+    """The decode form's split partials and their merge at head_dims,
+    pages and groups the card refused before, within 1e-4 of the
+    reference's paged_attention_partial / combine_partials and the
+    Pallas kernels in interpret mode."""
+    h, hkv, d, page, pps, lengths = shape
+    assert tpa.kernel_takes(d, page, h // hkv)
+    q, k, v, table, lens = _inputs(7, lengths, pps, h, hkv, d, page, 24)
+    (kt, vt, ks, vs), (jk, jv, jks, jvs) = _pages(k, v, dtype)
+    tol = 1e-4
+    for n_splits in (1, 2):
+        per = _per(n_splits, pps)
+        parts = tops.ref.paged_split_partials_ref(
+            torch.from_numpy(q), kt, vt, torch.from_numpy(table),
+            torch.from_numpy(lens), per, ks, vs)
+        col = np.arange(pps)
+        for s in range(parts[0].shape[2]):
+            owned = np.broadcast_to((col >= s * per) & (col < (s + 1) * per),
+                                    table.shape)
+            want = paged_attention_partial(
+                jnp.asarray(q), jk, jv, jnp.asarray(table),
+                jnp.asarray(owned), jnp.asarray(lens), jks, jvs)
+            for got, w in zip(parts, want):
+                np.testing.assert_allclose(got[:, :, s].numpy(),
+                                           np.asarray(w), atol=tol, rtol=tol)
+        got = tops.ref.combine_splits_ref(*parts).numpy()
+        merged = jax.vmap(functools.partial(combine_partials, axis_name="s"),
+                          in_axes=(2, 2, 2), axis_name="s")(
+            *(jnp.asarray(x.numpy()) for x in parts))[0]
+        np.testing.assert_allclose(got, np.asarray(merged), atol=tol,
+                                   rtol=tol)
+    if dtype == "f32":
+        want = jops.paged_attention(jnp.asarray(q), jk, jv,
+                                    jnp.asarray(table), jnp.asarray(lens),
+                                    interpret=True)
+    else:
+        want = jops.paged_attention_q8(jnp.asarray(q), jk, jv, jks, jvs,
+                                       jnp.asarray(table), jnp.asarray(lens),
+                                       interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=tol, rtol=tol)
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_kernel_takes_every_configs_attention(arch, reduced):
+    """Every configuration's head_dim and GQA group, full and reduced()
+    (head_dim 16), at the serving pages (16) and at 128."""
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    for page in (16, 128):
+        assert tpa.kernel_takes(cfg.hd, page, cfg.n_heads // cfg.n_kv_heads)
+
+
+@pytest.mark.parametrize("d,page,group,takes", [
+    (8, 1, 1, True), (16, 128, 64, True), (80, 256, 4, True),
+    (256, 1024, 32, True), (24, 16, 8, True), (12, 16, 1, False),
+    (264, 16, 1, False), (0, 16, 1, False), (64, 1025, 1, False),
+    (64, 0, 1, False), (64, 16, 65, False), (64, 16, 0, False)])
+def test_paged_kernel_takes_bounds(d, page, group, takes):
+    assert tpa.kernel_takes(d, page, group) is takes
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
