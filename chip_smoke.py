@@ -24,7 +24,11 @@ one JSON line and any failure exits non-zero:
            the scan over a TPC-H SF-1 lineitem
            extent (6,001,215 rows x 16 f32 columns, page 128; five filter
            jobs on f32, int8 and fp8 pools, a pow2-padded table and an
-           empty result), the top-k over a 1M x 768 corpus (k 4 and 128,
+           empty result; one launch a call, beside its byte bound and
+           its chain bound, the kernel's ordered page fold alone), and
+           untimed at SCAN_SHAPES, on the lineitem extent's other pools
+           and at SCAN_C3 (40M rows, a count past 2^24 that must be the
+           page-order fold's), the top-k over a 1M x 768 corpus (k 4 and 128,
            dot and cosine, planted duplicate rows), the embedding bag
            (4M x 128 table, 2048 Zipf bags of 16) and the token-block
            gather, each bit-identical to its plain version; the top-k
@@ -572,8 +576,9 @@ PLAIN_ITERS = 3          # timing repeats of the plain versions
 HOST_SLICE = 65_536      # rows of the slice the planner runs both ways
 
 
-def make_data(np):
-    """Seeded inputs of the isp kernels and phase (numpy generators)."""
+def make_lineitem(np):
+    """The seeded SF-1 lineitem extent [rows, 16] f32, and the generator
+    that goes on to make the rest of ``make_data``."""
     rng = np.random.default_rng(1)
     n = LINEITEM["rows"]
     cols = [np.repeat(np.arange(1, n // 4 + 2), 4)[:n],   # orderkey
@@ -585,7 +590,12 @@ def make_data(np):
             rng.integers(0, 2_557, n), rng.integers(0, 2_557, n),
             rng.integers(0, 2_557, n), rng.integers(0, 4, n),
             rng.integers(0, 7, n), rng.standard_normal(n)]
-    lineitem = np.stack(cols, axis=1).astype(np.float32)
+    return np.stack(cols, axis=1).astype(np.float32), rng
+
+
+def make_data(np):
+    """Seeded inputs of the isp kernels and phase (numpy generators)."""
+    lineitem, rng = make_lineitem(np)
     corpus = rng.standard_normal((CORPUS["rows"], CORPUS["dim"]),
                                  dtype=np.float32)
     corpus[list(DUP_IDS[1:])] = corpus[DUP_IDS[0]]
@@ -677,12 +687,25 @@ def scan_library(torch, flat, col, op, thr):
 def phase_isp_kernels(torch, np, data, flush):
     """The scan, top-k and embedding kernels against their plain versions
     at the isp phase's sizes; every case must agree bit for bit."""
-    from repro_torch.kernels import ops
+    results = scan_cases_timed(torch, data["lineitem"], flush)
+    scan_other_shapes(torch, np, data["lineitem"])
+    results += topk_cases(torch, data, flush)
+    topk_other_shapes(torch, np)
+    results += topk_pool_cases(torch, np, data, flush)
+    results += embed_cases(torch, np, data, flush)
+    return results
+
+
+def scan_cases_timed(torch, li, flush):
+    """The scan over the SF-1 lineitem extent ``li`` on f32, int8 and fp8
+    pools (SCAN_JOBS; f32 also a pow2-padded table and an empty result),
+    each bit-identical to its plain version and timed beside its byte
+    bound, its chain bound (the kernel's ordered page fold alone,
+    ``isp_scan.scan_chain_runner``) and the six-call library expression."""
+    from repro_torch.kernels import isp_scan, ops
 
     results = []
-    # -- scan over the lineitem extent ---------------------------------------
     pr = LINEITEM["page_rows"]
-    li = data["lineitem"]
     n_rows, n_cols = li.shape
     x, table = on_pages(torch, li, pr)
     n_valid = table.numel()
@@ -693,6 +716,12 @@ def phase_isp_kernels(torch, np, data, flush):
         kernel = f"scan_filter_reduce_{code}"
         flat = ops.ref.pool_rows(pages, scales, table.long()).reshape(
             -1, n_cols)[:n_rows]
+        chain_ms = time_ms(torch, isp_scan.scan_chain_runner(
+            pages, table, n_rows, scales=scales), flush)
+        emit({"phase": "kernels", "kernel": kernel, "check": "the ordered "
+              "page fold alone (chain bound)", "ms": chain_ms,
+              "plan": isp_scan.scan_plan_of(pages, table, n_rows,
+                                            scales)._asdict()})
         cases = [(f"SF-1 lineitem {label} col{col} ({code})", table, col, op,
                   thr) for label, col, op, thr in SCAN_JOBS]
         if code == "f32":
@@ -705,7 +734,10 @@ def phase_isp_kernels(torch, np, data, flush):
                     thr=thr):
                 return fn(pages, tab, n_rows, thr, scales=scales,
                           filter_col=col, filter_op=op)
+            before = ops.launch_counts()[kernel]
             got = run()
+            check(ops.launch_counts()[kernel] == before + 1,
+                  f"{case}: one launch")
             want = run(ops.ref.scan_filter_reduce_ref)
             err = exact(torch, got, want, case)
             lib = scan_library(torch, flat, col, op, thr)
@@ -716,24 +748,141 @@ def phase_isp_kernels(torch, np, data, flush):
             if "no row" in case:
                 check(cnt.item() == 0 and bool((got[2] == 1e30).all()) and
                       bool((got[3] == -1e30).all()), "empty result sentinels")
+            bound_ = pool_bound(n_valid, pr, n_cols, pages,
+                                scales is not None, 4, 8 * n_cols * 4)
             kernel_line(results, kernel, case, err,
                         time_ms(torch, run, flush),
                         time_ms(torch, lambda: run(
                             ops.ref.scan_filter_reduce_ref), flush,
                             PLAIN_ITERS, 1),
-                        pool_bound(n_valid, pr, n_cols, pages,
-                                   scales is not None, 4, 8 * n_cols * 4),
+                        bound_,
                         time_ms(torch, lib, flush, 10, 2),
                         "masked count/sum/amin/amax over the f32 rows "
                         "(dequantised outside the timing): 6 PyTorch calls",
                         ISP_SOURCE)
+            results[-1]["chain_bound_ms"] = chain_ms
+            results[-1]["larger_bound"] = ("chain" if chain_ms > bound_[0]
+                                           else bound_[1])
         del flat
     del x
-    results += topk_cases(torch, data, flush)
-    topk_other_shapes(torch, np)
-    results += topk_pool_cases(torch, np, data, flush)
-    results += embed_cases(torch, np, data, flush)
+    torch.cuda.empty_cache()
     return results
+
+
+# (page_rows, n_cols): pages of one row up to 2,048 rows, rows of 1-176
+# columns (a fold of two passes at 176), each on f32, int8 and fp8 pages
+# (the direct path where a page is no multiple of 16 bytes, code pages
+# of a row count not a multiple of 4, or a page over half the ring)
+SCAN_SHAPES = tuple((pr, c) for pr in (1, 6, 8, 128, 1024, 2048)
+                    for c in (1, 3, 16, 24, 33, 176))
+# the C3 case: a 1-column extent whose passing rows are past 2^24, where
+# the count must be the page-order f32 fold's
+SCAN_C3 = {"rows": 40_000_000, "page_rows": 128}
+
+
+def parent_count_order(counts):
+    """The per-page counts [n] as the two-launch scan's fold added them:
+    16 warps each folding pages w, w + 16, ... in order, then the warps'
+    sums added in warp order (f32)."""
+    import numpy as np
+
+    counts = np.asarray(counts, np.float32)
+    warps = [np.add.accumulate(counts[w::16])[-1] if len(counts[w::16])
+             else np.float32(0) for w in range(16)]
+    return float(np.add.accumulate(np.asarray(warps, np.float32))[-1])
+
+
+def scan_other_shapes(torch, np, li):
+    """The scan, untimed, bit-identical to its plain version: every
+    SCAN_SHAPES on f32, int8 and fp8 pages over shuffled, pow2-padded
+    tables (n_rows not a multiple of page_rows, the five filter ops in
+    turn, some with n_rows = 0); the lineitem extent ``li`` on f32 pages
+    of 2,048 rows, on int8 pages of 6 rows and in an int8 store of 24
+    columns; and SCAN_C3."""
+    from repro_torch.kernels import isp_scan, ops
+
+    rng = np.random.default_rng(9)
+    paths = {}
+    for i, (page_rows, n_cols) in enumerate(SCAN_SHAPES):
+        for j, code in enumerate(("f32", "int8", "fp8")):
+            n_valid = 1 + (7 * i + 3 * j) % 23
+            n_rows = 0 if (i + j) % 11 == 0 else max(
+                1, n_valid * page_rows - (i + 1) % page_rows)
+            n_valid = max(1, -(-n_rows // page_rows))
+            n_phys = n_valid + 3
+            x = rng.standard_normal((n_phys, page_rows, n_cols),
+                                    dtype=np.float32)
+            x[..., (i + j) % n_cols] = np.round(x[..., (i + j) % n_cols])
+            pages, scales = quantized_pools(torch, torch.from_numpy(x).to(
+                DEVICE))[code]
+            table = np.full(1 << (n_valid - 1).bit_length(), n_phys + 99,
+                            np.int32)
+            table[:n_valid] = rng.permutation(n_phys)[:n_valid]
+            tab = torch.from_numpy(table).to(DEVICE)
+            op = ops.ref.FILTER_OPS[(i + j) % 5]
+            col = (i + j) % n_cols
+            thr = 0.0 if op in ("eq", "ne") else 0.25
+            got = ops.scan_filter_reduce(pages, tab, n_rows, thr,
+                                         scales=scales, filter_col=col,
+                                         filter_op=op)
+            want = ops.ref.scan_filter_reduce_ref(
+                pages, tab, n_rows, thr, scales=scales, filter_col=col,
+                filter_op=op)
+            exact(torch, got, want, f"scan {code} page {page_rows} x "
+                  f"{n_cols} {op} col{col} rows {n_rows}")
+            path = "tma" if isp_scan.scan_plan_of(pages, tab, n_rows,
+                                                  scales).tma else "direct"
+            paths[path] = paths.get(path, 0) + 1
+    # the lineitem extent on the pools of PERF.md section 4
+    n_rows = li.shape[0]
+    wide = np.zeros((n_rows, TOPK_NARROW["cols"]), np.float32)
+    wide[:, :li.shape[1]] = li
+    pools = {}
+    for label, arr, pr, code in (
+            ("f32 pages of 2048 rows", li, TOPK_REPAGED, "f32"),
+            (f"int8 pages of {TOPK_SHORT_PAGE} rows", li, TOPK_SHORT_PAGE,
+             "int8"),
+            (f"int8 store of {TOPK_NARROW['cols']} columns", wide,
+             TOPK_NARROW["page_rows"], "int8")):
+        x, tab = on_pages(torch, arr, pr)
+        pages, scales = quantized_pools(torch, x)[code]
+        del x
+        got = ops.scan_filter_reduce(pages, tab, n_rows, 50000.0,
+                                     scales=scales, filter_col=5,
+                                     filter_op="ge")
+        exact(torch, got, ops.ref.scan_filter_reduce_ref(
+            pages, tab, n_rows, 50000.0, scales=scales, filter_col=5,
+            filter_op="ge"), f"scan SF-1 lineitem, {label}")
+        plan = isp_scan.scan_plan_of(pages, tab, n_rows, scales)
+        pools[label] = {"path": "tma" if plan.tma else "direct",
+                        "pages": tab.numel(), "count": got[0, 0].item()}
+        del pages, scales
+    del wide
+    # C3: ~20M of 40M rows pass; the count must be the page-order fold's
+    c3 = SCAN_C3
+    pages, tab = on_pages(torch, rng.standard_normal(
+        (c3["rows"], 1), dtype=np.float32), c3["page_rows"])
+    got = ops.scan_filter_reduce(pages, tab, c3["rows"], 0.0,
+                                 filter_op="ge")
+    want = ops.ref.scan_filter_reduce_ref(pages, tab, c3["rows"], 0.0,
+                                          filter_op="ge")
+    exact(torch, got, want, "scan C3 (count past 2^24)")
+    live = pages.reshape(-1)[:c3["rows"]] >= 0
+    exact_count = int(live.sum())
+    page_counts = torch.zeros(tab.numel() * c3["page_rows"],
+                              device=DEVICE)
+    page_counts[:c3["rows"]] = live.float()
+    page_counts = page_counts.view(tab.numel(), -1).sum(dim=1).cpu().numpy()
+    check(got[0, 0].item() > 2 ** 24, "C3: the count passes 2^24")
+    emit({"phase": "kernels", "check": "scan at other shapes",
+          "shapes": len(SCAN_SHAPES) * 3, "paths": paths, "pools": pools,
+          "c3": {"rows": c3["rows"], "page_rows": c3["page_rows"],
+                 "count": got[0, 0].item(), "plain_fold_count":
+                 want[0, 0].item(), "exact_integer_count": exact_count,
+                 "two_pass_order_count": parent_count_order(page_counts)},
+          "bit_identical": True})
+    del pages, live
+    torch.cuda.empty_cache()
 
 
 def topk_cases(torch, data, flush):

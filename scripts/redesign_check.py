@@ -1,8 +1,9 @@
-"""Check and time the top-k, paged-attention, flash and wkv kernels on
-one card.
+"""Check and time the scan, top-k, paged-attention, flash and wkv
+kernels on one card.
 
     python scripts/redesign_check.py [topk] [pools] [paged] [flash] [wkv]
-                                     [swizzle] [--logs DIR]
+                                     [swizzle] [scan] [scan-split]
+                                     [--logs DIR]
 
 Builds every kernel source (``kernels.build.build_all``; with ``--logs``
 nvcc's ``-Xptxas -v`` report of each source is written to DIR), then
@@ -22,7 +23,15 @@ serving shapes, timed, and at ``OTHER_SHAPES``); ``wkv`` runs
 whose stages are not swizzled (row t reads its 16-byte chunk j at j, so
 the eight rows of a quarter warp share four banks), in turns (as built,
 unswizzled, unswizzled, as built) on the corpus's f32 and int8 pools at
-k = 4, dot; both must give the plain version's block.  Prints one JSON
+k = 4, dot; both must give the plain version's block.  ``scan`` times the
+scan (``csrc/isp_scan.cu``) against the two-launch design kept in
+``scripts/csrc/isp_scan_two_pass.cu``, in turns (as built, two-pass,
+two-pass, as built), over the SF-1 lineitem extent on f32, int8 and fp8
+pages (three of ``chip_smoke.SCAN_JOBS`` each), both bit-identical to the
+plain version, with the as-built kernel's ordered page fold alone
+(``isp_scan.scan_chain_runner``); then ``chip_smoke.scan_cases_timed``
+and ``scan_other_shapes``.  ``scan-split`` times the two-pass design's
+launches apart (the pages pass, the fold) and together.  Prints one JSON
 line per case or reading, the kernels line, then the card's name and
 power limit.  With no case named, topk and flash run.  Card only.
 """
@@ -94,6 +103,139 @@ def swizzle_readings(torch, np, cs, flush):
         isp_scan._bind = built
 
 
+TWO_PASS = ROOT / "scripts" / "csrc" / "isp_scan_two_pass.cu"
+# the SF-1 lineitem jobs the scan readings take (chip_smoke.SCAN_JOBS)
+SCAN_READ_JOBS = ("all", "ge extendedprice", "ne returnflag")
+
+
+def two_pass_library():
+    """ctypes handle of the two-launch scan (``TWO_PASS``), built into
+    build/repro_torch."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = build.BUILD_DIR / "libisp_scan_two_pass.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(TWO_PASS)], check=True, capture_output=True,
+                   text=True)
+    handle = ctypes.CDLL(str(lib))
+    P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    for fmt in ("f32", "int8", "fp8"):
+        getattr(handle, f"scan_pages_{fmt}").argtypes = (
+            [P] * 4 + [I, I, I, LL, F, I, I, P])
+        getattr(handle, f"scan_two_pass_{fmt}").argtypes = (
+            [P] * 5 + [I, I, I, LL, F, I, I, P])
+    handle.scan_fold.argtypes = [P, P, I, I, P]
+    return handle
+
+
+def scan_cases(torch, np, cs):
+    """(case, pages, scales, table, n_rows, col, op, thr) over the SF-1
+    lineitem extent on f32, int8 and fp8 pools, SCAN_READ_JOBS each."""
+    li, _ = cs.make_lineitem(np)
+    x, table = cs.on_pages(torch, li, cs.LINEITEM["page_rows"])
+    for code, (pages, scales) in cs.quantized_pools(torch, x).items():
+        for label, col, op, thr in cs.SCAN_JOBS:
+            if label in SCAN_READ_JOBS:
+                yield (f"SF-1 lineitem {label} col{col} ({code})", pages,
+                       scales, table, li.shape[0], col, op, thr)
+
+
+def two_pass_runners(torch, lib, pages, scales, table, n_rows, col, op,
+                     thr):
+    """(both, pages alone, fold alone, out) launching the two-launch
+    scan on the current stream."""
+    from repro_torch.kernels import isp_scan
+    from repro_torch.kernels.ref import FILTER_OPS, n_valid_pages
+
+    n_phys, page_rows, n_cols = pages.shape
+    n_valid = n_valid_pages(n_rows, page_rows, table.numel())
+    fmt = isp_scan._CODE[pages.dtype]
+    partials = torch.empty((n_valid, 4, n_cols), device=pages.device)
+    out = torch.empty((8, n_cols), device=pages.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    sc = None if scales is None else scales.data_ptr()
+    args = (n_valid, page_rows, n_cols, n_rows, float(thr), col,
+            FILTER_OPS.index(op), stream)
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"two-pass scan launch: cudaError_t {err}")
+
+    def both():
+        check(getattr(lib, f"scan_two_pass_{fmt}")(
+            pages.data_ptr(), sc, table.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), *args))
+
+    def pages_alone():
+        check(getattr(lib, f"scan_pages_{fmt}")(
+            pages.data_ptr(), sc, table.data_ptr(), partials.data_ptr(),
+            *args))
+
+    def fold_alone():
+        check(lib.scan_fold(partials.data_ptr(), out.data_ptr(), n_valid,
+                            n_cols, stream))
+    return both, pages_alone, fold_alone, out
+
+
+def scan_split_readings(torch, np, cs, flush):
+    """The two-launch scan's launches timed apart, and both."""
+    from repro_torch.kernels import ops
+
+    lib = two_pass_library()
+    for case, pages, scales, table, n_rows, col, op, thr in scan_cases(
+            torch, np, cs):
+        both, pages_alone, fold_alone, out = two_pass_runners(
+            torch, lib, pages, scales, table, n_rows, col, op, thr)
+        both()
+        cs.exact(torch, out, ops.ref.scan_filter_reduce_ref(
+            pages, table, n_rows, thr, scales=scales, filter_col=col,
+            filter_op=op), f"two-pass {case}")
+        print(json.dumps({"scan_split": case,
+                          "both_ms": cs.time_ms(torch, both, flush),
+                          "pages_ms": cs.time_ms(torch, pages_alone, flush),
+                          "fold_ms": cs.time_ms(torch, fold_alone, flush)}),
+              flush=True)
+
+
+def scan_readings(torch, np, cs, flush):
+    """The scan as built against the two-launch scan, in turns (as built,
+    two-pass, two-pass, as built), both bit-identical to the plain
+    version; and the as-built kernel's ordered chain alone."""
+    from repro_torch.kernels import isp_scan, ops
+
+    lib = two_pass_library()
+    for case, pages, scales, table, n_rows, col, op, thr in scan_cases(
+            torch, np, cs):
+        def new(pages=pages, scales=scales, table=table, n_rows=n_rows,
+                col=col, op=op, thr=thr):
+            return ops.scan_filter_reduce(pages, table, n_rows, thr,
+                                          scales=scales, filter_col=col,
+                                          filter_op=op)
+        old, _, _, out = two_pass_runners(torch, lib, pages, scales, table,
+                                          n_rows, col, op, thr)
+        want = ops.ref.scan_filter_reduce_ref(
+            pages, table, n_rows, thr, scales=scales, filter_col=col,
+            filter_op=op)
+        cs.exact(torch, new(), want, f"as built {case}")
+        old()
+        cs.exact(torch, out, want, f"two-pass {case}")
+        chain = isp_scan.scan_chain_runner(pages, table, n_rows, thr,
+                                           scales=scales, filter_col=col,
+                                           filter_op=op)
+        reading = {"scan": case}
+        for name, fn in (("as built", new), ("two-pass", old),
+                         ("two-pass", old), ("as built", new)):
+            reading.setdefault(f"{name} ms", []).append(
+                cs.time_ms(torch, fn, flush))
+        reading["chain alone ms"] = cs.time_ms(torch, chain, flush)
+        print(json.dumps(reading), flush=True)
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -107,7 +249,8 @@ def main(argv) -> int:
         logs_dir = Path(argv[argv.index("--logs") + 1])
         argv = [a for a in argv if a not in ("--logs", str(logs_dir))]
     which = set(argv) or {"topk", "flash"}
-    if which - {"topk", "pools", "paged", "flash", "wkv", "swizzle"}:
+    if which - {"topk", "pools", "paged", "flash", "wkv", "swizzle", "scan",
+                "scan-split"}:
         print(f"redesign_check: unknown case {which}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -140,6 +283,13 @@ def main(argv) -> int:
         cs.flash_other_shapes(torch, np)
     if "swizzle" in which:
         swizzle_readings(torch, np, cs, flush)
+    if "scan-split" in which:
+        scan_split_readings(torch, np, cs, flush)
+    if "scan" in which:
+        scan_readings(torch, np, cs, flush)
+        li, _ = cs.make_lineitem(np)
+        results += cs.scan_cases_timed(torch, li, flush)
+        cs.scan_other_shapes(torch, np, li)
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)
     return 0

@@ -18,19 +18,44 @@
 // through __fmul_rn / __fadd_rn (nvcc cannot contract them into an FMA),
 // and sqrt / division are __fsqrt_rn / __fdiv_rn.
 //
-// Bound on this card: memory bytes, the valid pages (and their scales)
-// read once; a scan does a few operations per byte read.
-//
-// scan_filter_reduce, two launches:
-//   (a) one thread per (valid page, column) walks the page's rows
-//       0..page_rows-1 in order and writes its page partials
-//       [n_valid, 4, n_cols]: count, sum, min, max.  Threads of a page
-//       read neighbouring columns of a row, so loads coalesce.
-//   (b) per column, the sums of the partials are added in page order in
-//       f32 (staged through shared memory, one lane per column); count,
-//       min and max do not depend on the order (the count is a sum of
-//       integer-valued f32s: exact below 2^24 rows).  It writes the
-//       [8, n_cols] block (count broadcast, sum, min, max, zero rows).
+// scan_filter_reduce, one launch (the redesign for Hopper).  Two limits:
+//   * the valid pages' bytes (SF-1 lineitem, 46,885 pages of 128 x 16:
+//     384 MB f32, 0.115 ms at 3.35 TB/s; 120 MB of codes and scales,
+//     0.036 ms);
+//   * the contract's fold: each page's [count, sums] added in page order
+//     in f32, n_valid dependent adds a value whatever the design (4
+//     cycles each: ~0.1 ms at SF-1), which no split may reassociate.
+//   So the stream runs beside the fold, and the call costs about the
+//   larger of the two, not their sum:
+//   * n_prod producer blocks (two blocks an SM) take chunks of whole
+//     pages interleaved (chunk c to block c mod n_prod), so the prefix
+//     of finished chunks grows evenly.  A page of a multiple of 16 bytes
+//     (aligned; code pages of a multiple of 4 rows, their scales on the
+//     same mbarrier) is one cp.async.bulk into a ring of up to 8 stages
+//     of a few whole pages (17 KB: two f32 lineitem pages), its stride
+//     padded so the pages a warp reads sit on other banks.  The consumer
+//     warps first turn a stage's filter column into one bit a row (a
+//     ballot a 32-row word), so the count is a popcount and thread
+//     (page, column) adds its column's passing rows in order, loads a
+//     batch ahead, with no filter work; where a stage has at most 128
+//     such tasks, two groups of four warps walk two stages at once (the
+//     walk is bound by instruction issue, and one stage's tasks fill
+//     only a warp or two).  Other pools take the direct instantiation
+//     (threads read their rows through L1; one rule, ref.scan_tma_path).
+//     Each page's count and sums go to a workspace [n_cols + 1][pages]
+//     that stays in L2, min/max (order-free) into the block's.  After a
+//     chunk, a fence and a release store of the call's epoch into the
+//     chunk's flag (the wrapper counts calls on a stream, so no launch
+//     resets the flags).
+//   * n_fold fold blocks, one lane a value (8 values a block at 16
+//     columns: each block reads only its values' rows, so no single SM
+//     pulls the whole workspace).  A loader warp acquires the flags of
+//     the next slots' chunks (a lane each) and bulk-copies each value's
+//     row of a slot into a ring; the adder warp adds them in page order
+//     with __fadd_rn, 16 pages loaded (float4) ahead of the 16 it adds.
+//     Block 0's other warps fold the producers' min/max as their blocks
+//     finish.  The count is in the ordered chain, so it equals the
+//     page-order f32 fold above 2^24 rows too.
 // topk_scan, one launch (the redesign for Hopper): bound by the valid
 //   pages' bytes (int8/fp8: 0.23 ms at 1M x 768 on 3.35 TB/s).  A row's
 //   score is one dependent add chain in column order, so parallelism is
@@ -76,9 +101,6 @@
 //   to 8 warps.  Every path adds a row's columns in
 //   order, the chain of ref.topk_blocks_emulated, so all agree bit for
 //   bit.
-//
-// Known limits, for later work: (b) of the scan is one dependent add
-// chain per column over all pages (latency-bound, not byte-bound).
 
 #include <cuda.h>
 #include <cuda_fp16.h>
@@ -92,172 +114,6 @@ constexpr float kPosInf = 1e30f;
 constexpr float kNegInf = -1e30f;
 constexpr int kBigId = 1 << 30;
 constexpr int kMaxTopk = 128;
-constexpr int kFoldThreads = 512;  // scan fold block
-constexpr int kFoldChunk = 256;    // pages staged per fold round
-constexpr int kFoldBatch = 16;     // shared-memory reads in flight
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
-
-// element `elem` of the pool, dequantised with the scale of its row
-template <typename T, bool Q>
-__device__ __forceinline__ float load_value(const T* __restrict__ pages,
-                                            const float* __restrict__ scales,
-                                            size_t elem, size_t row) {
-  const float v = to_f32(pages[elem]);
-  return Q ? __fmul_rn(v, scales[row]) : v;
-}
-
-// FILTER_OPS order: all, ge, lt, eq, ne
-__device__ __forceinline__ bool predicate(float key, float thr, int op) {
-  switch (op) {
-    case 0: return true;
-    case 1: return key >= thr;
-    case 2: return key < thr;
-    case 3: return key == thr;
-    default: return key != thr;
-  }
-}
-
-// ---------------------------------------------------------------- scan
-
-template <typename T, bool Q>
-__global__ void scan_pages_kernel(const T* __restrict__ pages,
-                                  const float* __restrict__ scales,
-                                  const int* __restrict__ table,
-                                  float* __restrict__ partials, int n_valid,
-                                  int page_rows, int n_cols, long long n_rows,
-                                  float thr, int filter_col, int op) {
-  const long long total = (long long)n_valid * n_cols;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += step) {
-    const int p = (int)(t / n_cols);
-    const int c = (int)(t % n_cols);
-    const size_t row0 = (size_t)table[p] * page_rows;
-    float cnt = 0.f, sum = 0.f, mn = kPosInf, mx = kNegInf;
-    // unrolled so that several rows' loads are in flight at once
-#pragma unroll 4
-    for (int r = 0; r < page_rows; ++r) {
-      const size_t row = row0 + r;
-      const float key = load_value<T, Q>(pages, scales,
-                                         row * n_cols + filter_col, row);
-      const float v = load_value<T, Q>(pages, scales, row * n_cols + c, row);
-      const bool m = (long long)p * page_rows + r < n_rows &&
-                     predicate(key, thr, op);
-      cnt = __fadd_rn(cnt, m ? 1.f : 0.f);
-      sum = __fadd_rn(sum, m ? v : 0.f);
-      mn = fminf(mn, m ? v : kPosInf);
-      mx = fmaxf(mx, m ? v : kNegInf);
-    }
-    float* o = partials + (size_t)p * 4 * n_cols + c;
-    o[0] = cnt;
-    o[n_cols] = sum;
-    o[2 * n_cols] = mn;
-    o[3 * n_cols] = mx;
-  }
-}
-
-// One block per 32 columns.  Each round stages kFoldChunk pages' sums in
-// shared memory, and warp 0 adds them in page order, one lane per column,
-// while all warps' loads of the next round are in flight in registers.
-// Count, min and max do not depend on the order (the counts are
-// integer-valued and their total is exact below 2^24): each warp folds
-// those of the pages it loads, and the warps' results are combined last.
-__global__ void __launch_bounds__(kFoldThreads)
-scan_fold_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                 int n_valid, int n_cols) {
-  constexpr int kWarps = kFoldThreads / 32;
-  constexpr int kPer = kFoldChunk / kWarps;   // pages a warp loads a round
-  __shared__ float sums[kFoldChunk][33];
-  __shared__ float red[3][kWarps][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  const bool live = c < n_cols;
-  const size_t stride = 4 * (size_t)n_cols;
-  float cnt = 0.f, sum = 0.f, mn = kPosInf, mx = kNegInf;
-  float a[kPer][4];
-  auto load = [&](int base) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int p = base + warp + kWarps * i;
-      const bool ok = live && p < n_valid;
-      const float* q = partials + (size_t)(ok ? p : 0) * stride + (live ? c : 0);
-      a[i][0] = ok ? q[0] : 0.f;
-      a[i][1] = ok ? q[n_cols] : 0.f;
-      a[i][2] = ok ? q[2 * n_cols] : kPosInf;
-      a[i][3] = ok ? q[3 * n_cols] : kNegInf;
-    }
-  };
-  load(0);
-  for (int base = 0; base < n_valid; base += kFoldChunk) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      cnt += a[i][0];
-      sums[warp + kWarps * i][lane] = a[i][1];
-      mn = fminf(mn, a[i][2]);
-      mx = fmaxf(mx, a[i][3]);
-    }
-    __syncthreads();
-    if (base + kFoldChunk < n_valid) load(base + kFoldChunk);
-    if (warp == 0 && live) {
-      const int n = n_valid - base < kFoldChunk ? n_valid - base : kFoldChunk;
-      int j = 0;
-      // the shared-memory reads of a batch go out together; the adds
-      // then run in page order
-      for (; j + kFoldBatch <= n; j += kFoldBatch) {
-        float b[kFoldBatch];
-#pragma unroll
-        for (int u = 0; u < kFoldBatch; ++u) b[u] = sums[j + u][lane];
-#pragma unroll
-        for (int u = 0; u < kFoldBatch; ++u) sum = __fadd_rn(sum, b[u]);
-      }
-      for (; j < n; ++j) sum = __fadd_rn(sum, sums[j][lane]);
-    }
-    __syncthreads();
-  }
-  red[0][warp][lane] = cnt;
-  red[1][warp][lane] = mn;
-  red[2][warp][lane] = mx;
-  __syncthreads();
-  if (warp != 0 || !live) return;
-  for (int w = 1; w < kWarps; ++w) {
-    cnt += red[0][w][lane];
-    mn = fminf(mn, red[1][w][lane]);
-    mx = fmaxf(mx, red[2][w][lane]);
-  }
-  out[c] = cnt;
-  out[n_cols + c] = sum;
-  out[2 * n_cols + c] = mn;
-  out[3 * n_cols + c] = mx;
-  for (int r = 4; r < 8; ++r) out[r * n_cols + c] = 0.f;
-}
-
-template <typename T, bool Q>
-int launch_scan(const void* pages, const void* scales, const void* table,
-                void* partials, void* out, int n_valid, int page_rows,
-                int n_cols, long long n_rows, float thr, int filter_col,
-                int op, void* stream) {
-  if (n_valid < 1 || page_rows < 1 || n_cols < 1 || filter_col < 0 ||
-      filter_col >= n_cols || op < 0 || op > 4 || (Q && scales == nullptr))
-    return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)n_valid * n_cols;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 65535 * 16 ? want : 65535 * 16);
-  scan_pages_kernel<T, Q><<<blocks, threads, 0, st>>>(
-      static_cast<const T*>(pages), static_cast<const float*>(scales),
-      static_cast<const int*>(table), static_cast<float*>(partials), n_valid,
-      page_rows, n_cols, n_rows, thr, filter_col, op);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_fold_kernel<<<(n_cols + 31) / 32, kFoldThreads, 0, st>>>(
-      static_cast<const float*>(partials), static_cast<float*>(out), n_valid,
-      n_cols);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------- top-k
 
@@ -917,25 +773,741 @@ int launch_topk(const void* pages, const void* scales, const void* query,
       n_stages, sc_bulk, smem, st);
 }
 
+// ---------------------------------------------------------------- scan
+//
+// One launch of n_fold + n_prod blocks (ref.scan_plan sizes everything;
+// the emulation is ref.scan_blocks_emulated).  Blocks [0, n_fold) fold,
+// the others produce.  ws: the fold values [n_cols + 1][pad_pages]
+// (value 0 a page's count, value 1 + c its column-c sum), then the
+// producers' min/max [n_prod][2][n_cols]; flags: [n_chunks] chunk ready,
+// then [n_prod] block done, each set to this call's epoch (so no launch
+// resets them).
+
+constexpr int kScanThreads = 256;   // consumer threads (ref.SCAN_THREADS)
+constexpr int kScanMaxStages = 8;
+constexpr int kScanMaxSlots = 8;
+constexpr int kScanMaxValues = 32;  // values a fold block (a lane each)
+constexpr int kScanUnroll = 8;      // rows whose loads go out together
+constexpr int kMinMaxBar = 2;       // named barrier of the min/max warps
+constexpr int kGroupBar = 3;        // named barriers of the consumer groups
+
+struct ScanArgs {
+  const void* pages;
+  const float* scales;
+  const int* table;
+  float* ws;
+  int* flags;
+  float* out;
+  long long n_rows;
+  float thr;
+  int n_valid, page_rows, n_cols, filter_col, op;
+  int chunk_pages, unit_pages, n_stages, page_stride, stage_bytes;
+  int mask_words, vw, n_fold, passes, slot_pages, slot_stride, n_slots;
+  int n_chunks, n_prod, pad_pages, epoch;
+  int follow_only;   // the fold blocks alone over a filled ws: the chain
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Waits of the scan on other blocks and on copies are bounded: a wait
+// that outlasts 10 s of the card's clock (a fault, never a slow block)
+// traps, so the launch fails instead of holding the card.
+constexpr int kSpinsBeforeClock = 1024;
+constexpr unsigned long long kWaitLimitNs = 10000000000ULL;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// after kSpinsBeforeClock tries, sleep between tries and trap past the
+// limit
+__device__ __forceinline__ void wait_tick(int i, unsigned long long& t0) {
+  if (i < kSpinsBeforeClock) return;
+  __nanosleep(100);
+  if (t0 == 0)
+    t0 = global_ns();
+  else if (global_ns() - t0 > kWaitLimitNs)
+    __trap();
+}
+
+__device__ __forceinline__ void wait_epoch(const int* flag, int epoch) {
+  unsigned long long t0 = 0;
+  for (int i = 0; ld_acquire(flag) != epoch; ++i) wait_tick(i, t0);
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  unsigned long long t0 = 0;
+  for (int i = 0; !mbar_try(bar, parity); ++i) wait_tick(i, t0);
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// element i of a page (shared memory, or device memory through L1) as f32
+template <int CODE, bool GLOBAL>
+__device__ __forceinline__ float page_elem(const void* base, size_t i) {
+  if constexpr (CODE == 0) {
+    const float* p = static_cast<const float*>(base) + i;
+    return GLOBAL ? __ldg(p) : *p;
+  } else {
+    const uint8_t* p = static_cast<const uint8_t*>(base) + i;
+    return decode1<CODE>(GLOBAL ? __ldg(p) : *p);
+  }
+}
+
+// the filter without branches (FILTER_OPS order: all, ge, lt, eq, ne)
+__device__ __forceinline__ bool passes_filter(float key, float thr, int op) {
+  const bool ge = key >= thr, lt = key < thr, eq = key == thr;
+  return (op == 0) | ((op == 1) & ge) | ((op == 2) & lt) | ((op == 3) & eq) |
+         ((op == 4) & !eq);
+}
+
+// Column c of one page read from device memory (the direct
+// instantiation), its rows in order 0..page_rows-1 from 0: the passing
+// rows' count and sum, min and max (rows at or past n_rows never pass).
+// Rows go in batches of kScanUnroll, the next batch's loads in flight
+// while this one is added (a batch past the page adds nothing).
+template <int CODE>
+__device__ __forceinline__ void page_column_direct(
+    const void* pg, const float* sc, const ScanArgs& a, int c,
+    long long row0, float& cnt, float& sum, float& mn, float& mx) {
+  constexpr bool Q = CODE != 0;
+  constexpr int U = kScanUnroll;
+  const int n = a.page_rows, C = a.n_cols;
+  const long long left = a.n_rows - row0;
+  const int live = left < 0 ? 0 : left < n ? (int)left : n;
+  cnt = 0.f;
+  sum = 0.f;
+  mn = kPosInf;
+  mx = kNegInf;
+  float va[U], ka[U], sa[U], vb[U], kb[U], sb[U];
+  auto load = [&](float (&v)[U], float (&k)[U], float (&s)[U], int r0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = min(r0 + u, n - 1);
+      v[u] = page_elem<CODE, true>(pg, (size_t)r * C + c);
+      k[u] = page_elem<CODE, true>(pg, (size_t)r * C + a.filter_col);
+      s[u] = Q ? __ldg(sc + r) : 1.f;
+    }
+  };
+  auto fold = [&](const float (&v)[U], const float (&k)[U],
+                  const float (&s)[U], int r0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float x = Q ? __fmul_rn(v[u], s[u]) : v[u];
+      const float key = Q ? __fmul_rn(k[u], s[u]) : k[u];
+      // a row that does not pass adds +0 and changes no bound: skipped
+      // (the sums start from +0 and never become -0)
+      if (r0 + u < live && passes_filter(key, a.thr, a.op)) {
+        cnt = __fadd_rn(cnt, 1.f);
+        sum = __fadd_rn(sum, x);
+        mn = fminf(mn, x);
+        mx = fmaxf(mx, x);
+      }
+    }
+  };
+  load(va, ka, sa, 0);
+  for (int r0 = 0; r0 < n; r0 += 2 * U) {
+    load(vb, kb, sb, r0 + U);
+    fold(va, ka, sa, r0);
+    load(va, ka, sa, r0 + 2 * U);
+    fold(vb, kb, sb, r0 + U);
+  }
+}
+
+// Column c of one staged page whose row-filter bits are in mw (the TMA
+// instantiation): the passing rows' sum in row order from 0, min, max;
+// batched as page_column_direct.
+template <int CODE>
+__device__ __forceinline__ void page_column_staged(
+    const void* pg, const float* sc, const uint32_t* mw, const ScanArgs& a,
+    int c, float& sum, float& mn, float& mx) {
+  constexpr bool Q = CODE != 0;
+  constexpr int U = kScanUnroll;   // divides 32
+  const int n = a.page_rows, C = a.n_cols;
+  sum = 0.f;
+  mn = kPosInf;
+  mx = kNegInf;
+  float va[U], sa[U], vb[U], sb[U];
+  auto load = [&](float (&v)[U], float (&s)[U], int r0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = min(r0 + u, n - 1);
+      v[u] = page_elem<CODE, false>(pg, (size_t)r * C + c);
+      s[u] = Q ? sc[r] : 1.f;
+    }
+  };
+  auto fold = [&](const float (&v)[U], const float (&s)[U], int r0) {
+    const uint32_t bits = r0 < n ? mw[r0 >> 5] >> (r0 & 31) : 0u;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float x = Q ? __fmul_rn(v[u], s[u]) : v[u];
+      if ((bits >> u) & 1u) {
+        sum = __fadd_rn(sum, x);
+        mn = fminf(mn, x);
+        mx = fmaxf(mx, x);
+      }
+    }
+  };
+  load(va, sa, 0);
+  for (int r0 = 0; r0 < n; r0 += 2 * U) {
+    load(vb, sb, r0 + U);
+    fold(va, sa, r0);
+    load(va, sa, r0 + 2 * U);
+    fold(vb, sb, r0 + U);
+  }
+}
+
+// Producer block b: chunks b, b + n_prod, ...  The consumer threads form
+// G groups (two where a unit has at most 128 (page, column) tasks, so
+// two units are walked at once; group 1 starts on warps 6 and 7, so the
+// two groups' busy warps sit on other SMSPs), group g taking units g, g
+// + G, ... of the block.  In a group, thread (slot s, column c) takes
+// pages s, s + S, ... of a unit (S = group threads / C; past that many
+// columns S = 1 and a thread takes columns c, c + its group's threads,
+// ...), writes their fold values and keeps its min/max in shared memory
+// (mm, [2][M]).  After a chunk, every thread fences its writes and
+// thread 0 publishes the chunk's flag; after the last, the block's
+// min/max and its flag.
+template <int CODE, bool TMA>
+__device__ void scan_produce(const ScanArgs& a, uint8_t* ring, float* mm,
+                             int M, uint64_t* full, uint64_t* empty) {
+  constexpr bool Q = CODE != 0;
+  constexpr int kElem = CODE == 0 ? 4 : 1;
+  const int t = threadIdx.x, lane = t & 31;
+  const int b = blockIdx.x - a.n_fold;
+  const int C = a.n_cols;
+  const int G = TMA && a.unit_pages * C <= kScanThreads / 2 ? 2 : 1;
+  const int T = kScanThreads / G;                // threads a group
+  const int g = (t >> 5) / (8 / G);
+  const int wg = (t >> 5) - g * (8 / G);         // warp in the group
+  const int tg = (g ? (wg + 2) % 4 : wg) * 32 + lane;
+  const int S = C <= T ? T / C : 1;
+  const int s = tg / C, c0 = tg % C;
+  const int cstep = C < T ? C : T;
+  const size_t page_elems = (size_t)a.page_rows * C;
+  const int wpp = (a.page_rows + 31) / 32;   // filter words a page
+  uint32_t* masks =
+      reinterpret_cast<uint32_t*>(ring + (size_t)a.n_stages * a.stage_bytes);
+  if (t == 0) {
+    for (int i = 0; i < a.n_stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kScanThreads / 32 / G);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  for (int i = t; i < M; i += blockDim.x) {
+    mm[i] = kPosInf;
+    mm[M + i] = kNegInf;
+  }
+  __syncthreads();
+
+  if (TMA && t >= kScanThreads) {
+    // producer warp: a stage is the unit's whole pages (at page_stride)
+    // and their row scales after them; lane i bulk-copies page i.  The
+    // unit's page ids are loaded before the wait for its slot, so their
+    // latency hides behind it.
+    const int pl = t - kScanThreads;
+    const uint32_t page_bytes = (uint32_t)(page_elems * kElem);
+    const uint32_t sc_bytes = Q ? a.page_rows * 4 : 0;
+    int step = 0;
+    for (int c = b; c < a.n_chunks; c += a.n_prod) {
+      const int p1 = min((c + 1) * a.chunk_pages, a.n_valid);
+      for (int u0 = c * a.chunk_pages; u0 < p1; u0 += a.unit_pages, ++step) {
+        const int nu = min(a.unit_pages, p1 - u0);
+        const int slot = step % a.n_stages;
+        const size_t phys = pl < nu ? (size_t)__ldg(a.table + u0 + pl) : 0;
+        if (step >= a.n_stages)
+          mbar_wait_bounded(&empty[slot], ((step / a.n_stages) + 1) & 1);
+        uint8_t* st = ring + (size_t)slot * a.stage_bytes;
+        if (pl == 0) mbar_expect_tx(&full[slot], nu * (page_bytes + sc_bytes));
+        __syncwarp();
+        if (pl < nu) {
+          bulk_load(st + (size_t)pl * a.page_stride,
+                    static_cast<const uint8_t*>(a.pages) +
+                        phys * page_elems * kElem,
+                    page_bytes, &full[slot]);
+          if (Q)
+            bulk_load(reinterpret_cast<float*>(
+                          st + (size_t)a.unit_pages * a.page_stride) +
+                          (size_t)pl * a.page_rows,
+                      a.scales + phys * a.page_rows, sc_bytes, &full[slot]);
+        }
+      }
+    }
+    return;
+  }
+
+  int step = 0;
+  for (int c = b; c < a.n_chunks; c += a.n_prod) {
+    const int p1 = min((c + 1) * a.chunk_pages, a.n_valid);
+    for (int u0 = c * a.chunk_pages; u0 < p1; u0 += a.unit_pages) {
+      const int nu = min(a.unit_pages, p1 - u0);
+      if constexpr (TMA) {
+        if (step++ % G != g) continue;
+        const int slot = (step - 1) % a.n_stages;
+        mbar_wait_bounded(&full[slot], ((step - 1) / a.n_stages) & 1);
+        const uint8_t* st = ring + (size_t)slot * a.stage_bytes;
+        const float* scs = reinterpret_cast<const float*>(
+            st + (size_t)a.unit_pages * a.page_stride);
+        uint32_t* mask = masks + (size_t)slot * a.unit_pages * wpp;
+        // the unit's row-filter bits: 32-row words, a warp's lanes on a
+        // word's rows, four words' loads in flight (rows at or past
+        // n_rows, or past the page, are 0)
+        constexpr int kWords = 4;
+        const int words = nu * wpp;
+        const int wstep = T / 32;                    // the group's warps
+        for (int w0 = wg; w0 < words; w0 += kWords * wstep) {
+          float key[kWords];
+          bool ok[kWords];
+#pragma unroll
+          for (int j = 0; j < kWords; ++j) {
+            const int w = min(w0 + j * wstep, words - 1);
+            const int i = w / wpp;
+            const int r = (w - i * wpp) * 32 + lane;
+            ok[j] = w0 + j * wstep < words && r < a.page_rows &&
+                    (long long)(u0 + i) * a.page_rows + r < a.n_rows;
+            const int rc = min(r, a.page_rows - 1);
+            key[j] = page_elem<CODE, false>(st + (size_t)i * a.page_stride,
+                                            (size_t)rc * C + a.filter_col);
+            if (Q) key[j] = __fmul_rn(key[j], scs[(size_t)i * a.page_rows + rc]);
+          }
+#pragma unroll
+          for (int j = 0; j < kWords; ++j) {
+            const uint32_t bits = __ballot_sync(
+                0xffffffffu, ok[j] && passes_filter(key[j], a.thr, a.op));
+            if (lane == 0 && w0 + j * wstep < words) mask[w0 + j * wstep] = bits;
+          }
+        }
+        named_sync(kGroupBar + g, T);
+        for (int i = s; s < S && i < nu; i += S) {
+          const int p = u0 + i;
+          const uint32_t* mw = mask + (size_t)i * wpp;
+          for (int cc = c0; cc < C; cc += cstep) {
+            float sum, mn, mx;
+            page_column_staged<CODE>(st + (size_t)i * a.page_stride,
+                                     Q ? scs + (size_t)i * a.page_rows
+                                       : nullptr,
+                                     mw, a, cc, sum, mn, mx);
+            a.ws[(size_t)(cc + 1) * a.pad_pages + p] = sum;
+            if (cc == 0) {
+              int cnt = 0;
+              for (int w = 0; w < wpp; ++w) cnt += __popc(mw[w]);
+              a.ws[p] = (float)cnt;
+            }
+            const int idx = (g * S + s) * C + cc;
+            mm[idx] = fminf(mm[idx], mn);
+            mm[M + idx] = fmaxf(mm[M + idx], mx);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[slot]);
+      } else {
+        for (int i = s; s < S && i < nu; i += S) {
+          const int p = u0 + i;
+          const size_t phys = (size_t)__ldg(a.table + p);
+          const void* pg = static_cast<const uint8_t*>(a.pages) +
+                           phys * page_elems * kElem;
+          const float* sc = Q ? a.scales + phys * a.page_rows : nullptr;
+          for (int cc = c0; cc < C; cc += cstep) {
+            float cnt, sum, mn, mx;
+            page_column_direct<CODE>(pg, sc, a, cc,
+                                     (long long)p * a.page_rows, cnt, sum,
+                                     mn, mx);
+            a.ws[(size_t)(cc + 1) * a.pad_pages + p] = sum;
+            if (cc == 0) a.ws[p] = cnt;
+            const int idx = s * C + cc;
+            mm[idx] = fminf(mm[idx], mn);
+            mm[M + idx] = fmaxf(mm[M + idx], mx);
+          }
+        }
+      }
+    }
+    // the chunk's fold values are written: publish them
+    __threadfence();
+    named_sync(kRowsBar, kScanThreads);
+    if (t == 0) st_release(a.flags + c, a.epoch);
+  }
+  named_sync(kRowsBar, kScanThreads);
+  float* blk = a.ws + (size_t)(C + 1) * a.pad_pages + (size_t)b * 2 * C;
+  for (int cc = t; cc < C; cc += kScanThreads) {
+    float mn = kPosInf, mx = kNegInf;
+    for (int s2 = 0; s2 < G * S; ++s2) {
+      mn = fminf(mn, mm[s2 * C + cc]);
+      mx = fmaxf(mx, mm[M + s2 * C + cc]);
+    }
+    blk[cc] = mn;
+    blk[C + cc] = mx;
+  }
+  __threadfence();
+  named_sync(kRowsBar, kScanThreads);
+  if (t == 0) st_release(a.flags + a.n_chunks + b, a.epoch);
+}
+
+// One fold value's row of n pages (a ring slot) added to acc in page
+// order: 16 pages (four 16-byte loads) in registers while the 16 before
+// them are added; loads past the row's end are clamped, not added.
+__device__ __forceinline__ float fold_row(const float* row, int n,
+                                          float acc) {
+  const int last = (n - 1) & ~3;
+  auto load = [&](float4 (&x)[4], int j) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      x[u] = *reinterpret_cast<const float4*>(row + min(j + 4 * u, last));
+  };
+  auto add = [&](const float4 (&x)[4]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc = __fadd_rn(acc, x[u].x);
+      acc = __fadd_rn(acc, x[u].y);
+      acc = __fadd_rn(acc, x[u].z);
+      acc = __fadd_rn(acc, x[u].w);
+    }
+  };
+  const int nb = n >> 4;   // whole batches of 16
+  float4 xa[4], xb[4];
+  load(xa, 0);
+  int i = 0;
+  for (; i + 2 <= nb; i += 2) {
+    load(xb, (i + 1) * 16);
+    add(xa);
+    load(xa, (i + 2) * 16);
+    add(xb);
+  }
+  if (i < nb) {
+    load(xb, (i + 1) * 16);
+    add(xa);
+    xa[0] = xb[0];
+    xa[1] = xb[1];
+    xa[2] = xb[2];
+    xa[3] = xb[3];
+  }
+  const int rem = n & 15;   // the last pages, in xa
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (4 * u < rem) acc = __fadd_rn(acc, xa[u].x);
+    if (4 * u + 1 < rem) acc = __fadd_rn(acc, xa[u].y);
+    if (4 * u + 2 < rem) acc = __fadd_rn(acc, xa[u].z);
+    if (4 * u + 3 < rem) acc = __fadd_rn(acc, xa[u].w);
+  }
+  return acc;
+}
+
+// Fold block f.  Warp 0: lane v adds value (q * n_fold + f) * vw + v of
+// pass q, slot by slot, in page order.  Warp 1: its lanes wait for the
+// chunks of the next slots (acquire loads, a lane a chunk), then lane v
+// bulk-copies value v's row of each slot into the ring.  In block 0 the
+// other warps fold the producers' min/max as their blocks finish, and
+// block 0 writes the count (value 0), min, max and zero rows.
+__device__ void scan_follow(const ScanArgs& a, uint8_t* ring, float* mm,
+                            int M, uint64_t* full, uint64_t* empty,
+                            float* count) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int f = blockIdx.x;
+  const int C = a.n_cols, n_vals = C + 1;
+  const int n_slots_total = (a.n_valid + a.slot_pages - 1) / a.slot_pages;
+  const int per_slot = a.slot_pages / a.chunk_pages;   // chunks a slot
+  const int slot_floats = a.vw * a.slot_stride;
+  float* sring = reinterpret_cast<float*>(ring);
+  if (t == 0) {
+    for (int i = 0; i < a.n_slots; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);
+    }
+    *count = 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    const int vr = lane < a.vw ? lane : 0;
+    int step = 0;
+    for (int q = 0; q < a.passes; ++q) {
+      const int g = (q * a.n_fold + f) * a.vw + lane;
+      if ((q * a.n_fold + f) * a.vw >= n_vals) break;
+      float acc = 0.f;
+      for (int k = 0; k < n_slots_total; ++k, ++step) {
+        const int slot = step % a.n_slots;
+        mbar_wait_bounded(&full[slot], (step / a.n_slots) & 1);
+        acc = fold_row(sring + (size_t)slot * slot_floats +
+                           (size_t)vr * a.slot_stride,
+                       min(a.slot_pages, a.n_valid - k * a.slot_pages), acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[slot]);
+      }
+      if (lane < a.vw && g == 0) *count = acc;
+      if (lane < a.vw && g >= 1 && g < n_vals) a.out[C + g - 1] = acc;
+    }
+  } else if (warp == 1) {
+    // flags of up to 32 chunks (whole slots) polled at once, a lane each
+    const int group = per_slot <= 32 ? 32 / per_slot : 1;
+    int step = 0;
+    for (int q = 0; q < a.passes; ++q) {
+      const int g0 = (q * a.n_fold + f) * a.vw;
+      if (g0 >= n_vals) break;
+      const int rows = min(a.vw, n_vals - g0);
+      for (int k0 = 0; k0 < n_slots_total; k0 += group) {
+        const int k1 = min(k0 + group, n_slots_total);
+        if (q == 0 && !a.follow_only) {
+          const int c_end = min(k1 * per_slot, a.n_chunks);
+          for (int c = k0 * per_slot + lane; c < c_end; c += 32)
+            wait_epoch(a.flags + c, a.epoch);
+          __syncwarp();
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        }
+        for (int k = k0; k < k1; ++k, ++step) {
+          const int slot = step % a.n_slots;
+          if (step >= a.n_slots)
+            mbar_wait_bounded(&empty[slot], ((step / a.n_slots) + 1) & 1);
+          const int p0 = k * a.slot_pages;
+          const uint32_t bytes =
+              (uint32_t)((min(a.slot_pages, a.n_valid - p0) + 3) & ~3) * 4;
+          if (lane == 0) mbar_expect_tx(&full[slot], rows * bytes);
+          __syncwarp();
+          if (lane < rows)
+            bulk_load(sring + (size_t)slot * slot_floats +
+                          (size_t)lane * a.slot_stride,
+                      a.ws + (size_t)(g0 + lane) * a.pad_pages + p0, bytes,
+                      &full[slot]);
+        }
+      }
+    }
+  } else if (f == 0) {
+    // the producers' min/max: wait for each block's flag (a thread a
+    // block), then thread (g, c) folds column c over blocks g, g + G, ...
+    const int T = blockDim.x - 64;
+    const int j = t - 64;
+    if (!a.follow_only)
+      for (int bb = j; bb < a.n_prod; bb += T)
+        wait_epoch(a.flags + a.n_chunks + bb, a.epoch);
+    named_sync(kMinMaxBar, T);
+    const float* blk = a.ws + (size_t)n_vals * a.pad_pages;
+    const int G = C <= T ? T / C : 1;
+    const int g = j / C;
+    const int cstep = C < T ? C : T;
+    if (g < G) {
+      for (int cc = j % C; cc < C; cc += cstep) {
+        float mn = kPosInf, mx = kNegInf;
+        int bb = g;
+        for (; bb + 3 * G < a.n_prod; bb += 4 * G) {
+          float x[8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            x[2 * u] = __ldcg(blk + (size_t)(bb + u * G) * 2 * C + cc);
+            x[2 * u + 1] = __ldcg(blk + (size_t)(bb + u * G) * 2 * C + C + cc);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            mn = fminf(mn, x[2 * u]);
+            mx = fmaxf(mx, x[2 * u + 1]);
+          }
+        }
+        for (; bb < a.n_prod; bb += G) {
+          mn = fminf(mn, __ldcg(blk + (size_t)bb * 2 * C + cc));
+          mx = fmaxf(mx, __ldcg(blk + (size_t)bb * 2 * C + C + cc));
+        }
+        mm[g * C + cc] = mn;
+        mm[M + g * C + cc] = mx;
+      }
+    }
+    named_sync(kMinMaxBar, T);
+    for (int cc = j; cc < C; cc += T)
+      for (int g2 = 1; g2 < G; ++g2) {
+        mm[cc] = fminf(mm[cc], mm[g2 * C + cc]);
+        mm[M + cc] = fmaxf(mm[M + cc], mm[M + g2 * C + cc]);
+      }
+  }
+  __syncthreads();
+  if (f != 0) return;
+  for (int cc = t; cc < C; cc += blockDim.x) {
+    a.out[cc] = *count;
+    a.out[2 * C + cc] = mm[cc];
+    a.out[3 * C + cc] = mm[M + cc];
+    for (int r = 4; r < 8; ++r) a.out[r * C + cc] = 0.f;
+  }
+}
+
+template <int CODE, bool TMA>
+__global__ void __launch_bounds__(kScanThreads + 32, 2)
+scan_kernel(const __grid_constant__ ScanArgs a) {
+  __shared__ __align__(8) uint64_t full[kScanMaxSlots];
+  __shared__ __align__(8) uint64_t empty[kScanMaxSlots];
+  __shared__ float count;
+  extern __shared__ __align__(16) uint8_t dyn[];
+  uint8_t* ring = dyn + ((128u - (smem_u32(dyn) & 127u)) & 127u);
+  const size_t stages = (size_t)a.n_stages * a.stage_bytes + 4 * a.mask_words;
+  const size_t slots = (size_t)a.n_slots * a.vw * a.slot_stride * 4;
+  float* mm = reinterpret_cast<float*>(ring + (stages > slots ? stages : slots));
+  const int M = a.n_cols > kScanThreads ? a.n_cols : kScanThreads;
+  if (blockIdx.x < a.n_fold)
+    scan_follow(a, ring, mm, M, full, empty, &count);
+  else
+    scan_produce<CODE, TMA>(a, ring, mm, M, full, empty);
+}
+
+template <int CODE>
+int launch_scan(const void* pages, const void* scales, const void* table,
+                void* ws, void* flags, void* out, long long n_rows,
+                float thr, int n_valid, int page_rows, int n_cols,
+                int filter_col, int op, int tma, int chunk_pages,
+                int unit_pages, int n_stages, int page_stride,
+                int stage_bytes, int mask_words, int vw, int n_fold,
+                int passes, int slot_pages, int slot_stride, int n_slots,
+                int n_chunks, int n_prod, int pad_pages, int epoch,
+                int follow_only, int smem, void* stream) {
+  constexpr bool Q = CODE != 0;
+  constexpr int kElem = CODE == 0 ? 4 : 1;
+  const long long page_bytes = (long long)page_rows * n_cols * kElem;
+  const long long sc_bytes = Q ? page_rows * 4LL : 0;
+  const long long stages =
+      tma ? (long long)n_stages * stage_bytes + 4LL * mask_words : 0;
+  const long long slots = (long long)n_slots * vw * slot_stride * 4;
+  const long long need = 128 + (stages > slots ? stages : slots) +
+                         8LL * (n_cols > kScanThreads ? n_cols : kScanThreads) +
+                         16;
+  const bool bad_tma =
+      tma && (n_stages < 2 || n_stages > kScanMaxStages || unit_pages < 1 ||
+              unit_pages > 32 || chunk_pages % unit_pages || page_bytes % 16 ||
+              page_stride < page_bytes || page_stride % 16 ||
+              (Q && page_rows % 4) ||
+              stage_bytes != unit_pages * (page_stride + sc_bytes) ||
+              mask_words < n_stages * unit_pages * ((page_rows + 31) / 32) ||
+              reinterpret_cast<uintptr_t>(pages) % 16 ||
+              (Q && reinterpret_cast<uintptr_t>(scales) % 16));
+  if (n_valid < 1 || page_rows < 1 || n_cols < 1 || filter_col < 0 ||
+      filter_col >= n_cols || op < 0 || op > 4 || (Q && scales == nullptr) ||
+      reinterpret_cast<uintptr_t>(pages) % kElem ||
+      (Q && reinterpret_cast<uintptr_t>(scales) % 4) || bad_tma ||
+      vw < 4 || vw % 4 || vw > kScanMaxValues || n_fold < 1 ||
+      (long long)passes * n_fold * vw < n_cols + 1 || chunk_pages < 1 ||
+      chunk_pages % 4 || slot_pages % chunk_pages || slot_stride % 4 ||
+      slot_stride < slot_pages + 4 || n_slots < 2 || n_slots > kScanMaxSlots ||
+      n_chunks != (n_valid + chunk_pages - 1) / chunk_pages ||
+      pad_pages < n_valid || pad_pages % 4 ||
+      (!follow_only && (n_prod < 1 || n_prod > n_chunks)) || epoch < 1 ||
+      reinterpret_cast<uintptr_t>(ws) % 16 || smem < need)
+    return (int)cudaErrorInvalidValue;
+  ScanArgs a;
+  a.pages = pages;
+  a.scales = static_cast<const float*>(scales);
+  a.table = static_cast<const int*>(table);
+  a.ws = static_cast<float*>(ws);
+  a.flags = static_cast<int*>(flags);
+  a.out = static_cast<float*>(out);
+  a.n_rows = n_rows;
+  a.thr = thr;
+  a.n_valid = n_valid;
+  a.page_rows = page_rows;
+  a.n_cols = n_cols;
+  a.filter_col = filter_col;
+  a.op = op;
+  a.chunk_pages = chunk_pages;
+  a.unit_pages = tma ? unit_pages : chunk_pages;
+  a.n_stages = tma ? n_stages : 0;
+  a.page_stride = page_stride;
+  a.stage_bytes = tma ? stage_bytes : 0;
+  a.mask_words = tma ? mask_words : 0;
+  a.vw = vw;
+  a.n_fold = n_fold;
+  a.passes = passes;
+  a.slot_pages = slot_pages;
+  a.slot_stride = slot_stride;
+  a.n_slots = n_slots;
+  a.n_chunks = n_chunks;
+  a.n_prod = follow_only ? 0 : n_prod;
+  a.pad_pages = pad_pages;
+  a.epoch = epoch;
+  a.follow_only = follow_only;
+  auto kernel = tma ? scan_kernel<CODE, true> : scan_kernel<CODE, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<follow_only ? n_fold : n_fold + n_prod,
+           kScanThreads + (tma ? 32 : 0), smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int CODE, bool TMA>
+int scan_occupancy(int smem) {
+  auto kernel = scan_kernel<CODE, TMA>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, kScanThreads + (TMA ? 32 : 0), smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
 
+// Blocks of the scan kernel (page format code 0 f32, 1 int8, 2 fp8; the
+// TMA or the direct instantiation) an SM holds at `smem` bytes of
+// dynamic shared memory, or -1.
+int scan_blocks_per_sm(int code, int tma, int smem) {
+  if (code == 0) return tma ? scan_occupancy<0, true>(smem) : scan_occupancy<0, false>(smem);
+  if (code == 1) return tma ? scan_occupancy<1, true>(smem) : scan_occupancy<1, false>(smem);
+  return tma ? scan_occupancy<2, true>(smem) : scan_occupancy<2, false>(smem);
+}
+
+
 // Each launcher returns cudaGetLastError() right after its launches (0 on
 // success), or cudaErrorInvalidValue for arguments the kernels do not take.
 
-#define SCAN(NAME, T, Q)                                                    \
-  int NAME(const void* pages, const void* scales, const void* table,      \
-           void* partials, void* out, int n_valid, int page_rows,          \
-           int n_cols, long long n_rows, float thr, int filter_col,        \
-           int op, void* stream) {                                         \
-    return launch_scan<T, Q>(pages, scales, table, partials, out, n_valid, \
-                             page_rows, n_cols, n_rows, thr, filter_col,   \
-                             op, stream);                                  \
+#define SCAN(NAME, CODE)                                                    \
+  int NAME(const void* pages, const void* scales, const void* table,       \
+           void* ws, void* flags, void* out, long long n_rows, float thr,  \
+           int n_valid, int page_rows, int n_cols, int filter_col, int op, \
+           int tma, int chunk_pages, int unit_pages, int n_stages,         \
+           int page_stride, int stage_bytes, int mask_words, int vw,       \
+           int n_fold, int passes, int slot_pages, int slot_stride,        \
+           int n_slots, int n_chunks, int n_prod, int pad_pages, int epoch, \
+           int follow_only, int smem, void* stream) {                      \
+    return launch_scan<CODE>(pages, scales, table, ws, flags, out, n_rows, \
+                             thr, n_valid, page_rows, n_cols, filter_col,  \
+                             op, tma, chunk_pages, unit_pages, n_stages,   \
+                             page_stride, stage_bytes, mask_words, vw,     \
+                             n_fold, passes, slot_pages, slot_stride,      \
+                             n_slots, n_chunks, n_prod, pad_pages, epoch,  \
+                             follow_only, smem, stream);                   \
   }
-SCAN(scan_filter_reduce_f32, float, false)
-SCAN(scan_filter_reduce_int8, int8_t, true)
-SCAN(scan_filter_reduce_fp8, __nv_fp8_e4m3, true)
+SCAN(scan_filter_reduce_f32, 0)
+SCAN(scan_filter_reduce_int8, 1)
+SCAN(scan_filter_reduce_fp8, 2)
 #undef SCAN
 
 #define TOPK(NAME, CODE)                                                    \

@@ -9,8 +9,9 @@ output and the per-block partials with ``torch.empty``, launches on the
 current CUDA stream and raises if the launcher returns a CUDA error.
 For tensors on the CPU (and only there) it runs the plain version in
 ``kernels.ref``.  ``LAUNCHES`` counts wrapper calls that launched their
-kernels (the scan's pages and fold launches; the top-k's one launch),
-one entry per compiled page format.
+kernel (one launch a call: the scan's streaming blocks and its ordered
+fold run in one grid; the top-k's blocks and merge likewise), one entry
+per compiled page format.
 
 ``n_rows`` and ``threshold`` are host scalars: nothing here waits for
 the card.  Page ids are trusted: the table's first ``n_valid_pages``
@@ -40,6 +41,9 @@ _CODE = {torch.float32: "f32", torch.int8: "int8",
 #: persistent top-k blocks a streaming multiprocessor (two fit its
 #: shared memory at page 128)
 TOPK_BLOCKS_PER_SM = 2
+#: persistent scan blocks a streaming multiprocessor (a few of the
+#: grid's blocks fold, the others stream)
+SCAN_BLOCKS_PER_SM = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
@@ -54,9 +58,11 @@ def typed(fn, name: str):
     """``fn``, the launcher ``name`` of a build of ``csrc/isp_scan.cu``,
     with its ctypes signature set."""
     if name.startswith("scan"):
-        # pages, scales, table, partials, out, n_valid, page_rows,
-        # n_cols, n_rows, threshold, filter_col, filter_op, stream
-        fn.argtypes = [_P] * 5 + [_I, _I, _I, _LL, _F, _I, _I, _P]
+        # pages, scales, table, ws, flags, out, n_rows, threshold,
+        # n_valid, page_rows, n_cols, filter_col, filter_op, then the
+        # plan (ref.ScanPlan's fields but smem, in order), epoch,
+        # follow_only, smem, stream
+        fn.argtypes = [_P] * 6 + [_LL, _F] + [_I] * 24 + [_P]
     else:
         # pages, scales, query, table, list_s, list_i, done, out, n_phys,
         # n_valid, page_rows, n_cols, n_rows, k, kpad, cosine, n_blocks,
@@ -81,6 +87,28 @@ def _ticket(device, stream: int):
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return _TICKETS[key]
+
+
+#: the scan's ready flags, one zeroed int32 buffer and the count of
+#: calls (the epoch the flags are set to) a (device, stream)
+_SCAN_FLAGS = {}
+_EPOCH_MAX = 2 ** 31 - 1
+
+
+def _scan_flags(device, stream: int, need: int):
+    """(flags, epoch) for the next scan call on ``stream``: at least
+    ``need`` flags, all below the epoch returned."""
+    key = (device.index, stream)
+    state = _SCAN_FLAGS.get(key)
+    if state is None or state[0].numel() < need:
+        size = max(need, 4096, 2 * state[0].numel() if state else 0)
+        state = _SCAN_FLAGS[key] = [
+            torch.zeros(size, dtype=torch.int32, device=device), 0]
+    state[1] += 1
+    if state[1] == _EPOCH_MAX:
+        state[0].zero_()
+        state[1] = 1
+    return state
 
 
 def check_topk_pool(pages, scales, query) -> str:
@@ -158,7 +186,9 @@ def scan_filter_reduce(pages, page_table, n_rows, threshold=0.0, *,
     threshold: the filter operand (rounded to f32), both host scalars.
     Returns [8, n_cols] f32: count (broadcast), per-column sum, min, max
     over the rows passing ``filter_op`` on ``filter_col``; rows 4-7 zero.
-    Bit-identical to ``ref.scan_filter_reduce_ref``.
+    Bit-identical to ``ref.scan_filter_reduce_ref``.  On the card, one
+    launch (``ref.scan_plan`` splits the work; up to about 16,000
+    columns).
     """
     if filter_op not in FILTER_OPS:
         raise ValueError(f"filter_op must be one of {FILTER_OPS}, "
@@ -174,20 +204,84 @@ def scan_filter_reduce(pages, page_table, n_rows, threshold=0.0, *,
         return ref.scan_filter_reduce_ref(
             pages, page_table, n_rows, threshold, scales=scales,
             filter_col=filter_col, filter_op=filter_op)
-    _check_cuda(pages, page_table, scales)
-    n_valid = n_valid_pages(n_rows, page_rows, page_table.shape[0])
-    partials = torch.empty((n_valid, 4, n_cols), device=pages.device)
-    out = torch.empty((REDUCE_ROWS, n_cols), device=pages.device)
-    name = f"scan_filter_reduce_{_CODE[pages.dtype]}"
-    stream = torch.cuda.current_stream(pages.device).cuda_stream
-    # fp8 codes: the bytes are handed over as-is and read as __nv_fp8_e4m3
-    err = _bind(name)(pages.data_ptr(), _ptr(scales), page_table.data_ptr(),
-                      partials.data_ptr(), out.data_ptr(), n_valid,
-                      page_rows, n_cols, n_rows, threshold, filter_col,
-                      FILTER_OPS.index(filter_op), stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out
+    call = _ScanCall(pages, page_table, n_rows, threshold, scales,
+                     filter_col, filter_op)
+    call.launch()
+    LAUNCHES[call.name] += 1
+    return call.out
+
+
+def scan_plan_of(pages, page_table, n_rows, scales=None) -> ref.ScanPlan:
+    """The work split (``ref.scan_plan``) :func:`scan_filter_reduce`
+    takes for these operands on the card: its path (TMA ring when
+    ``plan.tma``), chunks, fold blocks and passes, producer blocks."""
+    n_phys, page_rows, n_cols = pages.shape
+    aligned = all(t is None or t.data_ptr() % 16 == 0
+                  for t in (pages, scales))
+    return ref.scan_plan(
+        n_valid_pages(n_rows, page_rows, page_table.shape[0]), page_rows,
+        n_cols, pages.element_size(), scales is not None,
+        SCAN_BLOCKS_PER_SM * _sm_count(pages.device.index or 0), aligned)
+
+
+class _ScanCall:
+    """One scan on the card: its plan (``ref.scan_plan``), workspace and
+    output, launched by :meth:`launch`."""
+
+    def __init__(self, pages, page_table, n_rows, threshold, scales,
+                 filter_col, filter_op):
+        _check_cuda(pages, page_table, scales)
+        for t in (pages, scales):
+            if t is not None and t.data_ptr() % t.element_size():
+                raise ValueError("the scan kernel reads the pool and scales "
+                                 "aligned to their elements")
+        n_phys, page_rows, n_cols = pages.shape
+        dev = pages.device
+        n_valid = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+        p = self.plan = scan_plan_of(pages, page_table, n_rows, scales)
+        # the fold values [n_cols + 1, pad_pages], then the producer
+        # blocks' min/max [n_prod, 2, n_cols]
+        self.ws = torch.empty((n_cols + 1) * p.pad_pages +
+                              p.n_prod * 2 * n_cols, device=dev)
+        self.out = torch.empty((REDUCE_ROWS, n_cols), device=dev)
+        self.name = f"scan_filter_reduce_{_CODE[pages.dtype]}"
+        self.operands = (pages, scales, page_table, n_rows, threshold,
+                         n_valid, page_rows, n_cols, filter_col,
+                         FILTER_OPS.index(filter_op))
+
+    def launch(self, follow_only: bool = False):
+        (pages, scales, page_table, n_rows, threshold, n_valid, page_rows,
+         n_cols, filter_col, op) = self.operands
+        p = self.plan
+        stream = torch.cuda.current_stream(pages.device).cuda_stream
+        flags, epoch = _scan_flags(pages.device, stream,
+                                   p.n_chunks + p.n_prod)
+        # fp8 codes: the bytes are handed over as-is and read as
+        # __nv_fp8_e4m3
+        err = _bind(self.name)(
+            pages.data_ptr(), _ptr(scales), page_table.data_ptr(),
+            self.ws.data_ptr(), flags.data_ptr(), self.out.data_ptr(),
+            n_rows, threshold, n_valid, page_rows, n_cols, filter_col, op,
+            *(int(v) for v in p[:-1]), epoch, int(follow_only), p.smem,
+            stream)
+        _raise_on(err, self.name)
+
+
+def scan_chain_runner(pages, page_table, n_rows, threshold=0.0, *,
+                      scales=None, filter_col: int = 0,
+                      filter_op: str = "all"):
+    """A callable that launches the scan kernel's ordered fold alone (its
+    fold blocks, over the fold values one full scan of these operands
+    left; no flags waited for, min/max not folded): the time of the
+    page-order chain, the scan's second bound.  Card only; the full scan it runs
+    first counts in ``LAUNCHES``, the fold-alone launches do not."""
+    if pages.device.type != "cuda":
+        raise ValueError("scan_chain_runner times the kernel on the card")
+    call = _ScanCall(pages, page_table, operator.index(n_rows),
+                     float(threshold), scales, filter_col, filter_op)
+    call.launch()
+    LAUNCHES[call.name] += 1
+    return functools.partial(call.launch, follow_only=True)
 
 
 def topk_scan(pages, page_table, n_rows, query, *, k: int,

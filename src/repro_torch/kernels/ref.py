@@ -21,6 +21,7 @@ The CPU path of every wrapper in ``kernels.paged_attention``,
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -222,17 +223,13 @@ def pool_rows(pages, scales, ids):
     return x
 
 
-def _fold_pages(x, n_rows: int, threshold: float, filter_col: int,
-                filter_op: str):
-    """The page-sequential fold over logical pages x [n, page_rows, C]:
-
-      * in each page, count and sum the passing rows in row order
-        0..page_rows-1, starting from 0 (``acc = acc + where(m, v, 0)``);
-      * fold the per-page partials across pages in page order, in f32;
-      * min/max (order-free) start from POS_INF/NEG_INF.
-
-    Returns [REDUCE_ROWS, C] f32 on x's device: count broadcast on row
-    0, then sum, min, max; rows 4-7 zero."""
+def _page_partials(x, n_rows: int, threshold: float, filter_col: int,
+                   filter_op: str):
+    """Per-page partials of logical pages x [n, page_rows, C]: the
+    passing rows' count and per-column sum in row order 0..page_rows-1
+    from 0 (``acc = acc + where(m, v, 0)``), as part [n, 1 + C] f32 numpy
+    (count, then sums); and each page's per-column min / max [n, C]
+    (from POS_INF / NEG_INF)."""
     n, page_rows, n_cols = x.shape
     dev = x.device
     pos = torch.arange(n * page_rows, device=dev).reshape(n, page_rows)
@@ -246,15 +243,48 @@ def _fold_pages(x, n_rows: int, threshold: float, filter_col: int,
         s = s + torch.where(mask[:, r, None], x[:, r], zero)
     mn = torch.where(mask[..., None], x, POS_INF).amin(dim=1)
     mx = torch.where(mask[..., None], x, NEG_INF).amax(dim=1)
-    # cross-page fold: numpy's accumulate is a sequential f32 loop
     part = torch.cat([cnt[:, None], s], dim=1).cpu().numpy()
-    tot = np.add.accumulate(part, axis=0)[-1]
+    return part, mn, mx
+
+
+def fold_page_partials(part, acc=None):
+    """The cross-page fold: rows of part [n, V] f32 added in page order
+    in f32, each value its own chain (numpy's accumulate is a sequential
+    f32 loop), after ``acc`` [V] where given.  Returns [V] f32."""
+    part = np.asarray(part, np.float32)
+    if acc is not None:
+        part = np.concatenate([np.asarray(acc, np.float32)[None], part])
+    return np.add.accumulate(part, axis=0)[-1]
+
+
+def _reduce_block(tot, mn, mx, n_cols: int, dev):
+    """The [REDUCE_ROWS, n_cols] block: count (tot[0]) broadcast, sums
+    (tot[1:]), min, max; rows 4-7 zero."""
     out = torch.zeros((REDUCE_ROWS, n_cols), device=dev)
     out[0] = float(tot[0])
-    out[1] = torch.from_numpy(tot[1:]).to(dev)
-    out[2] = mn.amin(dim=0)
-    out[3] = mx.amax(dim=0)
+    out[1] = torch.from_numpy(np.ascontiguousarray(tot[1:])).to(dev)
+    out[2] = mn
+    out[3] = mx
     return out
+
+
+def _fold_pages(x, n_rows: int, threshold: float, filter_col: int,
+                filter_op: str):
+    """The page-sequential fold over logical pages x [n, page_rows, C]:
+
+      * in each page, count and sum the passing rows in row order
+        0..page_rows-1, starting from 0 (``acc = acc + where(m, v, 0)``);
+      * fold the per-page ``[count, sums]`` across pages in page order,
+        in f32 (:func:`fold_page_partials`): the count is in that chain
+        too, so above 2^24 rows it rounds as the f32 fold does;
+      * min/max (order-free) start from POS_INF/NEG_INF.
+
+    Returns [REDUCE_ROWS, C] f32 on x's device: count broadcast on row
+    0, then sum, min, max; rows 4-7 zero."""
+    part, mn, mx = _page_partials(x, n_rows, threshold, filter_col,
+                                  filter_op)
+    return _reduce_block(fold_page_partials(part), mn.amin(dim=0),
+                         mx.amax(dim=0), x.shape[2], x.device)
 
 
 def scan_filter_reduce_ref(pages, page_table, n_rows: int, threshold=0.0, *,
@@ -283,6 +313,222 @@ def scan_filter_reduce_host(data, threshold=0.0, *, page_rows: int,
     x[:n_rows] = data
     return _fold_pages(x.reshape(n, page_rows, n_cols), n_rows, threshold,
                        filter_col, filter_op)
+
+
+# The CUDA scan's work split (``csrc/isp_scan.cu``, ``scan_kernel``):
+# one launch of n_fold + n_prod blocks.  Producer block b takes chunks b,
+# b + n_prod, ... of ``chunk_pages`` valid pages (interleaved, so the
+# folded prefix grows evenly), streams them (TMA: whole pages,
+# ``unit_pages`` a ring stage, bulk-copied with their row scales; else
+# read from device memory) and writes each page's fold values (its
+# count, then each column's sum) to a workspace [n_cols + 1, pad_pages],
+# then a ready flag a chunk.  Fold block f adds values [(q * n_fold + f)
+# * vw, ... + vw) of pass q (one lane a value) in page order, slot by
+# slot of ``slot_pages`` pages, as the chunks become ready.
+
+#: consumer threads of a scan block (a TMA block adds a producer warp)
+SCAN_THREADS = 256
+#: shared memory of a block's stage ring (two blocks an SM)
+SCAN_RING_BYTES = 104 * 1024
+#: a TMA ring stage holds as many whole pages as fit this
+SCAN_STAGE_BYTES = 17 * 1024
+SCAN_MAX_STAGES = 8
+#: pages a stage (a lane of the producer warp each)
+SCAN_UNIT_PAGES = 32
+#: a chunk holds at least this many rows (whole pages), or a page for
+#: each of a block's (page, column) threads, ...
+SCAN_CHUNK_ROWS = 2048
+#: ... and no more than this many bytes of a fold block's values
+SCAN_CHUNK_FOLD_BYTES = 32 * 1024
+#: a fold slot holds whole chunks, up to this many bytes of values
+SCAN_SLOT_BYTES = 16 * 1024
+SCAN_MAX_SLOTS = 8
+#: values a fold block adds (a lane each): at least, at most
+SCAN_FOLD_VALUES = 8
+SCAN_MAX_FOLD_VALUES = 32
+SCAN_MAX_FOLD_BLOCKS = 32
+#: dynamic shared memory a block may have on the card
+SCAN_MAX_SMEM = 227 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _scan_page_layout(page_rows: int, n_cols: int, elem_size: int,
+                      quantized: bool):
+    """(page bytes, page stride in a stage, scale bytes) of a TMA stage:
+    a page's stride is padded so the pages of a warp's threads fall on
+    other banks."""
+    page_bytes = page_rows * n_cols * elem_size
+    pad = _round_up(min(n_cols * elem_size, 64), 16)
+    return (page_bytes, _round_up(page_bytes, 128) + pad,
+            page_rows * 4 if quantized else 0)
+
+
+def scan_tma_path(page_rows: int, n_cols: int, elem_size: int,
+                  quantized: bool, aligned: bool = True) -> bool:
+    """Whether the CUDA scan streams this pool's pages through its TMA
+    ring: pages of a multiple of 16 bytes from a 16-byte-aligned pool
+    (and scales), code pages of a multiple of 4 rows (their scales one
+    bulk copy), a page and its scales within half the ring; else its
+    direct path (threads read their rows from device memory)."""
+    page_bytes, stride, sc = _scan_page_layout(page_rows, n_cols, elem_size,
+                                               quantized)
+    return (page_bytes % 16 == 0 and aligned and
+            not (quantized and page_rows % 4) and
+            stride + sc + 4 * -(-page_rows // 32) <= SCAN_RING_BYTES // 2)
+
+
+class ScanPlan(NamedTuple):
+    tma: bool
+    chunk_pages: int
+    unit_pages: int     # pages a ring stage (TMA), else chunk_pages
+    n_stages: int       # TMA ring stages (0 on the direct path)
+    page_stride: int    # bytes between a stage's pages (TMA)
+    stage_bytes: int
+    mask_words: int     # a stage's row-filter bits, in 32-bit words (TMA)
+    vw: int             # fold values a fold block adds in a pass
+    n_fold: int         # fold blocks
+    passes: int
+    slot_pages: int
+    slot_stride: int    # floats between a slot's value rows
+    n_slots: int
+    n_chunks: int
+    n_prod: int
+    pad_pages: int      # a fold value row's length (n_valid rounded to 4)
+    smem: int           # dynamic shared memory a block
+
+
+def scan_plan(n_valid: int, page_rows: int, n_cols: int, elem_size: int,
+              quantized: bool, n_blocks: int,
+              aligned: bool = True) -> ScanPlan:
+    """The CUDA scan's split of n_valid pages over at most ``n_blocks``
+    blocks (the wrapper passes it to ``csrc/isp_scan.cu``, the emulation
+    follows it).  Raises ValueError where a block's shared memory would
+    not fit (more than about 16,000 columns)."""
+    tma = scan_tma_path(page_rows, n_cols, elem_size, quantized, aligned)
+    n_vals = n_cols + 1
+    vw = min(max(_round_up(-(-n_vals // SCAN_MAX_FOLD_BLOCKS), 4),
+                 SCAN_FOLD_VALUES), SCAN_MAX_FOLD_VALUES)
+    n_fold = min(-(-n_vals // vw), SCAN_MAX_FOLD_BLOCKS)
+    passes = -(-n_vals // (vw * n_fold))
+    chunk = -(-SCAN_CHUNK_ROWS // page_rows)
+    if not tma:     # a page for each (page, column) thread
+        chunk = max(chunk, SCAN_THREADS // n_cols)
+    chunk = max(1, min(chunk, SCAN_CHUNK_FOLD_BYTES // (vw * 4)))
+    unit, n_stages, stride, stage_bytes, mask_words = chunk, 0, 0, 0, 0
+    # fold rows go in 16-byte pieces: chunks (and slots) of 4k pages
+    step = 4
+    if tma:
+        _, stride, sc = _scan_page_layout(page_rows, n_cols, elem_size,
+                                          quantized)
+        unit = max(1, min(SCAN_STAGE_BYTES // (stride + sc), chunk,
+                          SCAN_UNIT_PAGES))
+        step = unit * 4 // math.gcd(unit, 4)
+        stage_bytes = unit * (stride + sc)
+        n_stages = max(2, min(SCAN_RING_BYTES // stage_bytes,
+                              SCAN_MAX_STAGES))
+        mask_words = n_stages * unit * -(-page_rows // 32)
+    chunk = _round_up(chunk, step)
+    if not tma:
+        unit = chunk
+    n_chunks = -(-n_valid // chunk)
+    slot_pages = chunk * max(1, SCAN_SLOT_BYTES // (chunk * vw * 4))
+    slot_stride = slot_pages + 4
+    slot_bytes = vw * slot_stride * 4
+    n_slots = max(2, min(SCAN_RING_BYTES // slot_bytes, SCAN_MAX_SLOTS))
+    ring = max(n_stages * stage_bytes + 4 * mask_words, n_slots * slot_bytes)
+    smem = 128 + ring + 8 * max(SCAN_THREADS, n_cols) + 16
+    if smem > SCAN_MAX_SMEM:
+        raise ValueError(f"the scan kernel takes pools of up to about "
+                         f"16,000 columns; {n_cols} need {smem} bytes of "
+                         "shared memory a block")
+    return ScanPlan(tma, chunk, unit, n_stages, stride, stage_bytes,
+                    mask_words, vw, n_fold, passes, slot_pages, slot_stride,
+                    n_slots, n_chunks,
+                    max(1, min(n_blocks - n_fold, n_chunks)),
+                    _round_up(n_valid, 4), smem)
+
+
+def scan_fold_windows(plan: ScanPlan, n_vals: int):
+    """The fold values each (pass, fold block) adds, in the kernel's
+    order: a list of ranges of value indices (count 0, then column c's
+    sum at 1 + c)."""
+    windows = []
+    for q in range(plan.passes):
+        for f in range(plan.n_fold):
+            g0 = (q * plan.n_fold + f) * plan.vw
+            if g0 < n_vals:
+                windows.append(range(g0, min(g0 + plan.vw, n_vals)))
+    return windows
+
+
+def scan_follow_emulated(part, plan: ScanPlan, trace=None):
+    """The fold blocks' fold of part [n_valid, 1 + C] (count, sums) as
+    the kernel does it: each window of :func:`scan_fold_windows` adds its
+    values from 0, slot by slot (slot k: pages [k * slot_pages, (k + 1) *
+    slot_pages)), each page in page order.  Returns [1 + C] f32;
+    ``trace["folded"]`` gets each window's page order."""
+    part = np.asarray(part, np.float32)
+    n, n_vals = part.shape
+    tot = np.zeros(n_vals, np.float32)
+    for w in scan_fold_windows(plan, n_vals):
+        cols = slice(w.start, w.stop)
+        acc = np.zeros(len(w), np.float32)
+        order = []
+        for p0 in range(0, n, plan.slot_pages):
+            p1 = min(p0 + plan.slot_pages, n)
+            acc = fold_page_partials(part[p0:p1, cols], acc)
+            order += range(p0, p1)
+        tot[cols] = acc
+        if trace is not None:
+            trace.setdefault("folded", []).append(order)
+    return tot
+
+
+def scan_blocks_emulated(pages, page_table, n_rows: int, threshold=0.0, *,
+                         scales=None, filter_col: int = 0,
+                         filter_op: str = "all", n_blocks: int,
+                         aligned: bool = True, trace=None):
+    """A plain emulation of the CUDA scan's work split (the comment above
+    ``SCAN_THREADS``), equal to :func:`scan_filter_reduce_ref` bit for
+    bit: :func:`scan_plan` at ``n_blocks`` blocks, the producers' chunks
+    and ring units writing each page's fold values once, each producer
+    folding min/max over its pages, and :func:`scan_follow_emulated`.
+    ``trace``, a dict, receives the plan, each page's producer block
+    (``producer``), the units (block, chunk, first page, pages) and each
+    fold window's page order (``folded``)."""
+    n_phys, page_rows, n_cols = pages.shape
+    nv = n_valid_pages(n_rows, page_rows, page_table.shape[0])
+    plan = scan_plan(nv, page_rows, n_cols, pages.element_size(),
+                     scales is not None, n_blocks, aligned)
+    x = pool_rows(pages, scales, page_table[:nv].long())
+    part, mn, mx = _page_partials(x, n_rows, threshold, filter_col,
+                                  filter_op)
+    ws = np.full_like(part, np.nan)
+    producer = [None] * nv
+    units = []
+    blk_mn = torch.full((plan.n_prod, n_cols), POS_INF, device=x.device)
+    blk_mx = torch.full((plan.n_prod, n_cols), NEG_INF, device=x.device)
+    for b in range(plan.n_prod):
+        for c in range(b, plan.n_chunks, plan.n_prod):
+            c0, c1 = c * plan.chunk_pages, min((c + 1) * plan.chunk_pages, nv)
+            for u0 in range(c0, c1, plan.unit_pages):
+                u1 = min(u0 + plan.unit_pages, c1)
+                units.append((b, c, u0, u1 - u0))
+                for p in range(u0, u1):
+                    if producer[p] is not None:
+                        raise AssertionError(f"page {p} produced twice")
+                    producer[p] = b
+                    ws[p] = part[p]
+                blk_mn[b] = torch.minimum(blk_mn[b], mn[u0:u1].amin(dim=0))
+                blk_mx[b] = torch.maximum(blk_mx[b], mx[u0:u1].amax(dim=0))
+    if trace is not None:
+        trace.update(plan=plan, producer=producer, units=units)
+    tot = scan_follow_emulated(ws, plan, trace)
+    return _reduce_block(tot, blk_mn.amin(dim=0), blk_mx.amax(dim=0),
+                         n_cols, x.device)
 
 
 def _chain(cols, scale):
