@@ -30,8 +30,13 @@ one JSON line and any failure exits non-zero:
            and at SCAN_C3 (40M rows, a count past 2^24 that must be the
            page-order fold's), the top-k over a 1M x 768 corpus (k 4 and 128,
            dot and cosine, planted duplicate rows), the embedding bag
-           (4M x 128 table, 2048 Zipf bags of 16) and the token-block
-           gather, each bit-identical to its plain version; the top-k
+           (4M x 128 table: 2048 Zipf bags of 16 on f32, weighted and
+           not, and on bf16; 16,384 uniform bags of 64, byte-bound) and
+           the token-block gather, beside their measured floors (an
+           empty kernel on the call's grid, an id-then-row probe), and
+           untimed at EMBED_DIMS x EMBED_LOOKUPS on every table dtype and
+           gathers of 1-8-byte rows, each bit-identical to its plain
+           version with one launch a call; the top-k
            also over the corpus on pages of 2,048 rows, the lineitem
            extent in an int8 store of 24 columns and on int8 pages of 6
            rows (timed), and untimed at TOPK_SHAPES
@@ -570,6 +575,17 @@ DUP_IDS = (123_457, 500_000, 999_999)
 # DLRM embedding bag: MLPerf DLRM (Criteo 1TB) embedding dim 128, its
 # largest tables cut 10x to 4M rows; 2048 bags of 16 lookups
 EMBED = {"rows": 4_000_000, "dim": 128, "bags": 2048, "lookups": 16}
+# a bag bound by bytes: 16,384 bags of 64 ids uniform over the EMBED table
+# (~0.92M distinct rows, ~0.47 GB)
+EMBED_WIDE = {"bags": 16_384, "lookups": 64}
+# untimed shapes of the embedding kernels: row widths (one element to
+# 4,000 bytes, column slices past 512 bytes; with the views, every piece
+# width of every table dtype), bag lengths (a stage, two, a ragged third,
+# many), the gather's dtypes (1, 2, 4 and 8 bytes)
+EMBED_DIMS = (1, 2, 3, 4, 6, 24, 64, 128, 768, 1000)
+EMBED_LOOKUPS = (1, 16, 33, 100)
+GATHER_DTYPES = ("int32", "float32", "bfloat16", "int8", "float8_e4m3fn",
+                 "float8_e5m2", "float16", "float64", "int64")
 RAG = {"template": 128, "k": 4, "question": 32, "queries": 4, "waves": 2,
        "gen": 8}
 PLAIN_ITERS = 3          # timing repeats of the plain versions
@@ -1080,10 +1096,47 @@ def topk_pool_cases(torch, np, data, flush):
     return results
 
 
+def same_bits(torch, got, want, what):
+    """max |got - want| after checking the two are equal byte for byte
+    (fp8 rows and signed zeros included)."""
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)} against the plain "
+          f"version's {want.dtype} {tuple(want.shape)}")
+    check(torch.equal(got.contiguous().view(torch.uint8),
+                      want.contiguous().view(torch.uint8)),
+          f"{what}: kernel != plain version")
+    return float((got.float() - want.float()).abs().max())
+
+
+def one_launch(ops, kernel, fn, what):
+    """fn(), checking it launched ``kernel`` once."""
+    before = ops.launch_counts()[kernel]
+    out = fn()
+    check(ops.launch_counts()[kernel] == before + 1,
+          f"{what}: one {kernel} launch")
+    return out
+
+
+def embed_floors(torch, emb, table, idx, flush):
+    """The measured floors of a call on ``table`` and ``idx`` (a gather's
+    ids as [B * K, 1]), timed as the kernel is: the empty kernel on the
+    call's grid, and the dependent pair (an id, then a 16-byte piece of
+    its row)."""
+    empty, pair = emb.floor_runners(table, idx)
+    e_ms, p_ms = time_ms(torch, empty, flush), time_ms(torch, pair, flush)
+    return {"floor_empty_ms": e_ms, "floor_pair_ms": p_ms,
+            "floor_ms": max(e_ms, p_ms)}
+
+
 def embed_cases(torch, np, data, flush):
-    """The embedding bag (4M x 128 table, Zipf bags) and the token-block
-    gather over the corpus's token blocks, bit-identical to their plain
-    versions."""
+    """The embedding bag over the 4M x 128 table: 2048 Zipf bags of 16 on
+    f32 (unweighted, weighted) and on the table as bf16, and the
+    byte-bound bag (EMBED_WIDE, uniform ids); the token-block gather over
+    the corpus's token blocks.  Each call one launch, bit-identical to
+    its plain version, timed beside its bytes bound and its measured
+    floors (``embed_floors``; the larger of the two bounds governs);
+    then ``embed_other_shapes``."""
     import torch.nn.functional as F
     from repro_torch.kernels import embed_agg as emb
     from repro_torch.kernels import ops
@@ -1097,58 +1150,172 @@ def embed_cases(torch, np, data, flush):
     idx = torch.from_numpy(ids).to(DEVICE)
     w = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(
         np.float32)).to(DEVICE)
-    idx_long = idx.long()
-    n_unique = len(np.unique(ids))
-    for weights in (None, w):
-        case = (f"{EMBED['rows']} x {EMBED['dim']} table, "
-                f"{shape[0]} bags x {shape[1]} Zipf(1.2) lookups "
-                f"({n_unique} distinct rows), "
-                f"{'weighted' if weights is not None else 'unweighted'}")
-        got = ops.embed_agg(table_e, idx, weights)
-        want = ops.ref.embed_agg_ref(table_e, idx, weights)
-        err = exact(torch, got, want, case)
+    wide = rng.integers(0, EMBED["rows"], (EMBED_WIDE["bags"],
+                                           EMBED_WIDE["lookups"]),
+                        dtype=np.int32)
+    zipf = (f"{shape[0]} bags x {shape[1]} Zipf(1.2) lookups "
+            f"({len(np.unique(ids))} distinct rows)")
+    cases = [(f"{zipf}, unweighted", table_e, ids, None),
+             (f"{zipf}, weighted", table_e, ids, w),
+             (f"{zipf}, unweighted, the table as bf16",
+              table_e.to(torch.bfloat16), ids, None),
+             (f"{wide.shape[0]} bags x {wide.shape[1]} uniform lookups "
+              f"({len(np.unique(wide))} distinct rows), unweighted "
+              "(byte-bound)", table_e, wide, None)]
+    for case, table, ids_np, weights in cases:
+        case = (f"{EMBED['rows']} x {EMBED['dim']} "
+                f"{str(table.dtype)[6:]} table, {case}")
+        ix = torch.from_numpy(ids_np).to(DEVICE)
+        got = one_launch(ops, "embed_agg",
+                         lambda: ops.embed_agg(table, ix, weights), case)
+        want = ops.ref.embed_agg_ref(table, ix, weights)
+        err = same_bits(torch, got, want, case)
+        weighted = weights is not None
+        lib_ms, lib = None, ("none: embedding_bag sums a bf16 table into "
+                             "bf16, not f32")
+        if table.dtype == torch.float32:
+            ix_long = ix.long()
 
-        def lib(weights=weights):
-            return F.embedding_bag(idx_long, table_e, mode="sum",
-                                   per_sample_weights=weights)
-        check(bool(torch.allclose(lib(), got, rtol=1e-5, atol=1e-5)),
-              "embed_agg vs embedding_bag")
-        n_look = idx.numel()
+            def call(table=table, ix_long=ix_long, weights=weights):
+                return F.embedding_bag(ix_long, table, mode="sum",
+                                       per_sample_weights=weights)
+            check(bool(torch.allclose(call(), got, rtol=1e-5, atol=1e-5)),
+                  "embed_agg vs embedding_bag")
+            lib_ms = time_ms(torch, call, flush)
+            lib = ("torch.nn.functional.embedding_bag(mode='sum', "
+                   "per_sample_weights=w)")
+        n_look, (b, d) = ix.numel(), got.shape
+        bound_ = bytes_bound(len(np.unique(ids_np)) * d *
+                             table.element_size() +
+                             n_look * 4 * (1 + weighted) + b * d * 4,
+                             n_look * d * (1 + weighted))
         kernel_line(results, "embed_agg", case, err,
-                    time_ms(torch, lambda weights=weights:
-                            emb.launch_embed_agg(table_e, idx, weights),
-                            flush),
-                    time_ms(torch, lambda weights=weights:
-                            ops.ref.embed_agg_ref(table_e, idx, weights),
+                    time_ms(torch, lambda table=table, ix=ix, weights=weights:
+                            emb.launch_embed_agg(table, ix, weights), flush),
+                    time_ms(torch, lambda table=table, ix=ix, weights=weights:
+                            ops.ref.embed_agg_ref(table, ix, weights),
                             flush, PLAIN_ITERS, 1),
-                    bytes_bound(n_unique * EMBED["dim"] * 4 + n_look * 4 *
-                                (1 + (weights is not None)) +
-                                shape[0] * EMBED["dim"] * 4,
-                                n_look * EMBED["dim"] *
-                                (1 + (weights is not None))),
-                    time_ms(torch, lib, flush),
-                    "torch.nn.functional.embedding_bag(mode='sum', "
-                    "per_sample_weights=w)", EMBED_SOURCE)
-    del table_e
+                    bound_, lib_ms, lib, EMBED_SOURCE)
+        floors = embed_floors(torch, emb, table, ix, flush)
+        results[-1].update(floors, path=emb.kernel_takes(table, weights),
+                           plan=emb.plan_of(table)._asdict(),
+                           larger_bound="floor" if floors["floor_ms"] >
+                           bound_[0] else bound_[1])
+        emit({"phase": "kernels", "kernel": "embed_agg", "case": case,
+              **floors})
+        del ix, got, want
+    del cases, table_e
     tokens = torch.from_numpy(data["corpus_tokens"]).to(DEVICE)
     gidx = torch.from_numpy(rng.integers(0, CORPUS["rows"], (8, RAG["k"]),
                                          dtype=np.int32)).to(DEVICE)
     case = (f"corpus_tokens [{CORPUS['rows']}, {CORPUS['chunk']}] int32, "
             f"ids [8, {RAG['k']}]")
-    got = ops.embed_gather(tokens, gidx)
-    err = exact(torch, got, ops.ref.embed_gather_ref(tokens, gidx), case)
+    got = one_launch(ops, "embed_gather",
+                     lambda: ops.embed_gather(tokens, gidx), case)
+    err = same_bits(torch, got, ops.ref.embed_gather_ref(tokens, gidx), case)
     n_unique = int(torch.unique(gidx).numel())
+    bound_ = bytes_bound(n_unique * CORPUS["chunk"] * 4 + gidx.numel() * 4
+                         + gidx.numel() * CORPUS["chunk"] * 4)
     kernel_line(results, "embed_gather", case, err,
                 time_ms(torch, lambda: emb.launch_embed_gather(tokens, gidx),
                         flush),
                 time_ms(torch, lambda: ops.ref.embed_gather_ref(tokens, gidx),
                         flush, PLAIN_ITERS, 1),
-                bytes_bound(n_unique * CORPUS["chunk"] * 4 + gidx.numel() * 4
-                            + gidx.numel() * CORPUS["chunk"] * 4),
+                bound_,
                 time_ms(torch, lambda: tokens[gidx.long()], flush),
                 "tokens[ids] (one index_select)", EMBED_SOURCE)
+    floors = embed_floors(torch, emb, tokens, gidx.reshape(-1, 1), flush)
+    results[-1].update(floors, path=emb.kernel_takes(tokens, gather=True),
+                       plan=emb.plan_of(tokens)._asdict(),
+                       larger_bound="floor" if floors["floor_ms"] >
+                       bound_[0] else bound_[1])
+    emit({"phase": "kernels", "kernel": "embed_gather", "case": case,
+          **floors})
+    del tokens
     torch.cuda.empty_cache()
+    embed_other_shapes(torch, np)
     return results
+
+
+def embed_table(torch, np, rng, dtype, rows, d):
+    """[rows, d] of ``dtype`` on the card: N(0, 4) values converted for
+    float dtypes (fp8 e4m3 within its range), integers over the dtype's
+    range for the others (int32: past 2^24, where the widening rounds)."""
+    if dtype.is_floating_point:
+        x = torch.from_numpy(rng.normal(0.0, 4.0, (rows, d)).astype(
+            np.float32)).to(DEVICE)
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.from_numpy(rng.integers(
+        max(info.min, -2**30), min(info.max, 2**30), (rows, d),
+        endpoint=True)).to(DEVICE).to(dtype)
+
+
+def embed_other_shapes(torch, np):
+    """Untimed, bit for bit and one launch a call: the bag at EMBED_DIMS x
+    EMBED_LOOKUPS on every table dtype of ``embed_agg.AGG_DTYPES``,
+    unweighted and with f32 and bf16 weights, on a table and on its view
+    table[1:] (another base alignment), and on a column slice (a row
+    stride that is not the width); the gather of GATHER_DTYPES rows at
+    EMBED_DIMS, table and view."""
+    from repro_torch.kernels import embed_agg as emb
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(5)
+    paths, n_agg, n_gather = set(), 0, 0
+    bags, rows = 37, 1025
+    for d in EMBED_DIMS:
+        for dtype in emb.AGG_DTYPES:
+            table = embed_table(torch, np, rng, dtype, rows, d)
+            for t in (table, table[1:]):
+                for n_look in EMBED_LOOKUPS:
+                    ix = torch.from_numpy(rng.integers(
+                        0, rows - 1, (bags, n_look),
+                        dtype=np.int32)).to(DEVICE)
+                    w = torch.from_numpy(rng.uniform(
+                        0.5, 2.0, (bags, n_look)).astype(np.float32)).to(
+                        DEVICE)
+                    for weights in (None, w, w.bfloat16()):
+                        wdt = None if weights is None else weights.dtype
+                        what = (f"embed_agg {dtype} D={d} L={n_look} "
+                                f"base+{t.data_ptr() % 16} weights {wdt}")
+                        paths.add(emb.kernel_takes(t, weights))
+                        got = one_launch(ops, "embed_agg",
+                                         lambda: ops.embed_agg(t, ix, weights),
+                                         what)
+                        same_bits(torch, got, ops.ref.embed_agg_ref(
+                            t, ix, weights), what)
+                        n_agg += 1
+    for dtype in emb.AGG_DTYPES:
+        part = embed_table(torch, np, rng, dtype, rows, 128)[:, 8:72]
+        ix = torch.from_numpy(rng.integers(0, rows, (bags, 33),
+                                           dtype=np.int32)).to(DEVICE)
+        what = f"embed_agg {dtype} column slice [:, 8:72] of D=128"
+        paths.add(emb.kernel_takes(part))
+        got = one_launch(ops, "embed_agg", lambda: ops.embed_agg(part, ix),
+                         what)
+        same_bits(torch, got, ops.ref.embed_agg_ref(part, ix), what)
+        n_agg += 1
+    for name in GATHER_DTYPES:
+        dtype = getattr(torch, name)
+        for d in EMBED_DIMS:
+            table = embed_table(torch, np, rng, dtype, rows, d)
+            for t in (table, table[1:]):
+                ix = torch.from_numpy(rng.integers(0, rows - 1, (8, 4),
+                                                   dtype=np.int32)).to(DEVICE)
+                what = f"embed_gather {name} D={d} base+{t.data_ptr() % 16}"
+                paths.add(emb.kernel_takes(t, gather=True))
+                got = one_launch(ops, "embed_gather",
+                                 lambda: ops.embed_gather(t, ix), what)
+                same_bits(torch, got, ops.ref.embed_gather_ref(t, ix), what)
+                n_gather += 1
+    every = {f"{str(dt)[6:]}_v{v}" for dt in emb.AGG_DTYPES
+             for v in (16, 8, 4, 2, 1) if v >= dt.itemsize}
+    every |= {f"gather_v{v}" for v in (16, 8, 4, 2, 1)}
+    check(every <= paths, f"embed kernels never run: {sorted(every - paths)}")
+    emit({"phase": "kernels", "check": "embed other shapes, bit for bit",
+          "agg_cases": n_agg, "gather_cases": n_gather,
+          "paths": sorted(paths)})
 
 
 # -- in-storage analytics and retrieval: the isp phase -------------------------

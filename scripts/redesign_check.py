@@ -1,8 +1,8 @@
-"""Check and time the scan, top-k, paged-attention, flash and wkv
-kernels on one card.
+"""Check and time the scan, top-k, paged-attention, flash, wkv and
+embedding kernels on one card.
 
     python scripts/redesign_check.py [topk] [pools] [paged] [flash] [wkv]
-                                     [swizzle] [scan] [scan-split]
+                                     [swizzle] [scan] [scan-split] [embed]
                                      [--logs DIR]
 
 Builds every kernel source (``kernels.build.build_all``; with ``--logs``
@@ -31,7 +31,14 @@ pages (three of ``chip_smoke.SCAN_JOBS`` each), both bit-identical to the
 plain version, with the as-built kernel's ordered page fold alone
 (``isp_scan.scan_chain_runner``); then ``chip_smoke.scan_cases_timed``
 and ``scan_other_shapes``.  ``scan-split`` times the two-pass design's
-launches apart (the pages pass, the fold) and together.  Prints one JSON
+launches apart (the pages pass, the fold) and together.  ``embed`` times
+the embedding bag and gather (``csrc/embed_agg.cu``) against the first
+design kept in ``scripts/csrc/embed_agg_pr12.cu`` (built by the script),
+in turns (as built, first design, first design, as built): the 4M x 128
+f32 table's 2048 Zipf bags of 16, unweighted and weighted, the byte-bound bag
+(``chip_smoke.EMBED_WIDE``) and the corpus token gather, both designs
+bit-identical to the plain version; then ``chip_smoke.embed_cases``
+(with its floors and ``embed_other_shapes``).  Prints one JSON
 line per case or reading, the kernels line, then the card's name and
 power limit.  With no case named, topk and flash run.  Card only.
 """
@@ -236,6 +243,112 @@ def scan_readings(torch, np, cs, flush):
         print(json.dumps(reading), flush=True)
 
 
+FIRST_DESIGN = ROOT / "scripts" / "csrc" / "embed_agg_pr12.cu"
+
+
+def first_design_library():
+    """ctypes handle of the first embedding design (``FIRST_DESIGN``),
+    built into build/repro_torch."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = build.BUILD_DIR / "libembed_agg_first.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(FIRST_DESIGN)], check=True, capture_output=True,
+                   text=True)
+    handle = ctypes.CDLL(str(lib))
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    handle.embed_agg.argtypes = [P] * 4 + [I, I, I, P]
+    handle.embed_gather_i32.argtypes = [P] * 3 + [LL, I, P]
+    return handle
+
+
+def embed_readings(torch, np, cs, data, flush):
+    """The embedding kernels as built against the first design, in turns
+    (as built, first design, first design, as built), both bit-identical
+    to the plain version."""
+    from repro_torch.kernels import embed_agg as emb
+    from repro_torch.kernels import ops
+
+    lib = first_design_library()
+    rng = np.random.default_rng(2)
+    rows, dim = cs.EMBED["rows"], cs.EMBED["dim"]
+    table = torch.from_numpy(rng.standard_normal(
+        (rows, dim), dtype=np.float32)).to(cs.DEVICE)
+    shape = (cs.EMBED["bags"], cs.EMBED["lookups"])
+    zipf = torch.from_numpy(((rng.zipf(1.2, shape) - 1) % rows).astype(
+        np.int32)).to(cs.DEVICE)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(
+        np.float32)).to(cs.DEVICE)
+    wide = torch.from_numpy(rng.integers(
+        0, rows, (cs.EMBED_WIDE["bags"], cs.EMBED_WIDE["lookups"]),
+        dtype=np.int32)).to(cs.DEVICE)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"first design {what} launch: cudaError_t "
+                               f"{err}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    for case, ix, weights in (("2048 Zipf bags x 16, unweighted", zipf, None),
+                              ("2048 Zipf bags x 16, weighted", zipf, w),
+                              ("16,384 uniform bags x 64, unweighted "
+                               "(byte-bound)", wide, None)):
+        out = torch.empty((ix.shape[0], dim), device=cs.DEVICE)
+
+        def new(ix=ix, weights=weights):
+            return emb.launch_embed_agg(table, ix, weights)
+
+        def old(ix=ix, weights=weights, out=out):
+            check(lib.embed_agg(table.data_ptr(), ix.data_ptr(),
+                                None if weights is None else
+                                weights.data_ptr(), out.data_ptr(),
+                                ix.shape[0], ix.shape[1], dim, stream()),
+                  "embed_agg")
+        want = ops.ref.embed_agg_ref(table, ix, weights)
+        cs.same_bits(torch, new(), want, f"as built {case}")
+        old()
+        cs.same_bits(torch, out, want, f"first design {case}")
+        reading = {"embed_agg": f"{rows} x {dim} f32 table, {case}"}
+        for name, fn in (("as built", new), ("first design", old),
+                         ("first design", old), ("as built", new)):
+            reading.setdefault(f"{name} ms", []).append(
+                cs.time_ms(torch, fn, flush))
+        print(json.dumps(reading), flush=True)
+    del table
+    tokens = torch.from_numpy(data["corpus_tokens"]).to(cs.DEVICE)
+    gidx = torch.from_numpy(rng.integers(0, tokens.shape[0], (8, cs.RAG["k"]),
+                                         dtype=np.int32)).to(cs.DEVICE)
+    out = torch.empty((8, cs.RAG["k"], tokens.shape[1]), dtype=torch.int32,
+                      device=cs.DEVICE)
+
+    def new_gather():
+        return emb.launch_embed_gather(tokens, gidx)
+
+    def old_gather():
+        check(lib.embed_gather_i32(tokens.data_ptr(), gidx.data_ptr(),
+                                   out.data_ptr(), gidx.numel(),
+                                   tokens.shape[1], stream()), "embed_gather")
+    want = ops.ref.embed_gather_ref(tokens, gidx)
+    cs.same_bits(torch, new_gather(), want, "as built gather")
+    old_gather()
+    cs.same_bits(torch, out, want, "first design gather")
+    reading = {"embed_gather": f"corpus_tokens {list(tokens.shape)} int32, "
+               f"ids {list(gidx.shape)}"}
+    for name, fn in (("as built", new_gather), ("first design", old_gather),
+                     ("first design", old_gather), ("as built", new_gather)):
+        reading.setdefault(f"{name} ms", []).append(
+            cs.time_ms(torch, fn, flush))
+    print(json.dumps(reading), flush=True)
+    del tokens
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -250,7 +363,7 @@ def main(argv) -> int:
         argv = [a for a in argv if a not in ("--logs", str(logs_dir))]
     which = set(argv) or {"topk", "flash"}
     if which - {"topk", "pools", "paged", "flash", "wkv", "swizzle", "scan",
-                "scan-split"}:
+                "scan-split", "embed"}:
         print(f"redesign_check: unknown case {which}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -290,6 +403,10 @@ def main(argv) -> int:
         li, _ = cs.make_lineitem(np)
         results += cs.scan_cases_timed(torch, li, flush)
         cs.scan_other_shapes(torch, np, li)
+    if "embed" in which:
+        data = cs.make_data(np)
+        embed_readings(torch, np, cs, data, flush)
+        results += cs.embed_cases(torch, np, data, flush)
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)
     return 0

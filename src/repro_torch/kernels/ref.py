@@ -700,14 +700,23 @@ def topk_scan_host(data, query, *, page_rows: int, k: int,
 # ---------------------------------------------------------------------------
 
 
+def _take_rows(table, ids):
+    """table[ids] (fp8 rows are taken as bytes: not every indexing
+    kernel takes float8)."""
+    if table.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return table.view(torch.uint8)[ids].view(table.dtype)
+    return table[ids]
+
+
 def embed_agg_ref(table, indices, weights=None):
     """Sum-pooled lookups: [B, D] f32, out[b] = sum over l = 0..L-1 in
-    lookup order of w[b, l] * table[indices[b, l]] (each product rounded
-    before its add, from 0; unweighted: the rows themselves)."""
+    lookup order of w[b, l] * table[indices[b, l]] (each code widened
+    to f32, each product rounded before its add, from 0; unweighted: the
+    rows themselves)."""
     b, n_look = indices.shape
     out = torch.zeros((b, table.shape[1]), device=table.device)
     for li in range(n_look):
-        row = table[indices[:, li].long()].float()
+        row = _take_rows(table, indices[:, li].long()).float()
         if weights is not None:
             row = row * weights[:, li, None].float()
         out = out + row
@@ -717,7 +726,127 @@ def embed_agg_ref(table, indices, weights=None):
 def embed_gather_ref(table, indices):
     """Batched row gather: table [V, D] by indices [B, K] -> [B, K, D],
     the table's dtype kept (int32 token blocks stay int32)."""
-    return table[indices.long()]
+    return _take_rows(table, indices.long())
+
+
+# The CUDA kernels' work split (``csrc/embed_agg.cu``).  A row is cut in
+# pieces of ``vec`` bytes; a group of ``lanes`` lanes takes a bag (or a
+# gathered row), one piece a lane; a row over EMBED_SLICE_PIECES pieces
+# is cut in column slices, a group each.  The bag walks its lookups in
+# stages of EMBED_STAGE_ROWS rows: lane j < EMBED_STAGE_ROWS of the group
+# loads the id (and weight) of row j, which every lane takes by a
+# shuffle; two stages are in flight.
+EMBED_MAX_PIECE = 16
+EMBED_STAGE_ROWS = 8
+EMBED_MIN_LANES = EMBED_STAGE_ROWS   # a stage's ids, one a lane
+EMBED_SLICE_PIECES = 32
+EMBED_BLOCK_THREADS = 128
+
+
+class EmbedPlan(NamedTuple):
+    vec: int        # bytes of a piece: 16, 8, 4, 2 or 1
+    pieces: int     # pieces of a row
+    lanes: int      # lanes of a group: 8, 16 or 32
+    slices: int     # column slices of a row, a group each
+    stage: int      # rows of a stage (two in flight)
+
+
+def embed_align(table) -> int:
+    """The alignment, up to 16 bytes, of every row of ``table``: of its
+    base pointer and of its row stride in bytes."""
+    return math.gcd(table.data_ptr(), table.stride(0) * table.element_size(),
+                    EMBED_MAX_PIECE)
+
+
+def embed_plan(elem_size: int, d: int, align: int) -> EmbedPlan:
+    """The embedding kernels' split of a row of ``d`` elements of
+    ``elem_size`` bytes whose rows start ``align``-byte aligned (the
+    wrapper passes it to ``csrc/embed_agg.cu``, the emulations follow
+    it): the widest piece that divides the row bytes and the alignment,
+    lanes for a row's pieces (at least a stage's ids, at most a warp)
+    and 32-piece slices of a wider row."""
+    if align % elem_size:
+        raise ValueError(f"rows aligned to {align} bytes hold no "
+                         f"{elem_size}-byte elements")
+    row = elem_size * d
+    vec = math.gcd(row, align, EMBED_MAX_PIECE)
+    pieces = row // vec
+    if pieces > EMBED_SLICE_PIECES:
+        lanes, slices = EMBED_SLICE_PIECES, -(-pieces // EMBED_SLICE_PIECES)
+    else:
+        lanes = max(EMBED_MIN_LANES, 1 << (pieces - 1).bit_length())
+        slices = 1
+    return EmbedPlan(vec, pieces, lanes, slices, EMBED_STAGE_ROWS)
+
+
+def embed_blocks(plan: EmbedPlan, n_rows: int) -> int:
+    """Blocks of the launch: a group for each (bag or row, slice)."""
+    groups = n_rows * plan.slices
+    per_block = EMBED_BLOCK_THREADS // plan.lanes
+    return -(-groups // per_block)
+
+
+def embed_lane_pieces(plan: EmbedPlan):
+    """[(slice, lane, first byte, end byte)] of each lane that holds a
+    piece of the row: piece slice * EMBED_SLICE_PIECES + lane."""
+    out = []
+    for s in range(plan.slices):
+        for q in range(plan.lanes):
+            p = s * EMBED_SLICE_PIECES + q
+            if p < plan.pieces:
+                out.append((s, q, p * plan.vec, (p + 1) * plan.vec))
+    return out
+
+
+def _slice_bytes(plan: EmbedPlan):
+    """(first byte, end byte) of each slice's live lanes."""
+    spans = {}
+    for s, _, lo, hi in embed_lane_pieces(plan):
+        spans[s] = (spans.get(s, (lo,))[0], hi)
+    return [spans[s] for s in range(plan.slices)]
+
+
+def embed_agg_emulated(table, indices, weights=None, *, align=None):
+    """A plain emulation of the CUDA bag kernel under :func:`embed_plan`,
+    equal to :func:`embed_agg_ref` bit for bit: each slice's lanes read
+    their pieces of a row as raw bytes at the row's offset, widen the
+    codes to f32 and add the stage's rows in lookup order, each row's id
+    and weight taken from the stage lane that loaded them."""
+    v, d = table.shape
+    es = table.element_size()
+    plan = embed_plan(es, d, embed_align(table) if align is None else align)
+    raw = table.view(torch.uint8)
+    b, n_look = indices.shape
+    ids = indices.long()
+    w = None if weights is None else weights.float()
+    out = torch.empty((b, d), device=table.device)
+    for lo, hi in _slice_bytes(plan):
+        acc = torch.zeros((b, (hi - lo) // es), device=table.device)
+        for l0 in range(0, n_look, plan.stage):
+            stage_ids = ids[:, l0:l0 + plan.stage]  # lane j: row l0 + j
+            for j in range(stage_ids.shape[1]):
+                x = raw[stage_ids[:, j], lo:hi].contiguous().view(
+                    table.dtype).float()
+                if w is not None:
+                    x = x * w[:, l0 + j, None]
+                acc = acc + x
+        out[:, lo // es:hi // es] = acc
+    return out
+
+
+def embed_gather_emulated(table, indices, *, align=None):
+    """The CUDA gather under :func:`embed_plan`: each (row, slice) group
+    copies its lanes' pieces of the row's bytes, blind to the dtype."""
+    v, d = table.shape
+    es = table.element_size()
+    plan = embed_plan(es, d, embed_align(table) if align is None else align)
+    raw = table.view(torch.uint8)
+    rows = indices.reshape(-1).long()
+    out = torch.empty((rows.numel(), d * es), dtype=torch.uint8,
+                      device=table.device)
+    for lo, hi in _slice_bytes(plan):
+        out[:, lo:hi] = raw[rows, lo:hi]
+    return out.view(table.dtype).reshape(*indices.shape, d)
 
 
 # ---------------------------------------------------------------------------
