@@ -14,8 +14,9 @@ one JSON line and any failure exits non-zero:
            (device time: a sleep kernel holds the card while the host
            enqueues) beside its bound and a library call: paged attention
            at the serving path's shapes, f32, int8 and fp8 pages, within
-           1e-4: the decode form on three decode batches (ragged 0..1000,
-           the serve phase's 513..576, one row of 4,000), its per-split
+           1e-4: the decode form on four decode batches (ragged 0..1000,
+           the serve phase's 513..576, one row of 4,000, a verify pass
+           of 8 sequences x 8 rows at 513..576), its per-split
            partials against the plain split emulation, the combine
            kernel alone, and a prefill chunk through the chunk form
            (expanded page row) and the decode form (contiguous table);
@@ -50,6 +51,26 @@ one JSON line and any failure exits non-zero:
            chunk form, every decode step through the decode form, per
            page type); a few horizon-1 steps under
            torch.profiler give the step's device busy time
+  serve_spec
+           sampled and speculative serving and the continuous batcher on
+           the serve phase's weights: 8 prompts of 512 tokens (the serve
+           phase's first four, four that repeat a seeded 16-token phrase
+           32 times), 64 tokens each: greedy per-token (its first four
+           against the serve phase's) and speculative at H=8; sampled at
+           temperature 0.8, top-p 0.9, seed 0 per-token, at H=8
+           (identical) and speculative; a cold sampler (0.05) plain and
+           speculative; int8 and fp8 pages, greedy plain and
+           speculative (16 tokens); a ContinuousBatcher (max_active 8,
+           H=8, speculative, sampled, prefill chunks of 256) over these
+           8 and 8 more requests of the two kinds, each against its
+           request's stream from decode.  Streams the reference holds
+           identical may differ only at a near-tie: the first position
+           that differs is printed with the per-token run's gap between
+           its two largest scores there (logits, or lp + g when sampled),
+           which must be below 1e-3.  Verify passes launch the decode
+           form on f32, int8 and fp8 pages; tok/s, speculation telemetry
+           and the batcher's TTFT and latency percentiles are printed,
+           launch counters reset just before and read just after
   serve_reduced
            the launcher's --paged --reduced path (granite-3-2b reduced,
            head_dim 16) at pages of 16 and of 128 tokens: tokens
@@ -86,7 +107,8 @@ at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
 qwen2-72b's heads, each beside the bound of its 3xTF32 route and the
 f32 bound) and the RWKV6 wkv-scan kernel (at rwkv6-3b's, and untimed at
 WKV_SHAPES) against their plain versions.  Then the kernels line
-(launches: the serve, serve_reduced, isp and dense phases' counts), the
+(launches: the serve, serve_spec, serve_reduced, isp and dense phases'
+counts), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -129,6 +151,8 @@ DECODE_OF = {"f32": "paged_decode_f32", "int8": "paged_decode_q8_int8",
 CHUNK_OF = {"f32": "paged_chunk_f32", "int8": "paged_chunk_q8_int8",
             "fp8": "paged_chunk_q8_fp8"}
 COMBINE = "paged_combine_f32"
+# rows a sequence in a speculative verify pass (the serve_spec horizon)
+VERIFY_H = 8
 
 
 def emit(obj):
@@ -198,11 +222,13 @@ def time_ms(torch, fn, flush, iters=30, warmup=3):
     return statistics.median(times)
 
 
-def bound(torch, q, table, lengths, page, hkv, code_bytes, quantized):
+def bound(torch, q, table, lengths, page, hkv, code_bytes, quantized,
+          rows_a_sequence=1):
     """Least time for the work on this run's data: bytes (each valid
-    k/v slot, its scales, q, out, the table's entries and lengths once)
-    over the memory rate, vs f32 operations (4*D per query head and valid
-    position) over the f32 rate."""
+    k/v slot, its scales, q, out, the table's entries and lengths once;
+    a table whose sequences have ``rows_a_sequence`` rows each counted
+    once a sequence) over the memory rate, vs f32 operations (4*D per
+    query head and valid position) over the f32 rate."""
     b, h, d = q.shape
     pps = table.shape[1]
     pos = torch.arange(pps * page, device=q.device)
@@ -210,7 +236,8 @@ def bound(torch, q, table, lengths, page, hkv, code_bytes, quantized):
     slot = table.long().repeat_interleave(page, dim=1) * page + pos % page
     n_slots = int(torch.unique(slot[valid]).numel())
     per_slot = hkv * d * code_bytes * 2 + (hkv * 4 * 2 if quantized else 0)
-    table_entries = pps if table.stride(0) == 0 else table.numel()
+    table_entries = (pps if table.stride(0) == 0
+                     else table.numel() // rows_a_sequence)
     n_bytes = (n_slots * per_slot + 2 * q.numel() * 4 + table_entries * 4 +
                lengths.numel() * 4)
     ops = int(lengths.long().sum()) * h * d * 4
@@ -258,6 +285,15 @@ def kernel_cases(np):
                   pre_len, "chunk"))
     cases.append(("prefill chunk C=256 pps=32, contiguous table", q, row,
                   pre_len, "decode"))
+    # a speculative verify pass: 8 sequences of committed length 512 +
+    # 8b, each fed H = 8 positions, one query row a position (lengths
+    # 513..576), every row over its sequence's page row
+    seq_len = 512 + VERIFY_H * np.arange(8, dtype=np.int32)
+    lens = (seq_len[:, None] + np.arange(1, VERIFY_H + 1)).reshape(-1)
+    q = rng.standard_normal((len(lens), h, d), dtype=np.float32)
+    table = np.repeat(table_for(seq_len + VERIFY_H, 64), VERIFY_H, axis=0)
+    cases.append((f"verify pass B=8 x H={VERIFY_H} rows, lengths 513..576 "
+                  "pps=64", q, table, lens.astype(np.int32), "verify"))
     return (k, v, page, hkv), cases
 
 
@@ -347,7 +383,7 @@ def phase_kernels(torch, np):
             zero_rows = lengths == 0
             check(not bool(got[zero_rows].any()), "length-0 rows are zero")
             split_err = split_ms = None
-            if form == "decode" and not case.startswith("prefill"):
+            if form != "chunk" and not case.startswith("prefill"):
                 split_err, per = check_split_partials(
                     torch, q, kp, vp, ks, vs, table, lengths,
                     f"{code} {case}")
@@ -362,7 +398,8 @@ def phase_kernels(torch, np):
             kernel_ms = time_ms(torch, kernel, flush)
             plain_ms = time_ms(torch, plain, flush)
             b_ms, b_by = bound(torch, q, table, lengths, page, hkv,
-                               kp.element_size(), ks is not None)
+                               kp.element_size(), ks is not None,
+                               VERIFY_H if form == "verify" else 1)
             results.append({
                 "name": ("paged_attention" if code == "f32"
                          else "paged_attention_q8"),
@@ -378,7 +415,7 @@ def phase_kernels(torch, np):
                 "library": "torch.nn.functional.scaled_dot_product_attention"
                            " on the gathered dense K/V",
                 "note": ("wrapper time: split kernel and paged_combine_f32"
-                         if form == "decode" else "wrapper time")})
+                         if form != "chunk" else "wrapper time")})
             emit({"phase": "kernels", **{k_: results[-1][k_] for k_ in (
                 "kernel", "case", "max_abs_err",
                 "split_partials_max_abs_err", "ms", "split_kernel_ms",
@@ -2265,6 +2302,324 @@ def phase_serve(torch, np, smi):
     return counts, served
 
 
+# the serve_spec phase: the serve phase's granite-3-2b, its first four
+# prompts and four that repeat a seeded 16-token phrase 32 times (512
+# tokens), 64 tokens each, horizon 8; sampling at temperature 0.8, top-p
+# 0.9, seed 0 (and 0.05 for a pass whose drafts land); the batcher serves
+# these 8 and 8 more of the two kinds
+SERVE_SPEC = {"phrase": 16, "repeats": 32, "horizon": 8, "max_active": 8,
+              "temperature": 0.8, "top_p": 0.9, "seed": 0,
+              "cold_temperature": 0.05}
+
+
+def spec_prompts(np, random_prompts, first_seed, vocab):
+    """Four of ``random_prompts`` and four phrases of SERVE_SPEC["phrase"]
+    tokens (numpy seeds ``first_seed``..+3), each repeated
+    SERVE_SPEC["repeats"] times."""
+    phrases = [np.tile(np.random.default_rng(first_seed + i).integers(
+        0, vocab, SERVE_SPEC["phrase"], dtype=np.int32),
+        SERVE_SPEC["repeats"]) for i in range(4)]
+    return list(random_prompts[:4]) + phrases
+
+
+def record_gaps(server):
+    """Observe ``server.token_scores``: for every selection its device
+    steps make, keep each row's gap between its two largest scores
+    (logits when greedy, lp + g when sampled).  Returns the list the
+    gaps [B] land in, one entry a decode step."""
+    gaps = []
+    inner = server.token_scores
+
+    def scores(logits, *args):
+        out = inner(logits, *args)
+        top = out.topk(2, dim=-1).values
+        gaps.append(top[..., 0] - top[..., 1])
+        return out
+    server.token_scores = scores
+    return gaps
+
+
+def first_divergences(torch, name, rids, want, got, gaps, first_gaps=None):
+    """The near-tie rule for two streams the reference holds identical:
+    where ``got[rid]`` differs from ``want[rid]`` (the per-token run's),
+    print the first position that differs and the gap there between the
+    two largest scores of the per-token run; a divergence passes only at
+    a gap below LOGITS_TOL.  ``gaps``: the per-token run's record (its
+    t-th decode step, slot = the rid's index in ``rids``); with
+    ``first_gaps`` ({rid: gap}) the streams begin with the token drawn
+    after prefill and decode step t is position t + 1.  Returns the
+    divergences."""
+    steps = torch.stack(gaps).cpu() if gaps else None
+    offset = 0 if first_gaps is None else 1
+    found = []
+    for slot, rid in enumerate(rids):
+        a, b = want[rid], got[rid]
+        if a == b:
+            continue
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        gap = None
+        if pos < min(len(a), len(b)):
+            if pos < offset:
+                gap = first_gaps[rid]
+            elif steps is not None and pos - offset < steps.shape[0]:
+                gap = float(steps[pos - offset, slot])
+        found.append({"run": name, "rid": rid, "position": pos,
+                      "per_token": a[pos:pos + 1], "got": b[pos:pos + 1],
+                      "top2_gap": gap})
+        emit({"phase": "serve_spec", "divergence": found[-1],
+              "limit": LOGITS_TOL})
+        check(gap is not None and gap < LOGITS_TOL,
+              f"{name}: request {rid} leaves the per-token stream at "
+              f"position {pos}, where its two largest scores are {gap} "
+              f"apart: not a near-tie below {LOGITS_TOL}")
+    return found
+
+
+def profile_spec(torch, server, cold, hot, horizon):
+    """Where a speculative verify pass (cold sampler, drafts that land;
+    the gate reopened first) and a sampled decode step (``hot``, one
+    fused step) spend their time, under ``torch.profiler``: 2 of each
+    on ``server``'s live sequences, which have room for them."""
+    seqs = server.sequence_ids()
+    verify = []
+
+    def run(batch_fn, budget, sampling):
+        got = batch_fn(server.pending_tokens(), {s: budget for s in seqs},
+                       budget, sampling=sampling)
+        for s, toks in got.items():
+            server.set_pending(s, toks[-1])
+
+    def passes():
+        for _ in range(2):
+            server.reset_speculation_stats()
+            run(server.spec_horizon_batch, horizon, cold)
+            verify.append(server.speculation_stats()["passes"])
+
+    def steps():
+        for _ in range(2):
+            run(server.horizon_batch, 1, hot)
+    out = {"verify_pass": profile_calls(torch, passes, 2)}
+    out["verify_pass"]["verify_passes"] = sum(verify)
+    out["sampled_step"] = profile_calls(torch, steps, 2)
+    return out
+
+
+def phase_serve_spec(torch, np, smi, served):
+    """Sampled and speculative paged serving, and the continuous batcher,
+    on the serve phase's full-width granite-3-2b; launch counters reset
+    just before and read just after.  Every stream the reference holds
+    identical to the per-token one is compared by the near-tie rule
+    (``first_divergences``); sampled h1 and h8 must be identical."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import serve as srv
+    from repro_torch.runtime.prng import prng_key
+    from repro_torch.runtime.scheduler import ContinuousBatcher, Request
+
+    cfg, model, params = served["cfg"], served["model"], served["params"]
+    gen, q_gen, chunk, page, hbm, plen = (SERVE[k] for k in (
+        "gen", "q8_gen", "chunk", "page", "hbm_pages", "prompt_len"))
+    hzn = SERVE_SPEC["horizon"]
+    sc = srv.SamplingConfig(SERVE_SPEC["temperature"], SERVE_SPEC["top_p"],
+                            SERVE_SPEC["seed"])
+    cold = srv.SamplingConfig(SERVE_SPEC["cold_temperature"],
+                              SERVE_SPEC["top_p"], SERVE_SPEC["seed"])
+    batch1 = spec_prompts(np, served["prompts"], 100, cfg.vocab_size)
+    batch2 = spec_prompts(np, np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, plen), dtype=np.int32), 200, cfg.vocab_size)
+    rids1, rids2 = list(range(8)), list(range(8, 16))
+    key = prng_key(sc.seed, DEVICE)
+    runs, divergences = {}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_phase = time.monotonic()
+
+    def admit(prompts, rids, sampling=None, page_dtype="fp32"):
+        """A server with ``prompts`` admitted (chunks of SERVE["chunk"]);
+        with ``sampling``, each pending token is drawn by sampled_token
+        from the prompt's last logits.  Returns (server, {rid: first
+        token}, {rid: its top-2 gap})."""
+        server = srv.PagedServer(model, params, page_size=page,
+                                 hbm_pages=hbm, page_dtype=page_dtype,
+                                 device=DEVICE)
+        first, first_gaps = {}, {}
+        for rid, prompt in zip(rids, prompts):
+            last = server.add_request(rid, prompt, chunk=chunk)
+            if sampling is not None:
+                first[rid] = srv.sampled_token(last, sampling, rid,
+                                               len(prompt))
+                server.set_pending(rid, first[rid])
+                top = srv.token_scores(last, sampling, key, rid,
+                                       len(prompt)).topk(2).values
+                first_gaps[rid] = float(top[0] - top[1])
+        return server, first, first_gaps
+
+    def decode(server, name, n, first=None, **kw):
+        """One timed decode call; the run's tok/s, launches and
+        speculation telemetry go to ``runs[name]``.  Returns the streams
+        (``first`` tokens prepended)."""
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.monotonic()
+        out = server.decode(n, **kw)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        after = ops.launch_counts()
+        runs[name] = {
+            "decode_s": secs,
+            "decode_tok_s": sum(map(len, out.values())) / secs,
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}}
+        if kw.get("speculative"):
+            runs[name]["speculation"] = server.speculation_stats()
+        emit({"phase": "serve_spec", "run": name, **runs[name]})
+        if first:
+            out = {r: [first[r]] + out[r] for r in out}
+        check(all(0 <= t < cfg.vocab_size for v in out.values() for t in v)
+              and all(len(v) == n + bool(first) for v in out.values()),
+              f"{name}: token count and range")
+        return out
+
+    def verify_passes(name, code):
+        st = runs[name]["speculation"]
+        need = cfg.n_layers * st["passes"]
+        got = runs[name]["launches"].get(DECODE_OF[code], 0)
+        check(st["passes"] > 0 and got >= need,
+              f"{name}: {st['passes']} verify passes, {got} "
+              f"{DECODE_OF[code]} launches (>= {need} needed)")
+
+    # greedy: the per-token run (scores recorded), then speculative H=8
+    server = admit(batch1, rids1)[0]
+    gaps = record_gaps(server)
+    greedy_h1 = decode(server, "greedy_h1", gen)
+    del server
+    divergences += first_divergences(
+        torch, "serve phase's h1 (its first four prompts)", rids1[:4],
+        greedy_h1, served["tokens_h1"], gaps)
+    server = admit(batch1, rids1)[0]
+    greedy_spec = decode(server, "greedy_spec_h8", gen, horizon=hzn,
+                         speculative=True)
+    del server
+    verify_passes("greedy_spec_h8", "f32")
+    divergences += first_divergences(torch, "greedy speculative h8", rids1,
+                                     greedy_h1, greedy_spec, gaps)
+
+    # sampled: per-token (recorded), h8 (identical: same operations),
+    # speculative h8
+    server, first, first_gaps = admit(batch1, rids1, sc)
+    gaps_s = record_gaps(server)
+    sampled_h1 = decode(server, "sampled_h1", gen - 1, first, sampling=sc)
+    del server
+    server, first8, _ = admit(batch1, rids1, sc)
+    sampled_h8 = decode(server, "sampled_h8", gen - 1, first8, horizon=hzn,
+                        sampling=sc)
+    del server
+    check(not first_divergences(torch, "sampled h8", rids1, sampled_h1,
+                                sampled_h8, gaps_s, first_gaps),
+          "sampled tokens identical at horizon 1 and 8")
+    server, first_sp, _ = admit(batch1, rids1, sc)
+    sampled_spec = decode(server, "sampled_spec_h8", gen - 1, first_sp,
+                          horizon=hzn, speculative=True, sampling=sc)
+    del server
+    divergences += first_divergences(torch, "sampled speculative h8", rids1,
+                                     sampled_h1, sampled_spec, gaps_s,
+                                     first_gaps)
+
+    # a cold sampler (drafts land): speculative against the plain horizon
+    # (h8 selects as h1 does, checked above), q8_gen tokens
+    server, first_c, cold_gaps = admit(batch1, rids1, cold)
+    gaps_c = record_gaps(server)
+    cold_plain = decode(server, "cold_sampled_h8", q_gen - 1, first_c,
+                        horizon=hzn, sampling=cold)
+    del server
+    server, first_cs, _ = admit(batch1, rids1, cold)
+    cold_spec = decode(server, "cold_sampled_spec_h8", q_gen - 1, first_cs,
+                       horizon=hzn, speculative=True, sampling=cold)
+    profiles = profile_spec(torch, server, cold, sc, hzn)
+    del server
+    divergences += first_divergences(torch, "cold sampled speculative h8",
+                                     rids1, cold_plain, cold_spec, gaps_c,
+                                     cold_gaps)
+
+    # int8 and fp8 pages: greedy speculative against the plain horizon
+    for code in ("int8", "fp8"):
+        server = admit(batch1, rids1, page_dtype=code)[0]
+        gaps_q = record_gaps(server)
+        plain = decode(server, f"{code}_greedy_h8", q_gen, horizon=hzn)
+        del server
+        server = admit(batch1, rids1, page_dtype=code)[0]
+        spec = decode(server, f"{code}_greedy_spec_h8", q_gen, horizon=hzn,
+                      speculative=True)
+        del server
+        verify_passes(f"{code}_greedy_spec_h8", code)
+        divergences += first_divergences(
+            torch, f"{code} greedy speculative h8", rids1, plain, spec,
+            gaps_q)
+
+    # the second batch's sampled streams (h8, recorded), then the batcher
+    server, first2, first_gaps2 = admit(batch2, rids2, sc)
+    gaps2 = record_gaps(server)
+    sampled2 = decode(server, "sampled_h8_batch2", gen - 1, first2,
+                      horizon=hzn, sampling=sc)
+    del server
+    server = srv.PagedServer(model, params, page_size=page, hbm_pages=hbm,
+                             device=DEVICE)
+    batcher = ContinuousBatcher(server, max_active=SERVE_SPEC["max_active"],
+                                horizon=hzn, speculative=True, sampling=sc,
+                                prefill_chunk=chunk)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    t0 = time.monotonic()
+    for rid, prompt in zip(rids1 + rids2, batch1 + batch2):
+        check(batcher.submit(Request(rid=rid, prompt=prompt,
+                                     max_tokens=gen)), f"request {rid} taken")
+    stats = batcher.run_to_completion()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    after = ops.launch_counts()
+    out = {r.rid: r.output for r in batcher.finished}
+    check(stats["requests"] == 16 and not batcher.rejected,
+          "the batcher finished every request")
+    check(server.table.free_pages == server.hbm_pages,
+          "the batcher's pages came back")
+    runs["batcher"] = {
+        "seconds": secs, "tok_s": sum(map(len, out.values())) / secs,
+        **{k: stats[k] for k in stats if k != "tier"},
+        "speculation": server.speculation_stats(),
+        "launches": {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}}
+    emit({"phase": "serve_spec", "run": "batcher", **runs["batcher"]})
+    del server, batcher
+    divergences += first_divergences(torch, "batcher (first batch)", rids1,
+                                     sampled_h1, out, gaps_s, first_gaps)
+    divergences += first_divergences(torch, "batcher (second batch)", rids2,
+                                     sampled2, out, gaps2, first_gaps2)
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for code in ("f32", "int8", "fp8"):
+        for name in (CHUNK_OF[code], DECODE_OF[code]):
+            check(counts[name] > 0, f"{name} launched in serve_spec")
+    n_decode = sum(counts[DECODE_OF[c]] for c in DECODE_OF)
+    check(counts[COMBINE] == n_decode,
+          f"{COMBINE} launches {counts[COMBINE]} != {n_decode}")
+    emit({"phase": "serve_spec", "arch": cfg.name, "requests": 8,
+          "batcher_requests": 16, "prompt_len": plen, "gen": gen,
+          "q8_gen": q_gen, "horizon": hzn, "sampling": {
+              "temperature": sc.temperature, "top_p": sc.top_p,
+              "seed": sc.seed, "cold_temperature": cold.temperature},
+          "seconds": time.monotonic() - t_phase,
+          "runs": {k: {k2: v2 for k2, v2 in v.items() if k2 != "launches"}
+                   for k, v in runs.items()},
+          "profiles": profiles,
+          "divergences": divergences, "divergence_limit": LOGITS_TOL,
+          "sampled_h1_h8_identical": True, "launches": counts,
+          "tokens_request4_greedy": greedy_h1[4],
+          "tokens_request4_sampled": sampled_h1[4],
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return counts
+
+
 # the launcher's --paged --reduced path (head_dim 16) at the serving page
 # and at pages of 128: 4 prompts of 300 tokens, chunks of 128, 16 tokens
 SERVE_REDUCED = {"arch": "granite-3-2b", "requests": 4, "prompt_len": 300,
@@ -2412,13 +2767,14 @@ def main() -> int:
     kernels += phase_dense_kernels(torch, np, flush)
     del flush
     counts, served = phase_serve(torch, np, smi)
+    spec_counts = phase_serve_spec(torch, np, smi, served)
     reduced_counts = phase_serve_reduced(torch, np, smi)
     isp_counts = phase_isp(torch, np, smi, served, data)
     del data
     dense_counts = phase_dense(torch, np, smi, served)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
-            counts, reduced_counts, isp_counts, dense_counts))
+            counts, spec_counts, reduced_counts, isp_counts, dense_counts))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

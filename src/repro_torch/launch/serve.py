@@ -5,17 +5,22 @@ device.
       --requests 4 --prompt-len 16 --gen 32 [--reduced --device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --paged --requests 4 --prompt-len 16 --gen 32 [--horizon 8] \
+      [--speculative] [--temperature 0.8 --top-p 0.9] \
       [--prefill-chunk 256] [--page-dtype int8|fp8] [--reduced --device cpu]
 
 Without ``--paged`` (the default path): one prefill of all prompts, the
 KV cache of a transformer padded to ``prompt_len + gen``, then ``gen``
-greedy decode steps (``make_serving_fns``); transformer and RWKV6 archs.
-``--paged`` serves a transformer from the paged KV store.  Runs on
+decode steps (``make_serving_fns``); transformer and RWKV6 archs.
+Tokens are greedy, or with ``--temperature > 0`` drawn from the
+temperature/top-p distribution with the Gumbel noise of
+``fold_in(key(0), step)`` over the whole [batch, vocab] row block, as
+the JAX launcher draws them.  ``--paged`` serves a transformer from the
+paged KV store; ``--speculative`` (needs ``--horizon >= 2``) runs
+draft-verify passes and prints the speculation telemetry.  Runs on
 ``cuda`` unless ``--device cpu`` is given; without a card it raises
 rather than run on the CPU.  Weights are random, drawn from a seeded
 ``torch.Generator`` on the device; prompts come from a seeded numpy
-generator.  The pool path, speculation and sampling are not ported yet
-and exit with a message.
+generator.  The pool path is not ported yet and exits with a message.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model
-from repro_torch.runtime.serve import PagedServer, make_serving_fns
+from repro_torch.runtime.prng import fold_in, gumbel, prng_key
+from repro_torch.runtime.serve import (PagedServer, SamplingConfig,
+                                       make_serving_fns, sampling_log_probs)
 
 
 def main(argv=None):
@@ -52,8 +59,16 @@ def main(argv=None):
     ap.add_argument("--horizon", type=int, default=1,
                     help="tokens generated per host interaction "
                          "(1 = per-token scheduling)")
-    ap.add_argument("--speculative", action="store_true")
-    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-verify decoding (--paged, --horizon >= 2): "
+                         "an n-gram drafter proposes up to horizon-1 "
+                         "tokens, one pass verifies them; tokens equal the "
+                         "plain path's")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax); the "
+                         "draws are seeded and made on the device")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (with --temperature > 0)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prompt tokens per prefill chunk (0 = one chunk)")
     ap.add_argument("--device", default="cuda")
@@ -61,10 +76,14 @@ def main(argv=None):
 
     if args.pool:
         raise SystemExit("--pool: not yet ported")
-    if args.speculative:
-        raise SystemExit("--speculative: not yet ported")
-    if args.temperature > 0:
-        raise SystemExit("--temperature > 0: not yet ported")
+    if args.speculative and not args.paged:
+        raise SystemExit("--speculative needs --paged")
+    if args.speculative and args.horizon < 2:
+        raise SystemExit("--speculative needs --horizon >= 2 (the draft "
+                         "rides the fused-horizon step)")
+    sampling = (SamplingConfig(temperature=args.temperature,
+                               top_p=args.top_p)
+                if args.temperature > 0 else None)
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
@@ -79,7 +98,8 @@ def main(argv=None):
 
     t0 = time.monotonic()
     if not args.paged:
-        out = _serve_dense(model, params, prompts, args.gen, device)
+        out = _serve_dense(model, params, prompts, args.gen, device,
+                           sampling)
         toks = args.requests * args.gen
         dt = time.monotonic() - t0
         print(f"served {args.requests} requests, {toks} tokens on {device} "
@@ -93,9 +113,15 @@ def main(argv=None):
     for i in range(args.requests):
         server.add_request(i, prompts[i], chunk=args.prefill_chunk or None)
     out = server.decode(args.gen,
-                        horizon=args.horizon if args.horizon > 1 else None)
+                        horizon=args.horizon if args.horizon > 1 else None,
+                        sampling=sampling, speculative=args.speculative)
     toks = sum(len(v) for v in out.values())
     dt = time.monotonic() - t0
+    if args.speculative:
+        st = server.speculation_stats()
+        print(f"speculation: alpha={st['alpha']:.2f} "
+              f"passes={st['passes']} (fallback {st['fallback_passes']}) "
+              f"accepted-length hist {st['accepted_len_hist']}")
     print("tier stats:", server.tier_stats())
     print(f"prefix hit rate: {server.prefix_hit_rate():.2f}")
     print(f"served {args.requests} requests, {toks} tokens on {device} "
@@ -103,9 +129,21 @@ def main(argv=None):
     return out
 
 
-def _serve_dense(model, params, prompts, gen, device):
+def dense_pick(logits, sampling, key, step: int):
+    """The dense path's token selection for decode step ``step`` (0: the
+    token after prefill): argmax, or with ``sampling`` of temperature > 0
+    argmax of ``sampling_log_probs + gumbel(fold_in(key, step))`` over
+    the whole [B, V] block.  logits [B, V]; returns [B] int64."""
+    if sampling is None or sampling.greedy:
+        return logits.argmax(-1)
+    lp = sampling_log_probs(logits, sampling.temperature, sampling.top_p)
+    return (lp + gumbel(fold_in(key, step), lp.shape)).argmax(-1)
+
+
+def _serve_dense(model, params, prompts, gen, device, sampling=None):
     """Prefill, grow a transformer's KV cache to ``prompt_len + gen``,
-    then ``gen`` greedy decode steps.  Returns {request: gen tokens}."""
+    then ``gen`` decode steps, tokens picked by :func:`dense_pick`.
+    Returns {request: gen tokens}."""
     prefill, decode = make_serving_fns(model)
     logits, cache = prefill(
         params, {"tokens": torch.from_numpy(prompts).long().to(device)})
@@ -113,12 +151,13 @@ def _serve_dense(model, params, prompts, gen, device):
         pad = prompts.shape[1] + gen - cache["k"].shape[-2]
         cache["k"] = F.pad(cache["k"], (0, 0, 0, pad))
         cache["v"] = F.pad(cache["v"], (0, 0, 0, pad))
-    cur = logits.argmax(-1)
+    key = None if sampling is None else prng_key(sampling.seed, device)
+    cur = dense_pick(logits, sampling, key, 0)
     picks = []
-    for _ in range(gen):
+    for step in range(gen):
         picks.append(cur)
         logits, cache = decode(params, cache, cur)
-        cur = logits.argmax(-1)
+        cur = dense_pick(logits, sampling, key, step + 1)
     tokens = torch.stack(picks, dim=1).tolist()
     return dict(enumerate(tokens))
 

@@ -1,5 +1,6 @@
 """Serving runtime on torch: the dense path (``make_serving_fns``) and
-the paged-KV ``PagedServer``, greedy only.
+the paged-KV ``PagedServer``, with token sampling and speculative
+decoding.
 
 The port of ``repro.runtime.serve.PagedServer``: a host-side
 :class:`~repro_torch.core.kv_tier.PageTableManager` (LRU tiering,
@@ -17,9 +18,22 @@ runs between device steps; the device steps are eager PyTorch:
     every position seeing the sequence's one page row (an expanded
     view, which the kernels take as their chunk form);
   * the fused decode horizon (``decode(horizon=H)``) runs H such steps
-    with the argmax kept on the device, against pages reserved for the
-    whole horizon, and moves one [H, B] tensor of emitted tokens to the
-    host per horizon.  Greedy tokens equal the per-token path's.
+    with the token selection kept on the device, against pages reserved
+    for the whole horizon, and moves one [H, B] tensor of emitted tokens
+    to the host per horizon.  Greedy tokens equal the per-token path's;
+  * token selection is greedy argmax or, with a ``SamplingConfig`` of
+    temperature > 0, Gumbel-max over the temperature-scaled, top-p
+    filtered distribution, drawn at ``fold_in(fold_in(key(seed),
+    sequence id), position)`` by the threefry generator of
+    ``runtime.prng``, bit for bit the JAX package's draws;
+  * speculative decoding (``decode(speculative=True)``): an n-gram
+    drafter (``draft_ngram``) proposes up to H-1 tokens from each
+    sequence's own history, one verify pass runs the H fed positions of
+    every sequence as B*H decode-shaped query rows (each over its
+    sequence's page row, repeated in a materialised table, so the
+    kernels' decode form runs), acceptance keeps the longest matched
+    prefix plus the token at the first mismatch, and ``commit_horizon``
+    rolls back the rejected tail's pages.
 
 Batch size, table width and horizon are bucketed to powers of two as in
 the JAX server (its jit cache depends on it; here ``_plan_horizon`` and
@@ -28,6 +42,7 @@ the JAX server (its jit cache depends on it; here ``_plan_horizon`` and
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -39,6 +54,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_params
+from repro_torch.runtime.prng import fold_in, gumbel, prng_key
+
+NEG_INF = -1e30
 
 
 def make_serving_fns(model, mesh=None):
@@ -65,8 +83,15 @@ def _pow2_floor(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
-    """Token selection.  Only greedy (``temperature <= 0``) is ported;
-    sampling needs the JAX package's threefry draws, bit for bit."""
+    """On-device token selection, threaded through ``decode`` /
+    ``horizon_batch`` / ``spec_horizon_batch``.
+
+    ``temperature <= 0`` is greedy argmax, the default.  ``temperature >
+    0`` samples on the device by Gumbel-max over the temperature-scaled,
+    top-p-filtered distribution; the draw of the token at position p of
+    sequence s is keyed by ``fold_in(fold_in(key(seed), s), p)``, so it
+    is a pure function of (seed, sequence, position): the same on every
+    path (per-token, horizon, speculative, re-prefilled)."""
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int = 0
@@ -74,6 +99,115 @@ class SamplingConfig:
     @property
     def greedy(self) -> bool:
         return self.temperature <= 0.0
+
+
+GREEDY = SamplingConfig()
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A float32 scalar on ``device``, made by a fill (no host copy, no
+    stream sync): a divisor on the card keeps torch from multiplying by
+    a reciprocal, as it does for a host scalar."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def sampling_log_probs(logits, temperature, top_p):
+    """Log-probs of the temperature/top-p target distribution.
+
+    ``logits`` [..., V].  Tokens outside the nucleus (the smallest
+    probability-sorted set with mass >= ``top_p``; every token at the
+    cutoff probability kept) go to NEG_INF and the rest renormalise.
+    Speculative acceptance is correct against exactly this
+    distribution."""
+    dev = logits.device
+    t = torch.clamp(_f32(temperature, dev), min=1e-6)
+    lp = torch.log_softmax(logits.float() / t, dim=-1)
+    p = torch.exp(lp)
+    srt = torch.sort(p, dim=-1, descending=True).values
+    mass_before = torch.cumsum(srt, dim=-1) - srt
+    cut = torch.where(mass_before < _f32(top_p, dev), srt,
+                      _f32(float("inf"), dev)).amin(dim=-1, keepdim=True)
+    lp = torch.where(p >= cut, lp, _f32(NEG_INF, dev))
+    return lp - torch.logsumexp(lp, dim=-1, keepdim=True)
+
+
+def token_scores(logits, sampling, key, streams, positions):
+    """Scores whose argmax is the selected token, on ``logits``' device:
+    the logits themselves when ``sampling`` is greedy (no sort, no draw),
+    else ``sampling_log_probs + gumbel`` with one key a row,
+    ``fold_in(fold_in(key, stream), position)``.  logits [..., V];
+    streams and positions integer tensors broadcasting to [...]; key
+    [2] int64 (``prng.prng_key``)."""
+    if sampling is None or sampling.greedy:
+        return logits
+    lp = sampling_log_probs(logits, sampling.temperature, sampling.top_p)
+    keys = fold_in(fold_in(key, streams), positions)
+    return lp + gumbel(keys, (logits.shape[-1],))
+
+
+def sampled_token(logits, sampling, stream: int, position: int) -> int:
+    """The token at absolute ``position`` of sequence ``stream``, drawn
+    from ``logits`` [V] under ``sampling`` with the key the device
+    sampler uses there (greedy: argmax).  A scheduler selects the token
+    after a prefill with it, so a re-prefilled sequence continues as the
+    uninterrupted run would.  Runs on ``logits``' device."""
+    row = torch.as_tensor(logits).reshape(-1)
+    key = (None if sampling is None or sampling.greedy else
+           prng_key(sampling.seed, row.device))
+    scores = token_scores(row, sampling, key, int(stream) & 0x7FFFFFFF,
+                          int(position))
+    return int(scores.argmax())
+
+
+# n-gram drafter tuning: a candidate site must match at least
+# SPEC_MIN_MATCH trailing history tokens, and match quality is scored up
+# to SPEC_MAX_MATCH trailing tokens
+SPEC_MIN_MATCH = 3
+SPEC_MAX_MATCH = 8
+
+
+def draft_ngram(hist, hist_len, n_draft: int):
+    """N-gram / prompt-lookup drafter over each sequence's own history.
+
+    Finds the earlier site whose trailing tokens agree with the
+    history's suffix on the longest run (scored up to
+    ``SPEC_MAX_MATCH``, at least ``SPEC_MIN_MATCH``; sites with more
+    successor tokens rank first, then the longer match, then the later
+    site) and proposes the tokens that followed it.
+
+    hist: [B, T] int32 (prompt + generated incl. the pending token,
+    garbage past ``hist_len``); hist_len: [B] int32.  Returns
+    [B, n_draft] int32 candidates, -1 where nothing matched (a -1 never
+    equals a token, so the verify pass rejects it)."""
+    b, t = hist.shape
+    dev = hist.device
+    hist = hist.long()
+    hl = hist_len.long()[:, None]
+    ar = torch.arange(t, device=dev)[None, :]
+    k = min(SPEC_MAX_MATCH, t)
+    # suffix tokens newest-first: last_js[:, j] = hist[hl - 1 - j]
+    idx = torch.clamp(hl - 1 - torch.arange(k, device=dev)[None, :], 0,
+                      t - 1)
+    last_js = hist.gather(1, idx)                            # [B, K]
+    run = torch.ones((b, t), dtype=torch.bool, device=dev)
+    mlen = torch.zeros((b, t), dtype=torch.long, device=dev)
+    for j in range(k):
+        # hj[:, i] = hist[:, i - j] (the token j back from site i)
+        hj = (torch.nn.functional.pad(hist, (j, 0), value=-1)[:, :t]
+              if j else hist)
+        run = run & (hj == last_js[:, j:j + 1]) & (ar >= j) & (hl - 1 - j >= 0)
+        mlen = mlen + run.long()
+    valid = (mlen >= SPEC_MIN_MATCH) & (ar >= 1) & (ar < hl - 1)
+    # successor tokens available after site i: the draft it can fill
+    runway = torch.clamp(hl - 1 - ar, 0, n_draft)
+    score = torch.where(valid, (runway * (SPEC_MAX_MATCH + 1) + mlen) * t + ar,
+                        -1)
+    best = score.amax(dim=1)                                 # [B]
+    match = torch.where(best >= 0, best % t, -1)
+    di = match[:, None] + 1 + torch.arange(n_draft, device=dev)[None, :]
+    ok = (match >= 1)[:, None] & (di < hl)
+    cand = hist.gather(1, torch.clamp(di, 0, t - 1))
+    return torch.where(ok, cand, -1).to(torch.int32)
 
 
 class PagedServer:
@@ -122,6 +256,17 @@ class PagedServer:
         self._prefill_state: Dict[int, np.ndarray] = {}
         self._prefill_unmatched: set = set()
         self.prefill_tokens_computed = 0
+        # prompt + generated (incl. pending) tokens of each live sequence:
+        # the drafter's lookup corpus, uploaded per speculative pass
+        self._history: Dict[int, List[int]] = {}
+        self.spec_lookup_window = 256
+        # adaptive gate: a rolling acceptance-rate EMA below the floor
+        # routes passes to the plain horizon, every spec_probe_every-th
+        # gated pass still speculates (a probe that can reopen it)
+        self.spec_alpha_floor = 0.7
+        self.spec_probe_every = 16
+        self.spec_stats: Dict[str, object] = {}
+        self.reset_speculation_stats()
 
     def _to_dev(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.array(arr, order="C")).to(self.device)
@@ -139,8 +284,15 @@ class PagedServer:
         return dict(self._pending)
 
     def set_pending(self, seq_id: int, token: int):
-        """Override the token the next decode call feeds ``seq_id``."""
-        self._pending[seq_id] = int(token)
+        """Override the token the next decode call feeds ``seq_id`` (a
+        scheduler that selects the token after prefill host-side, with
+        ``sampled_token``, reports that one).  The drafter history's
+        entry for the old pending token is rewritten to match."""
+        tok = int(token)
+        hist = self._history.get(seq_id)
+        if hist and hist[-1] == self._pending.get(seq_id):
+            hist[-1] = tok
+        self._pending[seq_id] = tok
 
     def free_sequence(self, seq_id: int) -> int:
         """Retire a sequence: its pages in both tiers are released.
@@ -151,6 +303,7 @@ class PagedServer:
         self._pending.pop(seq_id, None)
         self._prefill_state.pop(seq_id, None)
         self._prefill_unmatched.discard(seq_id)
+        self._history.pop(seq_id, None)
         return freed
 
     # -- transformer-block halves (shared by the kernel path and the
@@ -205,14 +358,21 @@ class PagedServer:
         return logits
 
     def decode_horizon_step(self, page_table, lengths, tokens, budget,
-                            eos_id: int, *, horizon: int):
-        """``horizon`` fused decode steps: the on-device argmax feeds the
-        next step, page slots advance against the reservation
-        (``PageTableManager.reserve_horizon``, which ``page_table``
-        covers), and EOS/budget masks stop finished sequences.  Rows
-        that are done (or padding) append into the sentinel page and
-        emit -1.  budget: [B] int32 tokens each sequence may still
-        produce; eos_id: -1 disables EOS.
+                            eos_id: int, key=None, sampling=None,
+                            streams=None, *, horizon: int):
+        """``horizon`` fused decode steps: the token selected on the
+        device feeds the next step, page slots advance against the
+        reservation (``PageTableManager.reserve_horizon``, which
+        ``page_table`` covers), and EOS/budget masks stop finished
+        sequences.  Rows that are done (or padding) append into the
+        sentinel page and emit -1.  budget: [B] int32 tokens each
+        sequence may still produce; eos_id: -1 disables EOS.
+
+        Selection is greedy argmax unless ``sampling`` has temperature >
+        0; then row b's token at 1-based position p (its new length) is
+        drawn with ``fold_in(fold_in(key, streams[b]), p)``
+        (:meth:`token_scores`), so it depends on (seed, sequence,
+        position) only, not on batch slot, horizon or pass.
 
         Returns (emitted [H, B] int32, last step's logits [B, V] f32)."""
         b = tokens.shape[0]
@@ -240,7 +400,8 @@ class PagedServer:
                                            new_lengths)
                 h = self._attn_out_ffn(lp, h, o.reshape(b, 1, -1))
             logits = self._logits(h)[:, 0]
-            nxt = logits.argmax(dim=-1).to(torch.int32)
+            nxt = self.token_scores(logits, sampling, key, streams,
+                                    new_lengths).argmax(dim=-1).to(torch.int32)
             emitted.append(torch.where(valid, nxt, -1))
             # the emitted token used one budget slot; EOS zeroes the rest
             budget = torch.where(valid & (nxt == eos_id), 0,
@@ -248,6 +409,87 @@ class PagedServer:
             tokens = torch.where(valid, nxt, tokens)
             lengths = new_lengths
         return torch.stack(emitted), logits
+
+    def token_scores(self, logits, sampling, key, streams, positions):
+        """The scores the device steps select tokens by
+        (:func:`token_scores`); a method so that a caller can observe
+        them on one server."""
+        return token_scores(logits, sampling, key, streams, positions)
+
+    def decode_spec_step(self, page_table, lengths, tokens, budget,
+                         eos_id: int, hist, hist_len, key=None,
+                         sampling=None, streams=None, *, horizon: int):
+        """One speculative draft-verify pass.
+
+        ``draft_ngram`` proposes ``horizon - 1`` candidates a sequence
+        from its history table (hist [B, T], hist_len [B]); the fed block
+        ``[pending, d_1 .. d_{H-1}]`` runs the layer stack as B*H
+        decode-shaped query rows, row (b, j) at position ``lengths[b] +
+        j`` with causal length ``lengths[b] + j + 1``, each over sequence
+        b's page row (the table is materialised, one row a query row, so
+        the kernels take it as their decode form).  Position j's
+        selection judges candidate ``d_{j+1}``: greedy accepts while the
+        argmax equals it; sampling draws the target at (stream, position
+        j + 1) with the key the plain horizon uses there and accepts iff
+        the candidate equals it (Gumbel coupling: rejection sampling for
+        a point-mass draft, and the sampled stream equals the plain
+        path's).  The longest accepted prefix plus the token at the
+        first mismatch is emitted, the rest is -1, and positions past a
+        sequence's budget append nothing (they hold no reserved page).
+
+        Other arguments as :meth:`decode_horizon_step`.  Returns packed
+        [horizon + 1, B] int32: the emitted rows, then each sequence's
+        drafted-candidate count."""
+        b = tokens.shape[0]
+        pps = page_table.shape[1]
+        hzn = horizon
+        dev = tokens.device
+        draft = draft_ngram(hist, hist_len, hzn - 1)            # [B, H-1]
+        n_drafted = (draft >= 0).sum(dim=1).to(torch.int32)
+        fed = torch.cat([tokens[:, None], torch.clamp(draft, min=0)], dim=1)
+        steps = torch.arange(hzn, dtype=torch.int32, device=dev)[None, :]
+        pos = lengths[:, None] + steps                          # [B, H]
+        # appends stay inside the reservation: a position past the
+        # budget was never reserved a page, so it must not scatter
+        append_ok = (steps < budget[:, None]) & (lengths[:, None] > 0)
+        pidx = torch.clamp(pos // self.page, 0, pps - 1)
+        offs = (pos % self.page).reshape(-1)
+        phys = page_table.gather(1, pidx.long())
+        tgt = torch.where(append_ok, phys, self.hbm_pages).reshape(-1)
+        # per-position causal extent; 0 fully masks dead positions
+        row_lengths = torch.where(append_ok, pos + 1, 0).reshape(-1)
+        # one materialised row a query row: an expanded (stride-0) table
+        # would take the kernels' chunk form, which reads one sequence
+        rows_table = page_table.repeat_interleave(hzn, dim=0)
+        h = L.embed_tokens(self.params["embed"], fed, self.dtype)
+        for li, lp in enumerate(self._layers):
+            q, k, v = self._attn_inputs(lp, h, pos)
+            self.store.append(li, tgt, offs, k.reshape(b * hzn, *k.shape[2:]),
+                              v.reshape(b * hzn, *v.shape[2:]))
+            o = self._kernel_attention(q.reshape(b * hzn, *q.shape[2:]), li,
+                                       rows_table, row_lengths)
+            h = self._attn_out_ffn(lp, h, o.reshape(b, hzn, -1))
+        logits = self._logits(h)                                # [B, H, V]
+        # the emission of position j lands at 1-based position pos + 1
+        out_tok = self.token_scores(logits, sampling, key,
+                                    None if streams is None
+                                    else streams[:, None],
+                                    pos + 1).argmax(dim=-1).to(torch.int32)
+        # the candidate position j verifies is d_{j+1}; the last position
+        # has none (its emission is the bonus token)
+        d_next = torch.cat([draft, torch.full((b, 1), -1, dtype=torch.int32,
+                                              device=dev)], dim=1)
+        accept = (out_tok == d_next) & (d_next >= 0)
+        # position j emits iff every earlier position accepted its
+        # candidate, stayed under budget and did not emit EOS
+        live0 = (budget > 0) & (lengths > 0)
+        cont = accept & (out_tok != eos_id) & (steps + 1 < budget[:, None])
+        chain = torch.cumprod(cont.to(torch.int32), dim=1)
+        ok = live0[:, None] & torch.cat(
+            [torch.ones((b, 1), dtype=torch.bool, device=dev),
+             chain[:, :-1].bool()], dim=1)
+        emitted = torch.where(ok, out_tok, -1).to(torch.int32)
+        return torch.cat([emitted.T, n_drafted[None, :]], dim=0)
 
     def prefill_chunk_step(self, page_row: np.ndarray, tokens: np.ndarray,
                            start: int, n_valid: int):
@@ -297,6 +539,7 @@ class PagedServer:
         self.table.add_sequence(seq_id)
         self._seqs.append(seq_id)
         self._prefill_state[seq_id] = prompt
+        self._history[seq_id] = prompt.tolist()
         self._prefill_unmatched.add(seq_id)
         return self.table.probe_prefix(seq_id, prompt)
 
@@ -352,6 +595,9 @@ class PagedServer:
         del self._prefill_state[seq_id]
         self.table.register_prefix(seq_id, prompt)
         self._pending[seq_id] = int(logits.argmax())
+        # the pending token is the first generated one: it is fed (so the
+        # drafter sees it) before it is re-emitted
+        self._history[seq_id].append(self._pending[seq_id])
         return logits
 
     def add_request(self, seq_id: int, prompt: np.ndarray, *,
@@ -487,29 +733,48 @@ class PagedServer:
         buds[:len(seqs)] = [budgets[s] for s in seqs]
         return self._to_dev(table), self._to_dev(lens), self._to_dev(buds)
 
+    def _stream_ids(self, seqs, b2: int) -> torch.Tensor:
+        """[b2] int32 sampling-stream ids: the sequence id, stable across
+        re-prefill and independent of batch slot (padding rows never
+        sample; any id works)."""
+        streams = np.zeros((b2,), np.int32)
+        streams[:len(seqs)] = [int(s) & 0x7FFFFFFF for s in seqs]
+        return self._to_dev(streams)
+
     def horizon_batch(self, tokens: Dict[int, int],
                       budgets: Dict[int, int], horizon: int,
-                      eos_id: Optional[int] = None) -> Dict[int, List[int]]:
+                      eos_id: Optional[int] = None,
+                      sampling: Optional[SamplingConfig] = None,
+                      _key=None) -> Dict[int, List[int]]:
         """Run one fused decode horizon over ``tokens`` ({seq: pending
         token}) and commit the appends.  ``budgets[s]`` caps how many
         tokens ``s`` may produce; ``eos_id`` stops a sequence on device.
-        The horizon is bucketed DOWN to a power of two.  Returns
-        {seq_id: emitted tokens}, from one device->host transfer."""
+        ``sampling`` selects greedy argmax (default) or temperature/top-p
+        sampling; ``_key`` overrides the PRNG key (``decode`` passes one
+        for every pass).  The horizon is bucketed DOWN to a power of two.
+        Returns {seq_id: emitted tokens}, from one device->host
+        transfer."""
+        sampling = sampling or GREEDY
         seqs = list(tokens)
+        if _key is None:
+            _key = prng_key(sampling.seed, self.device)
         h_run = _pow2_floor(min(horizon, max(budgets[s] for s in seqs)))
         page_table, lengths, buds = self._plan_horizon(
             seqs, {s: min(budgets[s], h_run) for s in seqs})
         try:
-            toks = np.zeros((lengths.shape[0],), np.int32)
+            b2 = lengths.shape[0]
+            toks = np.zeros((b2,), np.int32)
             toks[:len(seqs)] = [tokens[s] for s in seqs]
             emitted, _ = self.decode_horizon_step(
                 page_table, lengths, self._to_dev(toks), buds,
-                -1 if eos_id is None else int(eos_id), horizon=h_run)
+                -1 if eos_id is None else int(eos_id), _key, sampling,
+                self._stream_ids(seqs, b2), horizon=h_run)
             emitted = emitted.cpu().numpy()     # THE one transfer
             out = {}
             for i, s in enumerate(seqs):
                 got = [int(t) for t in emitted[:, i] if t >= 0]
                 out[s] = got
+                self._history[s].extend(got)
                 # committed appends == emitted tokens; the unused tail of
                 # the reservation rolls back
                 self.table.commit_horizon(s, len(got))
@@ -522,26 +787,171 @@ class PagedServer:
             self.table.unpin_all()
         return out
 
+    # -- one committed speculative pass --------------------------------------
+
+    def _host_can_draft(self, seq_id: int) -> bool:
+        """Host mirror of the drafter's match predicate: does the lookup
+        window hold an earlier occurrence of the history's final
+        ``SPEC_MIN_MATCH``-gram?  When no live sequence can draft, a pass
+        routes to the plain horizon."""
+        a = np.asarray(self._history[seq_id][-self.spec_lookup_window:],
+                       np.int64)
+        if a.shape[0] < SPEC_MIN_MATCH + 1:
+            return False
+        m = np.ones((a.shape[0] - SPEC_MIN_MATCH,), bool)
+        for j in range(SPEC_MIN_MATCH):
+            lo, hi = SPEC_MIN_MATCH - 1 - j, a.shape[0] - 1 - j
+            m &= a[lo:hi] == a[-1 - j]
+        return bool(m.any())
+
+    def spec_horizon_batch(self, tokens: Dict[int, int],
+                           budgets: Dict[int, int], horizon: int,
+                           eos_id: Optional[int] = None,
+                           sampling: Optional[SamplingConfig] = None,
+                           _key=None) -> Dict[int, List[int]]:
+        """Run one speculative draft-verify pass (arguments as
+        :meth:`horizon_batch`) and commit the accepted prefixes.
+
+        The reservation is the plain horizon's; ``commit_horizon`` keeps
+        the accepted tokens plus the bonus token and rolls the rejected
+        tail's pages back.  The pass routes to :meth:`horizon_batch`
+        (counted in ``spec_stats``) when no live sequence can draft, when
+        the bucketed horizon is below 2, or when the acceptance EMA is
+        below ``spec_alpha_floor`` (then every ``spec_probe_every``-th
+        pass still speculates)."""
+        sampling = sampling or GREEDY
+        seqs = list(tokens)
+        if _key is None:
+            _key = prng_key(sampling.seed, self.device)
+        h_run = _pow2_floor(min(horizon, max(budgets[s] for s in seqs)))
+        gated = self.spec_alpha_ema < self.spec_alpha_floor
+        if gated:
+            self._spec_probe_tick += 1
+        if (h_run < 2 or
+                (gated and self._spec_probe_tick % self.spec_probe_every)
+                or not any(self._host_can_draft(s) for s in seqs)):
+            self.spec_stats["fallback_passes"] += 1
+            if gated:
+                self.spec_stats["gated_passes"] += 1
+            return self.horizon_batch(tokens, budgets, horizon,
+                                      eos_id=eos_id, sampling=sampling,
+                                      _key=_key)
+        page_table, lengths, buds = self._plan_horizon(
+            seqs, {s: min(budgets[s], h_run) for s in seqs})
+        b2 = int(lengths.shape[0])
+        w = self.spec_lookup_window
+        # a fixed-width table (pow2 of the lookup window) whatever the
+        # history's length
+        hist = np.full((b2, _pow2(w)), -1, np.int32)
+        hlen = np.zeros((b2,), np.int32)
+        for i, s in enumerate(seqs):
+            hh = self._history[s][-w:]
+            hist[i, :len(hh)] = hh
+            hlen[i] = len(hh)
+        try:
+            toks = np.zeros((b2,), np.int32)
+            toks[:len(seqs)] = [tokens[s] for s in seqs]
+            packed = self.decode_spec_step(
+                page_table, lengths, self._to_dev(toks), buds,
+                -1 if eos_id is None else int(eos_id), self._to_dev(hist),
+                self._to_dev(hlen), _key, sampling,
+                self._stream_ids(seqs, b2), horizon=h_run)
+            # THE one transfer of the pass: [h_run + 1, B] int32
+            packed = packed.cpu().numpy()
+            emitted, n_drafted = packed[:-1], packed[-1]
+            out = {}
+            st = self.spec_stats
+            st["passes"] += 1
+            for i, s in enumerate(seqs):
+                got = [int(t) for t in emitted[:, i] if t >= 0]
+                out[s] = got
+                self._history[s].extend(got)
+                # committed appends == accepted prefix + bonus; the
+                # rejected tail of the reservation rolls back here
+                self.table.commit_horizon(s, len(got))
+                drafted = int(n_drafted[i])
+                st["drafted"] += drafted
+                st["accepted"] += max(0, min(len(got) - 1, drafted))
+                st["emitted"] += len(got)
+                st["accepted_len_hist"][len(got)] = \
+                    st["accepted_len_hist"].get(len(got), 0) + 1
+            # the rolling acceptance EMA drives the gate; a fast one, so
+            # a hostile workload closes it within a couple of passes
+            pass_drafted = int(n_drafted[:len(seqs)].sum())
+            if pass_drafted:
+                pass_acc = sum(
+                    max(0, min(len(out[s]) - 1, int(n_drafted[i])))
+                    for i, s in enumerate(seqs)) / pass_drafted
+                self.spec_alpha_ema = (0.5 * self.spec_alpha_ema +
+                                       0.5 * pass_acc)
+        except Exception:
+            for s in seqs:
+                if s in self._seqs:
+                    self.table.commit_horizon(s, 0)
+            raise
+        finally:
+            self.table.unpin_all()
+        return out
+
+    def speculation_stats(self) -> Dict[str, object]:
+        """Speculative telemetry: pass and fallback counts, drafted vs
+        accepted candidates (``alpha`` = acceptance rate) and the
+        emitted-length histogram {tokens a pass: passes}."""
+        st = dict(self.spec_stats)
+        st["accepted_len_hist"] = dict(st["accepted_len_hist"])
+        st["alpha"] = (st["accepted"] / st["drafted"]
+                       if st["drafted"] else 0.0)
+        return st
+
+    def reset_speculation_stats(self) -> None:
+        """Zero the speculative counters and reopen the adaptive gate."""
+        self.spec_stats = {
+            "passes": 0, "fallback_passes": 0, "gated_passes": 0,
+            "drafted": 0, "accepted": 0, "emitted": 0,
+            "accepted_len_hist": {}}
+        self.spec_alpha_ema = 1.0
+        self._spec_probe_tick = 0
+
     # -- decode loop ---------------------------------------------------------
 
-    def decode(self, n_tokens: int, seqs: Optional[List[int]] = None, *,
+    def decode(self, n_tokens: int, greedy: Optional[bool] = None,
+               seqs: Optional[List[int]] = None, *,
                horizon: Optional[int] = None,
                eos_id: Optional[int] = None,
                budgets: Optional[Dict[int, int]] = None,
                sampling: Optional[SamplingConfig] = None,
                speculative: bool = False) -> Dict[int, list]:
-        """Greedy batched decode across live sequences (or a subset).
+        """Batched decode across live sequences (or a subset).
 
         ``horizon=None`` is the per-token path: one host interaction
         (plan, step, argmax transfer) per token.  ``horizon=H`` runs the
-        fused path, H tokens per host interaction, token-for-token
-        identical.  ``budgets``/``eos_id`` stop sequences early on both
-        paths."""
+        fused path, H tokens per host interaction, greedy tokens
+        identical.  ``speculative=True`` runs draft-verify passes
+        (``horizon`` defaults to 8 and must be >= 2), greedy tokens still
+        identical.  ``budgets``/``eos_id`` stop sequences early on every
+        path.  ``sampling`` is the token selection (``GREEDY`` when
+        omitted); temperature > 0 runs the fused path, at horizon 1 when
+        none is given.  ``greedy=`` is deprecated and kept as a shim:
+        ``greedy=False`` without a ``sampling`` raises."""
+        if greedy is not None:
+            warnings.warn(
+                "decode(greedy=) is deprecated; pass "
+                "sampling=SamplingConfig(temperature=...) instead",
+                DeprecationWarning, stacklevel=2)
+            if not greedy and sampling is None:
+                raise ValueError(
+                    "greedy=False no longer selects a sampler; pass "
+                    "sampling=SamplingConfig(temperature=..., top_p=...)")
+        sampling = sampling or GREEDY
         if speculative:
-            raise NotImplementedError("speculative decoding: not yet ported")
-        if sampling is not None and not sampling.greedy:
-            raise NotImplementedError("sampling (temperature > 0): not yet "
-                                      "ported")
+            if horizon is None:
+                horizon = 8
+            if horizon < 2:
+                raise ValueError("speculative decoding needs horizon >= 2 "
+                                 "(one fed token + >=1 draft candidate)")
+        elif not sampling.greedy and horizon is None:
+            # sampling lives in the fused step: run it at H=1
+            horizon = 1
         active = self._seqs if seqs is None else seqs
         out = {s: [] for s in active}
         # pull spilled pages of the activating batch before the loop
@@ -558,18 +968,25 @@ class PagedServer:
                 for i, s in enumerate(seqs_b):
                     cur[s] = int(nxt[i])
                     out[s].append(cur[s])
+                    self._history[s].append(cur[s])
                     remaining[s] -= 1
                     if eos_id is not None and cur[s] == eos_id:
                         remaining[s] = 0
                 live = [s for s in live if remaining[s] > 0]
             self._pending.update(cur)
             return out
+        # ONE key for every pass: draws are keyed per (sequence,
+        # position) inside the step, so a sequence resumed in another
+        # batch or pass re-derives the same draws
+        base_key = prng_key(sampling.seed, self.device)
+        batch_fn = (self.spec_horizon_batch if speculative
+                    else self.horizon_batch)
         while live:
-            got = self.horizon_batch(
+            got = batch_fn(
                 {s: cur[s] for s in live},
                 {s: remaining[s] for s in live},
                 min(horizon, max(remaining[s] for s in live)),
-                eos_id=eos_id)
+                eos_id=eos_id, sampling=sampling, _key=base_key)
             for s in live:
                 out[s].extend(got[s])
                 remaining[s] -= len(got[s])

@@ -60,8 +60,9 @@ def test_launcher_runs_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("flags", [["--pool", "--paged"],
-                                   ["--paged", "--speculative"],
-                                   ["--paged", "--temperature", "0.8"]])
+                                   ["--pool", "--paged", "--speculative",
+                                    "--horizon", "8"],
+                                   ["--pool", "--temperature", "0.8"]])
 def test_launcher_paths_not_yet_ported_exit(flags):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match="not yet ported"):

@@ -173,14 +173,12 @@ def test_step_batch_matches_step_reference(models, page_dtype):
 
 
 def test_not_yet_ported_options_raise(models):
-    from repro_torch.runtime.serve import SamplingConfig
-    cfg, _, (tm, tp) = models
-    ts = PagedServer(tm, tp, page_size=4, hbm_pages=8, device="cpu")
-    ts.add_request(0, _prompts(cfg, b=1)[0])
-    with pytest.raises(NotImplementedError):
-        ts.decode(2, speculative=True)
-    with pytest.raises(NotImplementedError):
-        ts.decode(2, sampling=SamplingConfig(temperature=0.7))
+    """Sharded serving over a mesh is not ported yet.  (Sampling and
+    speculative decoding are: tests/test_torch_speculative.py.)"""
+    from repro_torch.runtime.serve import make_serving_fns
+    _, _, (tm, _) = models
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_serving_fns(tm, mesh=object())
 
 
 @pytest.mark.parametrize("page_dtype", ["fp32", "int8", "fp8"])
