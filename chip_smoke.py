@@ -14,7 +14,10 @@ one JSON line and any failure exits non-zero:
            (device time: a sleep kernel holds the card while the host
            enqueues) beside its bound and a library call: paged attention
            at the serving path's shapes, f32, int8 and fp8 pages, within
-           1e-4: the decode form on four decode batches (ragged 0..1000,
+           1e-4 (and the pool form at 4 nodes x 80 pages, placed and
+           striped, decode and chunk: node partials against the plain
+           per-node partials, 1 node bit-equal to the single forms):
+           the decode form on four decode batches (ragged 0..1000,
            the serve phase's 513..576, one row of 4,000, a verify pass
            of 8 sequences x 8 rows at 513..576), its per-split
            partials against the plain split emulation, the combine
@@ -71,6 +74,24 @@ one JSON line and any failure exits non-zero:
            form on f32, int8 and fp8 pages; tok/s, speculation telemetry
            and the batcher's TTFT and latency percentiles are printed,
            launch counters reset just before and read just after
+  serve_pool
+           pool serving on the same weights and prompts: a 1-node
+           PoolServer against PagedServer bit for bit (prefill logits
+           and every step's logits; f32 and int8 at h1 and h8, fp8 at
+           h8); 4-node placed and striped and 2-node placed pools on the
+           serve phase's 320-page store, prefill logits within 1e-4 of
+           the 1-node run and tokens at h1, h8 and speculative H=8 by
+           the near-tie rule; then a PoolRouter over StoragePool(4)
+           (nodes of 160 pages): uninterrupted, a node killed after two
+           router steps (requeue and re-prefill on the survivors), the
+           same kill on the lossy fault plan (tokens equal to the
+           fault-free kill's, every kind of fault injected, NACKs equal
+           to the corruptions), a warm drain (one MIGRATE frame a moved
+           page) and an active=2 pool of bucket 4 that grows to 3 under
+           load and drains back; tok/s by node count, TTFT, requeues,
+           control frames per 1k tokens and a profiled 4-node h1 step
+           are printed, launch counters reset just before and read just
+           after
   serve_reduced
            the launcher's --paged --reduced path (granite-3-2b reduced,
            head_dim 16) at pages of 16 and of 128 tokens: tokens
@@ -107,8 +128,8 @@ at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
 qwen2-72b's heads, each beside the bound of its 3xTF32 route and the
 f32 bound) and the RWKV6 wkv-scan kernel (at rwkv6-3b's, and untimed at
 WKV_SHAPES) against their plain versions.  Then the kernels line
-(launches: the serve, serve_spec, serve_reduced, isp and dense phases'
-counts), the
+(launches: the serve, serve_spec, serve_pool, serve_reduced, isp and
+dense phases' counts), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -422,6 +443,7 @@ def phase_kernels(torch, np):
                 "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}})
     results += combine_cases(torch, ops, pages, cases, flush)
+    results += pool_kernel_cases(torch, np, ops, pages, cases, flush)
     chunk_padding_zeros(torch, np, ops, pages, cases)
     other_shapes(torch, np, ops)
     return results
@@ -551,6 +573,152 @@ def chunk_padding_zeros(torch, np, ops, pages, cases):
         err = float((got - plain()).abs().max())
         check(err <= KERNEL_TOL, f"{code} chunk with padding: {err}")
         check(not bool(got[240:].any()), f"{code} chunk: padding rows zero")
+
+
+# the pool form: POOL_NODES emulated nodes of POOL_LOCAL pages share the
+# kernels phase's 320-page store, node s owning [s * 80, (s + 1) * 80)
+POOL_NODES, POOL_LOCAL = 4, 80
+POOL_DECODE_OF = {"f32": "paged_pool_decode_f32",
+                  "int8": "paged_pool_decode_q8_int8",
+                  "fp8": "paged_pool_decode_q8_fp8"}
+POOL_CHUNK_OF = {"f32": "paged_pool_chunk_f32",
+                 "int8": "paged_pool_chunk_q8_int8",
+                 "fp8": "paged_pool_chunk_q8_fp8"}
+
+
+def pool_table(np, rng, lengths, pps, policy, first_node=0, page=16):
+    """[B, pps] over the POOL_NODES windows, no page twice: ``placed``
+    puts row i's pages in node (first_node + i) % N's window,
+    ``striped`` logical page j in node j % N's."""
+    free = [list(rng.permutation(POOL_LOCAL) + s * POOL_LOCAL)
+            for s in range(POOL_NODES)]
+    table = np.zeros((len(lengths), pps), np.int32)
+    for i, n in enumerate(lengths):
+        for j in range(-(-int(n) // page)):
+            s = ((first_node + i) if policy == "placed" else j) % POOL_NODES
+            table[i, j] = free[s].pop()
+    return table
+
+
+def check_pool_partials(torch, q, kp, vp, ks, vs, table, lengths, what):
+    """Each node's partials from the pool form (its splits merged by
+    max-rebase) against ``ref.paged_pool_partials_ref``: m within 1e-4,
+    l and acc within 1e-4 x max(1, l).  Returns the largest error."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    acc, m, l = pa.pool_partials(q, kp, vp, table, lengths, ks, vs,
+                                 n_nodes=POOL_NODES, n_local=POOL_LOCAL)
+    torch.cuda.synchronize()
+    ga, gm, gl = ref.merge_split_partials(acc, m, l)        # [B, H, N, ...]
+    wa, wm, wl = (w.movedim(0, 2) for w in ref.paged_pool_partials_ref(
+        q, kp, vp, table, lengths, POOL_NODES, POOL_LOCAL, ks, vs))
+    scale = torch.clamp(wl, min=1.0)
+    errs = {"m": float((gm - wm).abs().max()),
+            "l": float(((gl - wl).abs() / scale).max()),
+            "acc": float(((ga - wa).abs() / scale[..., None]).max())}
+    for part, err in errs.items():
+        check(err <= KERNEL_TOL, f"{what}: node partial {part}: {err}")
+    return max(errs.values())
+
+
+def pool_kernel_cases(torch, np, ops, pages, cases, flush):
+    """The pool form of both kernels at POOL_NODES nodes of POOL_LOCAL
+    pages, placed and striped tables, f32 / int8 / fp8: the decode form
+    at the serve phase's batch (B=8, lengths 513..576) and the chunk form
+    at its second prefill chunk (C=256, lengths 257..512).  The merged
+    output within 1e-4 of the plain attention, each node's partials
+    within 1e-4 of ``ref.paged_pool_partials_ref``, and at one node
+    whose window is the store, ``ops.paged_attention``'s bits; timed
+    beside the bytes bound (each live page once) and SDPA on the
+    gathered K/V."""
+    import torch.nn.functional as F
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(7)
+    page, hkv = 16, pages["f32"][0].shape[2]
+    n_phys = pages["f32"][0].shape[0]
+    check(n_phys == POOL_NODES * POOL_LOCAL, "the pool cases tile the store")
+    serve_case, chunk_case = cases[1], cases[3]
+    results = []
+    for form, (case, q_np, _, len_np, _) in (("decode", serve_case),
+                                             ("chunk", chunk_case)):
+        q = torch.from_numpy(q_np).to(dev)
+        lengths = torch.from_numpy(len_np).to(dev)
+        for policy in ("placed", "striped"):
+            if form == "chunk":
+                # the chunk's one page row, placed on node 1
+                row = pool_table(np, rng, len_np[-1:], 32, policy,
+                                 first_node=1)[0]
+                table = torch.from_numpy(row).to(dev)[None].expand(
+                    len(len_np), 32)
+            else:
+                table = torch.from_numpy(pool_table(
+                    np, rng, len_np, 64, policy)).to(dev)
+            for code, (kp, vp, ks, vs) in pages.items():
+                scales = () if ks is None else (ks, vs)
+                single = (ops.paged_attention_q8 if scales
+                          else ops.paged_attention)
+                pool = (ops.paged_attention_pool_q8 if scales
+                        else ops.paged_attention_pool)
+
+                def kernel():
+                    return pool(q, kp, vp, *scales, table, lengths,
+                                n_nodes=POOL_NODES, n_local=POOL_LOCAL)
+
+                def plain():
+                    return ops.ref.paged_pool_attention_ref(
+                        q, kp, vp, table, lengths, POOL_NODES, POOL_LOCAL,
+                        ks, vs)
+                name = (POOL_CHUNK_OF if form == "chunk"
+                        else POOL_DECODE_OF)[code]
+                what = f"pool {code} {form} {policy}"
+                before = ops.launch_counts()[name]
+                got = kernel()
+                torch.cuda.synchronize()
+                check(ops.launch_counts()[name] == before + 1,
+                      f"{what}: the wrapper took the pool {form} form")
+                want = (ops.ref.paged_attention_q8_ref(
+                    q, kp, vp, ks, vs, table, lengths) if scales else
+                    ops.ref.paged_attention_ref(q, kp, vp, table, lengths))
+                err = float((got - want).abs().max())
+                check(bool(torch.isfinite(got).all()) and err <= KERNEL_TOL,
+                      f"{what}: merged output max_abs_err {err}")
+                part_err = check_pool_partials(torch, q, kp, vp, ks, vs,
+                                               table, lengths, what)
+                one = pool(q, kp, vp, *scales, table, lengths, n_nodes=1,
+                           n_local=n_phys)
+                check(torch.equal(one, single(q, kp, vp, *scales, table,
+                                              lengths)),
+                      f"{what}: one node != paged_attention bit for bit")
+                kd, vd = (kp, vp) if ks is None else (
+                    kp.float() * ks[..., None], vp.float() * vs[..., None])
+                b_ms, b_by = bound(torch, q, table, lengths, page, hkv,
+                                   kp.element_size(), ks is not None)
+                results.append({
+                    "name": ("paged_attention" if code == "f32"
+                             else "paged_attention_q8"),
+                    "kernel": name, "form": f"pool {form}", "pages": code,
+                    "case": f"{POOL_NODES} nodes x {POOL_LOCAL} pages, "
+                            f"{policy}: {case}",
+                    "route": "cuda", "source": SOURCE,
+                    "replaces": REPLACES[code], "launches": None,
+                    "max_abs_err": err, "node_partials_max_err": part_err,
+                    "one_node_bit_equal": True, "tolerance": KERNEL_TOL,
+                    "ms": time_ms(torch, kernel, flush),
+                    "plain_ms": time_ms(torch, plain, flush),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": time_ms(torch, library_call(
+                        torch, F, q, kd, vd, table, lengths, page,
+                        "prefill" if form == "chunk" else case), flush),
+                    "library": "torch.nn.functional.scaled_dot_product_"
+                               "attention on the gathered dense K/V",
+                    "note": "wrapper time: the pool kernel for every node "
+                            "and paged_combine_f32"})
+                results[-1]["kernel_ms"] = results[-1]["ms"]
+                emit({"phase": "kernels", **{k_: results[-1][k_] for k_ in (
+                    "kernel", "case", "max_abs_err", "node_partials_max_err",
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}})
+    return results
 
 
 def library_call(torch, F, q, kd, vd, table, lengths, page, case):
@@ -2339,7 +2507,8 @@ def record_gaps(server):
     return gaps
 
 
-def first_divergences(torch, name, rids, want, got, gaps, first_gaps=None):
+def first_divergences(torch, name, rids, want, got, gaps, first_gaps=None,
+                      phase="serve_spec"):
     """The near-tie rule for two streams the reference holds identical:
     where ``got[rid]`` differs from ``want[rid]`` (the per-token run's),
     print the first position that differs and the gap there between the
@@ -2367,7 +2536,7 @@ def first_divergences(torch, name, rids, want, got, gaps, first_gaps=None):
         found.append({"run": name, "rid": rid, "position": pos,
                       "per_token": a[pos:pos + 1], "got": b[pos:pos + 1],
                       "top2_gap": gap})
-        emit({"phase": "serve_spec", "divergence": found[-1],
+        emit({"phase": phase, "divergence": found[-1],
               "limit": LOGITS_TOL})
         check(gap is not None and gap < LOGITS_TOL,
               f"{name}: request {rid} leaves the per-token stream at "
@@ -2620,6 +2789,287 @@ def phase_serve_spec(torch, np, smi, served):
     return counts
 
 
+# the serve_pool phase: the serve phase's weights and prompts through a
+# PoolServer of N emulated DockerSSD nodes sharing the serve phase's
+# 320-page store (320 / N pages a node), the h8 / speculative horizon;
+# the router's runs on 4 nodes of 160 pages (room on the survivors for
+# a killed or drained node's sequences), its failover kill after two
+# steps, and the elastic bucket (4 nodes of 80 pages, 2 active: half
+# the requests wait until a node joins)
+SERVE_POOL = {"store_pages": 320, "horizon": 8, "kill_after": 2,
+              "runs": ((4, "placed"), (4, "striped"), (2, "placed")),
+              "router_node_pages": 160,
+              "elastic": {"nodes": 4, "active": 2, "grow_to": 3,
+                          "node_pages": 80}}
+
+
+def phase_serve_pool(torch, np, smi, served):
+    """Pool serving on the serve phase's full-width granite-3-2b through
+    the port's entry points (PoolServer, StoragePool.attach_server,
+    PoolRouter); launch counters reset just before and read just after.
+
+    A 1-node pool equals PagedServer bit for bit (prefill logits and
+    every step's logits, h1 and h8, f32 / int8 pages; fp8 at h8);
+    4-node placed / striped and 2-node placed pools hold prefill logits
+    within 1e-4 of the 1-node run and its per-token greedy tokens at
+    h1, h8 and speculative H=8 (near-tie rule).  Through a PoolRouter
+    over StoragePool(4): the uninterrupted run (TTFT), a node killed
+    after two steps (requeue + re-prefill on the survivors), the same
+    kill on the ``lossy`` fault plan (tokens equal to the fault-free
+    kill's, injector counters > 0, NACKs = corruptions), a warm drain
+    (MIGRATE frames in ``control_plane_terms``) and an ``active=2``
+    pool of bucket 4 that grows under load and drains back; every
+    stream against the per-token one by the near-tie rule."""
+    from repro_torch.core import analytical as A
+    from repro_torch.core.faults import PRESET_PLANS
+    from repro_torch.core.storage_pool import StoragePool
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.pool import PoolServer
+    from repro_torch.runtime.scheduler import PoolRouter, Request
+    from repro_torch.runtime.serve import PagedServer
+
+    cfg, model, params = served["cfg"], served["model"], served["params"]
+    prompts = served["prompts"]
+    gen, q_gen, chunk, page = (SERVE[k] for k in ("gen", "q8_gen", "chunk",
+                                                  "page"))
+    store, hzn = SERVE_POOL["store_pages"], SERVE_POOL["horizon"]
+    rids = list(range(len(prompts)))
+    runs, divergences = {}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_phase = time.monotonic()
+
+    def pool(n, policy="placed", page_dtype="fp32", node_pages=None, **kw):
+        return PoolServer(model, params, n_nodes=n, page_size=page,
+                          hbm_pages_per_node=node_pages or store // n,
+                          policy=policy, page_dtype=page_dtype,
+                          device=DEVICE, **kw)
+
+    def record_logits(server):
+        """Every decode step's logits, as the device steps select on
+        them (``server.token_scores`` observed)."""
+        seen = []
+        inner = server.token_scores
+
+        def scores(logits, *args):
+            seen.append(logits)
+            return inner(logits, *args)
+        server.token_scores = scores
+        return seen
+
+    def admit(server):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits = [server.add_request(i, p, chunk=chunk)
+                  for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        return torch.stack(logits), time.monotonic() - t0
+
+    def decode(server, name, n, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = server.decode(n, **kw)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        runs[name] = {"decode_s": secs,
+                      "decode_tok_s": sum(map(len, out.values())) / secs}
+        if kw.get("speculative"):
+            runs[name]["speculation"] = server.speculation_stats()
+        check(all(len(v) == n and all(0 <= t < cfg.vocab_size for t in v)
+                  for v in out.values()), f"{name}: token count and range")
+        emit({"phase": "serve_pool", "run": name, **runs[name]})
+        return out
+
+    # 1 node = the single server, bit for bit
+    one = {}
+    for code, n_tok, horizons in (("fp32", gen, (None, hzn)),
+                                  ("int8", q_gen, (None, hzn)),
+                                  ("fp8", q_gen, (hzn,))):
+        for horizon in horizons:
+            tag = f"{code}_h{horizon or 1}"
+            logs, toks, pre = [], [], []
+            for server in (PagedServer(model, params, page_size=page,
+                                       hbm_pages=store, page_dtype=code,
+                                       device=DEVICE),
+                           pool(1, page_dtype=code)):
+                pre.append(admit(server)[0])
+                logs.append(record_logits(server))
+                if tag == "fp32_h1" and len(toks) == 1:
+                    gaps = record_gaps(server)
+                    first = server.pending_tokens()
+                toks.append(decode(server, ("single_" if not toks else
+                                            "pool1_") + tag, n_tok,
+                                   horizon=horizon))
+                del server
+            check(torch.equal(pre[0], pre[1]), f"1-node pool {tag}: prefill "
+                  "logits != PagedServer's bit for bit")
+            check(toks[0] == toks[1] and len(logs[0]) == len(logs[1]) and
+                  all(torch.equal(a, b) for a, b in zip(*logs)),
+                  f"1-node pool {tag}: a step's logits != PagedServer's")
+            one[tag] = {"steps": len(logs[0]), "bit_equal": True}
+            if tag == "fp32_h1":
+                pre1, tokens1 = pre[1], toks[1]
+            del logs
+    # the per-token run's streams as a router emits them: the prefill's
+    # argmax, then gen - 1 decoded tokens
+    top = pre1.topk(2, dim=-1).values
+    first_gaps = {r: float(top[r, 0] - top[r, 1]) for r in rids}
+    want = {r: [first[r]] + tokens1[r][:gen - 1] for r in rids}
+
+    # N nodes = 1 node
+    pool_runs = {}
+    for n, policy in SERVE_POOL["runs"]:
+        tag = f"{n}n_{policy}"
+        errs = []
+        for kind, kw in (("h1", {}), ("h8", {"horizon": hzn}),
+                         ("spec_h8", {"horizon": hzn,
+                                      "speculative": True})):
+            server = pool(n, policy)
+            logits, prefill_s = admit(server)
+            errs.append(float((logits - pre1).abs().max()))
+            check(errs[-1] <= KERNEL_TOL, f"{tag} {kind}: prefill logits "
+                  f"{errs[-1]} from the 1-node run's")
+            if policy == "placed":
+                check(len({server.node_of(r) for r in rids}) > 1,
+                      f"{tag}: placement spread over more than one node")
+            out = decode(server, f"{tag}_{kind}", gen, **kw)
+            divergences += first_divergences(
+                torch, f"{tag} {kind}", rids, tokens1, out, gaps,
+                phase="serve_pool")
+            runs[f"{tag}_{kind}"]["prefill_s"] = prefill_s
+            if (n, policy, kind) == (4, "placed", "h1"):
+                profile = profile_decode(torch, server, 4, match={
+                    "pool_decode_form": "paged_decode_kernel",
+                    "combine": "paged_combine_kernel"})
+            del server
+        pool_runs[tag] = {"prefill_logits_max_abs_err": max(errs)}
+
+    # through the router over StoragePool(4)
+    def router_run(name, *, kill=False, drain=False, plan=None,
+                   elastic=False):
+        el = SERVE_POOL["elastic"]
+        server = (pool(el["nodes"], active=el["active"],
+                       node_pages=el["node_pages"]) if elastic
+                  else pool(4, node_pages=SERVE_POOL["router_node_pages"]))
+        fabric = StoragePool(4, heartbeat_timeout=0.0,
+                             extent_cfg={"device": DEVICE})
+        fabric.attach_server(server)
+        if plan is not None:
+            fabric.attach_faults(plan)
+        router = PoolRouter(server, fabric, max_active=len(prompts),
+                            horizon=hzn)
+        for r, p in zip(rids, prompts):
+            check(router.submit(Request(rid=r, prompt=p, max_tokens=gen)),
+                  f"{name}: request {r} taken")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rec = {}
+        for _ in range(SERVE_POOL["kill_after"]):
+            router.step()
+        if kill:
+            victim = server.node_of(min(router.active))
+            fabric.nodes[fabric.serving_ips()[victim]].fail()
+            t_kill = time.monotonic()
+            rec["victim"] = victim
+        if drain:
+            rep = fabric.drain_serving_node(server.node_of(min(router.active)))
+            rec["drain"] = {k: rep[k] for k in ("victims", "migrated_pages",
+                                                "cold")}
+        if elastic:
+            fabric.grow_serving(el["grow_to"])
+            rec["alive_after_grow"] = server.alive_nodes()
+            router.step()
+            router.step()
+            grown = [s for s in server.alive_nodes() if s >= el["active"]]
+            rep = fabric.drain_serving_node(grown[0])
+            rec["drain_back"] = {k: rep[k] for k in (
+                "victims", "migrated_pages", "cold")}
+            rec["alive_after_drain"] = server.alive_nodes()
+        stats = router.run_to_completion()
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        out = {r.rid: list(r.output) for r in router.finished}
+        check(stats["requests"] == len(prompts) and not router.rejected,
+              f"{name}: every request finished")
+        toks = sum(map(len, out.values()))
+        terms = A.control_plane_terms(fabric.driver.stats, toks)
+        rec.update({
+            "seconds": secs, "tok_s": toks / secs,
+            "requeues": router.requeues,
+            "p50_ttft_s": stats["p50_ttft_s"],
+            "p99_ttft_s": stats["p99_ttft_s"],
+            "control_frames": terms["control_frames"],
+            "frames_per_1k_tokens": terms["frames_per_1k_tokens"],
+            "migrate_frames": terms["migrate_frames"],
+            "retransmits": terms["retransmits"], "nacks": terms["nacks"],
+            "dup_frames": terms["dup_frames"],
+            "events": sorted({e[0] for e in fabric.events})})
+        if kill:
+            rec["after_kill_s"] = time.monotonic() - t_kill
+        if plan is not None:
+            rec["injector"] = fabric.fault_injector.stats.as_dict()
+        runs[name] = rec
+        emit({"phase": "serve_pool", "run": name, **rec})
+        divergences.extend(first_divergences(
+            torch, name, rids, want, out, gaps, first_gaps,
+            phase="serve_pool"))
+        return out, rec, fabric
+
+    router_run("router_4n")
+    failed, rec, _ = router_run("router_failover", kill=True)
+    check(rec["requeues"] >= 1 and "serve-requeue" in rec["events"],
+          "failover: the victim's sequences requeued")
+    chaos, rec, fabric = router_run("router_failover_lossy", kill=True,
+                                    plan=PRESET_PLANS["lossy"])
+    check(chaos == failed, "lossy fabric: tokens != the fault-free kill's")
+    inj = rec["injector"]
+    check(all(inj[k] > 0 for k in ("dropped", "corrupted", "duplicated",
+                                   "delayed")),
+          f"lossy fabric: every kind of fault injected ({inj})")
+    check(rec["nacks"] == inj["corrupted"] and
+          rec["dup_frames"] >= inj["duplicated"] and rec["retransmits"] > 0,
+          "lossy fabric: the driver's recovery counters match the "
+          f"injector's ({rec}, {inj})")
+    _, rec, _ = router_run("router_drain", drain=True)
+    check(rec["drain"]["migrated_pages"] > 0 and
+          rec["migrate_frames"] == rec["drain"]["migrated_pages"],
+          "warm drain: pages migrated, one MIGRATE frame each")
+    _, rec, _ = router_run("router_elastic", elastic=True)
+    check(len(rec["alive_after_grow"]) == SERVE_POOL["elastic"]["grow_to"]
+          and rec["drain_back"]["victims"] and
+          len(rec["alive_after_drain"]) == SERVE_POOL["elastic"]["active"],
+          "elastic: grew to 3 nodes, the joined node took requests, and "
+          "drained back to 2")
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for code in ("f32", "int8", "fp8"):
+        for name in (POOL_DECODE_OF[code], POOL_CHUNK_OF[code]):
+            check(counts[name] > 0, f"{name} launched in serve_pool")
+    n_merge = sum(counts[n] for n in (*POOL_DECODE_OF.values(),
+                                      *POOL_CHUNK_OF.values(),
+                                      *DECODE_OF.values()))
+    check(counts[COMBINE] == n_merge,
+          f"{COMBINE} launches {counts[COMBINE]} != {n_merge} (one per "
+          "pool launch and single-device decode-form launch)")
+    emit({"phase": "serve_pool", "arch": cfg.name, "requests": len(prompts),
+          "prompt_len": SERVE["prompt_len"], "gen": gen, "q8_gen": q_gen,
+          "store_pages": store, "horizon": hzn, "one_node": one,
+          "pools": pool_runs,
+          "decode_tok_s": {k: v["decode_tok_s"] for k, v in runs.items()
+                           if "decode_tok_s" in v},
+          "router": {k: {k2: v[k2] for k2 in (
+              "tok_s", "p50_ttft_s", "p99_ttft_s", "requeues", "seconds",
+              "frames_per_1k_tokens", "migrate_frames") if k2 in v}
+              for k, v in runs.items() if k.startswith("router")},
+          "profile_4n_h1": profile,
+          "seconds": time.monotonic() - t_phase,
+          "divergences": divergences, "divergence_limit": LOGITS_TOL,
+          "launches": counts, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi})
+    return counts
+
+
 # the launcher's --paged --reduced path (head_dim 16) at the serving page
 # and at pages of 128: 4 prompts of 300 tokens, chunks of 128, 16 tokens
 SERVE_REDUCED = {"arch": "granite-3-2b", "requests": 4, "prompt_len": 300,
@@ -2691,7 +3141,7 @@ def phase_serve_reduced(torch, np, smi):
     return counts
 
 
-def profile_decode(torch, server, n_steps):
+def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
     pending = server.pending_tokens()
@@ -2701,14 +3151,16 @@ def profile_decode(torch, server, n_steps):
         for _ in range(n_steps):
             seqs, logits = server.step_batch(pending)
             pending = dict(zip(seqs, logits.argmax(-1).cpu().tolist()))
-    return profile_calls(torch, steps, n_steps)
+    return profile_calls(torch, steps, n_steps, match)
 
 
-def profile_calls(torch, run, n_steps):
+def profile_calls(torch, run, n_steps, match=None):
     """``run()`` (``n_steps`` steps) under ``torch.profiler``: device busy
     time is the sum of the kernels' device time (one stream, so they do
-    not overlap), idle share the rest of the wall time.  A measurement
-    only: a profiler that fails or sees no device time is reported, not
+    not overlap), idle share the rest of the wall time; ``match``
+    ({label: substring}) also sums the ms and calls a step of the
+    kernels whose name holds the substring.  A measurement only: a
+    profiler that fails or sees no device time is reported, not
     fatal."""
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -2730,7 +3182,11 @@ def profile_calls(torch, run, n_steps):
         return {"error": repr(exc)}
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    return {"steps": n_steps, "wall_ms_per_step": wall_ms,
+    matched = {label: {"ms_per_step": sum(r[0] for r in rows if sub in r[2]),
+                       "calls_per_step": sum(r[1] for r in rows
+                                             if sub in r[2])}
+               for label, sub in (match or {}).items()}
+    return {"steps": n_steps, "wall_ms_per_step": wall_ms, "matched": matched,
             "device_busy_ms_per_step": busy,
             "idle_share": 1 - busy / wall_ms if busy else None,
             "device_ops_per_step": sum(r[1] for r in rows),
@@ -2768,13 +3224,15 @@ def main() -> int:
     del flush
     counts, served = phase_serve(torch, np, smi)
     spec_counts = phase_serve_spec(torch, np, smi, served)
+    pool_counts = phase_serve_pool(torch, np, smi, served)
     reduced_counts = phase_serve_reduced(torch, np, smi)
     isp_counts = phase_isp(torch, np, smi, served, data)
     del data
     dense_counts = phase_dense(torch, np, smi, served)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
-            counts, spec_counts, reduced_counts, isp_counts, dense_counts))
+            counts, spec_counts, pool_counts, reduced_counts, isp_counts,
+            dense_counts))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,8 @@ by ``max_retries``.  A checksum mismatch is a NACK -> retransmit, not
 an exception.  On a fault-free fabric the reliable path is
 byte-identical in cost accounting to the historical direct delivery —
 retransmit/NACK/dedup counters stay exactly zero.  Faults come only
-from an attached fault injector (``attach_faults``; the port has none
-yet, so ``faults`` stays None).
+from an attached :class:`~repro_torch.core.faults.FaultInjector`
+(``attach_faults``).
 
 The port's copy of ``repro.core.ether_on``: frames, costs and counters
 are the same, byte for byte.  ``fetch_extent`` decodes fp8 codes with
@@ -264,10 +264,41 @@ class EtherONDriver:
         return acked
 
     # -- serving control plane -------------------------------------------------
-    #
-    # ``send_control``/``send_migrate`` (SERVE frames) wait for the port of
-    # the pool-serving frontend; their counters are kept so the stats
-    # stay field for field the JAX package's.
+
+    def send_control(self, dst_ip: str, verb: str, seq_id: int,
+                     extra: str = ""):
+        """Pool-serving control message (``SERVE place|free|... <seq>``).
+
+        Admission, placement and free notifications ride the same
+        0xE0/0xE1 tunnel as every other frame — and pay the same
+        per-operation costs — so the analytical model's traffic terms
+        (``core.analytical.control_plane_terms``) see the serving
+        control plane exactly as Fig 3 sees the docker-cli one.  Bulk
+        tensor traffic never comes through here; it stays on the device
+        (DESIGN.md §Pool serving)."""
+        payload = f"SERVE {verb} {seq_id} {extra}".rstrip().encode()
+        self.stats.control_frames += 1
+        self.transmit(EthernetFrame(self.host_ip, dst_ip, payload))
+
+    def send_migrate(self, dst_ip: str, seq_id: int, page_idx: int,
+                     nbytes: int, src_node: int, dst_node: int):
+        """Warm-path page-migration announcement (elastic drain).
+
+        One ``SERVE migrate`` frame per moved page tells the receiving
+        node a page of ``seq_id`` now lives in its window.  The frame
+        rides the reliable tunnel (ack'd, CRC-checked, retried with
+        backoff), so under chaos its retransmits land in the same
+        delivery counters as every other frame.  The page payload
+        itself never crosses the host fabric — it moves
+        device-to-device (``PageStore.copy_page``) — but the moved
+        bytes are accounted here (``migrate_bytes`` + the per-kb copy
+        cost) so ``analytical.migration_terms`` can price a drain."""
+        self.stats.migrate_frames += 1
+        self.stats.migrate_bytes += int(nbytes)
+        self.stats.time_us += self.costs.page_copy_per_kb * (nbytes / 1024.0)
+        payload = (f"SERVE migrate {seq_id} "
+                   f"{page_idx}:{src_node}>{dst_node}:{nbytes}").encode()
+        self.transmit(EthernetFrame(self.host_ip, dst_ip, payload))
 
     # -- analytics data plane ---------------------------------------------------
     #

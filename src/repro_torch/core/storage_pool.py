@@ -9,11 +9,11 @@ one distributed job spanning nodes), and provides the fleet features a
 1000+-node deployment needs: heartbeats, failure detection and
 container rescheduling, straggler re-replication, elastic membership.
 
-The port of ``repro.core.storage_pool``: nodes, the Ether-oN data
-plane (JOB/READ/docker frames), membership and container scheduling.
-The pool-serving frontend (``attach_server`` and the calls after it)
-waits for the port of ``PoolServer``, and ``attach_faults`` for the
-chaos fabric; both raise ``NotImplementedError``.
+The port of ``repro.core.storage_pool``, frame for frame: the Ether-oN
+data plane (JOB/READ/docker frames), membership and container
+scheduling, the seeded fault injector's wiring, and the pool-serving
+frontend over a ``runtime.pool.PoolServer``, whose nodes are windows of
+one page store on one card (node ``s`` backs the server's shard ``s``).
 """
 from __future__ import annotations
 
@@ -25,8 +25,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.container import MiniDocker, to_jsonable
-from repro_torch.core.ether_on import DockerSSDEndpoint, EtherONDriver
+from repro_torch.core.ether_on import (DockerSSDEndpoint, EtherONDriver,
+                                       EtherONError)
 from repro_torch.core.extent_store import ANALYTICS_IMAGE, ExtentStore
+from repro_torch.core.faults import FaultInjector, FaultPlan
 from repro_torch.core.lambda_fs import SHARABLE_NS, LambdaFS
 from repro_torch.core.virtual_fw import VirtualFW
 
@@ -205,15 +207,50 @@ class StoragePool:
         self.extent_cfg = extent_cfg
         self.placements: Dict[str, Placement] = {}
         self.events: List[Tuple[str, str]] = []
+        self.fault_injector = None
+        # pool-serving frontend state (attach_server)
+        self._server = None
+        self._serve_job: Optional[str] = None
+        self._requeue: List[int] = []
         for i in range(n_nodes):
             self._add_node(i, spec)
 
     # -- chaos wiring ---------------------------------------------------------
 
-    def attach_faults(self, plan_or_injector):
-        """Seeded fault injection on the fabric: not yet ported (it
-        waits for ``core/faults.py``)."""
-        raise NotImplementedError("attach_faults: not yet ported")
+    def attach_faults(self, plan_or_injector) -> "FaultInjector":
+        """Put a seeded fault injector on the pool's fabric boundary.
+
+        Scheduled crashes fail the node and run serving/container
+        failover immediately (deterministic — no dependence on
+        heartbeat wall-clock); straggler latency feeds each node's
+        latency EMA so the heartbeat sweep flips it to *suspect*."""
+        if isinstance(plan_or_injector, FaultPlan):
+            inj = FaultInjector(plan_or_injector)
+        else:
+            inj = plan_or_injector
+
+        def _crash(ip: str):
+            node = self.nodes.get(ip)
+            if node is None or not node.alive:
+                return
+            node.fail()
+            self.events.append(("fault-crash", ip))
+            self._serve_failover(ip)
+            self._reschedule_off(ip)
+
+        def _lat(ip: str, mult: float):
+            node = self.nodes.get(ip)
+            if node is not None:
+                # nominal fabric latency is ~1 ms; a straggler pays
+                # mult x, so the EMA converges toward mult
+                node.latency_ema_ms = (0.8 * node.latency_ema_ms +
+                                       0.2 * float(mult))
+
+        inj.on_crash = _crash
+        inj.on_latency = _lat
+        self.fault_injector = inj
+        self.driver.attach_faults(inj)
+        return inj
 
     # -- membership -----------------------------------------------------------
 
@@ -229,6 +266,9 @@ class StoragePool:
                     now - node.last_heartbeat > self.heartbeat_timeout:
                 dead.append(ip)
         for ip in dead:
+            # serving failover first: the shard index must be read from
+            # the serving placement before _reschedule_off rewires it
+            self._serve_failover(ip)
             self._reschedule_off(ip)
         # suspect sweep: stragglers are *degraded*, not dead — existing
         # work stays, new placements steer away until the EMA clears
@@ -247,12 +287,13 @@ class StoragePool:
 
     def mark_unreachable(self, ip: str):
         """Delivery to ``ip`` exhausted the fabric's retransmit budget:
-        treat the node as dead *now* — run container failover — instead
-        of waiting for the heartbeat sweep to notice."""
+        treat the node as dead *now* — run serving/container failover —
+        instead of waiting for the heartbeat sweep to notice."""
         node = self.nodes.get(ip)
         if node is not None and node.alive:
             node.fail()
             self.events.append(("unreachable", ip))
+        self._serve_failover(ip)
         self._reschedule_off(ip)
 
     def stragglers(self) -> List[str]:
@@ -325,15 +366,146 @@ class StoragePool:
 
     # -- pool-serving frontend -------------------------------------------------
     #
-    # Not yet ported: it drives a ``PoolServer``, which the port does not
-    # have yet, and so does the serving failover of the heartbeat sweep
-    # and ``mark_unreachable``.  Every entry point raises.
+    # One request flows: frontend (here) -> Ether-oN control frame to the
+    # chosen DockerSSD -> PoolServer admission on that node's shard ->
+    # the pool decode step.  Only control messages ride frames; token-rate
+    # tensor traffic stays on the device, where the nodes' attention
+    # partials are merged (DESIGN.md §Pool serving).
 
-    def attach_server(self, server, job: str = "llm-serve"):
-        raise NotImplementedError("attach_server: not yet ported")
+    def attach_server(self, server, job: str = "llm-serve") -> Placement:
+        """Bind a ``runtime.pool.PoolServer`` to this pool: each fabric
+        node in the serving placement backs one server shard.  Needs one
+        free healthy node per *active* shard (an elastic server's
+        parked shards may start unbacked — ``scale_to`` /
+        ``grow_serving`` wire nodes to them later).  Spare free nodes
+        back parked shards eagerly, so a later join is pure
+        activation."""
+        active = server.alive_nodes()
+        free = [ip for ip in self.alive_nodes()
+                if ip not in self._occupied()]
+        k = max(len(active), min(server.n_nodes, len(free)))
+        pl = self.place_distributed(job, "llm-serve", tp=k)
+        self._server = server
+        self._serve_job = job
+        # stable shard-indexed ip map: container rescheduling may rewire
+        # the *placement* after a failure, but server shard i keeps its
+        # identity (a lost window is not revived by a restarted
+        # container).  Active shards are backed first; None marks a
+        # parked shard still waiting for a fabric node.
+        self._serve_ips = [None] * server.n_nodes
+        for ip, s in zip(pl.node_ips, list(active) + server.parked_nodes()):
+            self._serve_ips[s] = ip
+        return pl
 
-    place_sequence = retire_sequence = serving_tier_stats = attach_server
-    grow_serving = drain_serving_node = attach_server
+    def serving_ips(self) -> List[str]:
+        return list(self._serve_ips)
+
+    def suspect_shards(self) -> set:
+        """Server shard indices currently backed by a suspect node."""
+        if self._server is None:
+            return set()
+        return {i for i, ip in enumerate(self._serve_ips)
+                if ip in self.nodes and self.nodes[ip].suspect}
+
+    def _pick_serving_node(self, n_tokens: int) -> int:
+        """Least-loaded healthy shard, steering around suspects unless
+        every alive shard is suspect (advisory state must never
+        deadlock admission)."""
+        srv = self._server
+        alive = srv.alive_nodes()
+        if not alive:
+            raise EtherONError("no serving nodes alive")
+        sus = self.suspect_shards()
+        cand = [s for s in alive if s not in sus] or alive
+        return max(cand, key=lambda s: (srv.table.shard_free_pages(s), -s))
+
+    def place_sequence(self, seq_id: int, n_tokens: int,
+                       node: Optional[int] = None,
+                       prompt=None) -> int:
+        """Admit a sequence: choose a node (the node already holding
+        ``prompt``'s prefix when one exists, else least-loaded by free
+        window pages, unless the router already picked one), announce
+        the placement to that node over Ether-oN, and return the shard
+        index for ``PoolServer.add_request``/``begin_request``.
+
+        A placement announcement that exhausts the fabric's retransmit
+        budget means the chosen node is unreachable — it is failed over
+        on the spot and the sequence re-placed on a surviving shard."""
+        srv = self._server
+        if node is None and prompt is not None:
+            node = srv.pick_prefix_node(prompt, n_tokens)
+            if node is not None and node in self.suspect_shards() and \
+                    set(srv.alive_nodes()) - self.suspect_shards():
+                node = None     # warm prefix isn't worth a straggler
+        while True:
+            if node is None:
+                node = self._pick_serving_node(n_tokens)
+            try:
+                self.driver.send_control(
+                    self._serve_ips[node], "place", seq_id,
+                    extra=str(srv.pages_needed(n_tokens)))
+                self._drain_acks()
+                return node
+            except EtherONError:
+                ip = self._serve_ips[node]
+                self.events.append(("place-retry", f"{seq_id}:{ip}"))
+                self.mark_unreachable(ip)
+                node = None
+                if not srv.alive_nodes():
+                    raise
+
+    def retire_sequence(self, seq_id: int) -> int:
+        """Free a finished sequence: notify the owning node (every node,
+        for a striped extent) over Ether-oN, then release its pages in
+        both tiers through the server's public API."""
+        srv = self._server
+        owner = srv.node_of(seq_id)
+        shards = [owner] if owner is not None else srv.alive_nodes()
+        for s in shards:
+            if s in srv.alive_nodes():      # no frames to dead nodes
+                try:
+                    self.driver.send_control(self._serve_ips[s], "free",
+                                             seq_id)
+                except EtherONError:
+                    # the owner died with the free in flight: its pages
+                    # died with it — fail it over and fall through to
+                    # the (idempotent) server-side release
+                    self.mark_unreachable(self._serve_ips[s])
+        self._drain_acks()
+        return srv.free_sequence(seq_id)
+
+    def serving_tier_stats(self) -> Dict[str, object]:
+        """Aggregate serving telemetry: the pool totals plus the
+        per-node breakdown (the aggregate is the field-wise sum of the
+        nodes — each DockerSSD owns its window and flash tier)."""
+        return {"pool": self._server.tier_stats(),
+                "nodes": self._server.node_tier_stats()}
+
+    def take_requeued(self) -> List[int]:
+        """Sequence ids dropped by node failures since the last call —
+        the router re-prefills them on the surviving nodes."""
+        out, self._requeue = self._requeue, []
+        return out
+
+    def _serve_failover(self, dead_ip: str):
+        """Heartbeat-driven serving failover: when a serving node dies,
+        its shard's window and tier are lost — drop the sequences homed
+        there and queue them for router re-admission."""
+        if self._server is None or dead_ip not in self._serve_ips:
+            return
+        shard = self._serve_ips.index(dead_ip)
+        if shard in self._server._dead:
+            return                      # already handled (idempotent)
+        victims = self._server.fail_node(shard)
+        self._requeue.extend(victims)
+        self.events.append(("serve-requeue",
+                            f"{dead_ip}:{','.join(map(str, victims))}"))
+
+    def _drain_acks(self):
+        """Pull control-frame ACKs off the upcall inbox (their cost is
+        already accounted by the driver)."""
+        while self.driver.poll() is not None:
+            pass
 
     def _occupied(self):
         occ = set()
@@ -378,12 +550,119 @@ class StoragePool:
         return node
 
     def scale_to(self, n: int, spec: Optional[NodeSpec] = None):
-        """Grow the fabric to ``n`` nodes; the new nodes join plain
-        (analytics pools).  Shrinking is not this knob."""
+        """Grow the fabric to ``n`` nodes.  With a pool server
+        attached, every new node must be wired into the shard map (an
+        unbacked parked shard, which it backs and activates) — a node
+        that could never serve pages is rejected up front rather than
+        silently joining the fabric.  Without a server the nodes join
+        the fabric plain (analytics pools).  Shrinking is not this
+        knob: drain serving nodes with ``drain_serving_node``."""
         cur = len(self.nodes)
         if n < cur:
             raise ValueError(
-                f"scale_to grows the fabric (have {cur}, asked {n})")
+                f"scale_to grows the fabric (have {cur}, asked {n}); "
+                "remove serving nodes with drain_serving_node instead")
+        if self._server is not None:
+            slots = self._serve_ips.count(None)
+            if n - cur > slots:
+                raise RuntimeError(
+                    f"serving pool has {slots} unbacked shard(s) left "
+                    f"(capacity {self._server.n_nodes}, the pow2 bucket "
+                    f"sized at startup); scale_to({n}) would attach "
+                    f"{n - cur - slots} node(s) that could never serve "
+                    "pages — provision a PoolServer with a larger "
+                    "n_nodes bucket instead")
         for i in range(cur, n):
-            self._add_node(i, spec)
+            node = self._add_node(i, spec)
+            if self._server is not None:
+                self._wire_serving_node(node.ip)
         self.events.append(("scale", str(n)))
+
+    def _wire_serving_node(self, ip: str) -> int:
+        """Back one unbacked server shard with fabric node ``ip`` and
+        activate it (join announced over Ether-oN).  The shard's window
+        has existed in the page store since startup."""
+        srv = self._server
+        shard = self._serve_ips.index(None)
+        self._serve_ips[shard] = ip
+        pl = self.placements[self._serve_job]
+        pl.node_ips.append(ip)
+        pl.stage_of[ip] = 0
+        self.driver.send_control(ip, "join", shard)
+        self._drain_acks()
+        srv.activate_node(shard)
+        self.events.append(("serve-join", f"{ip}:{shard}"))
+        return shard
+
+    def grow_serving(self, n_active: int):
+        """Raise the serving set to ``n_active`` nodes: re-activate
+        parked shards that kept their backing node, wire free fabric
+        nodes to unbacked shards, and only then grow the fabric itself
+        (``scale_to``).  Each step is one node — the autoscaler's unit
+        of change."""
+        srv = self._server
+        if srv is None:
+            raise RuntimeError("no server attached")
+        if n_active > srv.n_nodes:
+            raise RuntimeError(
+                f"asked for {n_active} serving nodes but the pow2 "
+                f"bucket sized at startup holds {srv.n_nodes}; "
+                "provision a PoolServer with a larger n_nodes bucket")
+        while len(srv.alive_nodes()) < n_active:
+            backed = [s for s in srv.parked_nodes()
+                      if s not in srv._dead
+                      and self._serve_ips[s] is not None
+                      and self.nodes[self._serve_ips[s]].alive]
+            if backed:
+                s = backed[0]
+                self.driver.send_control(self._serve_ips[s], "join", s)
+                self._drain_acks()
+                srv.activate_node(s)
+                self.events.append(
+                    ("serve-join", f"{self._serve_ips[s]}:{s}"))
+                continue
+            free = [ip for ip in self.alive_nodes()
+                    if ip not in self._occupied()]
+            if free:
+                self._wire_serving_node(free[0])
+            else:
+                self.scale_to(len(self.nodes) + 1)
+
+    def drain_serving_node(self, node: int) -> Dict:
+        """Zero-drop drain of serving node ``node`` (planned removal —
+        the autoscaler's scale-down step).  Announces the drain, then
+        walks the server's two-path drain: each warm page move is
+        announced to its destination with a MIGRATE frame (reliable
+        tunnel — chaos retransmits land in the delivery counters), and
+        cold victims enter the requeue list the router already drains
+        (PR-2 failover re-prefill), so nothing is shed."""
+        srv = self._server
+        if srv is None:
+            raise RuntimeError("no server attached")
+        ip = self._serve_ips[node]
+        self.events.append(("serve-drain", f"{ip}:{node}"))
+        try:
+            self.driver.send_control(ip, "drain", node)
+            self._drain_acks()
+        except EtherONError:
+            # unreachable drainee: the planned drain degenerates into
+            # the unplanned-failure path (requeue via failover)
+            self.mark_unreachable(ip)
+        if node in srv._dead:
+            return {"victims": [], "migrated_pages": 0, "cold": [],
+                    "moved": {}}
+        page_bytes = srv.store.page_bytes()
+
+        def on_migrate(seq_id, page_idx, src, dst):
+            dst_ip = self._serve_ips[dst]
+            try:
+                self.driver.send_migrate(dst_ip, seq_id, page_idx,
+                                         page_bytes, src, dst)
+            except EtherONError:
+                self.mark_unreachable(dst_ip)
+                raise
+
+        rep = srv.drain_node(node, on_migrate=on_migrate)
+        self._drain_acks()
+        self._requeue.extend(rep["cold"])
+        return rep

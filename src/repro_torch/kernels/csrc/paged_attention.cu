@@ -5,7 +5,8 @@
 //   * _paged_kernel (:39)     -> paged_decode_f32, paged_chunk_f32
 //   * _paged_q8_kernel (:77)  -> paged_decode_q8_{int8,fp8},
 //                                paged_chunk_q8_{int8,fp8}
-// plus paged_combine_f32, the merge of the decode form's split partials.
+// plus paged_combine_f32, the merge of the decode form's split partials,
+// and the pool form of both (paged_pool_decode_*, paged_pool_chunk_*).
 // Same function: for each (query row, query head), a softmax over the
 // positions below the row's length of the pages its table row names
 // (pages at or past the length are never read), out = acc / max(l,
@@ -58,6 +59,25 @@
 //     falls out of the lengths; tiles past the block's largest length
 //     are never loaded.
 //
+// Pool form (the reference's paged_attention_partial per node, merged by
+// its combine_partials; repro/runtime/serve.py:78, :130): N nodes of
+// n_local pages each share one store, node s holding the physical pages
+// [s * n_local, (s + 1) * n_local).  A node dimension joins the grid; node
+// s's blocks skip every page whose physical id lies outside its window,
+// as they skip the pages past a row's length, and write its partials at
+// node offset s of one workspace: the decode form's S splits of node s at
+// split s * S + split of acc [B, H, N * S, d], the chunk form's one
+// partial a node at acc [C, H, N, d] (m, l beside them, a node that owns
+// nothing writes (0, -1e30, 0)).  paged_combine_f32 then merges all N * S
+// (or N) partials of a row in one launch.  The single-device decode form
+// is the same kernel at one node whose window holds every page (n_local
+// = INT_MAX); the single-device chunk form is its instantiation without
+// the window test (POOL = false), the same arithmetic.  So the pool form
+// at N = 1 computes their bits: the decode form is the same launch, and
+// the chunk form's partial is merged by a combine of one split, which
+// computes acc * 1 / max(l * 1, 1e-30), the chunk form's own
+// acc / max(l, 1e-30).
+//
 // Head dims: any multiple of 8 from 8 to 256 (kernel_takes in
 // kernels/paged_attention.py).  Both forms are instantiated at D = 32*NV,
 // NV = ceil(d / 32) in 1..8; the columns d..D-1 of every staged row (and
@@ -72,6 +92,7 @@
 // kMaxPage, G <= kMaxGroup.  Page ids named below ceil(length/page) must
 // lie in [0, P); entries past it are never read.
 
+#include <climits>
 #include <cmath>
 
 #include <cuda_runtime.h>
@@ -179,7 +200,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ lengths, float* __restrict__ p_acc,
                     float* __restrict__ p_m, float* __restrict__ p_l, int pps,
                     int page, int tile, int hkv, int group, int parts, int d_,
-                    int per, float sm_scale) {
+                    int per, int splits, int n_local, float sm_scale) {
   constexpr int D = NV * 32;
   const int d = FULL ? D : d_;
   constexpr int kVec = 16 / (int)sizeof(T);   // elements per 16-byte chunk
@@ -191,7 +212,12 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
   float* q_sh = reinterpret_cast<float*>(ring_sh + kStages * slot_b);      // [heads][D]
   float* p_sh = q_sh + heads * D;                                       // [heads][tile]
 
-  const int b = blockIdx.x, split = blockIdx.z;
+  const int b = blockIdx.x;
+  // pool form: node `node` of the grid's z, its window of physical pages
+  // [base, base + n_local)
+  const int node = blockIdx.z / splits, split = blockIdx.z - node * splits;
+  const int base = node * n_local;
+  auto owned = [&](int phys) { return (unsigned)(phys - base) < (unsigned)n_local; };
   const int kvh = FULL ? blockIdx.y : blockIdx.y / parts;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = hkv * group;
@@ -210,7 +236,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                          : (p1 - 1 - p0) * tpp +
                                (min(length - (p1 - 1) * page, page) + tile - 1) / tile;
   const size_t row = (size_t)b * h + head;
-  const size_t ps = row * gridDim.z + split;   // this split's partial
+  const size_t ps = row * gridDim.z + blockIdx.z;   // this (node, split)'s partial
 
   if (n <= 0) {                           // past the row's length: (0, -inf, 0)
     if (!active) return;
@@ -249,6 +275,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     unsigned char* slot = ring_sh + (j % kStages) * slot_b;
     int pg, t0;
     const int nv = locate(j, pg, t0);
+    if (!owned(tab[pg])) return;         // another node's page: never read
     const size_t slot0 = (size_t)tab[pg] * page + t0;
     const size_t base = slot0 * tok_stride + (size_t)kvh * d;
     if (rb == CH * 16) {                 // full rows: a constant divisor
@@ -316,6 +343,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     const float* sc = reinterpret_cast<const float*>(slot + 2 * tile * RB);
     int pg, t0;
     const int nv = locate(j, pg, t0);
+    if (!owned(tab[pg])) continue;       // not staged; no weight
 
     float m_loc = kNegInf;
     for (int t0 = 0; t0 < nv; t0 += span) {
@@ -500,15 +528,19 @@ __device__ __forceinline__ void cvt_store(float* dst, const uint4& raw, T) {
                     elem<T>(raw, e + 3));
 }
 
-template <typename T, bool Q, int D, bool FULL>
+// POOL: the pool form (a window test on every key, partials out); the
+// single-device form compiles without the test.
+template <typename T, bool Q, int D, bool FULL, bool POOL>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages, const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ table_row,
                    const int* __restrict__ lengths, float* __restrict__ out,
-                   int c_rows, int pps, int page, int hkv, int group, int bq,
-                   int d_, float sm_scale) {
+                   float* __restrict__ p_acc, float* __restrict__ p_m,
+                   float* __restrict__ p_l, int c_rows, int pps, int page,
+                   int hkv, int group, int bq, int d_, int n_local,
+                   float sm_scale) {
   const int d = FULL ? D : d_;
   using S = Chunk<D>;
   constexpr int KT = S::KT, KJ = S::KJ, LD = S::LD, LDP = S::LDP;
@@ -526,6 +558,11 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
   const int tx = tid & 15, ty = tid >> 4;
   const int kvh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * bq;     // longest rows first
+  // pool form: node blockIdx.z owns the physical pages [base, base + n_local)
+  const int base = POOL ? blockIdx.z * n_local : 0;
+  auto owned = [&](int phys) {
+    return !POOL || (unsigned)(phys - base) < (unsigned)n_local;
+  };
   const int h = hkv * group;
   const int rows = group * bq;
   const size_t tok_stride = (size_t)hkv * d;
@@ -570,8 +607,8 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
       const int c = e / CH, ch = e % CH;
       const int pos = it * KT + c;
       kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < KT * CH && pos < kmax && ch < ch_real) {
-        const int phys = table_row[pos / page];
+      const int phys = e < KT * CH && pos < kmax ? table_row[pos / page] : base;
+      if (e < KT * CH && pos < kmax && ch < ch_real && owned(phys)) {
         const size_t g = ((size_t)phys * page + pos % page) * tok_stride +
                          (size_t)kvh * d;
         kr[j] = load_chunk(k_pages + g, ch, d, narrow);
@@ -581,7 +618,7 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
     if (Q && tid < KT) {
       const int pos = it * KT + tid;
       ksr = vsr = 0.f;
-      if (pos < kmax) {
+      if (pos < kmax && owned(table_row[pos / page])) {
         const size_t g = ((size_t)table_row[pos / page] * page + pos % page) * hkv + kvh;
         ksr = __ldg(k_scale + g);
         vsr = __ldg(v_scale + g);
@@ -646,7 +683,14 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
         }
     }
 
-    // online softmax: the 16 lanes of a row hold the tile's keys
+    // online softmax: the 16 lanes of a row hold the tile's keys; a key
+    // on another node's page carries no weight
+    bool own[KJ];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int kp = k0 + tx + 16 * j;
+      own[j] = !POOL || (kp < kmax && owned(table_row[kp / page]));
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       bool keep[KJ];
@@ -654,7 +698,7 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int col = tx + 16 * j;
-        keep[j] = k0 + col < len[i];
+        keep[j] = own[j] && k0 + col < len[i];
         const float x = Q ? s[i][j] * ks_sh[col] * sm_scale : s[i][j] * sm_scale;
         s[i][j] = keep[j] ? x : kNegInf;
         mc = fmaxf(mc, s[i][j]);
@@ -701,11 +745,24 @@ paged_chunk_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float denom = fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const float lsum = half_warp_sum(l[i]);
+    const float denom = fmaxf(lsum, 1e-30f);
     const int r = ty + 16 * i;
     const int pos = q0 + r % bq;
     if (r >= rows || pos >= c_rows) continue;
     const int head = kvh * group + r / bq;
+    if (POOL) {                  // this node's partial, un-normalised
+      const size_t pi = ((size_t)pos * h + head) * gridDim.z + blockIdx.z;
+      float* a_row = p_acc + pi * d;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int w = 0; w < VW; ++w)
+          if (tx * VW + g * 16 * VW + w < d)
+            a_row[tx * VW + g * 16 * VW + w] = acc[i][g * VW + w];
+      if (tx == 0) { p_m[pi] = m[i]; p_l[pi] = lsum; }
+      continue;
+    }
     float* o_row = out + ((size_t)pos * h + head) * d;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -736,7 +793,8 @@ cudaError_t decode_nv(const void* q, const void* k, const void* v,
                       const void* ks, const void* vs, const void* table,
                       const void* lengths, void* pacc, void* pm, void* pl,
                       int b, int hkv, int group, int d, int pps, int page,
-                      int per, int n_split, cudaStream_t stream) {
+                      int per, int n_split, int n_nodes, int n_local,
+                      cudaStream_t stream) {
   // the group in equal parts of at most kBlockHeads heads, a block each
   const int parts = (group + kBlockHeads - 1) / kBlockHeads;
   const int heads = (group + parts - 1) / parts;
@@ -748,37 +806,42 @@ cudaError_t decode_nv(const void* q, const void* k, const void* v,
   static size_t granted[2] = {0, 0};
   cudaError_t err = allow_smem(kernel, smem, granted[full]);
   if (err != cudaSuccess) return err;
-  dim3 grid(b, hkv * parts, n_split);
+  dim3 grid(b, hkv * parts, n_nodes * n_split);
   kernel<<<grid, heads * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<float*>(pacc),
       static_cast<float*>(pm), static_cast<float*>(pl), pps, page, tile, hkv,
-      group, parts, d, per, 1.0f / sqrtf((float)d));
+      group, parts, d, per, n_split, n_local, 1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
 template <typename T, bool Q, int NV>
 cudaError_t chunk_nv(const void* q, const void* k, const void* v, const void* ks,
                      const void* vs, const void* table_row, const void* lengths,
-                     void* out, int c, int hkv, int group, int d, int pps,
-                     int page, cudaStream_t stream) {
+                     void* out, void* pacc, void* pm, void* pl, int c, int hkv,
+                     int group, int d, int pps, int page, int n_nodes,
+                     int n_local, cudaStream_t stream) {
   constexpr int D = NV * 32;
-  auto kernel = d == D ? paged_chunk_kernel<T, Q, D, true>
-                       : paged_chunk_kernel<T, Q, D, false>;
+  const bool pool = pacc != nullptr;
+  auto kernel = d == D ? (pool ? paged_chunk_kernel<T, Q, D, true, true>
+                               : paged_chunk_kernel<T, Q, D, true, false>)
+                       : (pool ? paged_chunk_kernel<T, Q, D, false, true>
+                               : paged_chunk_kernel<T, Q, D, false, false>);
   const size_t smem = Chunk<D>::kSmem;
-  static size_t granted[2] = {0, 0};
-  cudaError_t err = allow_smem(kernel, smem, granted[d == D]);
+  static size_t granted[4] = {0, 0, 0, 0};
+  cudaError_t err = allow_smem(kernel, smem, granted[2 * (d == D) + pool]);
   if (err != cudaSuccess) return err;
   const int bq = kRows / group;
-  dim3 grid((c + bq - 1) / bq, hkv);
+  dim3 grid((c + bq - 1) / bq, hkv, n_nodes);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table_row),
-      static_cast<const int*>(lengths), static_cast<float*>(out), c, pps, page,
-      hkv, group, bq, d, 1.0f / sqrtf((float)d));
+      static_cast<const int*>(lengths), static_cast<float*>(out),
+      static_cast<float*>(pacc), static_cast<float*>(pm), static_cast<float*>(pl),
+      c, pps, page, hkv, group, bq, d, n_local, 1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
@@ -789,9 +852,18 @@ bool bad_shape(int b, int h, int hkv, int d, int pps, int page) {
          hkv > 65535 / 2;
 }
 
+// the most partials a row the combine takes: its weights in shared memory
+constexpr int kMaxCombine = kMaxSmem / (int)(sizeof(float) * 4);
+
+bool bad_pool(int n_nodes, int n_local) {
+  return n_nodes < 1 || n_local < 1 || n_nodes > 65535 ||
+         (long)n_nodes * n_local > INT_MAX;
+}
+
 int combine(const void* pacc, const void* pm, const void* pl, void* out,
             int rows, int n_split, int d, void* stream) {
-  if (rows < 1 || n_split < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || n_split < 1 || n_split > kMaxCombine || d < 1)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kCombineWarps * n_split;
   static size_t granted = 0;
   cudaError_t err = allow_smem(paged_combine_kernel, smem, granted);
@@ -808,9 +880,12 @@ template <typename T, bool Q>
 int decode(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* lengths, void* pacc,
            void* pm, void* pl, void* out, int b, int h, int hkv, int d,
-           int pps, int page, int per, int n_split, void* stream) {
-  if (bad_shape(b, h, hkv, d, pps, page) || per < 1 || n_split < 1 ||
-      n_split > 65535 || (long)per * n_split < pps)
+           int pps, int page, int per, int n_split, int n_nodes, int n_local,
+           void* stream) {
+  if (bad_shape(b, h, hkv, d, pps, page) || bad_pool(n_nodes, n_local) ||
+      per < 1 || n_split < 1 || (long)n_nodes * n_split > 65535 ||
+      (long)per * n_split < pps ||
+      (out != nullptr && (long)n_nodes * n_split > kMaxCombine))
     return (int)cudaErrorInvalidValue;
   const int group = h / hkv;
   auto st = static_cast<cudaStream_t>(stream);
@@ -819,29 +894,40 @@ int decode(const void* q, const void* k, const void* v, const void* ks,
 #define CASE(NV) \
     case NV: err = decode_nv<T, Q, NV>(q, k, v, ks, vs, table, lengths, pacc, \
                                        pm, pl, b, hkv, group, d, pps, page,   \
-                                       per, n_split, st); break;
+                                       per, n_split, n_nodes, n_local, st);   \
+      break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
   }
   if (err != cudaSuccess || out == nullptr) return (int)err;
-  return combine(pacc, pm, pl, out, b * h, n_split, d, stream);
+  return combine(pacc, pm, pl, out, b * h, n_nodes * n_split, d, stream);
 }
 
+// With `pacc` given (the pool form) the kernel writes each node's partial
+// there and the combine merges them into `out`; else it writes `out`.
 template <typename T, bool Q>
 int chunk(const void* q, const void* k, const void* v, const void* ks,
-          const void* vs, const void* table_row, const void* lengths, void* out,
-          int c, int h, int hkv, int d, int pps, int page, void* stream) {
-  if (bad_shape(c, h, hkv, d, pps, page)) return (int)cudaErrorInvalidValue;
+          const void* vs, const void* table_row, const void* lengths, void* pacc,
+          void* pm, void* pl, void* out, int c, int h, int hkv, int d, int pps,
+          int page, int n_nodes, int n_local, void* stream) {
+  if (bad_shape(c, h, hkv, d, pps, page) || bad_pool(n_nodes, n_local) ||
+      n_nodes > kMaxCombine || (pacc == nullptr && n_nodes != 1))
+    return (int)cudaErrorInvalidValue;
   const int group = h / hkv;
   auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
   switch ((d + 31) / 32) {
-#define CASE(NV) \
-    case NV: return (int)chunk_nv<T, Q, NV>(q, k, v, ks, vs, table_row, lengths, \
-                                            out, c, hkv, group, d, pps, page, st);
+#define CASE(NV)                                                                 \
+    case NV: err = chunk_nv<T, Q, NV>(q, k, v, ks, vs, table_row, lengths,       \
+                                      pacc == nullptr ? out : nullptr, pacc, pm, \
+                                      pl, c, hkv, group, d, pps, page, n_nodes,  \
+                                      n_local, st);                              \
+      break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
   }
-  return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess || pacc == nullptr) return (int)err;
+  return combine(pacc, pm, pl, out, c * h, n_nodes, d, stream);
 }
 
 }  // namespace
@@ -862,12 +948,29 @@ extern "C" {
            int n_split, void* stream) {                                        \
     return decode<T, Q>(q, k_pages, v_pages, k_scale, v_scale, page_table,     \
                         lengths, p_acc, p_m, p_l, out, b, h, hkv, d, pps, page, \
-                        per, n_split, stream);                                 \
+                        per, n_split, 1, INT_MAX, stream);                     \
   }
 DECODE(paged_decode_f32, float, false)
 DECODE(paged_decode_q8_int8, int8_t, true)
 DECODE(paged_decode_q8_fp8, __nv_fp8_e4m3, true)
 #undef DECODE
+
+// Pool decode form: n_nodes windows of n_local pages; the partials are
+// [B, H, n_nodes * n_split] (node-major), merged into `out` when given.
+#define POOL_DECODE(NAME, T, Q)                                                \
+  int NAME(const void* q, const void* k_pages, const void* v_pages,            \
+           const void* k_scale, const void* v_scale, const void* page_table,   \
+           const void* lengths, void* p_acc, void* p_m, void* p_l, void* out,  \
+           int b, int h, int hkv, int d, int pps, int page, int per,           \
+           int n_split, int n_nodes, int n_local, void* stream) {              \
+    return decode<T, Q>(q, k_pages, v_pages, k_scale, v_scale, page_table,     \
+                        lengths, p_acc, p_m, p_l, out, b, h, hkv, d, pps, page, \
+                        per, n_split, n_nodes, n_local, stream);               \
+  }
+POOL_DECODE(paged_pool_decode_f32, float, false)
+POOL_DECODE(paged_pool_decode_q8_int8, int8_t, true)
+POOL_DECODE(paged_pool_decode_q8_fp8, __nv_fp8_e4m3, true)
+#undef POOL_DECODE
 
 // Chunk form: table_row is the one [pps] row every query row shares.
 #define CHUNK(NAME, T, Q)                                                      \
@@ -876,12 +979,32 @@ DECODE(paged_decode_q8_fp8, __nv_fp8_e4m3, true)
            const void* lengths, void* out, int c, int h, int hkv, int d,       \
            int pps, int page, void* stream) {                                  \
     return chunk<T, Q>(q, k_pages, v_pages, k_scale, v_scale, table_row,       \
-                       lengths, out, c, h, hkv, d, pps, page, stream);         \
+                       lengths, nullptr, nullptr, nullptr, out, c, h, hkv, d,  \
+                       pps, page, 1, INT_MAX, stream);                         \
   }
 CHUNK(paged_chunk_f32, float, false)
 CHUNK(paged_chunk_q8_int8, int8_t, true)
 CHUNK(paged_chunk_q8_fp8, __nv_fp8_e4m3, true)
 #undef CHUNK
+
+// Pool chunk form: each node's partial into p_acc [C, H, n_nodes, d], p_m,
+// p_l [C, H, n_nodes], then the combine merges them into `out` [C, H, d].
+#define POOL_CHUNK(NAME, T, Q)                                                 \
+  int NAME(const void* q, const void* k_pages, const void* v_pages,            \
+           const void* k_scale, const void* v_scale, const void* table_row,    \
+           const void* lengths, void* p_acc, void* p_m, void* p_l, void* out,  \
+           int c, int h, int hkv, int d, int pps, int page, int n_nodes,       \
+           int n_local, void* stream) {                                        \
+    if (p_acc == nullptr || p_m == nullptr || p_l == nullptr || out == nullptr) \
+      return (int)cudaErrorInvalidValue;                                       \
+    return chunk<T, Q>(q, k_pages, v_pages, k_scale, v_scale, table_row,       \
+                       lengths, p_acc, p_m, p_l, out, c, h, hkv, d, pps, page, \
+                       n_nodes, n_local, stream);                              \
+  }
+POOL_CHUNK(paged_pool_chunk_f32, float, false)
+POOL_CHUNK(paged_pool_chunk_q8_int8, int8_t, true)
+POOL_CHUNK(paged_pool_chunk_q8_fp8, __nv_fp8_e4m3, true)
+#undef POOL_CHUNK
 
 int paged_combine_f32(const void* p_acc, const void* p_m, const void* p_l,
                       void* out, int rows, int n_split, int d, void* stream) {

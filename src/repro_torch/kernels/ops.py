@@ -23,12 +23,15 @@ from repro_torch.kernels.embed_agg import (embed_agg, embed_gather,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.isp_scan import scan_filter_reduce, topk_scan
 from repro_torch.kernels.paged_attention import (paged_attention,
+                                                  paged_attention_pool,
+                                                  paged_attention_pool_q8,
                                                   paged_attention_q8)
 from repro_torch.kernels.ref import (REDUCE_ROWS, scan_filter_reduce_host,
                                      topk_pad, topk_scan_host)
 from repro_torch.kernels.rwkv_scan import rwkv_scan
 
-__all__ = ["paged_attention", "paged_attention_q8", "scan_filter_reduce",
+__all__ = ["paged_attention", "paged_attention_q8", "paged_attention_pool",
+           "paged_attention_pool_q8", "scan_filter_reduce",
            "scan_filter_reduce_host", "topk_scan", "topk_scan_host",
            "embed_agg", "embed_gather", "validate_embed_args",
            "flash_attention", "rwkv_scan",

@@ -17,6 +17,15 @@ kernel's whichever form runs:
   partials (what :func:`combine_splits` does), also at one split; one
   launcher call starts both kernels.
 
+The pool form (:func:`paged_attention_pool`, :func:`paged_attention_pool_q8`)
+runs either form for N emulated nodes sharing one store, node s owning
+the physical pages ``[s * n_local, (s + 1) * n_local)``: each node's
+blocks skip the pages outside its window and write its partials at node
+offset s of one workspace, which ``paged_combine_f32`` merges in one
+launch (the reference's per-node ``paged_attention_partial`` and its
+``combine_partials`` across the pool axis).  At one node whose window is
+the whole store it computes the forms' own bits.
+
 Each wrapper checks device, dtype, shape and layout and raises on what
 the kernels do not take (a non-contiguous table other than an expanded
 row among it), allocates the output and the split workspace with
@@ -42,6 +51,9 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"paged_decode_f32": 0, "paged_decode_q8_int8": 0,
             "paged_decode_q8_fp8": 0, "paged_chunk_f32": 0,
             "paged_chunk_q8_int8": 0, "paged_chunk_q8_fp8": 0,
+            "paged_pool_decode_f32": 0, "paged_pool_decode_q8_int8": 0,
+            "paged_pool_decode_q8_fp8": 0, "paged_pool_chunk_f32": 0,
+            "paged_pool_chunk_q8_int8": 0, "paged_pool_chunk_q8_fp8": 0,
             "paged_combine_f32": 0}
 
 _CODE = {torch.float32: "f32", torch.int8: "q8_int8",
@@ -56,6 +68,11 @@ MAX_GROUP = 64
 #: pages a split walks
 SPLIT_BLOCKS_PER_SM = 4
 MIN_SPLIT_PAGES = 2
+#: the most partials of a row ``paged_combine_f32`` merges (its weights
+#: fill the shared memory of a block of 4 warps), and the most split
+#: blocks of a row the decode grid holds
+MAX_COMBINE = 232448 // 16
+MAX_GRID_Z = 65535
 
 
 @functools.lru_cache(maxsize=None)
@@ -321,3 +338,149 @@ def paged_attention_q8(q, k_pages, v_pages, k_scale, v_scale, page_table,
     # fp8 codes: the bytes are handed over as-is and read as __nv_fp8_e4m3
     return _launch(q, k_pages, v_pages, k_scale, v_scale, page_table,
                    lengths, b, h, d, page, hkv)
+
+
+def _check_pool(k_pages, n_nodes: int, n_local: int):
+    if n_nodes < 1 or n_local < 1:
+        raise ValueError(f"n_nodes={n_nodes} and n_local={n_local} must be "
+                         f">= 1")
+    if n_nodes * n_local != k_pages.shape[0]:
+        raise ValueError(f"{n_nodes} windows of {n_local} pages do not tile "
+                         f"the store's {k_pages.shape[0]} pages")
+
+
+def _pool_splits(page_table, b, hkv, n_nodes, device, pages_per_split=None):
+    """(pages a split walks, splits a node) of the pool decode form: the
+    single-device plan (:func:`split_plan`) unless ``pages_per_split``
+    is given.  Raises where N * S passes the grid or the combine."""
+    pps = page_table.shape[1]
+    per = (split_plan(b, hkv, pps, _sm_count(device))[1]
+           if pages_per_split is None else int(pages_per_split))
+    if per < 1:
+        raise ValueError("pages_per_split must be >= 1")
+    splits = -(-pps // per)
+    if n_nodes * splits > min(MAX_COMBINE, MAX_GRID_Z):
+        raise ValueError(f"{n_nodes} nodes x {splits} splits = "
+                         f"{n_nodes * splits} partials a row; the combine "
+                         f"merges at most {min(MAX_COMBINE, MAX_GRID_Z)}")
+    return per, splits
+
+
+def _pool_launch(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+                 b, h, d, page, hkv, n_nodes, n_local, merge=True,
+                 pages_per_split=None):
+    """Launch the pool form; returns (out or None, acc, m, l), the
+    partials node-major: acc [B, H, N * S, D], m/l [B, H, N * S] (S = 1
+    for the chunk form, whose launcher always merges them)."""
+    pps = page_table.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = _args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths)
+    shared = _shared_row(page_table)
+    merge = merge or shared
+    out = torch.empty_like(q) if merge else None
+    code = _CODE[k_pages.dtype]
+    if shared:
+        if n_nodes > MAX_COMBINE:
+            raise ValueError(f"{n_nodes} nodes: the combine merges at most "
+                             f"{MAX_COMBINE} partials a row")
+        name, splits = f"paged_pool_chunk_{code}", 1
+        ints = (b, h, hkv, d, pps, page, n_nodes, n_local)
+    else:
+        per, splits = _pool_splits(page_table, b, hkv, n_nodes, q.device,
+                                   pages_per_split)
+        name = f"paged_pool_decode_{code}"
+        ints = (b, h, hkv, d, pps, page, per, splits, n_nodes, n_local)
+    n_ml = b * h * n_nodes * splits
+    ws = torch.empty(n_ml * (d + 2), dtype=torch.float32, device=q.device)
+    acc = ws.data_ptr()
+    _raise_on(_bind(name, 11, len(ints))(
+        *args, acc, acc + 4 * n_ml * d, acc + 4 * n_ml * (d + 1),
+        None if out is None else out.data_ptr(), *ints, stream), name)
+    LAUNCHES[name] += 1
+    if merge:
+        LAUNCHES[COMBINE] += 1
+    return (out, ws[:n_ml * d].view(b, h, n_nodes * splits, d),
+            ws[n_ml * d:n_ml * (d + 1)].view(b, h, n_nodes * splits),
+            ws[n_ml * (d + 1):].view(b, h, n_nodes * splits))
+
+
+def _pool(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+          n_nodes, n_local):
+    quantized = k_scale is not None
+    codes = ((torch.int8, torch.float8_e4m3fn) if quantized
+             else (torch.float32,))
+    b, h, d, n_phys, page, hkv = _check(q, k_pages, v_pages, page_table,
+                                        lengths, codes)
+    _check_pool(k_pages, n_nodes, n_local)
+    if quantized:
+        sshape = (n_phys, page, hkv)
+        if tuple(k_scale.shape) != sshape or tuple(v_scale.shape) != sshape:
+            raise ValueError(f"scales must be {sshape}")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError("scales must be float32")
+    if q.device.type == "cpu":
+        return ref.paged_pool_attention_ref(q, k_pages, v_pages, page_table,
+                                            lengths, n_nodes, n_local,
+                                            k_scale, v_scale)
+    scales = (k_scale, v_scale) if quantized else ()
+    _check_cuda((q, k_pages, v_pages, *scales, lengths), page_table, d,
+                page, h // hkv)
+    return _pool_launch(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                        lengths, b, h, d, page, hkv, n_nodes, n_local)[0]
+
+
+def paged_attention_pool(q, k_pages, v_pages, page_table, lengths, *,
+                         n_nodes: int, n_local: int):
+    """:func:`paged_attention` over a pool of ``n_nodes`` nodes of
+    ``n_local`` pages (``n_nodes * n_local == P``): each node attends
+    over the table columns whose physical page lies in its window, and
+    the nodes' online-softmax partials are merged by max-rebase.  The
+    same function as :func:`paged_attention` whatever the windows; at
+    one node, its bits."""
+    return _pool(q, k_pages, v_pages, None, None, page_table, lengths,
+                 n_nodes, n_local)
+
+
+def paged_attention_pool_q8(q, k_pages, v_pages, k_scale, v_scale,
+                            page_table, lengths, *, n_nodes: int,
+                            n_local: int):
+    """:func:`paged_attention_pool` over int8 / fp8-e4m3 codes with
+    per-slot f32 scales (as :func:`paged_attention_q8`)."""
+    return _pool(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+                 n_nodes, n_local)
+
+
+def pool_partials(q, k_pages, v_pages, page_table, lengths, k_scale=None,
+                  v_scale=None, *, n_nodes: int, n_local: int,
+                  pages_per_split=None):
+    """The pool form's partials before the merge, node-major: (acc [B,
+    H, N, S, D], m [B, H, N, S], l [B, H, N, S]) f32, un-normalised; a
+    (row, node, split) that owns no position below the row's length is
+    (0, -1e30, 0).  The decode form's S splits of ``pages_per_split``
+    pages (default: :func:`split_plan`'s on the card, one split on the
+    CPU); the chunk form's one partial a node (S = 1, an expanded
+    table).  For checks against ``ref.paged_pool_partials_ref``; the CPU
+    runs ``ref.paged_pool_split_partials_ref``."""
+    quantized = k_scale is not None
+    codes = ((torch.int8, torch.float8_e4m3fn) if quantized
+             else (torch.float32,))
+    b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table,
+                                   lengths, codes)
+    _check_pool(k_pages, n_nodes, n_local)
+    if q.device.type == "cpu":
+        per = (page_table.shape[1] if pages_per_split is None or
+               _shared_row(page_table) else int(pages_per_split))
+        acc, m, l = ref.paged_pool_split_partials_ref(
+            q, k_pages, v_pages, page_table, lengths, n_nodes, n_local, per,
+            k_scale, v_scale)
+    else:
+        scales = (k_scale, v_scale) if quantized else ()
+        _check_cuda((q, k_pages, v_pages, *scales, lengths), page_table, d,
+                    page, h // hkv)
+        _, acc, m, l = _pool_launch(q, k_pages, v_pages, k_scale, v_scale,
+                                    page_table, lengths, b, h, d, page, hkv,
+                                    n_nodes, n_local, merge=False,
+                                    pages_per_split=pages_per_split)
+    s = acc.shape[2] // n_nodes
+    return (acc.view(b, h, n_nodes, s, d), m.view(b, h, n_nodes, s),
+            l.view(b, h, n_nodes, s))

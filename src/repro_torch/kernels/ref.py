@@ -38,8 +38,8 @@ def _gather_pages(pages, safe_table):
     return pages[safe_table].float()
 
 
-def _paged_partials(q, k_pages, v_pages, page_table, lengths, k_scale,
-                    v_scale, col_owned=None):
+def paged_partials_ref(q, k_pages, v_pages, page_table, lengths, k_scale,
+                       v_scale, col_owned=None):
     """Un-normalised online-softmax state over the table columns
     ``col_owned`` [B, pps] selects (all when None): acc [B, H, D], m
     [B, H], l [B, H] f32.  A row with no owned position below its length
@@ -80,8 +80,8 @@ def _paged_partials(q, k_pages, v_pages, page_table, lengths, k_scale,
 
 
 def _paged(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
-    acc, _, l = _paged_partials(q, k_pages, v_pages, page_table, lengths,
-                                k_scale, v_scale)
+    acc, _, l = paged_partials_ref(q, k_pages, v_pages, page_table,
+                                   lengths, k_scale, v_scale)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
 
@@ -113,8 +113,8 @@ def paged_split_partials_ref(q, k_pages, v_pages, page_table, lengths,
     for c0 in range(0, pps, pages_per_split):
         owned = ((col >= c0) & (col < c0 + pages_per_split))[None].expand(
             q.shape[0], pps)
-        parts.append(_paged_partials(q, k_pages, v_pages, page_table,
-                                     lengths, k_scale, v_scale, owned))
+        parts.append(paged_partials_ref(q, k_pages, v_pages, page_table,
+                                        lengths, k_scale, v_scale, owned))
     acc, m, l = (torch.stack(x, dim=2) for x in zip(*parts))
     return acc, m, l
 
@@ -129,6 +129,77 @@ def combine_splits_ref(acc, m, l):
     l_glob = (l * scale).sum(dim=-1)
     acc_glob = (acc * scale[..., None]).sum(dim=2)
     return acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
+
+
+def window_owned(page_table, node: int, n_local: int):
+    """[B, pps] bool: the table columns whose physical page lies in node
+    ``node``'s window ``[node * n_local, (node + 1) * n_local)`` (the
+    reference's ``col_owned`` of ``local_table = table - base``)."""
+    base = node * n_local
+    return (page_table >= base) & (page_table < base + n_local)
+
+
+def paged_pool_partials_ref(q, k_pages, v_pages, page_table, lengths,
+                            n_nodes: int, n_local: int, k_scale=None,
+                            v_scale=None):
+    """Each node's online-softmax partials over its window: the port of
+    the reference's ``paged_attention_partial`` (``repro/runtime/
+    serve.py:78``) run per node with ``col_owned = window_owned``.
+    Returns (acc [N, B, H, D], m [N, B, H], l [N, B, H]) f32; a node that
+    owns nothing of a row gives it (0, -1e30, 0)."""
+    parts = [paged_partials_ref(q, k_pages, v_pages, page_table, lengths,
+                                k_scale, v_scale,
+                                window_owned(page_table, s, n_local))
+             for s in range(n_nodes)]
+    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    return acc, m, l
+
+
+def paged_pool_split_partials_ref(q, k_pages, v_pages, page_table, lengths,
+                                  n_nodes: int, n_local: int,
+                                  pages_per_split: int, k_scale=None,
+                                  v_scale=None):
+    """Plain emulation of the pool decode form's workspace: node s's
+    split t covers the table columns [t * pages_per_split, (t + 1) *
+    pages_per_split) that lie in its window, at partial s * S + t.
+    Returns (acc [B, H, N * S, D], m, l [B, H, N * S])."""
+    pps = page_table.shape[1]
+    col = torch.arange(pps, device=q.device)[None]
+    parts = []
+    for s in range(n_nodes):
+        win = window_owned(page_table, s, n_local)
+        for c0 in range(0, pps, pages_per_split):
+            parts.append(paged_partials_ref(
+                q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
+                win & (col >= c0) & (col < c0 + pages_per_split)))
+    acc, m, l = (torch.stack(x, dim=2) for x in zip(*parts))
+    return acc, m, l
+
+
+def merge_split_partials(acc, m, l):
+    """Max-rebase of split partials into one partial a node, without the
+    normalisation: acc [..., S, D], m/l [..., S] -> (acc [..., D], m
+    [...], l [...]).  A node whose splits are all empty stays (0, -1e30,
+    0)."""
+    m_n = m.amax(dim=-1)
+    scale = torch.exp(m - m_n[..., None])
+    return ((acc * scale[..., None]).sum(dim=-2), m_n,
+            (l * scale).sum(dim=-1))
+
+
+def paged_pool_attention_ref(q, k_pages, v_pages, page_table, lengths,
+                             n_nodes: int, n_local: int, k_scale=None,
+                             v_scale=None):
+    """The pool form's function: :func:`paged_pool_partials_ref`
+    merged across the node axis by :func:`combine_splits_ref` (the
+    reference's ``combine_partials``).  At one node whose window is the
+    whole store, :func:`paged_attention_ref`'s bits."""
+    acc, m, l = paged_pool_partials_ref(q, k_pages, v_pages, page_table,
+                                        lengths, n_nodes, n_local, k_scale,
+                                        v_scale)
+    out = combine_splits_ref(acc.permute(1, 2, 0, 3), m.permute(1, 2, 0),
+                             l.permute(1, 2, 0))
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

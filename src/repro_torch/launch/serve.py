@@ -1,5 +1,5 @@
-"""Serving launcher of the port: the dense and the paged path on one
-device.
+"""Serving launcher of the port: the dense, the paged and the pool path
+on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
       --requests 4 --prompt-len 16 --gen 32 [--reduced --device cpu]
@@ -7,6 +7,9 @@ device.
       --paged --requests 4 --prompt-len 16 --gen 32 [--horizon 8] \
       [--speculative] [--temperature 0.8 --top-p 0.9] \
       [--prefill-chunk 256] [--page-dtype int8|fp8] [--reduced --device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --pool --nodes 4 --requests 8 --prompt-len 16 --gen 32 [--horizon 8] \
+      [--speculative] [--temperature 0.8 --top-p 0.9] [--prefill-chunk 256]
 
 Without ``--paged`` (the default path): one prefill of all prompts, the
 KV cache of a transformer padded to ``prompt_len + gen``, then ``gen``
@@ -16,11 +19,17 @@ temperature/top-p distribution with the Gumbel noise of
 ``fold_in(key(0), step)`` over the whole [batch, vocab] row block, as
 the JAX launcher draws them.  ``--paged`` serves a transformer from the
 paged KV store; ``--speculative`` (needs ``--horizon >= 2``) runs
-draft-verify passes and prints the speculation telemetry.  Runs on
-``cuda`` unless ``--device cpu`` is given; without a card it raises
-rather than run on the CPU.  Weights are random, drawn from a seeded
-``torch.Generator`` on the device; prompts come from a seeded numpy
-generator.  The pool path is not ported yet and exits with a message.
+draft-verify passes and prints the speculation telemetry.  ``--pool``
+serves a transformer from a ``PoolServer`` of ``--nodes`` DockerSSD
+nodes emulated on the one card (``--hbm-pages`` window pages each;
+``--nodes 0``, the default, is one node per visible card), fronted by a
+``StoragePool`` whose admission, placement and free messages ride
+Ether-oN frames and a ``PoolRouter`` (least-loaded placement, per-node
+admission, failover requeue); it prints the per-node and aggregate tier
+stats and the control plane's cost terms.  Runs on ``cuda`` unless
+``--device cpu`` is given; without a card it raises rather than run on
+the CPU.  Weights are random, drawn from a seeded ``torch.Generator``
+on the device; prompts come from a seeded numpy generator.
 """
 from __future__ import annotations
 
@@ -32,9 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import get_arch
+from repro_torch.core import analytical as A
+from repro_torch.core.storage_pool import StoragePool
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model
+from repro_torch.runtime.pool import PoolServer
 from repro_torch.runtime.prng import fold_in, gumbel, prng_key
+from repro_torch.runtime.scheduler import PoolRouter, Request
 from repro_torch.runtime.serve import (PagedServer, SamplingConfig,
                                        make_serving_fns, sampling_log_probs)
 
@@ -47,10 +60,17 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--paged", action="store_true")
-    ap.add_argument("--pool", action="store_true")
+    ap.add_argument("--pool", action="store_true",
+                    help="pool serving: a PoolServer of --nodes DockerSSD "
+                         "nodes emulated on the card, behind a "
+                         "StoragePool frontend and a PoolRouter")
+    ap.add_argument("--nodes", type=int, default=0,
+                    help="pool size (--pool); 0 = one node per visible "
+                         "card")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--hbm-pages", type=int, default=32,
-                    help="pages in the device window")
+                    help="pages in the device window (per node with "
+                         "--pool)")
     ap.add_argument("--page-dtype", choices=["fp32", "int8", "fp8"],
                     default="fp32",
                     help="KV page format: int8/fp8 store codes + per-slot "
@@ -74,10 +94,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.pool:
-        raise SystemExit("--pool: not yet ported")
-    if args.speculative and not args.paged:
-        raise SystemExit("--speculative needs --paged")
+    if args.speculative and not (args.paged or args.pool):
+        raise SystemExit("--speculative needs --paged or --pool")
     if args.speculative and args.horizon < 2:
         raise SystemExit("--speculative needs --horizon >= 2 (the draft "
                          "rides the fused-horizon step)")
@@ -97,6 +115,9 @@ def main(argv=None):
                            (args.requests, args.prompt_len), dtype=np.int32)
 
     t0 = time.monotonic()
+    if args.pool:
+        return _serve_pool(args, model, params, prompts, device, sampling,
+                           t0)
     if not args.paged:
         out = _serve_dense(model, params, prompts, args.gen, device,
                            sampling)
@@ -125,6 +146,37 @@ def main(argv=None):
     print("tier stats:", server.tier_stats())
     print(f"prefix hit rate: {server.prefix_hit_rate():.2f}")
     print(f"served {args.requests} requests, {toks} tokens on {device} "
+          f"in {dt:.2f}s ({toks / dt:.1f} tok/s)")
+    return out
+
+
+def _serve_pool(args, model, params, prompts, device, sampling, t0):
+    """The pool path: PoolServer + StoragePool frontend + PoolRouter.
+    Returns {request: generated tokens}."""
+    if model.cfg.block_type != "transformer":
+        raise SystemExit("--pool serves transformer archs")
+    server = PoolServer(model, params, n_nodes=args.nodes or None,
+                        page_size=args.page_size,
+                        hbm_pages_per_node=args.hbm_pages,
+                        page_dtype=args.page_dtype, device=device)
+    n = server.n_nodes
+    pool = StoragePool(n, extent_cfg={"device": device})
+    pool.attach_server(server)
+    router = PoolRouter(server, pool, max_active=args.requests,
+                        horizon=args.horizon, speculative=args.speculative,
+                        sampling=sampling,
+                        prefill_chunk=args.prefill_chunk or None)
+    for i in range(args.requests):
+        router.submit(Request(rid=i, prompt=prompts[i], max_tokens=args.gen))
+    stats = router.run_to_completion()
+    out = {r.rid: r.output for r in router.finished}
+    toks = sum(len(v) for v in out.values())
+    dt = time.monotonic() - t0
+    print(f"pool of {n} nodes on {device} | per-node tier stats: "
+          f"{server.node_tier_stats()}")
+    print("aggregate tier stats:", stats["tier"])
+    print("control plane:", A.control_plane_terms(pool.driver.stats, toks))
+    print(f"served {len(out)} requests, {toks} tokens on {device} "
           f"in {dt:.2f}s ({toks / dt:.1f} tok/s)")
     return out
 

@@ -15,15 +15,15 @@ models use (``core.isp_perf.IspCosts``):
 
 Jobs that plan onto the device are **batched per node** (one JOB frame,
 one container run, one RESULTS frame per node) and run across the
-``StoragePool`` alongside serving: when a ``PoolRouter`` is attached,
-the planner shares its admission surface — a serving node with no
-window headroom left falls back to the host path instead of stealing
-the node (shared nodes, one admission truth).
+``StoragePool`` alongside serving: when a :class:`~repro_torch.runtime.
+scheduler.PoolRouter` is attached, the planner shares its admission
+surface — a serving node with no window headroom left falls back to the
+host path instead of stealing the node (shared nodes, one admission
+truth).
 
 The port of ``repro.runtime.offload``.  Its host leg folds the fetched
 extent with the port's ``*_host`` folds on the host CPU, bit-identical
-to the in-storage kernels.  ``PoolRouter`` is not ported yet, so
-``router=None`` is the only admission source.
+to the in-storage kernels.
 """
 from __future__ import annotations
 
@@ -72,10 +72,8 @@ class OffloadPlanner:
     def __init__(self, pool, costs: IspCosts = IspCosts(), *,
                  router=None, scan_gbs: float = 8.0,
                  io_bytes: int = 128 * 1024):
-        if router is not None:
-            raise NotImplementedError("router: PoolRouter is not yet "
-                                      "ported")
         self.pool = pool
+        self.router = router
         self.costs = costs
         self.scan_gbs = scan_gbs
         self.io_bytes = io_bytes
@@ -122,6 +120,21 @@ class OffloadPlanner:
     def plan(self, jobs: List[AnalyticsJob]) -> List[OffloadEstimate]:
         return [self.estimate(j) for j in jobs]
 
+    # -- shared admission with the serving router --------------------------------
+
+    def _node_admits(self, ip: str) -> bool:
+        """A serving node with no free window pages is off limits to
+        analytics — the router's admission accounting is the one truth
+        for shared nodes."""
+        if self.router is None or self.pool._server is None:
+            return True
+        serve_ips = self.pool.serving_ips()
+        if ip not in serve_ips:
+            return True
+        shard = serve_ips.index(ip)
+        headroom = self.router.node_headroom()
+        return headroom.get(shard, 0) > 0
+
     # -- execution --------------------------------------------------------------
 
     def execute(self, jobs: List[AnalyticsJob],
@@ -140,6 +153,8 @@ class OffloadPlanner:
                 # an explicit force="device" is a pin, never rerouted
                 if self.pool.nodes[est.node_ip].suspect:
                     where = "host-suspect"     # straggler: no new jobs
+                elif not self._node_admits(est.node_ip):
+                    where = "host-admission"   # serving owns the node now
             if where == "device":
                 batches.setdefault(est.node_ip, []).append(i)
             else:

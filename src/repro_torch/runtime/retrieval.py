@@ -160,8 +160,22 @@ class RetrievalFrontend:
         srv = self.server
         if srv is None or not hasattr(srv, "pick_prefix_node"):
             return None                      # single-node PagedServer
-        raise NotImplementedError("pool placement: PoolServer is not yet "
-                                  "ported")
+        node = srv.pick_prefix_node(prompt, n_tokens)
+        if node is not None:
+            return node
+        if self.pool._server is None:
+            return None
+        serve_ips = self.pool.serving_ips()
+        ip = self.pool.locate_extent(self.extent)
+        if ip not in serve_ips:
+            return None
+        shard = serve_ips.index(ip)
+        need = srv.pages_needed(n_tokens if n_tokens is not None
+                                else len(prompt))
+        if (shard in srv.alive_nodes()
+                and srv.table.shard_free_pages(shard) >= need):
+            return shard
+        return None
 
     # -- end to end -----------------------------------------------------------
 

@@ -59,6 +59,50 @@ from repro_torch.runtime.prng import fold_in, gumbel, prng_key
 NEG_INF = -1e30
 
 
+def paged_attention_partial(q, k_pages, v_pages, local_table, col_owned,
+                            lengths, k_scale=None, v_scale=None):
+    """Paged decode attention returning online-softmax partials: the
+    device contract of pool serving (the reference's
+    ``paged_attention_partial``).  Scores only the table columns this
+    node owns, folds them with an online softmax and returns the
+    un-normalised ``(acc, m, l)``, which :func:`combine_partials` merges
+    across nodes exactly (on one node :func:`normalize_partials` closes
+    it).  Plain PyTorch; on the card the pool form of the
+    paged-attention kernels computes the same partials
+    (``kernels.paged_attention.pool_partials``).
+
+    q: [B, H, D]; k_pages/v_pages: the node's *local* [P_node, page,
+    Hkv, D]; local_table: [B, pps] local physical ids (garbage where not
+    owned); col_owned: [B, pps] bool; lengths: [B] post-append lengths;
+    ``k_scale``/``v_scale`` ([P_node, page, Hkv] f32, quantized stores
+    only).  Returns (acc [B, H, D] f32, m [B, H] f32, l [B, H] f32); a
+    row with nothing owned is (0, NEG_INF, 0)."""
+    return ops.ref.paged_partials_ref(q, k_pages, v_pages, local_table,
+                                      lengths, k_scale, v_scale, col_owned)
+
+
+def combine_partials(acc, m, l):
+    """Exact merge of per-node online-softmax partials, the node axis
+    leading (one card holds every node, so no collective): rebase every
+    node's accumulator to the global max and sum.  acc [N, B, H, D], m/l
+    [N, B, H] -> [B, H, D].  Nodes owning nothing contribute (0,
+    NEG_INF, 0) and vanish; a fully-masked (padding) row ends with l ==
+    0 and yields 0, the kernels' ``acc / max(l, 1e-30)`` convention."""
+    m_glob = m.amax(dim=0)
+    scale = torch.exp(m - m_glob)
+    l_glob = (l * scale).sum(dim=0)
+    acc_glob = (acc * scale[..., None]).sum(dim=0)
+    return acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
+
+
+def normalize_partials(acc, m, l):
+    """Single-node closure of the partial contract: with every page
+    owned locally, normalizing the accumulator *is* the full softmax
+    (``acc / max(l, 1e-30)``)."""
+    del m  # the local max cancels in acc / l
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
 def make_serving_fns(model, mesh=None):
     """(prefill, decode_step) of the dense serving path: the model's own
     methods, run eagerly (the JAX package jits them and donates the
@@ -242,12 +286,8 @@ class PagedServer:
         self.page_dtype = page_dtype
         self.quantized = page_dtype in ("int8", "fp8")
         self.hbm_pages = hbm_pages
-        self.store = PageStore(
-            n_layers=self.cfg.n_layers, page_size=page_size,
-            hbm_pages=hbm_pages, n_kv_heads=self.cfg.n_kv_heads,
-            head_dim=self.cfg.hd, dtype=self.dtype, page_dtype=page_dtype,
-            device=self.device)
-        self.table = PageTableManager(self.store)
+        self.store = self._new_store()
+        self.table = self._new_table()
         self._seqs: List[int] = []
         self._pending: Dict[int, int] = {}
         # prompts of admissions whose chunked prefill is in flight;
@@ -267,6 +307,18 @@ class PagedServer:
         self.spec_probe_every = 16
         self.spec_stats: Dict[str, object] = {}
         self.reset_speculation_stats()
+
+    # -- store / table factories (PoolServer overrides the table's) ---------
+
+    def _new_store(self) -> PageStore:
+        return PageStore(
+            n_layers=self.cfg.n_layers, page_size=self.page,
+            hbm_pages=self.hbm_pages, n_kv_heads=self.cfg.n_kv_heads,
+            head_dim=self.cfg.hd, dtype=self.dtype,
+            page_dtype=self.page_dtype, device=self.device)
+
+    def _new_table(self) -> PageTableManager:
+        return PageTableManager(self.store)
 
     def _to_dev(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.array(arr, order="C")).to(self.device)

@@ -254,7 +254,11 @@ def test_pool_membership_and_serving_hooks_not_ported():
     assert ("unreachable", first) in tp.events
     tp.scale_to(4)
     assert len(tp.alive_nodes()) == 3 and len(tp.nodes) == 4
-    for call in (lambda: tp.attach_server(None), lambda: tp.attach_faults(
-            None), lambda: OffloadPlanner(tp, router=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    # the serving hooks are ported now: a fault plan attaches to the
+    # fabric, and a planner takes a router (without an attached server
+    # every node admits analytics)
+    from repro_torch.core.faults import FaultPlan
+    inj = tp.attach_faults(FaultPlan())
+    assert tp.fault_injector is inj and tp.driver.faults is inj
+    planner = OffloadPlanner(tp, router=object())
+    assert all(planner._node_admits(ip) for ip in tp.alive_nodes())
