@@ -16,7 +16,11 @@ one JSON line and any failure exits non-zero:
            at the serving path's shapes, f32, int8 and fp8 pages, within
            1e-4 (and the pool form at 4 nodes x 80 pages, placed and
            striped, decode and chunk: node partials against the plain
-           per-node partials, 1 node bit-equal to the single forms):
+           per-node partials, the merge inside its launch bit-equal to
+           paged_combine_f32 of its unmerged partials, 1 node bit-equal
+           to the single forms; untimed at POOL_SHAPES on 2 and 4 nodes,
+           placed, striped and random, and on rows of 1,100 one-token
+           pages):
            the decode form on four decode batches (ragged 0..1000,
            the serve phase's 513..576, one row of 4,000, a verify pass
            of 8 sequences x 8 rows at 513..576), its per-split
@@ -444,6 +448,7 @@ def phase_kernels(torch, np):
                 "bound_by", "library_ms")}})
     results += combine_cases(torch, ops, pages, cases, flush)
     results += pool_kernel_cases(torch, np, ops, pages, cases, flush)
+    pool_other_shapes(torch, np, ops)
     chunk_padding_zeros(torch, np, ops, pages, cases)
     other_shapes(torch, np, ops)
     return results
@@ -586,39 +591,59 @@ POOL_CHUNK_OF = {"f32": "paged_pool_chunk_f32",
                  "fp8": "paged_pool_chunk_q8_fp8"}
 
 
-def pool_table(np, rng, lengths, pps, policy, first_node=0, page=16):
-    """[B, pps] over the POOL_NODES windows, no page twice: ``placed``
-    puts row i's pages in node (first_node + i) % N's window,
-    ``striped`` logical page j in node j % N's."""
-    free = [list(rng.permutation(POOL_LOCAL) + s * POOL_LOCAL)
-            for s in range(POOL_NODES)]
+def pool_table(np, rng, lengths, pps, policy, first_node=0, page=16,
+               nodes=POOL_NODES, local=POOL_LOCAL):
+    """[B, pps] over ``nodes`` windows of ``local`` pages, no page twice:
+    ``placed`` puts row i's pages in node (first_node + i) % N's window,
+    ``striped`` logical page j in node j % N's, ``random`` each page in a
+    random node's."""
+    free = [list(rng.permutation(local) + s * local) for s in range(nodes)]
     table = np.zeros((len(lengths), pps), np.int32)
     for i, n in enumerate(lengths):
         for j in range(-(-int(n) // page)):
-            s = ((first_node + i) if policy == "placed" else j) % POOL_NODES
+            s = {"placed": first_node + i, "striped": j,
+                 "random": int(rng.integers(nodes))}[policy] % nodes
             table[i, j] = free[s].pop()
     return table
 
 
-def check_pool_partials(torch, q, kp, vp, ks, vs, table, lengths, what):
+def check_pool_partials(torch, q, kp, vp, ks, vs, table, lengths, what,
+                        nodes=POOL_NODES, local=POOL_LOCAL, per=None):
     """Each node's partials from the pool form (its splits merged by
     max-rebase) against ``ref.paged_pool_partials_ref``: m within 1e-4,
-    l and acc within 1e-4 x max(1, l).  Returns the largest error."""
+    l and acc within 1e-4 x max(1, l).  Returns the largest error and the
+    unmerged partials [B, H, N * S, ...] (``per`` pages a split, the
+    wrappers' own when None)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     acc, m, l = pa.pool_partials(q, kp, vp, table, lengths, ks, vs,
-                                 n_nodes=POOL_NODES, n_local=POOL_LOCAL)
+                                 n_nodes=nodes, n_local=local,
+                                 pages_per_split=per)
     torch.cuda.synchronize()
     ga, gm, gl = ref.merge_split_partials(acc, m, l)        # [B, H, N, ...]
     wa, wm, wl = (w.movedim(0, 2) for w in ref.paged_pool_partials_ref(
-        q, kp, vp, table, lengths, POOL_NODES, POOL_LOCAL, ks, vs))
+        q, kp, vp, table, lengths, nodes, local, ks, vs))
     scale = torch.clamp(wl, min=1.0)
     errs = {"m": float((gm - wm).abs().max()),
             "l": float(((gl - wl).abs() / scale).max()),
             "acc": float(((ga - wa).abs() / scale[..., None]).max())}
     for part, err in errs.items():
         check(err <= KERNEL_TOL, f"{what}: node partial {part}: {err}")
-    return max(errs.values())
+    b, h, d = q.shape
+    return max(errs.values()), (acc.reshape(b, h, -1, d), m.reshape(b, h, -1),
+                                l.reshape(b, h, -1))
+
+
+def check_pool_merge(torch, got, parts, what):
+    """The pool form's merge inside its launch against
+    ``paged_combine_f32`` over the same launch's unmerged partials: bit
+    for bit (the same arithmetic in the same order)."""
+    from repro_torch.kernels import paged_attention as pa
+    sep = pa.combine_splits(*parts)
+    torch.cuda.synchronize()
+    check(torch.equal(got, sep), f"{what}: fused merge != paged_combine_f32 "
+          f"of the unmerged partials (max diff "
+          f"{float((got - sep).abs().max())})")
 
 
 def pool_kernel_cases(torch, np, ops, pages, cases, flush):
@@ -682,8 +707,9 @@ def pool_kernel_cases(torch, np, ops, pages, cases, flush):
                 err = float((got - want).abs().max())
                 check(bool(torch.isfinite(got).all()) and err <= KERNEL_TOL,
                       f"{what}: merged output max_abs_err {err}")
-                part_err = check_pool_partials(torch, q, kp, vp, ks, vs,
-                                               table, lengths, what)
+                part_err, parts = check_pool_partials(
+                    torch, q, kp, vp, ks, vs, table, lengths, what)
+                check_pool_merge(torch, got, parts, what)
                 one = pool(q, kp, vp, *scales, table, lengths, n_nodes=1,
                            n_local=n_phys)
                 check(torch.equal(one, single(q, kp, vp, *scales, table,
@@ -702,7 +728,9 @@ def pool_kernel_cases(torch, np, ops, pages, cases, flush):
                     "route": "cuda", "source": SOURCE,
                     "replaces": REPLACES[code], "launches": None,
                     "max_abs_err": err, "node_partials_max_err": part_err,
-                    "one_node_bit_equal": True, "tolerance": KERNEL_TOL,
+                    "one_node_bit_equal": True,
+                    "fused_merge_bit_equal_to_combine": True,
+                    "tolerance": KERNEL_TOL,
                     "ms": time_ms(torch, kernel, flush),
                     "plain_ms": time_ms(torch, plain, flush),
                     "bound_ms": b_ms, "bound_by": b_by,
@@ -711,14 +739,136 @@ def pool_kernel_cases(torch, np, ops, pages, cases, flush):
                         "prefill" if form == "chunk" else case), flush),
                     "library": "torch.nn.functional.scaled_dot_product_"
                                "attention on the gathered dense K/V",
-                    "note": "wrapper time: the pool kernel for every node "
-                            "and paged_combine_f32"})
+                    "note": "wrapper time: one launch, every node's "
+                            "owned pages and the merge of their partials"})
                 results[-1]["kernel_ms"] = results[-1]["ms"]
                 emit({"phase": "kernels", **{k_: results[-1][k_] for k_ in (
                     "kernel", "case", "max_abs_err", "node_partials_max_err",
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}})
     return results
+
+
+# the pool form untimed, (H, Hkv, D, page): head dims 16, 64, 96, 128, 256
+# at pages of 8, 16 and 128 (a page two chunk tiles, a tile eight
+# pages), a GQA group of 64 (two decode blocks a kv head), codes at d = 8
+# mod 16 (24, 40: 8-byte pieces), and D 192 at pages of 49, where the
+# decode form has room for a list of 6 pages (its windows)
+POOL_SHAPES = ((8, 2, 16, 16), (32, 8, 64, 16), (32, 4, 96, 8),
+               (16, 2, 128, 128), (8, 2, 256, 16), (64, 1, 64, 8),
+               (8, 4, 24, 16), (8, 2, 40, 128), (4, 2, 192, 49))
+# (nodes, local pages, policy) of the sweep
+POOL_LAYOUTS = ((2, 24, "placed"), (4, 12, "striped"), (4, 12, "random"),
+                (2, 24, "random"))
+# pages of one token, rows of 1,100 and 700 pages placed on one node each:
+# past 512 listed pages, both forms walk their lists in windows
+POOL_LONG = {"h": 8, "hkv": 2, "d": 64, "nodes": 4, "local": 1200,
+             "pps": 1100, "lengths": (1100, 700, 0), "chunk": 8}
+
+
+def pool_sweep_case(torch, ops, pages, q, table, lengths, nodes, local,
+                    what, pers=(None,)):
+    """One pool-form case, untimed: the merged output within 1e-4 of the
+    plain attention, the node partials (at each of ``pers`` pages a
+    split) within 1e-4 x max(1, l), the fused merge bit-equal to
+    ``paged_combine_f32`` of the unmerged partials, and the form at one
+    node bit-equal to the single form.  Returns the largest error."""
+    worst = 0.0
+    for code, (kp, vp, ks, vs) in pages.items():
+        scales = () if ks is None else (ks, vs)
+        single = ops.paged_attention_q8 if scales else ops.paged_attention
+        pool = (ops.paged_attention_pool_q8 if scales
+                else ops.paged_attention_pool)
+        got = pool(q, kp, vp, *scales, table, lengths, n_nodes=nodes,
+                   n_local=local)
+        torch.cuda.synchronize()
+        want = single(q, kp, vp, *scales, table, lengths)
+        plain = (ops.ref.paged_attention_q8_ref(q, kp, vp, ks, vs, table,
+                                                lengths) if scales else
+                 ops.ref.paged_attention_ref(q, kp, vp, table, lengths))
+        err = float((got - plain).abs().max())
+        tag = f"{what} {code}"
+        check(bool(torch.isfinite(got).all()) and err <= KERNEL_TOL,
+              f"{tag}: merged output max_abs_err {err}")
+        check(not bool(got[lengths == 0].any()), f"{tag}: length-0 rows zero")
+        for per in pers:
+            part_err, parts = check_pool_partials(
+                torch, q, kp, vp, ks, vs, table, lengths, tag, nodes, local,
+                per)
+            worst = max(worst, part_err)
+            if per is None:              # the wrappers' own split
+                check_pool_merge(torch, got, parts, tag)
+        one = pool(q, kp, vp, *scales, table, lengths, n_nodes=1,
+                   n_local=kp.shape[0])
+        check(torch.equal(one, want), f"{tag}: one node != the single form")
+        worst = max(worst, err)
+    return worst
+
+
+def pool_other_shapes(torch, np, ops):
+    """The pool form at POOL_SHAPES x POOL_LAYOUTS, both forms, every
+    page type (``pool_sweep_case``), the decode form also at one split a
+    node; then pages of one token with rows past 512 pages (POOL_LONG),
+    whose lists both forms walk in windows.  Not timed."""
+    rng = np.random.default_rng(11)
+    dev = torch.device(DEVICE)
+    worst, n_cases = 0.0, 0
+    for h, hkv, d, page in POOL_SHAPES:
+        pps = 8
+        for nodes, local, policy in POOL_LAYOUTS:
+            pages = paged_pages(torch, *(rng.standard_normal(
+                (nodes * local, page, hkv, d), dtype=np.float32)
+                for _ in range(2)))
+            dec_len = np.array([0, 1, page + 3, 5 * page, pps * page],
+                               np.int32)
+            c = 40
+            chunk_len = np.where(np.arange(c) < c - 3, 3 * page +
+                                 np.arange(c) + 1, 0).astype(np.int32)
+            dec_table = pool_table(np, rng, dec_len, pps, policy,
+                                   page=page, nodes=nodes, local=local)
+            row = pool_table(np, rng, chunk_len[-4:-3], pps, policy,
+                             first_node=1, page=page, nodes=nodes,
+                             local=local)[0]
+            for lens, table, pers in (
+                    (dec_len, dec_table, (None, pps)),
+                    (chunk_len, torch.from_numpy(row).to(dev)[None].expand(
+                        c, pps), (None,))):
+                q = torch.from_numpy(rng.standard_normal(
+                    (len(lens), h, d), dtype=np.float32)).to(dev)
+                lengths = torch.from_numpy(lens).to(dev)
+                if not isinstance(table, torch.Tensor):
+                    table = torch.from_numpy(table).to(dev)
+                worst = max(worst, pool_sweep_case(
+                    torch, ops, pages, q, table, lengths, nodes, local,
+                    f"pool H={h} Hkv={hkv} D={d} page={page} {nodes} nodes "
+                    f"{policy} B={len(lens)}", pers))
+                n_cases += 1
+    lg = POOL_LONG
+    nodes, local = lg["nodes"], lg["local"]
+    pages = paged_pages(torch, *(rng.standard_normal(
+        (nodes * local, 1, lg["hkv"], lg["d"]), dtype=np.float32)
+        for _ in range(2)))
+    lens = np.array(lg["lengths"], np.int32)
+    table = torch.from_numpy(pool_table(np, rng, lens, lg["pps"], "placed",
+                                        page=1, nodes=nodes,
+                                        local=local)).to(dev)
+    chunk_len = (lens[0] - np.arange(lg["chunk"])[::-1]).astype(np.int32)
+    for lens_, table_, pers in (
+            (lens, table, (None, lg["pps"])),
+            (chunk_len, table[0][None].expand(lg["chunk"], lg["pps"]),
+             (None,))):
+        q = torch.from_numpy(rng.standard_normal(
+            (len(lens_), lg["h"], lg["d"]), dtype=np.float32)).to(dev)
+        worst = max(worst, pool_sweep_case(
+            torch, ops, pages, q, table_, torch.from_numpy(lens_).to(dev),
+            nodes, local, f"pool page=1 pps={lg['pps']} B={len(lens_)}",
+            pers))
+        n_cases += 1
+    emit({"phase": "kernels", "check": "pool form at other shapes",
+          "shapes_h_hkv_d_page": POOL_SHAPES, "layouts": POOL_LAYOUTS,
+          "long_rows": lg, "cases": n_cases, "max_err": worst,
+          "tolerance": KERNEL_TOL, "fused_merge_bit_equal_to_combine": True,
+          "one_node_bit_equal": True})
 
 
 def library_call(torch, F, q, kd, vd, table, lengths, page, case):
@@ -2938,9 +3088,15 @@ def phase_serve_pool(torch, np, smi, served):
                 phase="serve_pool")
             runs[f"{tag}_{kind}"]["prefill_s"] = prefill_s
             if (n, policy, kind) == (4, "placed", "h1"):
+                # the pool form merges inside its own launch: no combine
                 profile = profile_decode(torch, server, 4, match={
                     "pool_decode_form": "paged_decode_kernel",
                     "combine": "paged_combine_kernel"})
+                combine_calls = (profile.get("matched", {}).get("combine", {})
+                                 .get("calls_per_step", 0))
+                check(combine_calls == 0, f"4-node step: {combine_calls} "
+                      "paged_combine_f32 launches a step (the pool form "
+                      "merges in its own launch)")
             del server
         pool_runs[tag] = {"prefill_logits_max_abs_err": max(errs)}
 
@@ -3046,12 +3202,11 @@ def phase_serve_pool(torch, np, smi, served):
     for code in ("f32", "int8", "fp8"):
         for name in (POOL_DECODE_OF[code], POOL_CHUNK_OF[code]):
             check(counts[name] > 0, f"{name} launched in serve_pool")
-    n_merge = sum(counts[n] for n in (*POOL_DECODE_OF.values(),
-                                      *POOL_CHUNK_OF.values(),
-                                      *DECODE_OF.values()))
+    n_merge = sum(counts[n] for n in DECODE_OF.values())
     check(counts[COMBINE] == n_merge,
           f"{COMBINE} launches {counts[COMBINE]} != {n_merge} (one per "
-          "pool launch and single-device decode-form launch)")
+          "single-device decode-form launch; the pool form merges in its "
+          "own launch)")
     emit({"phase": "serve_pool", "arch": cfg.name, "requests": len(prompts),
           "prompt_len": SERVE["prompt_len"], "gen": gen, "q8_gen": q_gen,
           "store_pages": store, "horizon": hzn, "one_node": one,

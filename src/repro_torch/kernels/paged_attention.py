@@ -19,12 +19,17 @@ kernel's whichever form runs:
 
 The pool form (:func:`paged_attention_pool`, :func:`paged_attention_pool_q8`)
 runs either form for N emulated nodes sharing one store, node s owning
-the physical pages ``[s * n_local, (s + 1) * n_local)``: each node's
-blocks skip the pages outside its window and write its partials at node
-offset s of one workspace, which ``paged_combine_f32`` merges in one
-launch (the reference's per-node ``paged_attention_partial`` and its
-``combine_partials`` across the pool axis).  At one node whose window is
-the whole store it computes the forms' own bits.
+the physical pages ``[s * n_local, (s + 1) * n_local)`` (the reference's
+per-node ``paged_attention_partial`` and its ``combine_partials`` across
+the pool axis), in one launch: each node's blocks list the pages of
+their row that the node owns and walk only those (the decode form's
+split t of node s the owned pages of rank ``[t * per, (t + 1) * per)``,
+``ref.pool_split_owned``; the chunk form's tiles the node's owned keys,
+``ref.pool_chunk_tiles``), write their partials at node offset s of one
+workspace, and the last block of each group to finish merges the
+group's partials into the output (a ticket a group, in a zeroed buffer
+kept here per stream).  At one node whose window is the whole store it
+computes the forms' own bits.
 
 Each wrapper checks device, dtype, shape and layout and raises on what
 the kernels do not take (a non-contiguous table other than an expanded
@@ -68,11 +73,15 @@ MAX_GROUP = 64
 #: pages a split walks
 SPLIT_BLOCKS_PER_SM = 4
 MIN_SPLIT_PAGES = 2
-#: the most partials of a row ``paged_combine_f32`` merges (its weights
-#: fill the shared memory of a block of 4 warps), and the most split
-#: blocks of a row the decode grid holds
+#: the most partials of a row ``paged_combine_f32`` (and the pool form's
+#: merge) takes (its weights fill the shared memory of a block of 4
+#: warps), and the most split blocks of a row the decode grid holds
 MAX_COMBINE = 232448 // 16
 MAX_GRID_Z = 65535
+#: rows of a chunk-form block (query positions x the GQA group)
+CHUNK_ROWS = 64
+#: decode form: query heads a block (a larger group takes several)
+BLOCK_HEADS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,6 +174,32 @@ def _check_cuda(tensors, page_table, d, page, group):
                          f"{MAX_GROUP} heads")
     if tensors[0].shape[0] < 1 or page_table.shape[1] < 1:
         raise ValueError("empty batch or page table")
+
+
+#: the pool form's merge tickets, one zeroed uint32 a group of blocks, a
+#: buffer a (device, stream) grown to the largest grid launched on it; the
+#: last block of each group resets its ticket, so it stays zeroed
+_TICKETS = {}
+
+
+def _tickets(device, stream: int, need: int):
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(1 << max(need - 1, 1).bit_length(),
+                          dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
+def pool_groups(form: str, rows: int, h: int, hkv: int) -> int:
+    """Groups of blocks a pool launch merges, one ticket each: the
+    decode form's (row, kv head, head part), the chunk form's (tile of
+    ``CHUNK_ROWS // G`` positions, kv head); ``rows`` is B or C."""
+    group = h // hkv
+    if form == "decode":
+        return rows * hkv * -(-group // BLOCK_HEADS)
+    return -(-rows // (CHUNK_ROWS // group)) * hkv
 
 
 def _raise_on(err: int, name: str):
@@ -371,34 +406,35 @@ def _pool_launch(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
                  pages_per_split=None):
     """Launch the pool form; returns (out or None, acc, m, l), the
     partials node-major: acc [B, H, N * S, D], m/l [B, H, N * S] (S = 1
-    for the chunk form, whose launcher always merges them)."""
+    for the chunk form).  With ``merge`` the same launch merges them
+    into ``out``."""
     pps = page_table.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = _args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths)
     shared = _shared_row(page_table)
-    merge = merge or shared
     out = torch.empty_like(q) if merge else None
     code = _CODE[k_pages.dtype]
     if shared:
         if n_nodes > MAX_COMBINE:
-            raise ValueError(f"{n_nodes} nodes: the combine merges at most "
+            raise ValueError(f"{n_nodes} nodes: the merge takes at most "
                              f"{MAX_COMBINE} partials a row")
-        name, splits = f"paged_pool_chunk_{code}", 1
+        name, splits, form = f"paged_pool_chunk_{code}", 1, "chunk"
         ints = (b, h, hkv, d, pps, page, n_nodes, n_local)
     else:
         per, splits = _pool_splits(page_table, b, hkv, n_nodes, q.device,
                                    pages_per_split)
-        name = f"paged_pool_decode_{code}"
+        name, form = f"paged_pool_decode_{code}", "decode"
         ints = (b, h, hkv, d, pps, page, per, splits, n_nodes, n_local)
+    n_tickets = pool_groups(form, b, h, hkv)
+    tickets = _tickets(q.device, stream, n_tickets)
     n_ml = b * h * n_nodes * splits
     ws = torch.empty(n_ml * (d + 2), dtype=torch.float32, device=q.device)
     acc = ws.data_ptr()
-    _raise_on(_bind(name, 11, len(ints))(
+    _raise_on(_bind(name, 12, len(ints) + 1)(
         *args, acc, acc + 4 * n_ml * d, acc + 4 * n_ml * (d + 1),
-        None if out is None else out.data_ptr(), *ints, stream), name)
+        None if out is None else out.data_ptr(), tickets.data_ptr(), *ints,
+        tickets.numel(), stream), name)
     LAUNCHES[name] += 1
-    if merge:
-        LAUNCHES[COMBINE] += 1
     return (out, ws[:n_ml * d].view(b, h, n_nodes * splits, d),
             ws[n_ml * d:n_ml * (d + 1)].view(b, h, n_nodes * splits),
             ws[n_ml * (d + 1):].view(b, h, n_nodes * splits))
@@ -453,14 +489,19 @@ def paged_attention_pool_q8(q, k_pages, v_pages, k_scale, v_scale,
 def pool_partials(q, k_pages, v_pages, page_table, lengths, k_scale=None,
                   v_scale=None, *, n_nodes: int, n_local: int,
                   pages_per_split=None):
-    """The pool form's partials before the merge, node-major: (acc [B,
-    H, N, S, D], m [B, H, N, S], l [B, H, N, S]) f32, un-normalised; a
-    (row, node, split) that owns no position below the row's length is
-    (0, -1e30, 0).  The decode form's S splits of ``pages_per_split``
-    pages (default: :func:`split_plan`'s on the card, one split on the
-    CPU); the chunk form's one partial a node (S = 1, an expanded
-    table).  For checks against ``ref.paged_pool_partials_ref``; the CPU
-    runs ``ref.paged_pool_split_partials_ref``."""
+    """The pool form's partials, unmerged (the kernel launched without
+    its merge), node-major: (acc [B, H, N, S, D], m [B, H, N, S], l [B,
+    H, N, S]) f32, un-normalised.  The decode form's split t of node s
+    covers the pages of rank ``[t * per, (t + 1) * per)`` among the
+    row's pages below its length that lie in node s's window
+    (``ref.pool_split_owned``), ``per = pages_per_split`` (default:
+    :func:`split_plan`'s on the card, one split on the CPU), S = ceil(pps
+    / per); the chunk form's one partial a node (S = 1, an expanded
+    table).  A (row, node, split) that owns no position below the row's
+    length is (0, -1e30, 0).  Merged per node they are
+    ``ref.paged_pool_partials_ref``; :func:`combine_splits` of them
+    (reshaped to [B, H, N * S, D]) is the pool wrappers' output bit for
+    bit on the card.  The CPU runs ``ref.paged_pool_split_partials_ref``."""
     quantized = k_scale is not None
     codes = ((torch.int8, torch.float8_e4m3fn) if quantized
              else (torch.float32,))

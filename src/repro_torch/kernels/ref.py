@@ -155,23 +155,75 @@ def paged_pool_partials_ref(q, k_pages, v_pages, page_table, lengths,
     return acc, m, l
 
 
+def pool_owned_pages(table_row, length: int, page: int, node: int,
+                     n_local: int):
+    """The pool form's list of one table row for one node: the logical
+    pages (columns below ceil(length / page), at most the row's width)
+    whose physical page lies in the node's window, ascending; what a
+    pool block lists before it walks (``owned_list`` in
+    ``csrc/paged_attention.cu``).  A long int tensor."""
+    row = torch.as_tensor(table_row).long()
+    n_cols = min(-(-int(length) // page), row.numel())
+    base = node * n_local
+    own = (row[:n_cols] >= base) & (row[:n_cols] < base + n_local)
+    return torch.nonzero(own).flatten()
+
+
+def pool_split_owned(page_table, lengths, page: int, node: int,
+                     n_local: int, per: int, split: int):
+    """[B, pps] bool: the table columns the pool decode form's split
+    ``split`` of node ``node`` walks, the pages of rank ``[split * per,
+    (split + 1) * per)`` of each row's :func:`pool_owned_pages`.  At one
+    node whose window is the store, the columns ``[split * per, (split
+    + 1) * per)`` below the length: the single decode form's split."""
+    pps = page_table.shape[1]
+    n_pages = torch.clamp(-(-lengths.long() // page), max=pps)
+    col = torch.arange(pps, device=page_table.device)
+    win = (window_owned(page_table, node, n_local) &
+           (col[None, :] < n_pages[:, None]))
+    rank = torch.cumsum(win.long(), dim=1) - 1
+    return win & (rank >= split * per) & (rank < (split + 1) * per)
+
+
+def chunk_tile_keys(head_dim: int) -> int:
+    """Keys of a chunk-form tile (``Chunk<D>::KT``): 64, or 32 where the
+    head dim rounded up to a multiple of 32 passes 128."""
+    return 64 if -(-head_dim // 32) * 32 <= 128 else 32
+
+
+def pool_chunk_tiles(table_row, kmax: int, page: int, node: int,
+                     n_local: int, kt: int):
+    """The pool chunk form's tiles for one node block whose longest row
+    is ``kmax``: its owned keys below ``kmax`` in ascending order (key i
+    on page ``list[i // page]``, slot ``i % page``, of
+    :func:`pool_owned_pages`), ``kt`` a tile; each tile the logical
+    positions of its keys, which the length mask reads.  At one node
+    whose window is the store, ``[0, kt), [kt, 2 kt), ...`` below kmax:
+    the single chunk form's tiles."""
+    pages = pool_owned_pages(table_row, kmax, page, node, n_local)
+    pos = (pages[:, None] * page + torch.arange(page)[None, :]).flatten()
+    pos = pos[pos < kmax]
+    return [pos[i:i + kt] for i in range(0, pos.numel(), kt)]
+
+
 def paged_pool_split_partials_ref(q, k_pages, v_pages, page_table, lengths,
                                   n_nodes: int, n_local: int,
                                   pages_per_split: int, k_scale=None,
                                   v_scale=None):
     """Plain emulation of the pool decode form's workspace: node s's
-    split t covers the table columns [t * pages_per_split, (t + 1) *
-    pages_per_split) that lie in its window, at partial s * S + t.
-    Returns (acc [B, H, N * S, D], m, l [B, H, N * S])."""
+    split t covers the owned pages of rank [t * pages_per_split, (t + 1)
+    * pages_per_split) of each row (:func:`pool_split_owned`), at
+    partial s * S + t, S = ceil(pps / pages_per_split).  Returns (acc [B,
+    H, N * S, D], m, l [B, H, N * S])."""
     pps = page_table.shape[1]
-    col = torch.arange(pps, device=q.device)[None]
+    page = k_pages.shape[1]
     parts = []
     for s in range(n_nodes):
-        win = window_owned(page_table, s, n_local)
-        for c0 in range(0, pps, pages_per_split):
+        for t in range(-(-pps // pages_per_split)):
             parts.append(paged_partials_ref(
                 q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
-                win & (col >= c0) & (col < c0 + pages_per_split)))
+                pool_split_owned(page_table, lengths, page, s, n_local,
+                                 pages_per_split, t)))
     acc, m, l = (torch.stack(x, dim=2) for x in zip(*parts))
     return acc, m, l
 
