@@ -1989,9 +1989,18 @@ def phase_isp(torch, np, smi, served, data):
 
 DENSE_SOURCE = {"flash_attention_f32":
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "flash_attention_fwd_lse_f32":
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "flash_attention_bwd_f32":
+                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 "rwkv_scan_f32": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
+# the backward replaces no Pallas kernel: the JAX package takes the
+# gradient by autodiff of chunked_attention
 DENSE_REPLACES = {"flash_attention_f32":
                   "src/repro/kernels/flash_attention.py:26",
+                  "flash_attention_fwd_lse_f32":
+                  "src/repro/kernels/flash_attention.py:26",
+                  "flash_attention_bwd_f32": "src/repro/models/layers.py:125",
                   "rwkv_scan_f32": "src/repro/kernels/rwkv_scan.py:21"}
 # granite-3-2b's dense prefill: 8 prompts of 512 tokens, 32 heads over 8
 # kv heads of 64
@@ -2061,10 +2070,13 @@ def wkv_bound(b, s, h, dk, dv, chunk):
 
 
 def phase_dense_kernels(torch, np, flush):
-    """Flash attention and the wkv scan (at rwkv6-3b's prefill shape),
-    each against its plain version."""
+    """Flash attention (forward, and the training forward and backward)
+    and the wkv scan (at rwkv6-3b's prefill shape), each against its
+    plain version."""
     results = flash_cases(torch, np, flush)
     flash_other_shapes(torch, np)
+    results += flash_train_cases(torch, np, flush)
+    flash_train_other_shapes(torch, np)
     results += wkv_cases(torch, np, flush)
     wkv_other_shapes(torch, np)
     return results
@@ -2154,6 +2166,190 @@ def flash_other_shapes(torch, np):
     emit({"phase": "kernels", "check": "flash attention at other shapes",
           "shapes": FLASH_SHAPES, "max_abs_err": worst,
           "tolerance": KERNEL_TOL})
+
+
+# the training kernels' cases: granite-3-2b's and phi3-mini-3.8b's
+# attention at a train microbatch of 8 x 512 tokens, causal
+FLASH_TRAIN_CASES = (
+    ("granite-3-2b train", FLASH),
+    ("phi3-mini-3.8b train", {"batch": 8, "heads": 32, "kv_heads": 32,
+                              "seq": 512, "head_dim": 96}),
+)
+# untimed: FLASH_SHAPES, and head_dim 16 at a group of 16
+FLASH_TRAIN_SHAPES = FLASH_SHAPES + ((2, 16, 1, 33, 33, 16, True),)
+LSE_TOL = 1e-5
+BWD_TOL = 1e-4           # times max(1, max |plain|), on dq, dk and dv
+
+
+def flash_bwd_bounds(b, h, hkv, s, d, causal):
+    """(the bound of the kernel's route, the f32 bound): q, k, v, out,
+    dout, lse read and dq, dk, dv written once, against the five products
+    a kept (query, key) pair needs (S, dP, dV, dK, dQ: 10 * D f32
+    operations) as three TF32 products each at TF32_FLOPS (the 3xTF32
+    route, D <= 128 and G <= 64) or at F32_FLOPS (the FMA route)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    n_bytes = 4 * (5 * b * h * s * d + 4 * b * hkv * s * d + b * h * s)
+    ops_ = b * h * pairs * 10 * d
+    f32 = bytes_bound(n_bytes, ops_)
+    if d > 128 or h // hkv > 64:
+        return f32, f32
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = 3 * ops_ / TF32_FLOPS * 1e3
+    return ((b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")), f32
+
+
+def check_flash_train(torch, ops, q, k, v, do, causal, what):
+    """The training forward and backward against their plain versions:
+    out bit-equal to the forward-only kernel, lse within LSE_TOL, dq, dk,
+    dv within BWD_TOL x max(1, max |plain|) and the same bits on a second
+    run; the kernel's and the plain backward's dq, dk, dv each held to
+    float64 autograd of the plain forward, within BWD_TOL x max(1,
+    max |float64|).  Returns (lse err, {dq, dk, dv: readings}): the error
+    against the plain version, its limit and their ratio, max |plain|,
+    and the kernel's and the plain version's errors against float64
+    beside that limit."""
+    out, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    check(torch.equal(out, ops.flash_attention(q, k, v, causal=causal)),
+          f"{what}: out of the lse forward differs from flash_attention_f32")
+    _, plain_lse = ops.ref.flash_attention_lse_ref(q, k, v, causal=causal)
+    lse_err = float((lse - plain_lse).abs().max())
+    check(lse_err <= LSE_TOL, f"{what}: lse {lse_err} > {LSE_TOL}")
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    want = ops.ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    exact = torch.autograd.grad(
+        ops.ref.flash_attention_ref(*leaves, causal=causal), leaves,
+        do.double())
+    per = {}
+    for name, g, a, w, x in zip(("dq", "dk", "dv"), got, again, want, exact):
+        check(bool(torch.isfinite(g).all()), f"{what} {name}: finite")
+        check(torch.equal(g, a), f"{what} {name}: two backward runs differ")
+        top = float(w.abs().max())
+        lim = BWD_TOL * max(1.0, top)
+        e = float((g - w).abs().max())
+        check(e <= lim, f"{what} {name}: {e} > {lim}")
+        lim64 = BWD_TOL * max(1.0, float(x.abs().max()))
+        ke = float((g.double() - x).abs().max())
+        check(ke <= lim64, f"{what} {name}: kernel vs float64 autograd "
+              f"{ke} > {lim64}")
+        pe = float((w.double() - x).abs().max())
+        check(pe <= lim64, f"{what} {name}: plain vs float64 autograd "
+              f"{pe} > {lim64}")
+        per[name] = {"err_vs_plain": e, "limit": lim,
+                     "err_over_limit": e / lim, "max_abs_plain": top,
+                     "err_vs_float64": ke, "plain_err_vs_float64": pe,
+                     "float64_limit": lim64}
+    return lse_err, per
+
+
+def flash_train_cases(torch, np, flush):
+    """The training forward (flash_attention_fwd_lse_f32) and backward
+    (flash_attention_bwd_f32) at FLASH_TRAIN_CASES, checked and timed;
+    the backward beside SDPA's backward (fwd + bwd minus fwd)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    results = []
+    rng = np.random.default_rng(11)
+    for label, shape in FLASH_TRAIN_CASES:
+        b, h, hkv, s, d = (shape[k] for k in ("batch", "heads", "kv_heads",
+                                              "seq", "head_dim"))
+        q, do = (torch.from_numpy(rng.standard_normal(
+            (b, h, s, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, hkv, s, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+        case = f"causal B={b} H={h} Hkv={hkv} S={s} D={d} ({label})"
+        lse_err, per = check_flash_train(torch, ops, q, k, v, do, True,
+                                         case)
+        err = max(r["err_vs_plain"] for r in per.values())
+        out, lse = ops.flash_attention_lse(q, k, v, causal=True)
+        g = h // hkv
+        rep = [t.repeat_interleave(g, dim=1).requires_grad_(True)
+               for t in (k, v)]
+        qg = q.clone().requires_grad_(True)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qg, *rep,
+                                                      is_causal=True)
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, *rep, is_causal=True)
+            return torch.autograd.grad(o, [qg, *rep], do)
+
+        lib_ms = (time_ms(torch, lib_fwd_bwd, flush) -
+                  time_ms(torch, lib_fwd, flush))
+        route, f32 = flash_bounds(b, h, hkv, s, d, True)
+        kernel_line(
+            results, "flash_attention_fwd_lse_f32", case, lse_err,
+            time_ms(torch, lambda: ops.flash_attention_lse(q, k, v, True),
+                    flush),
+            time_ms(torch, lambda: ops.ref.flash_attention_lse_ref(
+                q, k, v, True), flush, PLAIN_ITERS, 1), route,
+            time_ms(torch, lib_fwd, flush),
+            "torch.nn.functional.scaled_dot_product_attention(is_causal) "
+            "forward on f32 with the kv heads repeated",
+            DENSE_SOURCE["flash_attention_fwd_lse_f32"],
+            f"out bit-equal to flash_attention_f32; lse {LSE_TOL}")
+        results[-1]["bound_f32_ms"], results[-1]["bound_f32_by"] = f32
+        bound_, f32 = flash_bwd_bounds(b, h, hkv, s, d, True)
+        kernel_line(
+            results, "flash_attention_bwd_f32", case, err,
+            time_ms(torch, lambda: ops.flash_attention_bwd(
+                q, k, v, out, lse, do, True), flush),
+            time_ms(torch, lambda: ops.ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, True), flush, PLAIN_ITERS, 1),
+            bound_, lib_ms,
+            "backward of torch.nn.functional.scaled_dot_product_attention"
+            "(is_causal) on f32 with the kv heads repeated: fwd + bwd "
+            "minus fwd", DENSE_SOURCE["flash_attention_bwd_f32"],
+            f"{BWD_TOL} x max(1, max|plain|) on dq, dk, dv; deterministic")
+        results[-1]["bound_f32_ms"], results[-1]["bound_f32_by"] = f32
+        results[-1]["errors"] = per
+        results[-1]["route_bound"] = "3xTF32 mma: " + FLASH_ROUTE_NOTE
+        results[-1]["note"] = ("3xTF32 mma.sync for D <= 128 and G <= 64, "
+                               "else f32 FMA; S and dP recomputed in both "
+                               "kernels (7 products a pair; the bound "
+                               "counts 5); dK, dV, dQ summed a tile at a "
+                               "time in the mma's C, tiles joined by f32 "
+                               "adds")
+        del q, k, v, do, out, lse, rep, qg
+        torch.cuda.empty_cache()
+    return results
+
+
+def flash_train_other_shapes(torch, np):
+    """The training kernels at FLASH_TRAIN_SHAPES (head_dim 8-256, groups
+    1-64, lengths off the tile, full attention with Sq != Sk), checked as
+    the timed cases.  Not timed."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(12)
+    worst_lse, worst = 0.0, {}
+    for b, h, hkv, sq, sk, d, causal in FLASH_TRAIN_SHAPES:
+        q, do = (torch.from_numpy(rng.standard_normal(
+            (b, h, sq, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, hkv, sk, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
+        lse_err, per = check_flash_train(
+            torch, ops, q, k, v, do, causal,
+            f"flash train B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+            f"causal={causal}")
+        worst_lse = max(worst_lse, lse_err)
+        for name, r in per.items():
+            w = worst.setdefault(name, {})
+            for key in ("err_vs_plain", "err_over_limit", "err_vs_float64",
+                        "plain_err_vs_float64"):
+                w[key] = max(w.get(key, 0.0), r[key])
+    emit({"phase": "kernels", "check": "flash training kernels at other "
+          "shapes", "shapes": FLASH_TRAIN_SHAPES, "lse_max_abs_err": worst_lse,
+          "bwd_worst": worst,
+          "tolerance": {"lse": LSE_TOL, "bwd": f"{BWD_TOL} x max(1, "
+                        "max|plain|) against the plain version, and x max(1, "
+                        "max|float64|) against float64 autograd"},
+          "deterministic": True})
 
 
 def wkv_cases(torch, np, flush):
@@ -2280,14 +2476,17 @@ def wkv_other_shapes(torch, np):
 @contextlib.contextmanager
 def plain_kernels(ops):
     """The same path with the flash and wkv kernels' plain versions on
-    the card (the wrappers launch their kernels for every CUDA tensor)."""
-    saved = ops.flash_attention, ops.rwkv_scan
+    the card (the wrappers launch their kernels for every CUDA tensor);
+    training attention differentiates the plain forward by autograd."""
+    saved = ops.flash_attention, ops.rwkv_scan, ops.flash_attention_with_grad
     ops.flash_attention = ops.ref.flash_attention_ref
     ops.rwkv_scan = ops.ref.wkv_chunked_ref
+    ops.flash_attention_with_grad = ops.ref.flash_attention_ref
     try:
         yield
     finally:
-        ops.flash_attention, ops.rwkv_scan = saved
+        (ops.flash_attention, ops.rwkv_scan,
+         ops.flash_attention_with_grad) = saved
 
 
 def dense_run(torch, prefill, decode, params, prompts, gen):
@@ -3296,6 +3495,285 @@ def phase_serve_reduced(torch, np, smi):
     return counts
 
 
+# -- train ---------------------------------------------------------------------
+
+# the train phase: granite-3-2b at full width and depth, f32, through the
+# launcher's objects (launch.train.build: get_model, warmup_cosine + adamw,
+# make_train_step) and its data pipeline (ShardedLoader); then the same
+# width cut to 2 layers for the gates, and the launcher's main itself
+TRAIN = {"arch": "granite-3-2b", "batch": 8, "seq": 512, "grad_accum": 2,
+         "steps": 4, "lr": 3e-4, "reduced_layers": 2, "restart_steps": 2,
+         "compression_steps": 3, "learnable_steps": 20, "learnable_lr": 1e-3,
+         "quickstart_steps": 40}
+# f32 params + grads + m + v, the grad-accum sum, activations at remat
+TRAIN_EXPECTED_GB = 54
+
+
+def train_objects(cfg, steps, *flags):
+    """The launcher's objects (``launch.train.build``) for TRAIN's arch,
+    batch and seq at ``steps`` steps, with ``flags`` added to its command
+    line, on the card: f32, remat "full", random params from a seeded
+    generator, AdamW with warmup_cosine.  ``cfg`` (not None) stands in
+    for the arch's config: the 2-layer cut."""
+    from repro_torch.launch.train import build, parse_args
+
+    return build(parse_args([
+        "--arch", TRAIN["arch"], "--batch", str(TRAIN["batch"]),
+        "--seq", str(TRAIN["seq"]), "--steps", str(steps),
+        "--device", DEVICE, *flags]), cfg=cfg)
+
+
+def train_batch(torch, np, cfg, i, kind="random"):
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch.train import to_device
+    return to_device(synthetic_stream(0, i, 0, batch=TRAIN["batch"],
+                                      seq_len=TRAIN["seq"],
+                                      vocab=cfg.vocab_size, kind=kind),
+                     DEVICE)
+
+
+def phase_train(torch, np, smi):
+    """Training on the card: granite-3-2b at full width and depth (the
+    launcher's objects and data pipeline, grad-accum 2, remat "full",
+    AdamW with warmup_cosine), launch counters reset just before and
+    read just after, one step profiled; then 2 layers at full width: one
+    step's loss and gradients against the same step through the plain
+    attention, a restart through a λFS checkpoint bit-equal to the
+    uninterrupted run, int8 compression, and learnable data."""
+    import dataclasses
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.lambda_fs import LambdaFS
+    from repro_torch.data import ShardedLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import to_device
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train import make_train_step
+
+    t_phase = time.monotonic()
+    cfg = get_arch(TRAIN["arch"])
+    ga, n_steps = TRAIN["grad_accum"], TRAIN["steps"]
+    tokens_a_step = TRAIN["batch"] * TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ga_lr = ("--grad-accum", str(ga), "--lr", str(TRAIN["lr"]))
+    run = train_objects(None, n_steps, *ga_lr)
+    model, params, opt, step = run.model, run.params, run.opt_state, run.step
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = model.param_count(params)
+    loader = ShardedLoader(global_batch=TRAIN["batch"], seq_len=TRAIN["seq"],
+                           vocab=cfg.vocab_size, n_shards=1, shard=0)
+    try:
+        batches = [to_device(next(loader), DEVICE) for _ in range(n_steps + 1)]
+    finally:
+        loader.close()
+    ops.reset_launch_counts()
+    walls, losses, norms = [], [], []
+    for batch in batches[:n_steps]:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))          # syncs
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.monotonic() - t0)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"granite train: loss {losses}, grad norm {norms}")
+    n_fwd = counts["flash_attention_fwd_lse_f32"]
+    n_bwd = counts["flash_attention_bwd_f32"]
+    # remat "full" runs each layer's forward twice a microbatch
+    check(n_fwd == 2 * cfg.n_layers * ga * n_steps and
+          n_bwd == cfg.n_layers * ga * n_steps and
+          counts["flash_attention_f32"] == 0,
+          f"granite train launches: fwd_lse {n_fwd}, bwd {n_bwd}, "
+          f"forward-only {counts['flash_attention_f32']}")
+    steady = statistics.median(walls[1:])
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batches[n_steps])
+        float(m["loss"])
+    profile = profile_calls(torch, one_step, 1, {
+        "flash_fwd_lse": "flash_3xtf32_kernel",
+        "flash_bwd": "flash_bwd_"})
+    granite = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "params": n_params, "batch": TRAIN["batch"],
+               "seq": TRAIN["seq"], "grad_accum": ga, "remat": "full",
+               "steps": n_steps, "init_s": init_s, "losses": losses,
+               "grad_norms": norms, "step_wall_s": walls,
+               "steady_step_wall_s": steady,
+               "tokens_per_s": tokens_a_step / steady,
+               "peak_memory_gb": peak_gb,
+               "expected_memory_gb": TRAIN_EXPECTED_GB,
+               "flash_fwd_lse_launches_a_step": n_fwd / n_steps,
+               "flash_bwd_launches_a_step": n_bwd / n_steps,
+               "profile_step": profile}
+    emit({"phase": "train", "run": "granite-3-2b full", **granite})
+    del model, params, opt, step, batches, run
+    torch.cuda.empty_cache()
+
+    # 2 layers at full width
+    rcfg = dataclasses.replace(cfg, n_layers=TRAIN["reduced_layers"])
+    run = train_objects(rcfg, n_steps, *ga_lr)
+    model, params = run.model, run.params
+    batch = train_batch(torch, np, rcfg, 0)
+    grads_only = lambda g, s, p: (g, s)
+    gstep = make_train_step(model, grads_only, grad_accum=ga, clip=1e30)
+    g_kernel, _, m_kernel = gstep(params, None, batch)
+    with plain_kernels(ops):
+        g_plain, _, m_plain = gstep(params, None, batch)
+    loss_rel = abs(float(m_kernel["loss"]) - float(m_plain["loss"])) / abs(
+        float(m_plain["loss"]))
+    check(loss_rel <= 1e-5, f"2-layer loss vs plain attention: {loss_rel}")
+    grad_err = 0.0
+    for a, w in zip(tree_leaves(g_kernel), tree_leaves(g_plain)):
+        e = float((a - w).abs().max())
+        lim = 1e-4 * max(1.0, float(w.abs().max()))
+        check(e <= lim, f"2-layer gradient vs plain attention: {e} > {lim}")
+        grad_err = max(grad_err, e / max(1.0, float(w.abs().max())))
+    del g_kernel, g_plain, params, model, run
+    torch.cuda.empty_cache()
+
+    # restart: 2 steps, save into λFS, restore, 2 more == 4 straight
+    r_steps = 2 * TRAIN["restart_steps"]
+    rbatches = [train_batch(torch, np, rcfg, i) for i in range(r_steps)]
+    run = train_objects(rcfg, r_steps, *ga_lr)
+    p, o, step = run.params, run.opt_state, run.step
+    for b in rbatches:
+        p, o, _ = step(p, o, b)
+    straight = [x.clone() for x in tree_leaves(p)]
+    del p, o
+    fs = LambdaFS()
+    mgr = CheckpointManager("/unused", fs=fs)
+    run = train_objects(rcfg, r_steps, *ga_lr)
+    p, o, step = run.params, run.opt_state, run.step
+    for b in rbatches[:TRAIN["restart_steps"]]:
+        p, o, _ = step(p, o, b)
+    t0 = time.monotonic()
+    mgr.save(TRAIN["restart_steps"], {"params": p, "opt": o})
+    save_s = time.monotonic() - t0
+    del p, o
+    run = train_objects(rcfg, r_steps, *ga_lr)
+    template, tmpl_opt, step = run.params, run.opt_state, run.step
+    t0 = time.monotonic()
+    state = mgr.restore({"params": template, "opt": tmpl_opt})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    p, o = state["params"], state["opt"]
+    check(all(x.device == t.device for x, t in zip(tree_leaves(p),
+                                                   tree_leaves(template))),
+          "restored params are on the template's device")
+    for b in rbatches[TRAIN["restart_steps"]:]:
+        p, o, _ = step(p, o, b)
+    resumed = tree_leaves(p)
+    check(all(torch.equal(a, b) for a, b in zip(resumed, straight)),
+          "2-layer restart through λFS is not bit-equal to the "
+          "uninterrupted run")
+    del p, o, state, template, tmpl_opt, straight, resumed, run
+
+    # int8 compression, 3 steps
+    run = train_objects(rcfg, TRAIN["compression_steps"], *ga_lr,
+                        "--compression", "int8")
+    p, o, res, cstep = run.params, run.opt_state, run.residuals, run.step
+    c_losses = []
+    for i in range(TRAIN["compression_steps"]):
+        p, o, res, m = cstep(p, o, res, train_batch(torch, np, rcfg, i))
+        c_losses.append(float(m["loss"]))
+    check(all(np.isfinite(c_losses)), f"int8 compression losses {c_losses}")
+    del p, o, res, run
+
+    # learnable data, 20 steps
+    n_learn = TRAIN["learnable_steps"]
+    run = train_objects(rcfg, n_learn, "--lr", str(TRAIN["learnable_lr"]))
+    p, o, lstep = run.params, run.opt_state, run.step
+    l_losses = []
+    for i in range(n_learn):
+        p, o, m = lstep(p, o, train_batch(torch, np, rcfg, i, "learnable"))
+        l_losses.append(float(m["loss"]))
+    check(all(np.isfinite(l_losses)) and l_losses[-1] < l_losses[0],
+          f"learnable data: first loss {l_losses[0]}, last {l_losses[-1]}")
+    del p, o
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "run": f"{rcfg.n_layers} layers, full width",
+          "loss_rel_err_vs_plain_attention": loss_rel,
+          "grad_err_vs_plain_attention": grad_err,
+          "grad_tolerance": "1e-4 x max(1, max|plain|) per leaf",
+          "restart_bit_equal": True, "restart_store": "LambdaFS",
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "lambdafs_bytes": fs.used, "compression_int8_losses": c_losses,
+          "learnable_first_loss": l_losses[0],
+          "learnable_last_loss": l_losses[-1]})
+    train_entry_points(torch, np, ops)
+    emit({"phase": "train", "launches": counts,
+          "phase_s": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return counts
+
+
+def train_entry_points(torch, np, ops):
+    """The user's entry points on the card: ``python -m
+    repro_torch.launch.train`` (its ``main``) at --reduced with async
+    checkpoints every 2 steps, then again with --resume past the last
+    one; and ``examples/quickstart_torch.py`` (its ``main``) for
+    TRAIN["quickstart_steps"] steps, which exits unless the loss falls.
+    Each must launch the training kernels; checkpoints go under build/
+    and are removed after."""
+    import importlib.util
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", TRAIN["arch"], "--reduced", "--steps", "4",
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--grad-accum", "2", "--ckpt-dir", str(ckpt / "launcher"),
+            "--ckpt-every", "2", "--log-every", "1", "--device", DEVICE]
+    ops.reset_launch_counts()
+    losses = train.main(argv)
+    resumed = train.main([*argv, "--steps", "6", "--resume"])
+    counts = ops.launch_counts()
+    steps = CheckpointManager(str(ckpt / "launcher")).steps()
+    check(len(losses) == 4 and len(resumed) == 2 and
+          all(np.isfinite(losses + resumed)),
+          f"launcher losses {losses}, resumed {resumed}")
+    check(steps == [2, 4, 6], f"launcher checkpoints {steps}")
+    # reduced granite: 2 layers, remat none, 2 microbatches, 6 steps
+    check(counts["flash_attention_fwd_lse_f32"] == 24 and
+          counts["flash_attention_bwd_f32"] == 24,
+          f"launcher kernel launches {counts}")
+
+    path = ROOT / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    ops.reset_launch_counts()
+    first, last = quickstart.main([
+        "--steps", str(TRAIN["quickstart_steps"]),
+        "--ckpt", str(ckpt / "quickstart"), "--device", DEVICE])
+    q_counts = ops.launch_counts()
+    check(q_counts["flash_attention_fwd_lse_f32"] > 0 and
+          q_counts["flash_attention_bwd_f32"] > 0,
+          f"quickstart kernel launches {q_counts}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "train", "run": "entry points",
+          "launcher_losses": losses, "launcher_resumed_losses": resumed,
+          "launcher_checkpoints": steps,
+          "launcher_launches": {k: counts[k] for k in (
+              "flash_attention_fwd_lse_f32", "flash_attention_bwd_f32")},
+          "quickstart_steps": TRAIN["quickstart_steps"],
+          "quickstart_first_loss": first, "quickstart_last_loss": last,
+          "quickstart_launches": {k: q_counts[k] for k in (
+              "flash_attention_fwd_lse_f32", "flash_attention_bwd_f32")}})
+
+
 def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -3384,10 +3862,11 @@ def main() -> int:
     isp_counts = phase_isp(torch, np, smi, served, data)
     del data
     dense_counts = phase_dense(torch, np, smi, served)
+    train_counts = phase_train(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, spec_counts, pool_counts, reduced_counts, isp_counts,
-            dense_counts))
+            dense_counts, train_counts))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

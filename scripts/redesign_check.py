@@ -3,7 +3,7 @@ embedding kernels on one card.
 
     python scripts/redesign_check.py [topk] [pools] [paged] [flash] [wkv]
                                      [swizzle] [scan] [scan-split] [embed]
-                                     [--logs DIR]
+                                     [train] [--logs DIR]
 
 Builds every kernel source (``kernels.build.build_all``; with ``--logs``
 nvcc's ``-Xptxas -v`` report of each source is written to DIR), then
@@ -38,7 +38,12 @@ in turns (as built, first design, first design, as built): the 4M x 128
 f32 table's 2048 Zipf bags of 16, unweighted and weighted, the byte-bound bag
 (``chip_smoke.EMBED_WIDE``) and the corpus token gather, both designs
 bit-identical to the plain version; then ``chip_smoke.embed_cases``
-(with its floors and ``embed_other_shapes``).  Prints one JSON
+(with its floors and ``embed_other_shapes``).  ``train`` builds the two
+flash sources only and runs ``chip_smoke.flash_train_cases`` (the
+forward with lse and the backward at granite-3-2b's and phi3-mini's
+attention, timed beside SDPA's backward), ``flash_train_other_shapes``
+and ``chip_smoke.phase_train`` (granite-3-2b trained at full depth and
+width, then the 2-layer gates).  Prints one JSON
 line per case or reading, the kernels line, then the card's name and
 power limit.  With no case named, topk and flash run.  Card only.
 """
@@ -363,7 +368,7 @@ def main(argv) -> int:
         argv = [a for a in argv if a not in ("--logs", str(logs_dir))]
     which = set(argv) or {"topk", "flash"}
     if which - {"topk", "pools", "paged", "flash", "wkv", "swizzle", "scan",
-                "scan-split", "embed"}:
+                "scan-split", "embed", "train"}:
         print(f"redesign_check: unknown case {which}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -372,7 +377,8 @@ def main(argv) -> int:
     resolve_device("cuda")
     smi = cs.phase_env(torch)
     t0 = time.monotonic()
-    logs = build.build_all()
+    logs = build.build_all(["flash_attention", "flash_attention_bwd"]
+                           if which == {"train"} else None)
     print(json.dumps({"build_s": time.monotonic() - t0}), flush=True)
     if logs_dir is not None:
         logs_dir.mkdir(parents=True, exist_ok=True)
@@ -394,6 +400,14 @@ def main(argv) -> int:
     if "flash" in which:
         results += cs.flash_cases(torch, np, flush)
         cs.flash_other_shapes(torch, np)
+    if "train" in which:
+        results += cs.flash_train_cases(torch, np, flush)
+        cs.flash_train_other_shapes(torch, np)
+        counts = cs.phase_train(torch, np, smi)
+        for entry in results:
+            if entry["kernel"] in ("flash_attention_fwd_lse_f32",
+                                   "flash_attention_bwd_f32"):
+                entry["launches"] = counts[entry["kernel"]]
     if "swizzle" in which:
         swizzle_readings(torch, np, cs, flush)
     if "scan-split" in which:

@@ -76,11 +76,11 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every ``csrc/*.cu`` not yet built, one nvcc each, all at
-    once.  Returns {name: nvcc's output} (its ``-Xptxas -v`` report of
-    registers, shared memory and spills)."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+def build_all(names=None) -> Dict[str, str]:
+    """Compile every ``csrc/*.cu`` not yet built (or those of ``names``),
+    one nvcc each, all at once.  Returns {name: nvcc's output} (its
+    ``-Xptxas -v`` report of registers, shared memory and spills)."""
+    names = sorted(names or (p.stem for p in CSRC.glob("*.cu")))
     jobs = {n: _start(n) for n in names}
     return {n: _finish(n, job) for n, job in jobs.items()}
 

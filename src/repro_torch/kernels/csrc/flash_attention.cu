@@ -53,6 +53,13 @@
 //
 // Layouts (row-major, contiguous, 16-byte aligned): q/out [B, H, Sq, D],
 // k/v [B, Hkv, Sk, D], all f32.  D % 8 == 0, 8 <= D <= 256; G <= 64.
+//
+// flash_attention_fwd_lse_f32 is the same kernel (LSE = true) that also
+// writes each row's natural-log logsumexp of its scaled, masked scores,
+// lse [B, H, Sq] f32, from the online-softmax state it keeps (m in base
+// 2, l): lse = (m + log2 l) * ln 2.  Its out is the LSE = false kernel's,
+// bit for bit.  The training path saves lse for the backward kernels
+// (flash_attention_bwd.cu).
 
 #include <cmath>
 
@@ -144,11 +151,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Fragment layouts of m16n8k8: tf32_mma.cuh.
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
-                    int h, int hkv, int sq, int sk, int d, int group, int bq,
+                    float* __restrict__ lse, int h, int hkv, int sq, int sk, int d, int group, int bq,
                     int causal, float scale_log2) {
   using C = Cfg<DP>;
   constexpr int BC = C::BC, LD = C::LD, KT = C::KT, NT = C::NT;
@@ -332,7 +339,11 @@ flash_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int pos = half ? pos1 : pos0;
     if (r >= rows || pos >= sq) continue;
     const float den = half ? den1 : den0;
-    float* o_row = out + (((size_t)b * h + kvh * group + r / bq) * sq + pos) * d;
+    const size_t row = ((size_t)b * h + kvh * group + r / bq) * sq + pos;
+    if constexpr (LSE) {
+      if (tg == 0) lse[row] = ((half ? m1 : m0) + log2f(den)) * 0.6931471805599453f;
+    }
+    float* o_row = out + row * d;
 #pragma unroll
     for (int n = 0; n < KT; ++n) {
       if (8 * n >= d) break;
@@ -342,15 +353,15 @@ flash_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DP>
+template <int DP, bool LSE>
 cudaError_t launch_dp(const float* q, const float* k, const float* v, float* out,
-                      int b, int h, int hkv, int sq, int sk, int d, int causal,
-                      cudaStream_t stream) {
+                      float* lse, int b, int h, int hkv, int sq, int sk, int d,
+                      int causal, cudaStream_t stream) {
   const size_t smem = Cfg<DP>::kSmem;
   static bool smem_set = false;      // once per instantiation
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_3xtf32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_3xtf32_kernel<DP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
     smem_set = true;
@@ -360,9 +371,39 @@ cudaError_t launch_dp(const float* q, const float* k, const float* v, float* out
   // log2(e) / sqrt(D): scores in base 2 for exp2f
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
   dim3 grid((sq + bq - 1) / bq, hkv, b);
-  flash_3xtf32_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, h, hkv, sq, sk, d, group, bq, causal, scale_log2);
+  flash_3xtf32_kernel<DP, LSE><<<grid, kThreads, smem, stream>>>(
+      q, k, v, out, lse, h, hkv, sq, sk, d, group, bq, causal, scale_log2);
   return cudaGetLastError();
+}
+
+template <bool LSE>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int b, int h, int hkv, int sq, int sk, int d, int causal,
+           void* stream) {
+  if (b < 1 || hkv < 1 || h % hkv || h / hkv > kRows || sq < 1 || sk < 1 ||
+      b > 65535 || hkv > 65535 || (causal && sq != sk) || d < 8 || d > 256 ||
+      d % 8 || reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || (LSE && lse == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto qf = static_cast<const float*>(q);
+  auto kf = static_cast<const float*>(k);
+  auto vf = static_cast<const float*>(v);
+  auto of = static_cast<float*>(out);
+  auto lf = static_cast<float*>(lse);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch ((d + 31) / 32) {
+    case 1: return (int)launch_dp<32, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 2: return (int)launch_dp<64, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 3: return (int)launch_dp<96, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 4: return (int)launch_dp<128, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 5: return (int)launch_dp<160, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 6: return (int)launch_dp<192, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 7: return (int)launch_dp<224, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+    case 8: return (int)launch_dp<256, LSE>(qf, kf, vf, of, lf, b, h, hkv, sq, sk, d, causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -374,29 +415,16 @@ extern "C" {
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                         int b, int h, int hkv, int sq, int sk, int d,
                         int causal, void* stream) {
-  if (b < 1 || hkv < 1 || h % hkv || h / hkv > kRows || sq < 1 || sk < 1 ||
-      b > 65535 || hkv > 65535 || (causal && sq != sk) || d < 8 || d > 256 ||
-      d % 8 || reinterpret_cast<uintptr_t>(q) % 16 ||
-      reinterpret_cast<uintptr_t>(k) % 16 ||
-      reinterpret_cast<uintptr_t>(v) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16)
-    return (int)cudaErrorInvalidValue;
-  auto qf = static_cast<const float*>(q);
-  auto kf = static_cast<const float*>(k);
-  auto vf = static_cast<const float*>(v);
-  auto of = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch ((d + 31) / 32) {
-    case 1: return (int)launch_dp<32>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 2: return (int)launch_dp<64>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 3: return (int)launch_dp<96>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 4: return (int)launch_dp<128>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 5: return (int)launch_dp<160>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 6: return (int)launch_dp<192>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 7: return (int)launch_dp<224>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-    case 8: return (int)launch_dp<256>(qf, kf, vf, of, b, h, hkv, sq, sk, d, causal, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch<false>(q, k, v, out, nullptr, b, h, hkv, sq, sk, d, causal,
+                       stream);
+}
+
+// The same, also writing lse [B, H, Sq] f32 (the training forward).
+int flash_attention_fwd_lse_f32(const void* q, const void* k, const void* v,
+                                void* out, void* lse, int b, int h, int hkv,
+                                int sq, int sk, int d, int causal,
+                                void* stream) {
+  return launch<true>(q, k, v, out, lse, b, h, hkv, sq, sk, d, causal, stream);
 }
 
 }  // extern "C"

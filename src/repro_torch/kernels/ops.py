@@ -4,9 +4,10 @@ The runtime calls the kernels through this module.  A wrapper launches
 its CUDA kernel for tensors on the card and runs its plain version
 (``kernels.ref``) for tensors on the CPU; see ``kernels.paged_attention``,
 ``kernels.isp_scan``, ``kernels.embed_agg``, ``kernels.flash_attention``
-and ``kernels.rwkv_scan``.  The ``*_host`` folds
-are the host-reads-everything path of the offload planner: the plain
-fold over a fetched extent, bit-identical to the in-storage kernels.
+(with its training forward and backward) and ``kernels.rwkv_scan``.
+The ``*_host`` folds are the host-reads-everything path of the offload
+planner: the plain fold over a fetched extent, bit-identical to the
+in-storage kernels.
 """
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv_scan as _rwkv
 from repro_torch.kernels.embed_agg import (embed_agg, embed_gather,
                                            validate_embed_args)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                  flash_attention_bwd,
+                                                  flash_attention_lse,
+                                                  flash_attention_with_grad)
 from repro_torch.kernels.isp_scan import scan_filter_reduce, topk_scan
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                   paged_attention_pool,
@@ -34,7 +38,8 @@ __all__ = ["paged_attention", "paged_attention_q8", "paged_attention_pool",
            "paged_attention_pool_q8", "scan_filter_reduce",
            "scan_filter_reduce_host", "topk_scan", "topk_scan_host",
            "embed_agg", "embed_gather", "validate_embed_args",
-           "flash_attention", "rwkv_scan",
+           "flash_attention", "flash_attention_lse", "flash_attention_bwd",
+           "flash_attention_with_grad", "rwkv_scan",
            "REDUCE_ROWS", "topk_pad", "launch_counts",
            "reset_launch_counts", "ref"]
 

@@ -983,11 +983,13 @@ def flash_attention_ref(q, k, v, causal: bool = True):
     The JAX package's oracle (``repro/kernels/ref.py:20``): the causal
     mask keeps ``tril(Sk - Sq)``, aligned to the bottom right, where its
     Pallas kernel aligns it to the top left; the two agree for Sq == Sk,
-    the only causal case the kernel's wrapper accepts."""
+    the only causal case the kernel's wrapper accepts.  Scores and
+    softmax run in f32 (in f64 for f64 inputs, for gradient checks)."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    qg = q.reshape(b, hkv, h // hkv, sq, d).float()
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(d)
+    wide = torch.promote_types(q.dtype, torch.float32)   # f32, or f64
+    qg = q.reshape(b, hkv, h // hkv, sq, d).to(wide)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(wide)) / math.sqrt(d)
     if causal:
         mask = torch.ones((sq, sk), dtype=torch.bool,
                           device=q.device).tril(sk - sq)
@@ -995,6 +997,52 @@ def flash_attention_ref(q, k, v, causal: bool = True):
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v)
     return out.reshape(b, h, sq, d)
+
+
+def flash_attention_lse_ref(q, k, v, causal: bool = True):
+    """(out, lse): :func:`flash_attention_ref`'s out and each query row's
+    natural-log logsumexp of its scaled, masked scores, [B, H, Sq] f32
+    (what the training forward saves for the backward)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    wide = torch.promote_types(q.dtype, torch.float32)   # f32, or f64
+    qg = q.reshape(b, hkv, h // hkv, sq, d).to(wide)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(wide)) / math.sqrt(d)
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    lse = torch.logsumexp(logits, dim=-1).reshape(b, h, sq)
+    return flash_attention_ref(q, k, v, causal), lse
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention_ref` by the recompute the
+    backward kernels do (``csrc/flash_attention_bwd.cu``), on whole
+    tensors: P = exp(S * scale - lse) (masked 0), dV = P^T dO,
+    dP = dO V^T, Di = rowsum(dO * O), dS = P * (dP - Di),
+    dQ = dS K * scale, dK = dS^T Q * scale; dK and dV summed over the
+    G heads of a group.  Shapes as :func:`flash_attention_ref`, lse
+    [B, H, Sq]."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, g, sq, d)
+    dog = dout.reshape(b, hkv, g, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq)[..., None])
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v)
+    di = (dout * out).sum(-1).reshape(b, hkv, g, sq)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    return dq.reshape(b, h, sq, d), dk, dv
 
 
 def tf32_rna(x):

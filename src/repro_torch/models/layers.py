@@ -124,11 +124,19 @@ def _qkv(p, x, cfg):
 
 def chunked_attention(q, k, v, *, causal: bool):
     """Prefill / full-sequence GQA attention over positions 0..S-1 on
-    both sides (the only way the JAX package's prefill and forward call
-    its ``chunked_attention``), through the flash-attention kernel.
-    q: [B, S, H, D]; k/v: [B, S, Hkv, D].  Returns [B, S, H, D]."""
-    out = ops.flash_attention(*(t.transpose(1, 2).float().contiguous()
-                                for t in (q, k, v)), causal=causal)
+    both sides (the only way the JAX package's prefill, forward and loss
+    call its ``chunked_attention``), through the flash-attention kernel.
+    q: [B, S, H, D]; k/v: [B, S, Hkv, D].  Returns [B, S, H, D].
+
+    When an input needs a gradient (training), the call goes through
+    ``ops.flash_attention_with_grad`` (the forward kernel with the row
+    logsumexp, and the backward kernels); otherwise through the
+    forward-only ``ops.flash_attention``, as serving calls it."""
+    args = [t.transpose(1, 2).float().contiguous() for t in (q, k, v)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = ops.flash_attention_with_grad(*args, causal=causal)
+    else:
+        out = ops.flash_attention(*args, causal=causal)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -211,3 +219,18 @@ def unembed(p_embed, p_head, x, tie: bool):
     else:
         w = p_head["w"].to(x.dtype)
     return (x @ w).float()
+
+
+def nll_sum(logits, labels, ignore_id: int = -1):
+    """(summed next-token NLL in f32, count) over labels != ``ignore_id``.
+    logits: [..., V] f32; labels: integer [...]."""
+    mask = (labels != ignore_id).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())
+    return torch.sum((lse - gold[..., 0]) * mask), torch.sum(mask)
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """Mean next-token CE in f32 over labels != ``ignore_id``."""
+    nll, count = nll_sum(logits, labels, ignore_id)
+    return nll / torch.clamp(count, min=1.0)

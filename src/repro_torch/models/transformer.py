@@ -6,7 +6,10 @@ convert one to one (``models.convert``).  ``forward`` and ``prefill``
 attend through the flash-attention kernel (``layers.chunked_attention``);
 ``decode_step`` runs one token against the dense KV cache that
 ``prefill`` returns.  The paged serving path
-(``runtime.serve.PagedServer``) consumes the same params.
+(``runtime.serve.PagedServer``) consumes the same params.  ``loss`` is
+the training objective: seq-chunked cross-entropy, so the [B, S, V]
+logits are never materialised, with each layer recomputed in the
+backward pass under ``remat="full"``.
 """
 from __future__ import annotations
 
@@ -14,8 +17,12 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+
+AUX_LOSS_COEF = 0.01
+REMAT = ("none", "full")
 
 
 def layer_params(stacked, li: int):
@@ -23,6 +30,24 @@ def layer_params(stacked, li: int):
     if isinstance(stacked, dict):
         return {k: layer_params(v, li) for k, v in stacked.items()}
     return stacked[li]
+
+
+def unbind_layers(stacked, n_layers: int):
+    """The ``n_layers`` per-layer trees of a stacked tree, from one
+    ``unbind(0)`` a leaf.  Under autograd this is the training route:
+    one ``UnbindBackward`` stacks a leaf's per-layer gradients, where
+    ``stacked[li]`` per layer would add one zero-filled, stack-sized
+    gradient a layer."""
+    if isinstance(stacked, dict):
+        per = {k: unbind_layers(v, n_layers) for k, v in stacked.items()}
+        return [{k: per[k][li] for k in per} for li in range(n_layers)]
+    return stacked.unbind(0)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    return tree.requires_grad
 
 
 def causal_attention(q, k, v, positions):
@@ -42,11 +67,18 @@ def causal_attention(q, k, v, positions):
 
 
 class TransformerLM:
-    def __init__(self, cfg, compute_dtype=torch.float32):
+    def __init__(self, cfg, compute_dtype=torch.float32, remat: str = "full",
+                 loss_chunk: int = 256):
         if cfg.is_moe:
             raise NotImplementedError("MoE FFN: not yet ported")
+        if remat not in REMAT:
+            raise NotImplementedError(
+                f"remat {remat!r}: not yet ported (the port takes "
+                f"{', '.join(REMAT)})")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.loss_chunk = loss_chunk
 
     # -- init ---------------------------------------------------------------
 
@@ -94,20 +126,37 @@ class TransformerLM:
 
     # -- forward ------------------------------------------------------------
 
+    def _layer(self, h, lp):
+        """One block: attention, then the MLP, each with its residual."""
+        cfg = self.cfg
+        a = L.apply_norm(lp["attn_norm"], h, cfg.norm)
+        o, k, v = L.attention_block(lp["attn"], a, cfg)
+        h = h + o
+        m = L.apply_norm(lp["mlp_norm"], h, cfg.norm)
+        return h + L.apply_mlp(lp["mlp"], m, cfg.act), k, v
+
+    def _train_layer(self, h, lp):
+        return self._layer(h, lp)[0]
+
     def _backbone(self, params, tokens, cache_dtype=None):
         """Embedding and every layer over positions 0..S-1.  Returns
         (hidden [B, S, d] before the final norm, per-layer k and v
-        [B, Hkv, S, D] in ``cache_dtype``; none without one)."""
+        [B, Hkv, S, D] in ``cache_dtype``; none without one).  When the
+        params need a gradient the layers come from ``unbind_layers``,
+        each recomputed in the backward pass under ``remat="full"``."""
         cfg = self.cfg
         h = L.embed_tokens(params["embed"], tokens, self.compute_dtype)
         ks, vs = [], []
+        if torch.is_grad_enabled() and _needs_grad(params["layers"]):
+            for lp in unbind_layers(params["layers"], cfg.n_layers):
+                if self.remat == "full":
+                    h = checkpoint(self._train_layer, h, lp,
+                                   use_reentrant=False)
+                else:
+                    h = self._train_layer(h, lp)
+            return h, ks, vs
         for li in range(cfg.n_layers):
-            lp = layer_params(params["layers"], li)
-            a = L.apply_norm(lp["attn_norm"], h, cfg.norm)
-            o, k, v = L.attention_block(lp["attn"], a, cfg)
-            h = h + o
-            m = L.apply_norm(lp["mlp_norm"], h, cfg.norm)
-            h = h + L.apply_mlp(lp["mlp"], m, cfg.act)
+            h, k, v = self._layer(h, layer_params(params["layers"], li))
             if cache_dtype is not None:
                 ks.append(k.transpose(1, 2).to(cache_dtype))
                 vs.append(v.transpose(1, 2).to(cache_dtype))
@@ -122,6 +171,46 @@ class TransformerLM:
         logits = L.unembed(params["embed"], params.get("lm_head"), h,
                            cfg.tie_embeddings)
         return logits, torch.zeros((), device=h.device)
+
+    # -- training loss -------------------------------------------------------
+
+    def loss(self, params, batch):
+        """(total, {"ce", "aux"}) for ``batch["tokens"]`` and
+        ``batch["labels"]`` [B, S] (label -1: not counted).  No MoE, so
+        aux = 0 and total = ce + AUX_LOSS_COEF * 0."""
+        cfg = self.cfg
+        h, _, _ = self._backbone(params, batch["tokens"])
+        h = L.apply_norm(params["final_norm"], h, cfg.norm)
+        ce = self._chunked_ce(params, h, batch["labels"])
+        aux = torch.zeros((), device=h.device)
+        return ce + AUX_LOSS_COEF * aux, {"ce": ce, "aux": aux}
+
+    def _ce_chunk(self, params, hh, ll):
+        """(sum of the chunk's NLL over counted labels, their count)."""
+        return L.nll_sum(L.unembed(params["embed"], params.get("lm_head"),
+                                   hh, self.cfg.tie_embeddings), ll)
+
+    def _chunked_ce(self, params, h, labels):
+        """Seq-chunked CE: logits materialised one chunk at a time (each
+        chunk recomputed in the backward pass unless ``remat="none"``),
+        the sums carried in chunk order as the reference's scan does."""
+        b, s, _ = h.shape
+        ck = min(self.loss_chunk, s)
+        n = s // ck
+        if s % ck:
+            n, ck = 1, s
+        nll = torch.zeros((), device=h.device)
+        cnt = torch.zeros((), device=h.device)
+        remat = self.remat != "none" and torch.is_grad_enabled()
+        for i in range(n):
+            hh, ll = h[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
+            if remat:
+                part, c = checkpoint(self._ce_chunk, params, hh, ll,
+                                     use_reentrant=False)
+            else:
+                part, c = self._ce_chunk(params, hh, ll)
+            nll, cnt = nll + part, cnt + c
+        return nll / torch.clamp(cnt, min=1.0)
 
     # -- dense serving ------------------------------------------------------
     #

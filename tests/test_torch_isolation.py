@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and no script of ``scripts/`` imports JAX,
-``ml_dtypes`` (a JAX dependency) or the JAX package, and its entry
-points refuse to fall back to the CPU when CUDA is asked for."""
+``chip_smoke.py``, no script of ``scripts/`` and no
+``examples/*_torch.py`` imports JAX, ``ml_dtypes`` (a JAX dependency) or
+the JAX package, and its entry points refuse to fall back to the CPU
+when CUDA is asked for."""
 import ast
 from pathlib import Path
 
@@ -11,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py")) + \
+    sorted((ROOT / "examples").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
