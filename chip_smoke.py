@@ -2169,14 +2169,19 @@ def flash_other_shapes(torch, np):
 
 
 # the training kernels' cases: granite-3-2b's and phi3-mini-3.8b's
-# attention at a train microbatch of 8 x 512 tokens, causal
+# attention at a train batch of 8 x 512 tokens, and granite-3-2b's at the
+# train phase's microbatch of 4 x 512 (TRAIN: batch 8, grad-accum 2),
+# causal
 FLASH_TRAIN_CASES = (
     ("granite-3-2b train", FLASH),
+    ("granite-3-2b train microbatch", {**FLASH, "batch": 4}),
     ("phi3-mini-3.8b train", {"batch": 8, "heads": 32, "kv_heads": 32,
                               "seq": 512, "head_dim": 96}),
 )
-# untimed: FLASH_SHAPES, and head_dim 16 at a group of 16
-FLASH_TRAIN_SHAPES = FLASH_SHAPES + ((2, 16, 1, 33, 33, 16, True),)
+# untimed: FLASH_SHAPES, head_dim 16 at a group of 16, and head_dim 128
+# at a group of 8 (the backward's 16-row tiles with the heads' merge)
+FLASH_TRAIN_SHAPES = FLASH_SHAPES + ((2, 16, 1, 33, 33, 16, True),
+                                     (1, 16, 2, 100, 100, 128, True))
 LSE_TOL = 1e-5
 BWD_TOL = 1e-4           # times max(1, max |plain|), on dq, dk and dv
 
@@ -2244,6 +2249,60 @@ def check_flash_train(torch, ops, q, k, v, do, causal, what):
     return lse_err, per
 
 
+def check_flash_bwd_plan(torch, ops, q, k, v, do, causal, what):
+    """The workspace and tickets the wrapper gives the backward
+    (``ref.flash_bwd_plan``) against what the kernel touches: one launch
+    through the C entry point with both poisoned past the plan's sizes
+    (NaN floats, tickets of 7) must write exactly ``plan.workspace``
+    floats, leave every ticket zeroed and the poisoned ones as they were,
+    and give the wrapper's dq, dk, dv bits.  A launch outside the
+    wrapper: no count.  Returns the reading."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    plan = ops.ref.flash_bwd_plan(b, h, hkv, sq, sk, d)
+    spare = 4096
+    ws = torch.full((plan.workspace + spare,), float("nan"),
+                    device=q.device)
+    tickets = torch.full((plan.tickets + spare,), 7, dtype=torch.int32,
+                         device=q.device)
+    tickets[:plan.tickets] = 0
+    out, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    want = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    got = [torch.empty_like(t) for t in (q, k, v)]
+    di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = fa._bind_bwd()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        *(t.data_ptr() for t in got), ws.data_ptr(), tickets.data_ptr(),
+        tickets.numel(), b, h, hkv, sq, sk, d, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err == 0, f"{what}: plan launch cudaError_t {err}")
+    torch.cuda.synchronize()
+    written = int((~torch.isnan(ws)).sum())
+    reading = {
+        "plan_workspace_floats": plan.workspace,
+        "workspace_floats_written": written,
+        "written_past_plan": int((~torch.isnan(ws[plan.workspace:])).sum()),
+        "plan_tickets": plan.tickets,
+        "tickets_left_nonzero": int((tickets[:plan.tickets] != 0).sum()),
+        "poisoned_tickets_changed": int(
+            (tickets[plan.tickets:] != 7).sum()),
+        "bits_equal_wrapper": all(torch.equal(g, w)
+                                  for g, w in zip(got, want))}
+    check(written == plan.workspace and not reading["written_past_plan"],
+          f"{what}: the kernel wrote {written} workspace floats "
+          f"({reading['written_past_plan']} past the plan's "
+          f"{plan.workspace})")
+    check(not reading["tickets_left_nonzero"]
+          and not reading["poisoned_tickets_changed"],
+          f"{what}: tickets {reading}")
+    check(reading["bits_equal_wrapper"], f"{what}: the plan launch's dq, "
+          "dk, dv differ from the wrapper's")
+    return reading
+
+
 def flash_train_cases(torch, np, flush):
     """The training forward (flash_attention_fwd_lse_f32) and backward
     (flash_attention_bwd_f32) at FLASH_TRAIN_CASES, checked and timed;
@@ -2251,7 +2310,7 @@ def flash_train_cases(torch, np, flush):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
 
-    results = []
+    results, plans = [], []
     rng = np.random.default_rng(11)
     for label, shape in FLASH_TRAIN_CASES:
         b, h, hkv, s, d = (shape[k] for k in ("batch", "heads", "kv_heads",
@@ -2309,14 +2368,22 @@ def flash_train_cases(torch, np, flush):
         results[-1]["bound_f32_ms"], results[-1]["bound_f32_by"] = f32
         results[-1]["errors"] = per
         results[-1]["route_bound"] = "3xTF32 mma: " + FLASH_ROUTE_NOTE
-        results[-1]["note"] = ("3xTF32 mma.sync for D <= 128 and G <= 64, "
-                               "else f32 FMA; S and dP recomputed in both "
-                               "kernels (7 products a pair; the bound "
-                               "counts 5); dK, dV, dQ summed a tile at a "
-                               "time in the mma's C, tiles joined by f32 "
-                               "adds")
+        results[-1]["note"] = ("3xTF32 mma.sync (lo = x - hi cut by the "
+                               "tensor core) for D <= 128 and G <= 64, else "
+                               "f32 FMA; a dK/dV block a (batch, head, key "
+                               "tile), the G heads' shares merged head 0 "
+                               "first by the last block of each group, "
+                               "the dQ blocks in the same launch; S and "
+                               "dP recomputed in the dQ blocks (7 "
+                               "products a pair; the bound counts 5); each "
+                               "walked tile's share summed in the mma's C, "
+                               "tiles joined by f32 adds")
+        plans.append({"case": case, **check_flash_bwd_plan(
+            torch, ops, q, k, v, do, True, case)})
         del q, k, v, do, out, lse, rep, qg
         torch.cuda.empty_cache()
+    emit({"phase": "kernels", "check": "flash backward workspace and "
+          "tickets of ref.flash_bwd_plan against the kernel", "cases": plans})
     return results
 
 
@@ -2327,7 +2394,7 @@ def flash_train_other_shapes(torch, np):
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(12)
-    worst_lse, worst = 0.0, {}
+    worst_lse, worst, n_plan = 0.0, {}, 0
     for b, h, hkv, sq, sk, d, causal in FLASH_TRAIN_SHAPES:
         q, do = (torch.from_numpy(rng.standard_normal(
             (b, h, sq, d), dtype=np.float32)).to(DEVICE) for _ in range(2))
@@ -2337,6 +2404,11 @@ def flash_train_other_shapes(torch, np):
             torch, ops, q, k, v, do, causal,
             f"flash train B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
             f"causal={causal}")
+        if ops.ref.flash_bwd_mma(d, h // hkv):
+            check_flash_bwd_plan(torch, ops, q, k, v, do, causal,
+                                 f"flash train plan B={b} H={h} Hkv={hkv} "
+                                 f"Sq={sq} Sk={sk} D={d} causal={causal}")
+            n_plan += 1
         worst_lse = max(worst_lse, lse_err)
         for name, r in per.items():
             w = worst.setdefault(name, {})
@@ -2349,7 +2421,7 @@ def flash_train_other_shapes(torch, np):
           "tolerance": {"lse": LSE_TOL, "bwd": f"{BWD_TOL} x max(1, "
                         "max|plain|) against the plain version, and x max(1, "
                         "max|float64|) against float64 autograd"},
-          "deterministic": True})
+          "deterministic": True, "plan_checked_shapes": n_plan})
 
 
 def wkv_cases(torch, np, flush):

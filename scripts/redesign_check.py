@@ -39,7 +39,12 @@ f32 table's 2048 Zipf bags of 16, unweighted and weighted, the byte-bound bag
 (``chip_smoke.EMBED_WIDE``) and the corpus token gather, both designs
 bit-identical to the plain version; then ``chip_smoke.embed_cases``
 (with its floors and ``embed_other_shapes``).  ``train`` builds the two
-flash sources only and runs ``chip_smoke.flash_train_cases`` (the
+flash sources only, times the flash backward against its first design
+kept in ``scripts/csrc/flash_attention_bwd_pr22.cu`` (built by the
+script) in turns (as built, first design, first design, as built) at
+granite-3-2b's
+attention at 8 x 512 and 4 x 512 tokens and phi3-mini-3.8b's, both held
+to the plain backward, and runs ``chip_smoke.flash_train_cases`` (the
 forward with lse and the backward at granite-3-2b's and phi3-mini's
 attention, timed beside SDPA's backward), ``flash_train_other_shapes``
 and ``chip_smoke.phase_train`` (granite-3-2b trained at full depth and
@@ -354,6 +359,92 @@ def embed_readings(torch, np, cs, data, flush):
     torch.cuda.empty_cache()
 
 
+FIRST_BWD_DESIGN = ROOT / "scripts" / "csrc" / "flash_attention_bwd_pr22.cu"
+# (label, B, H, Hkv, S, D), causal: granite-3-2b's attention at a train
+# batch of 8 x 512 and at the train phase's microbatch of 4 x 512, and
+# phi3-mini-3.8b's (32 heads of 96, no grouping)
+TRAIN_COMPARE = (("granite-3-2b train", 8, 32, 8, 512, 64),
+                 ("granite-3-2b train microbatch", 4, 32, 8, 512, 64),
+                 ("phi3-mini-3.8b train", 8, 32, 32, 512, 96))
+
+
+def first_bwd_library():
+    """ctypes function of the backward's first design
+    (``FIRST_BWD_DESIGN``),
+    built into build/repro_torch."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = build.BUILD_DIR / "libflash_attention_bwd_first.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(FIRST_BWD_DESIGN)], check=True, capture_output=True,
+                   text=True)
+    fn = ctypes.CDLL(str(lib)).flash_attention_bwd_f32
+    # q, k, v, out, dout, lse, di, dq, dk, dv, B, H, Hkv, Sq, Sk, D,
+    # causal, stream
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
+                   [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def train_readings(torch, np, cs, flush):
+    """The flash backward as built against its first design at
+    ``TRAIN_COMPARE``, in turns (as built, first design, first design, as
+    built); both
+    held to the plain backward within ``chip_smoke.BWD_TOL`` x max(1,
+    max |plain|) on dq, dk and dv, and each deterministic."""
+    from repro_torch.kernels import ops
+
+    old_fn = first_bwd_library()
+    rng = np.random.default_rng(23)
+    for label, b, h, hkv, s, d in TRAIN_COMPARE:
+        q, do = (torch.from_numpy(rng.standard_normal(
+            (b, h, s, d), dtype=np.float32)).to(cs.DEVICE) for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, hkv, s, d), dtype=np.float32)).to(cs.DEVICE)
+            for _ in range(2))
+        out, lse = ops.flash_attention_lse(q, k, v, causal=True)
+        old = [torch.empty_like(t) for t in (q, k, v)]
+        di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+
+        def new_run():
+            return ops.flash_attention_bwd(q, k, v, out, lse, do, True)
+
+        def old_run():
+            err = old_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         di.data_ptr(), *(t.data_ptr() for t in old), b, h,
+                         hkv, s, s, d, 1,
+                         torch.cuda.current_stream().cuda_stream)
+            cs.check(err == 0, f"first design: cudaError_t {err}")
+
+        want = ops.ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+        reading = {"flash_attention_bwd_f32":
+                   f"causal B={b} H={h} Hkv={hkv} S={s} D={d} ({label})"}
+        for name, run in (("as built", new_run), ("first design", old_run)):
+            first = [t.clone() for t in (run() or old)]
+            again = run() or old
+            torch.cuda.synchronize()
+            for grad, a, o, w in zip(("dq", "dk", "dv"), first, again, want):
+                lim = cs.BWD_TOL * max(1.0, float(w.abs().max()))
+                e = float((o - w).abs().max())
+                cs.check(torch.equal(a, o), f"{name} {label} {grad}: two "
+                         f"runs differ")
+                cs.check(e <= lim, f"{name} {label} {grad}: {e} > {lim}")
+                reading[f"{name} {grad} err_vs_plain"] = e
+        for name, run in (("as built", new_run), ("first design", old_run),
+                          ("first design", old_run), ("as built", new_run)):
+            reading.setdefault(f"{name} ms", []).append(
+                cs.time_ms(torch, run, flush))
+        print(json.dumps(reading), flush=True)
+        del q, k, v, do, out, lse, old, di, want
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -401,6 +492,7 @@ def main(argv) -> int:
         results += cs.flash_cases(torch, np, flush)
         cs.flash_other_shapes(torch, np)
     if "train" in which:
+        train_readings(torch, np, cs, flush)
         results += cs.flash_train_cases(torch, np, flush)
         cs.flash_train_other_shapes(torch, np)
         counts = cs.phase_train(torch, np, smi)

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.scratch import merge_tickets
 
 LAUNCHES = {"flash_attention_f32": 0, "flash_attention_fwd_lse_f32": 0,
             "flash_attention_bwd_f32": 0}
@@ -70,9 +71,9 @@ def _bind_lse():
 @functools.lru_cache(maxsize=None)
 def _bind_bwd():
     fn = build.load_library("flash_attention_bwd").flash_attention_bwd_f32
-    # q, k, v, out, dout, lse, di, dq, dk, dv, B, H, Hkv, Sq, Sk, D,
-    # causal, stream
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
+    # q, k, v, out, dout, lse, di, dq, dk, dv, ws, tickets, n_tickets, B,
+    # H, Hkv, Sq, Sk, D, causal, stream
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -125,6 +126,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """Blockwise online-softmax GQA attention.
 
@@ -171,7 +176,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     """Gradient of :func:`flash_attention` with respect to q, k and v,
     from the forward's ``out`` and ``lse`` (:func:`flash_attention_lse`)
     and the output's gradient ``dout`` [B, H, Sq, D].  Returns (dq, dk,
-    dv), f32, shaped as q, k, v; deterministic (no atomics)."""
+    dv), f32, shaped as q, k, v; deterministic (no float atomics).  On
+    the tensor-core route with G > 1 it allocates the workspace of the
+    G heads' dK/dV shares and takes a stream's merge tickets
+    (``ref.flash_bwd_plan``)."""
     b, h, hkv, sq, sk, d = _check(q, k, v, causal)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout "
@@ -193,11 +201,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = _stream(q)
+    ws = tickets = None
+    n_tickets = 0
+    if ref.flash_bwd_mma(d, h // hkv):
+        plan = ref.flash_bwd_plan(b, h, hkv, sq, sk, d)
+        if plan.tickets:
+            ws = torch.empty(plan.workspace, dtype=torch.float32,
+                             device=q.device)
+            tickets = merge_tickets(q.device, stream, plan.tickets)
+            n_tickets = tickets.numel()
     err = _bind_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                       di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), b, h, hkv, sq, sk, d, int(causal),
-                      _stream(q))
+                      dv.data_ptr(), _ptr(ws), _ptr(tickets), n_tickets, b,
+                      h, hkv, sq, sk, d, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_f32 launch failed: "
                            f"cudaError_t {err}")

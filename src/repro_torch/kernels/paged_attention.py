@@ -28,7 +28,7 @@ split t of node s the owned pages of rank ``[t * per, (t + 1) * per)``,
 ``ref.pool_chunk_tiles``), write their partials at node offset s of one
 workspace, and the last block of each group to finish merges the
 group's partials into the output (a ticket a group, in a zeroed buffer
-kept here per stream).  At one node whose window is the whole store it
+``scratch.merge_tickets`` keeps per stream).  At one node whose window is the whole store it
 computes the forms' own bits.
 
 Each wrapper checks device, dtype, shape and layout and raises on what
@@ -52,6 +52,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.scratch import merge_tickets
 
 LAUNCHES = {"paged_decode_f32": 0, "paged_decode_q8_int8": 0,
             "paged_decode_q8_fp8": 0, "paged_chunk_f32": 0,
@@ -174,22 +175,6 @@ def _check_cuda(tensors, page_table, d, page, group):
                          f"{MAX_GROUP} heads")
     if tensors[0].shape[0] < 1 or page_table.shape[1] < 1:
         raise ValueError("empty batch or page table")
-
-
-#: the pool form's merge tickets, one zeroed uint32 a group of blocks, a
-#: buffer a (device, stream) grown to the largest grid launched on it; the
-#: last block of each group resets its ticket, so it stays zeroed
-_TICKETS = {}
-
-
-def _tickets(device, stream: int, need: int):
-    key = (device.index, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < need:
-        buf = torch.zeros(1 << max(need - 1, 1).bit_length(),
-                          dtype=torch.int32, device=device)
-        _TICKETS[key] = buf
-    return buf
 
 
 def pool_groups(form: str, rows: int, h: int, hkv: int) -> int:
@@ -426,7 +411,7 @@ def _pool_launch(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
         name, form = f"paged_pool_decode_{code}", "decode"
         ints = (b, h, hkv, d, pps, page, per, splits, n_nodes, n_local)
     n_tickets = pool_groups(form, b, h, hkv)
-    tickets = _tickets(q.device, stream, n_tickets)
+    tickets = merge_tickets(q.device, stream, n_tickets)
     n_ml = b * h * n_nodes * splits
     ws = torch.empty(n_ml * (d + 2), dtype=torch.float32, device=q.device)
     acc = ws.data_ptr()

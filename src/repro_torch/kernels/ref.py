@@ -1045,6 +1045,157 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal: bool = True):
     return dq.reshape(b, h, sq, d), dk, dv
 
 
+#: keys of a dK/dV block and rows of a dQ block on the backward's
+#: tensor-core route (``kMmaRows`` in ``csrc/flash_attention_bwd.cu``)
+FLASH_BWD_ROWS = 64
+
+
+class FlashBwdPlan(NamedTuple):
+    """The backward's tensor-core launch at one shape
+    (:func:`flash_bwd_plan`): ``dkdv_blocks`` blocks of (batch, head, key
+    tile), B * H a key tile (:func:`flash_bwd_dkdv_blocks`), then
+    ``dq_blocks`` blocks of (batch, kv head, ``bq`` positions of the G
+    heads), B * Hkv a query tile (:func:`flash_bwd_dq_blocks`), in one
+    grid; merge tickets and workspace floats (0 at G = 1)."""
+    cols: int
+    key_tiles: int
+    dkdv_blocks: int
+    bq: int
+    query_tiles: int
+    dq_blocks: int
+    tickets: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        """The launch's grid: the dK/dV blocks, then the dQ blocks."""
+        return self.dkdv_blocks + self.dq_blocks
+
+
+def flash_bwd_mma(head_dim: int, group: int) -> bool:
+    """Whether the backward takes its tensor-core route (else f32 FMA)."""
+    return head_dim <= 128 and group <= FLASH_BWD_ROWS
+
+
+def flash_bwd_plan(b: int, h: int, hkv: int, sq: int, sk: int,
+                   d: int) -> FlashBwdPlan:
+    """The tensor-core route's schedule (``MmaCfg``, ``launch_mma``):
+    walked tiles of ``cols`` (32 queries or keys up to a head dim of 96
+    rounded up to 32, else 16); the G heads' dK/dV shares in a workspace
+    [2, G, B, Hkv, Sk, D], merged by the last block of each (batch, kv
+    head, key tile) group, one ticket each."""
+    group = h // hkv
+    cols = 32 if -(-d // 32) * 32 <= 96 else 16
+    key_tiles = -(-sk // FLASH_BWD_ROWS)
+    bq = FLASH_BWD_ROWS // group
+    query_tiles = -(-sq // bq)
+    merged = group > 1
+    return FlashBwdPlan(cols, key_tiles, b * h * key_tiles, bq, query_tiles,
+                        b * hkv * query_tiles,
+                        b * hkv * key_tiles if merged else 0,
+                        2 * b * h * sk * d if merged else 0)
+
+
+def flash_bwd_dkdv_walk(plan: FlashBwdPlan, key_tile: int, sq: int,
+                        causal: bool):
+    """The query tiles (of ``plan.cols``) a dK/dV block of ``key_tile``
+    walks, in order: from the key tile's diagonal when causal."""
+    t0 = key_tile * FLASH_BWD_ROWS // plan.cols if causal else 0
+    return range(t0, -(-sq // plan.cols))
+
+
+def flash_bwd_dq_walk(plan: FlashBwdPlan, q0: int, sq: int, sk: int,
+                      causal: bool):
+    """The key tiles (of ``plan.cols``) a dQ block of positions ``[q0,
+    q0 + bq)`` walks, in order: up to its last row when causal."""
+    kmax = min(q0 + plan.bq, sq, sk) if causal else sk
+    return range(-(-kmax // plan.cols))
+
+
+def flash_bwd_dkdv_blocks(plan: FlashBwdPlan, b: int, h: int):
+    """The dK/dV blocks in launch order, (batch, head, key tile): the
+    blocks of key tile 0 (the longest walks when causal) first."""
+    return [(i // h, i % h, kt) for kt in range(plan.key_tiles)
+            for i in range(b * h)]
+
+
+def flash_bwd_dq_blocks(plan: FlashBwdPlan, b: int, hkv: int):
+    """The dQ blocks in launch order, (batch, kv head, first position):
+    the last (longest, causal) positions first."""
+    return [(i // hkv, i % hkv, (plan.query_tiles - 1 - y) * plan.bq)
+            for y in range(plan.query_tiles) for i in range(b * hkv)]
+
+
+def flash_attention_bwd_emulated(q, k, v, out, lse, dout,
+                                 causal: bool = True):
+    """The backward's tensor-core route in plain f32 on its plan
+    (:func:`flash_bwd_plan`): products by :func:`mm_3xtf32` with lo cut
+    (``lo=tf32_cut``, the kernel's ``split_lo_cut``); P =
+    exp2(S * log2(e) / sqrt(D) - lse * log2(e)), masked 0; each walked
+    tile's share summed on its own and joined to the running sums by f32
+    adds, in walk order; each head's dK/dV share summed over its query
+    tiles, the G shares then joined head 0 first; dQ over its key tiles
+    in order.  (dq, dk, dv) shaped as q, k, v."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    plan = flash_bwd_plan(b, h, hkv, sq, sk, d)
+    rows, cols = FLASH_BWD_ROWS, plan.cols
+    f32 = torch.float32
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=f32))
+    scale_log2 = log2e * scale
+    qh = q.reshape(b, hkv, g, sq, d)
+    doh = dout.reshape(b, hkv, g, sq, d)
+    lse2 = lse.reshape(b, hkv, g, sq) * log2e
+    di = (dout * out).sum(-1).reshape(b, hkv, g, sq)
+    pos = torch.arange(sq, device=q.device)
+
+    def mm(x, y):
+        return mm_3xtf32(x, y, lo=tf32_cut)
+    key = torch.arange(sk, device=q.device)
+
+    def probs(s, i, j):
+        """P of scores s [.., len(i), len(j)] (query rows i, keys j)."""
+        p = torch.exp2(s * scale_log2 - lse2[..., i][..., :, None])
+        if causal:
+            p = torch.where(j[None, :] <= i[:, None], p, torch.zeros_like(p))
+        return p
+
+    dk_sh = torch.zeros((b, hkv, g, sk, d), dtype=f32, device=q.device)
+    dv_sh = torch.zeros_like(dk_sh)
+    for kt in range(plan.key_tiles):
+        j = key[kt * rows:(kt + 1) * rows]
+        kk, vv = k[:, :, None, j], v[:, :, None, j]
+        for t in flash_bwd_dkdv_walk(plan, kt, sq, causal):
+            i = pos[t * cols:(t + 1) * cols]
+            qt, dot = qh[..., i, :], doh[..., i, :]
+            pt = probs(mm(kk, qt.transpose(-1, -2)).transpose(-1, -2),
+                       i, j).transpose(-1, -2)
+            dpt = mm(vv, dot.transpose(-1, -2))
+            dst = pt * (dpt - di[..., i][..., None, :])
+            dv_sh[..., j, :] += mm(pt, dot)
+            dk_sh[..., j, :] += mm(dst, qt)
+    dk, dv = dk_sh[:, :, 0], dv_sh[:, :, 0]
+    for gi in range(1, g):
+        dk = dk + dk_sh[:, :, gi]
+        dv = dv + dv_sh[:, :, gi]
+
+    # a row walks the key tiles below its dQ block's kmax
+    q0 = pos // plan.bq * plan.bq
+    kmax = torch.clamp(q0 + plan.bq, max=min(sq, sk)) if causal else \
+        torch.full_like(pos, sk)
+    dq = torch.zeros((b, hkv, g, sq, d), dtype=f32, device=q.device)
+    for jt in range(-(-sk // cols)):
+        j = key[jt * cols:(jt + 1) * cols]
+        kt_, vt = k[:, :, None, j], v[:, :, None, j]
+        p = probs(mm(qh, kt_.transpose(-1, -2)), pos, j)
+        ds = p * (mm(doh, vt.transpose(-1, -2)) - di[..., None])
+        walks = (jt * cols < kmax)[:, None]
+        dq = torch.where(walks, dq + mm(ds, kt_), dq)
+    return dq.reshape(b, h, sq, d) * scale, dk * scale, dv
+
+
 def tf32_rna(x):
     """``cvt.rna.tf32.f32`` on f32 ``x``: the nearest TF32 value (10
     explicit mantissa bits, the low 13 bits of the f32 zero), ties away
@@ -1053,15 +1204,22 @@ def tf32_rna(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def mm_3xtf32(a, b):
+def tf32_cut(x):
+    """The TF32 value a tensor core reads from f32 ``x``: its top 19
+    bits (the low 13 bits of the f32 zero, toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b, lo=tf32_rna):
     """``a @ b`` as the flash kernel's 3xTF32 products compute it: each
     operand split into hi = tf32(x) and lo = tf32(x - hi), then lo*hi +
     hi*lo + hi*hi (each product exact in f32, sums in f32; lo*lo, about
-    2^-22 relative, dropped)."""
+    2^-22 relative, dropped).  ``lo=tf32_cut``: the backward's split,
+    x - hi left unrounded and read by the tensor core cut."""
     a_hi = tf32_rna(a)
-    a_lo = tf32_rna(a - a_hi)
+    a_lo = lo(a - a_hi)
     b_hi = tf32_rna(b)
-    b_lo = tf32_rna(b - b_hi)
+    b_lo = lo(b - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 

@@ -33,13 +33,15 @@ def _inputs(shape, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", [((2, 8, 2, 77, 77, 64), True),
+                                          ((1, 16, 2, 100, 100, 128), True),
                                           ((1, 4, 4, 40, 56, 160), False)],
-                         ids=["mma-causal", "fma-full"])
+                         ids=["mma-causal", "mma-d128-group8", "fma-full"])
 def test_flash_training_kernels_on_the_card(card, shape, causal):
     """The forward with lse bit-equal in ``out`` to the forward-only
     kernel and its lse within 1e-5; the backward (the 3xTF32 route at
-    D=64, the FMA route at D=160) within 1e-4 x max(1, max |plain|) of
-    the plain version and deterministic; one launch a call."""
+    D=64 and at D=128 with a group of 8, the FMA route at D=160) within
+    1e-4 x max(1, max |plain|) of the plain version and deterministic;
+    one launch a call."""
     q, k, v, do = _inputs(shape, seed=4)
     before = dict(FA.LAUNCHES)
     out, lse = FA.flash_attention_lse(q, k, v, causal=causal)
