@@ -126,15 +126,40 @@ one JSON line and any failure exits non-zero:
            and greedy tokens identical to it; granite's first decode step
            within 1e-3 of the paged serve phase's; one prefill and a few
            decode steps of each under torch.profiler
+  train    granite-3-2b trained at full width and depth, then 2 layers
+           of that width against the plain attention, a λFS restart,
+           int8 compression, learnable data, the launcher and quickstart
+  families the archs no earlier phase runs, each built on the card from
+           a seeded generator in f32 and freed before the next, launch
+           counters reset just before and read just after each:
+           phi3.5-moe-42b-a6.6b at full width cut to 4 layers (the
+           routed-row MoE against the dense dispatch on 64 tokens; dense
+           prefill of 8 x 512 and 4 decode steps; PagedServer at h1 and
+           h8 on f32 pages and at h8 on int8 pages, a 2-node PoolServer,
+           32 tokens each: tokens identical across dense, paged h1, h8
+           and the pool, the first paged decode step within 1e-4 of the
+           dense one), llama4-scout-17b-a16e cut to 2 layers (prefill and
+           4 decode steps within 5e-4 of its forward), granite-3-2b's
+           int8 dense-decode cache on the serve phase's weights (softmax
+           within 5e-3 of the f32 cache's, decisive tokens equal),
+           zamba2-1.2b, paligemma-3b (prefill from 256 patch
+           embeddings) and hubert-xlarge (bidirectional) at full width
+           and depth; one line a model with its wall time, tokens/s, peak
+           memory, attention launches and profiles of a step
 
 The kernels phase also holds the flash-attention kernel (causal and not
 at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
-qwen2-72b's heads, each beside the bound of its 3xTF32 route and the
-f32 bound) and the RWKV6 wkv-scan kernel (at rwkv6-3b's, and untimed at
-WKV_SHAPES) against their plain versions.  Then the kernels line
-(launches: the serve, serve_spec, serve_pool, serve_reduced, isp and
-dense phases' counts), the
-nvidia-smi line, and the last line
+qwen2-72b's heads, and at the families phase's shapes: phi3.5-moe,
+llama4-scout's group of 5, zamba2's shared block, paligemma's head_dim
+256 on the FMA route, hubert's non-causal head_dim 80; each beside the
+bound of its 3xTF32 route and the f32 bound), the paged kernels at
+phi3.5-moe's serving shape (head_dim 128, group 4: decode and chunk on
+f32 and int8 pages, the pool forms at 2 nodes) and the RWKV6 wkv-scan
+kernel (at rwkv6-3b's, and untimed at WKV_SHAPES) against their plain
+versions.  Then the kernels line (launches: the serve, serve_spec,
+serve_pool, serve_reduced, isp, dense, train and families phases'
+counts; an entry of a families model's shape also its launches in that
+model's run), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -451,6 +476,8 @@ def phase_kernels(torch, np):
     pool_other_shapes(torch, np, ops)
     chunk_padding_zeros(torch, np, ops, pages, cases)
     other_shapes(torch, np, ops)
+    del pages
+    results += family_paged_cases(torch, np, flush)
     return results
 
 
@@ -2007,13 +2034,32 @@ DENSE_REPLACES = {"flash_attention_f32":
 FLASH = {"batch": 8, "heads": 32, "kv_heads": 8, "seq": 512, "head_dim": 64}
 # the flash kernel's cases, prompts of 512 tokens: granite-3-2b's prefill
 # (the dense phase's), phi3-mini-3.8b's (32 heads of 96, no grouping) and
-# qwen2-72b's heads (64 of 128 over 8 kv heads) on 4 prompts
+# qwen2-72b's heads (64 of 128 over 8 kv heads) on 4 prompts; then the
+# families phase's models at 8 x 512 ("family": the model whose launches
+# the entry reports): phi3.5-moe's heads, llama4-scout's group of 5 (not a
+# power of two), zamba2's shared block, paligemma's head_dim 256 on the
+# kernel's FMA route, hubert's non-causal encoder at head_dim 80
 FLASH_CASES = (
     ("granite-3-2b prefill", FLASH, (True, False)),
     ("phi3-mini-3.8b prefill", {"batch": 8, "heads": 32, "kv_heads": 32,
                                 "seq": 512, "head_dim": 96}, (True,)),
     ("qwen2-72b heads, G = 8", {"batch": 4, "heads": 64, "kv_heads": 8,
                                 "seq": 512, "head_dim": 128}, (True,)),
+    ("phi3.5-moe-42b-a6.6b prefill", {
+        "batch": 8, "heads": 32, "kv_heads": 8, "seq": 512, "head_dim": 128,
+        "family": "phi3.5-moe"}, (True,)),
+    ("llama4-scout-17b-a16e prefill, G = 5", {
+        "batch": 8, "heads": 40, "kv_heads": 8, "seq": 512, "head_dim": 128,
+        "family": "llama4-scout"}, (True,)),
+    ("zamba2-1.2b shared block", {
+        "batch": 8, "heads": 32, "kv_heads": 32, "seq": 512, "head_dim": 64,
+        "family": "zamba2"}, (True,)),
+    ("paligemma-3b prefill, FMA route", {
+        "batch": 8, "heads": 8, "kv_heads": 1, "seq": 512, "head_dim": 256,
+        "family": "paligemma"}, (True,)),
+    ("hubert-xlarge encoder", {
+        "batch": 8, "heads": 16, "kv_heads": 16, "seq": 512, "head_dim": 80,
+        "family": "hubert"}, (False,)),
 )
 # rwkv6-3b's prefill: 8 prompts of 512 tokens, 40 heads of 64, chunk 32
 WKV = {"batch": 8, "seq": 512, "heads": 40, "dk": 64, "dv": 64, "chunk": 32}
@@ -2128,6 +2174,8 @@ def flash_cases(torch, np, flush):
                 DENSE_SOURCE["flash_attention_f32"], KERNEL_TOL)
             results[-1]["route_bound"] = "3xTF32 mma: " + FLASH_ROUTE_NOTE
             results[-1]["bound_f32_ms"], results[-1]["bound_f32_by"] = f32
+            if "family" in shape:
+                results[-1]["families_model"] = shape["family"]
         del q, k, v, k_rep, v_rep
         torch.cuda.empty_cache()
     return results
@@ -3846,6 +3894,748 @@ def train_entry_points(torch, np, ops):
               "flash_attention_fwd_lse_f32", "flash_attention_bwd_f32")}})
 
 
+# -- families ------------------------------------------------------------------
+
+# the families phase (after train): the archs no earlier phase runs, each
+# built on the card in f32 from a seeded torch.Generator, run and freed
+# before the next; 8 requests of 512 tokens.  phi3.5-moe and llama4-scout
+# at full width cut in depth (f32 experts are 5.03 and 8.05 GB a layer);
+# zamba2, paligemma and hubert at full width and depth; granite-3-2b's
+# int8 dense-decode cache on the serve phase's weights and prompts
+FAMILIES = {
+    "reduced": False, "requests": 8, "prompt_len": 512,
+    "moe": {"arch": "phi3.5-moe-42b-a6.6b", "layers": 4, "decode_steps": 4,
+            "gen": 32, "chunk": 256, "page": 16, "hbm_pages": 320,
+            "pool_nodes": 2, "route_tokens": 64},
+    "scout": {"arch": "llama4-scout-17b-a16e", "layers": 2,
+              "decode_steps": 4},
+    "int8": {"arch": "granite-3-2b", "steps": 8},
+    "zamba2": {"arch": "zamba2-1.2b", "gen": 32},
+    "paligemma": {"arch": "paligemma-3b", "patches": 256, "gen": 8},
+    "hubert": {"arch": "hubert-xlarge", "frames": 512},
+}
+DECODE_VS_FORWARD_TOL = 5e-4   # the reference's prefill/decode-vs-forward
+INT8_SOFTMAX_TOL = 5e-3        # tests/test_optimizations.py's int8 case
+INT8_DECISIVE_GAP = 0.05       # the same: greedy tokens equal past this gap
+# a router margin (the k-th largest router probability minus the next)
+# below which two paths' f32 sums may route a token to different experts:
+# ~100x the f32 noise of a probability of ~0.1
+ROUTE_TIE = 1e-5
+FAMILY_MATCH = {"gemm": "gemm", "gemv": "gemv", "flash": "flash_",
+                "paged": "paged_"}
+# phi3.5-moe-42b-a6.6b's paged serving shape (32 heads over 8 kv heads of
+# 128, page 16) as the families phase serves it: decode at 8 sequences of
+# 513..541 positions, its prefill chunk of 256 (lengths 257..512), f32 and
+# int8 pages, and the pool forms at 2 nodes of 160 pages, placed
+MOE_PAGED = {"heads": 32, "kv_heads": 8, "head_dim": 128, "page": 16,
+             "nodes": 2, "local": 160, "family": "phi3.5-moe"}
+
+
+def family_paged_cases(torch, np, flush):
+    """Both paged-attention kernels at MOE_PAGED's shape, each against
+    its plain version (1e-4), beside its bound and SDPA on the gathered
+    K/V: the decode and chunk forms on f32 and int8 pages, the pool
+    decode and chunk forms on f32 pages."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(8)
+    h, hkv, d, page, nodes, local = (MOE_PAGED[k] for k in (
+        "heads", "kv_heads", "head_dim", "page", "nodes", "local"))
+    k, v = (rng.standard_normal((nodes * local, page, hkv, d),
+                                dtype=np.float32) for _ in range(2))
+    pages = paged_pages(torch, k, v)
+    del k, v
+    results = []
+    for form, lens, pps in (
+            ("decode", (513 + 4 * np.arange(8)).astype(np.int32), 64),
+            ("chunk", np.arange(257, 513, dtype=np.int32), 32)):
+        q = torch.from_numpy(rng.standard_normal((len(lens), h, d),
+                                                 dtype=np.float32)).to(dev)
+        lengths = torch.from_numpy(lens).to(dev)
+        if form == "decode":
+            table = torch.from_numpy(pool_table(
+                np, rng, lens, pps, "placed", page=page, nodes=nodes,
+                local=local)).to(dev)
+        else:                          # one sequence's page row, expanded
+            row = pool_table(np, rng, lens[-1:], pps, "placed", page=page,
+                             nodes=nodes, local=local)[0]
+            table = torch.from_numpy(row).to(dev)[None].expand(len(lens),
+                                                                pps)
+        for layout, code in (("single", "f32"), ("single", "int8"),
+                             ("pool", "f32")):
+            kp, vp, ks, vs = pages[code]
+            if layout == "single":
+                kernel, plain = paged_fns(ops, q, kp, vp, ks, vs, table,
+                                          lengths)
+                name = (CHUNK_OF if form == "chunk" else DECODE_OF)[code]
+            else:
+                def kernel():
+                    return ops.paged_attention_pool(
+                        q, kp, vp, table, lengths, n_nodes=nodes,
+                        n_local=local)
+
+                def plain():
+                    return ops.ref.paged_pool_attention_ref(
+                        q, kp, vp, table, lengths, nodes, local)
+                name = (POOL_CHUNK_OF if form == "chunk"
+                        else POOL_DECODE_OF)[code]
+            case = (f"{layout} {form}, B={len(lens)} H={h} Hkv={hkv} D={d} "
+                    f"page {page}, lengths {lens[0]}..{lens[-1]}" +
+                    (f", {nodes} nodes x {local} pages placed"
+                     if layout == "pool" else "") +
+                    " (phi3.5-moe-42b-a6.6b paged serving)")
+            before = ops.launch_counts()[name]
+            got = kernel()
+            torch.cuda.synchronize()
+            check(ops.launch_counts()[name] == before + 1,
+                  f"{case}: the wrapper took the {layout} {form} form")
+            err = float((got - plain()).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= KERNEL_TOL,
+                  f"{code} {case}: max_abs_err {err} > {KERNEL_TOL}")
+            kd, vd = (kp, vp) if ks is None else (
+                kp.float() * ks[..., None], vp.float() * vs[..., None])
+            b_ms, b_by = bound(torch, q, table, lengths, page, hkv,
+                               kp.element_size(), ks is not None)
+            results.append({
+                "name": ("paged_attention" if code == "f32"
+                         else "paged_attention_q8"),
+                "kernel": name, "form": f"{layout} {form}", "pages": code,
+                "case": case, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[code], "launches": None,
+                "families_model": MOE_PAGED["family"],
+                "max_abs_err": err, "tolerance": KERNEL_TOL,
+                "ms": time_ms(torch, kernel, flush),
+                "plain_ms": time_ms(torch, plain, flush, PLAIN_ITERS, 1),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(torch, library_call(
+                    torch, F, q, kd, vd, table, lengths, page,
+                    "prefill" if form == "chunk" else case), flush),
+                "library": "torch.nn.functional.scaled_dot_product_"
+                           "attention on the gathered dense K/V"})
+            results[-1]["kernel_ms"] = results[-1]["ms"]
+            emit({"phase": "kernels", **{k_: results[-1][k_] for k_ in (
+                "kernel", "case", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}})
+    return results
+
+
+def family_cfg(arch, layers=None):
+    """``arch``'s config, cut to ``layers`` layers at full width (the
+    reduced config in a CPU rehearsal)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    if FAMILIES["reduced"]:
+        return cfg.reduced()
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def family_model(torch, arch, layers=None, **kw):
+    """(cfg, model, params, init seconds): ``get_model`` of the config,
+    f32 params drawn on the card from a generator of seed 0."""
+    from repro_torch.models.api import get_model
+    cfg = family_cfg(arch, layers)
+    model = get_model(cfg, **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    return cfg, model, params, time.monotonic() - t0
+
+
+def family_prompts(np, cfg, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (FAMILIES["requests"], FAMILIES["prompt_len"]),
+        dtype=np.int32)
+
+
+def family_line(torch, smi, name, cfg, params, init_s, counts, attention,
+                wall, tokens, **extra):
+    """One model's line: the wall time of its runs (init and profiles
+    excluded) and the tokens they processed a second, peak memory, the
+    attention kernels' launches (each > 0: every model attends) and
+    ``extra``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    n_params = sum(t.numel() for t in _leaves(params))
+    launched = {k: counts[k] for k in attention}
+    check(all(n > 0 for n in launched.values()),
+          f"{name}: attention launched {launched}")
+    emit({"phase": "families", "model": name, "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          "depth_cut_from": get_arch(cfg.name).n_layers,
+          "head_dim": cfg.hd, "config": dataclasses.asdict(cfg),
+          "params": n_params, "weights_gb": n_params * 4 / 1e9,
+          "init_s": init_s, "wall_s": wall, "tokens": tokens,
+          "tokens_per_s": tokens / wall,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "attention_launches": launched, **extra,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+
+
+def decode_vs_forward(torch, model, params, inputs, steps, pad_to=1):
+    """Prefill of ``inputs`` ({"tokens"} or {"embeds"} [B, S]) on an f32
+    cache, ``steps`` greedy decode steps, then ``forward`` over the
+    prompt and the fed tokens (embedded after an embeds prompt; zero
+    tokens appended to a multiple of ``pad_to``, which a causal model's
+    earlier logits do not see).  Returns (stats, the largest error of
+    the prefill's and each step's logits against the forward's, the
+    cache with one free position, the next token)."""
+    import torch.nn.functional as F
+    first = inputs.get("tokens", inputs.get("embeds"))
+    b, s = first.shape[:2]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = model.prefill(params, inputs, cache_dtype=torch.float32)
+    cur = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    if "k" in cache:
+        cache["k"] = F.pad(cache["k"], (0, 0, 0, steps + 1))
+        cache["v"] = F.pad(cache["v"], (0, 0, 0, steps + 1))
+    outs, fed = [logits], []
+    t1 = time.monotonic()
+    for _ in range(steps):
+        fed.append(cur)
+        lg, cache = model.decode_step(params, cache, cur)
+        outs.append(lg)
+        cur = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.monotonic() - t1
+    fed = torch.stack(fed, dim=1)
+    if "tokens" in inputs:
+        seq = torch.cat([inputs["tokens"], fed], dim=1)
+        seq = F.pad(seq, (0, -seq.shape[1] % pad_to))
+        full = {"tokens": seq}
+    else:
+        full = {"embeds": torch.cat([inputs["embeds"], params["embed"][
+            "table"][fed].to(inputs["embeds"].dtype)], dim=1)}
+    ref, _ = model.forward(params, full)
+    errs = [float((o - ref[:, s - 1 + t]).abs().max())
+            for t, o in enumerate(outs)]
+    del ref
+    for o in outs:
+        check(bool(torch.isfinite(o).all()), "finite logits")
+    check(max(errs) <= DECODE_VS_FORWARD_TOL,
+          f"prefill/decode logits vs forward: {errs} > "
+          f"{DECODE_VS_FORWARD_TOL}")
+    stats = {"prefill_s": prefill_s, "prefill_tok_s": b * s / prefill_s,
+             "decode_s": decode_s, "decode_steps": steps,
+             "decode_tok_s": b * steps / decode_s if steps else None,
+             "logits_max_abs_err_vs_forward": max(errs),
+             "logits_tol": DECODE_VS_FORWARD_TOL,
+             "tokens_request0": fed[0].tolist()}
+    return stats, cache, cur
+
+
+def moe_routing_check(torch, cfg, lp):
+    """``layers.apply_moe`` (routed rows) against the plain dense
+    dispatch ``layers.apply_moe_dense`` on the card, on layer 0's experts
+    and FAMILIES["moe"]["route_tokens"] random tokens: never dropping,
+    at the config's capacity factor and at a capacity of 4 (drops
+    certain); out within 1e-4 x max(1, max |plain|), aux within 1e-6.
+    A dropped pair that differs between the two leaves an expert's
+    whole output in one of them."""
+    from repro_torch.models import layers as L
+    n = FAMILIES["moe"]["route_tokens"]
+    x = torch.randn((1, n, cfg.d_model), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(3))
+    out = {}
+    for label, kw in (("no_drop", {"no_drop": True}),
+                      (f"capacity_factor {cfg.capacity_factor}", {}),
+                      ("capacity 4", {"capacity": 4})):
+        got, aux = L.apply_moe(lp, x, cfg, **kw)
+        want, want_aux = L.apply_moe_dense(lp, x, cfg, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        lim = KERNEL_TOL * max(1.0, float(want.abs().max()))
+        aux_err = abs(float(aux) - float(want_aux))
+        check(err <= lim and aux_err <= 1e-6,
+              f"apply_moe {label} vs dense dispatch: {err} (limit {lim}), "
+              f"aux {aux_err}")
+        cap = L.moe_capacity(cfg, n, kw.get("capacity"),
+                             kw.get("no_drop", False))
+        keep = L.moe_route(lp, x.reshape(n, -1), cfg, cap)[2]
+        out[label] = {"capacity": cap, "dropped_pairs": int((~keep).sum()),
+                      "max_abs_err": err, "tolerance": lim,
+                      "aux_err": aux_err}
+    check(out["capacity 4"]["dropped_pairs"] > 0, "capacity 4 drops")
+    return out
+
+
+@contextlib.contextmanager
+def observed_routing(torch):
+    """Observe ``layers.moe_route`` (as ``record_gaps`` observes a
+    server's token scores): each call's top-k expert ids [T, k] and its
+    margins [T] (the k-th largest router probability minus the next), in
+    call order."""
+    from repro_torch.models import layers as L
+    real = L.moe_route
+    calls = []
+
+    def observed(p, xt, cfg, capacity):
+        out = real(p, xt, cfg, capacity)
+        probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), -1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        calls.append((out[1], top[:, -2] - top[:, -1]))
+        return out
+    L.moe_route = observed
+    try:
+        yield calls
+    finally:
+        L.moe_route = real
+
+
+def routing_steps(calls, n_layers, n_req, plen, prefill_calls):
+    """One run's observed routing by step: step 0 the prompt ([n_layers,
+    n_req, plen, k] ids and [n_layers, n_req, plen] margins, from one
+    call a layer over every prompt, or ``prefill_calls`` calls a layer:
+    each sequence's chunks in turn), step s the decode step s ([n_layers,
+    n_req, k] and [n_layers, n_req]: one call a layer over the batch)."""
+    import torch
+    pre, rest = calls[:n_layers * prefill_calls], calls[n_layers *
+                                                       prefill_calls:]
+    ids = [[] for _ in range(n_layers)]
+    margins = [[] for _ in range(n_layers)]
+    for i, (topi, margin) in enumerate(pre):
+        layer = i % n_layers
+        ids[layer].append(topi)
+        margins[layer].append(margin)
+    steps = [(torch.stack([torch.cat(x).reshape(n_req, plen, -1)
+                           for x in ids]),
+              torch.stack([torch.cat(x).reshape(n_req, plen)
+                           for x in margins]))]
+    for i in range(0, len(rest), n_layers):
+        step = rest[i:i + n_layers]
+        steps.append((torch.stack([t[:n_req] for t, _ in step]),
+                      torch.stack([m[:n_req] for _, m in step])))
+    return steps
+
+
+def routing_roots(a, b):
+    """Where each sequence's routing first differs between two runs'
+    ``routing_steps``: {seq: {"step", "layer", "positions", "margin"}},
+    the lowest layer of the first step with a difference (a difference
+    there has no earlier one to come from), ``margin`` the largest of
+    the two runs' margins over those tokens.  Sequences routed alike in
+    every step both runs have are left out."""
+    roots = {}
+    for step, ((ids_a, m_a), (ids_b, m_b)) in enumerate(zip(a, b)):
+        differ = (ids_a != ids_b).any(-1)            # [L, B(, S)]
+        for seq in range(differ.shape[1]):
+            if seq in roots or not bool(differ[:, seq].any()):
+                continue
+            layer = int(differ[:, seq].reshape(differ.shape[0], -1).any(-1)
+                        .nonzero()[0])
+            where = differ[layer, seq]
+            margin = max(float(m_a[layer, seq][where].max()),
+                         float(m_b[layer, seq][where].max()))
+            roots[seq] = {"step": step, "layer": layer, "margin": margin,
+                          "positions": where.reshape(-1).nonzero()
+                          .reshape(-1).tolist()}
+    return roots
+
+
+def check_route_ties(roots, what):
+    """Every routing difference between two runs must start at a
+    near-tie of the router (margin below ROUTE_TIE); printed."""
+    for seq, root in roots.items():
+        emit({"phase": "families", "routing_near_tie": what, "seq": seq,
+              **root, "route_tie": ROUTE_TIE})
+        check(root["margin"] < ROUTE_TIE,
+              f"{what}: sequence {seq} routed apart at a router margin of "
+              f"{root['margin']} (not a near-tie below {ROUTE_TIE})")
+
+
+def tokens_until_roots(want, got, roots, what, first_step=0):
+    """Token streams {seq: [...]} (token j the output of step first_step
+    + j) identical in every sequence up to the step where its routing
+    first differs (``routing_roots``), which a near-tie excuses.
+    Returns the number of tokens compared."""
+    n = 0
+    for seq, toks in want.items():
+        end = roots.get(seq, {}).get("step", first_step + len(toks))
+        keep = max(0, end - first_step)
+        check(toks[:keep] == got[seq][:keep],
+              f"{what}: sequence {seq}'s greedy tokens differ before any "
+              f"routing difference")
+        n += len(toks[:keep])
+    return n
+
+
+def family_moe(torch, np, ops, smi):
+    """phi3.5-moe-42b-a6.6b at full width, FAMILIES["moe"]["layers"]
+    layers: the routing check, dense prefill and decode steps,
+    PagedServer greedy at h1 and h8 on f32 pages and at h8 on int8
+    pages, a 2-node PoolServer.  Tokens identical across dense, paged
+    h1, paged h8 and the pool, the first paged decode step within 1e-4
+    of the dense one, in every sequence whose routing the two paths
+    agree on; a sequence whose router meets a near-tie (two experts'
+    probabilities within ROUTE_TIE: the paths' f32 sums pick different
+    ones) is printed and compared up to that step."""
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.runtime.pool import PoolServer
+    from repro_torch.runtime.serve import PagedServer, make_serving_fns
+
+    spec = FAMILIES["moe"]
+    cfg, model, params, init_s = family_model(
+        torch, spec["arch"], spec["layers"], moe_no_drop=True)
+    routing = moe_routing_check(torch, cfg,
+                                layer_params(params["layers"], 0)["mlp"])
+    prompts = family_prompts(np, cfg, 21)
+    n_req, plen = prompts.shape
+    gen, chunk, page, hbm = (spec[k] for k in ("gen", "chunk", "page",
+                                                "hbm_pages"))
+    n_chunks = -(-plen // chunk)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    prefill, decode = make_serving_fns(model)
+    with observed_routing(torch) as calls:
+        dense = dense_run(torch, prefill, decode, params, prompts,
+                          spec["decode_steps"] + 1)
+    dense_route = routing_steps(calls, cfg.n_layers, n_req, plen, 1)
+
+    def admit(server):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for i, p in enumerate(prompts):
+            server.add_request(i, p, chunk=chunk)   # ends in a host argmax
+        return {"prefill_s": time.monotonic() - t}
+
+    def timed_decode(server, n, horizon, run):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = server.decode(n, horizon=horizon)
+        run["decode_s"] = time.monotonic() - t
+        run["decode_tok_s"] = sum(map(len, out.values())) / run["decode_s"]
+        return out
+
+    runs, out = {}, {}
+    h1_server = PagedServer(model, params, page_size=page, hbm_pages=hbm,
+                            device=DEVICE)
+    with observed_routing(torch) as calls:
+        runs["paged_h1"] = admit(h1_server)
+        pending = h1_server.pending_tokens()
+        seqs, step1 = h1_server.step_batch(pending)
+        first = step1.argmax(-1).cpu().tolist()
+        for s, tok in zip(seqs, first):
+            h1_server.set_pending(s, tok)
+        rest = timed_decode(h1_server, gen - 1, None, runs["paged_h1"])
+    h1_route = routing_steps(calls, cfg.n_layers, n_req, plen,
+                             n_req * n_chunks)
+    tokens_h1 = {s: [first[i]] + rest[s] for i, s in enumerate(seqs)}
+    for label, kw in (("paged_h8", {}),
+                      ("paged_int8_h8", {"page_dtype": "int8"})):
+        server = PagedServer(model, params, page_size=page, hbm_pages=hbm,
+                             device=DEVICE, **kw)
+        runs[label] = admit(server)
+        out[label] = timed_decode(server, gen, 8, runs[label])
+        runs[label]["tier"] = server.tier_stats()
+        del server
+    server = PoolServer(model, params, n_nodes=spec["pool_nodes"],
+                        page_size=page,
+                        hbm_pages_per_node=hbm // spec["pool_nodes"],
+                        device=DEVICE)
+    with observed_routing(torch) as calls:
+        runs["pool_2n_h8"] = admit(server)
+        out["pool_2n_h8"] = timed_decode(server, gen, 8, runs["pool_2n_h8"])
+    runs["pool_2n_h8"]["tier"] = server.tier_stats()
+    del server
+    pool_route = routing_steps(calls, cfg.n_layers, n_req, plen,
+                               n_req * n_chunks)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+
+    # dense against paged h1: the first decode step's logits and the
+    # tokens of steps 0..decode_steps
+    ties = {"dense vs paged h1": routing_roots(dense_route, h1_route),
+            "paged h1 vs 2-node pool": routing_roots(h1_route, pool_route)}
+    for what, roots in ties.items():
+        check_route_ties(roots, what)
+    roots = ties["dense vs paged h1"]
+    order = torch.tensor(seqs, device=step1.device)
+    errs = (dense["step1_logits"][order] - step1).abs().amax(-1).tolist()
+    exact = [s for s in seqs if roots.get(s, {}).get("step", 2) > 1]
+    step1_err = max(errs[seqs.index(s)] for s in exact)
+    check(step1_err <= KERNEL_TOL, f"phi3.5-moe paged first decode step vs "
+          f"dense: {step1_err} > {KERNEL_TOL}")
+    dense_toks = dense["tokens"].tolist()
+    compared = tokens_until_roots(
+        {s: dense_toks[s] for s in seqs},
+        {s: [pending[s]] + tokens_h1[s][:spec["decode_steps"]] for s in seqs},
+        roots, "phi3.5-moe dense vs paged h1")
+    check(out["paged_h8"] == tokens_h1, "phi3.5-moe greedy tokens: paged h8 "
+          "differs from h1")
+    compared_pool = tokens_until_roots(
+        tokens_h1, out["pool_2n_h8"], ties["paged h1 vs 2-node pool"],
+        "phi3.5-moe paged h1 vs the 2-node pool", first_step=1)
+    q8 = out["paged_int8_h8"]
+    check(all(len(q8[s]) == gen and all(0 <= t < cfg.vocab_size
+                                        for t in q8[s]) for s in seqs),
+          "phi3.5-moe int8 pages: every request runs to the end")
+    runs["paged_int8_h8"]["agree_with_f32"] = float(np.mean(
+        [a == b for s in seqs for a, b in zip(q8[s], tokens_h1[s])]))
+    check(counts["flash_attention_f32"] == cfg.n_layers,
+          f"phi3.5-moe: flash launched {counts['flash_attention_f32']} times "
+          f"in one dense prefill, not {cfg.n_layers}")
+    for name, servers in ((CHUNK_OF["f32"], 2), (CHUNK_OF["int8"], 1),
+                          (POOL_CHUNK_OF["f32"], 1)):
+        check(counts[name] == servers * cfg.n_layers * n_req * n_chunks,
+              f"phi3.5-moe: {name} launched {counts[name]} times, not one "
+              f"per layer and prefill chunk")
+    toks = n_req * (plen * 5 + spec["decode_steps"] + 4 * gen)
+    profile_step = profile_decode(torch, h1_server, 1, FAMILY_MATCH)
+    del h1_server
+    profile_prefill = profile_calls(torch, lambda: prefill(
+        params, {"tokens": torch.from_numpy(prompts).long().to(DEVICE)},
+        cache_dtype=torch.float32), 1, FAMILY_MATCH)
+    family_line(torch, smi, "phi3.5-moe", cfg, params, init_s, counts,
+                ("flash_attention_f32", DECODE_OF["f32"], CHUNK_OF["f32"],
+                 DECODE_OF["int8"], CHUNK_OF["int8"], POOL_DECODE_OF["f32"],
+                 POOL_CHUNK_OF["f32"]), wall, toks,
+                dense=dense["stats"], runs=runs, routing_check=routing,
+                step1_logits_max_abs_err_vs_dense=step1_err,
+                step1_logits_err_by_seq=errs, step1_tol=KERNEL_TOL,
+                routing_near_ties=ties, route_tie=ROUTE_TIE,
+                tokens_compared={"dense vs paged h1": compared,
+                                 "paged h1 vs h8": n_req * gen,
+                                 "paged h1 vs pool": compared_pool},
+                tokens_request0=tokens_h1[seqs[0]],
+                profile_paged_decode_step=profile_step,
+                profile_dense_prefill=profile_prefill, launches=counts)
+    return counts
+
+
+def family_scout(torch, np, ops, smi):
+    """llama4-scout-17b-a16e at full width, FAMILIES["scout"]["layers"]
+    layers: dense prefill and greedy decode steps against its own
+    forward."""
+    spec = FAMILIES["scout"]
+    cfg, model, params, init_s = family_model(
+        torch, spec["arch"], spec["layers"], moe_no_drop=True)
+    prompts = torch.from_numpy(family_prompts(np, cfg, 22)).long().to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    stats, cache, cur = decode_vs_forward(torch, model, params,
+                                          {"tokens": prompts},
+                                          spec["decode_steps"])
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    check(counts["flash_attention_f32"] == 2 * cfg.n_layers,
+          "llama4-scout: one flash launch a layer in the prefill and in "
+          "the forward")
+    profile = profile_calls(torch, lambda: model.decode_step(
+        params, cache, cur), 1, FAMILY_MATCH)
+    family_line(torch, smi, "llama4-scout", cfg, params, init_s,
+                counts, ("flash_attention_f32",), wall,
+                prompts.numel() * 2 + prompts.shape[0] * spec[
+                    "decode_steps"], **stats, group=cfg.n_heads //
+                cfg.n_kv_heads, profile_decode_step=profile,
+                launches=counts)
+    return counts
+
+
+def family_int8(torch, np, ops, smi):
+    """granite-3-2b's int8 dense-decode cache (``kv_quant="int8"``) on
+    the serve phase's weights (seed 0) and prompts: the f32 prefill cache
+    quantized by ``layers.quantize_kv``, as tests/test_optimizations.py
+    does, then decode steps on both caches, fed the same tokens: softmax
+    within 5e-3, greedy tokens equal wherever the f32 cache's top-2 gap
+    is over 0.05."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import get_model
+    spec = FAMILIES["int8"]
+    cfg, m_fp, params, init_s = family_model(torch, spec["arch"])
+    m_q8 = get_model(cfg, kv_quant="int8")
+    prompts = torch.from_numpy(family_prompts(np, cfg, 0)).long().to(DEVICE)
+    steps = spec["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    logits, cache = m_fp.prefill(params, {"tokens": prompts},
+                                 cache_dtype=torch.float32)
+    for name in ("k", "v"):
+        cache[name] = F.pad(cache[name], (0, 0, 0, steps + 1))
+    kq, ks = L.quantize_kv(cache["k"])
+    vq, vs = L.quantize_kv(cache["v"])
+    q8 = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+          "index": cache["index"]}
+    cur = logits.argmax(-1)
+    prob_err, decisive, q8_s = 0.0, 0, 0.0
+    for _ in range(steps):
+        lf, cache = m_fp.decode_step(params, cache, cur)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        lq, q8 = m_q8.decode_step(params, q8, cur)
+        torch.cuda.synchronize()
+        q8_s += time.monotonic() - t
+        prob_err = max(prob_err, float((torch.softmax(lf, -1) -
+                                        torch.softmax(lq, -1)).abs().max()))
+        top2 = torch.topk(lf, 2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > INT8_DECISIVE_GAP
+        check(torch.equal(lf.argmax(-1)[sure], lq.argmax(-1)[sure]),
+              "granite int8 cache: a decisive greedy token differs")
+        decisive += int(sure.sum())
+        cur = lf.argmax(-1)
+    check(prob_err <= INT8_SOFTMAX_TOL, f"granite int8 cache: softmax "
+          f"{prob_err} > {INT8_SOFTMAX_TOL}")
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    profile = profile_calls(torch, lambda: m_q8.decode_step(params, q8, cur),
+                            1, FAMILY_MATCH)
+    family_line(torch, smi, "granite-int8-cache", cfg, params, init_s,
+                counts, ("flash_attention_f32",), wall,
+                prompts.numel() + 2 * prompts.shape[0] * steps,
+                decode_steps=steps, q8_decode_s=q8_s,
+                q8_decode_tok_s=prompts.shape[0] * steps / q8_s,
+                softmax_max_abs_err=prob_err,
+                softmax_tol=INT8_SOFTMAX_TOL, decisive_tokens=decisive,
+                decisive_tokens_equal=True,
+                cache_bytes={"int8": sum(t.numel() * t.element_size()
+                                         for t in (kq, vq, ks, vs)),
+                             "f32": 2 * kq.numel() * 4},
+                profile_q8_decode_step=profile, launches=counts)
+    return counts
+
+
+def family_zamba2(torch, np, ops, smi):
+    """zamba2-1.2b at full width and depth: prefill, greedy decode steps,
+    both within 5e-4 of ``forward`` on the same tokens."""
+    spec = FAMILIES["zamba2"]
+    cfg, model, params, init_s = family_model(torch, spec["arch"])
+    prompts = torch.from_numpy(family_prompts(np, cfg, 23)).long().to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    stats, cache, cur = decode_vs_forward(torch, model, params,
+                                          {"tokens": prompts}, spec["gen"],
+                                          pad_to=model.chunk)
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    check(counts["flash_attention_f32"] == 2 * model.n_attn,
+          f"zamba2: flash launched {counts['flash_attention_f32']} times, "
+          f"not once per shared-block application in the prefill and the "
+          f"forward ({2 * model.n_attn})")
+    profile_step = profile_calls(torch, lambda: model.decode_step(
+        params, cache, cur), 1, FAMILY_MATCH)
+    profile_prefill = profile_calls(torch, lambda: model.prefill(
+        params, {"tokens": prompts}, cache_dtype=torch.float32), 1,
+        FAMILY_MATCH)
+    family_line(torch, smi, "zamba2", cfg, params, init_s, counts,
+                ("flash_attention_f32",), wall,
+                2 * prompts.numel() + prompts.shape[0] * spec["gen"] * 2,
+                **stats, shared_block_applications=model.n_attn,
+                profile_decode_step=profile_step,
+                profile_prefill=profile_prefill, launches=counts)
+    return counts
+
+
+def family_paligemma(torch, np, ops, smi):
+    """paligemma-3b at full width and depth: prefill from synthetic patch
+    embeddings, then greedy token decode steps, within 5e-4 of
+    ``forward`` over the patches and the fed tokens' embeddings."""
+    from repro_torch.models.frontends import synth_embeddings
+    spec = FAMILIES["paligemma"]
+    cfg, model, params, init_s = family_model(torch, spec["arch"])
+    patches = synth_embeddings(
+        cfg, FAMILIES["requests"], spec["patches"],
+        torch.Generator(device=DEVICE).manual_seed(24), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    stats, cache, cur = decode_vs_forward(torch, model, params,
+                                          {"embeds": patches}, spec["gen"])
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    check(counts["flash_attention_f32"] == 2 * cfg.n_layers,
+          "paligemma: one flash launch a layer in the prefill and in the "
+          "forward")
+    profile = profile_calls(torch, lambda: model.prefill(
+        params, {"embeds": patches}, cache_dtype=torch.float32), 1,
+        FAMILY_MATCH)
+    family_line(torch, smi, "paligemma", cfg, params, init_s, counts,
+                ("flash_attention_f32",), wall,
+                2 * patches.shape[0] * patches.shape[1] +
+                patches.shape[0] * spec["gen"] * 2, **stats,
+                flash_route="FMA (head_dim 256)", profile_prefill=profile,
+                launches=counts)
+    return counts
+
+
+def family_hubert(torch, np, ops, smi):
+    """hubert-xlarge at full width and depth: ``forward`` on synthetic
+    frame embeddings; changing the last frame moves the first frame's
+    logits (tests/test_models.py's bidirectional check)."""
+    from repro_torch.models.frontends import synth_embeddings
+    spec = FAMILIES["hubert"]
+    cfg, model, params, init_s = family_model(torch, spec["arch"])
+    frames = synth_embeddings(
+        cfg, FAMILIES["requests"], spec["frames"],
+        torch.Generator(device=DEVICE).manual_seed(25), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    l1, _ = model.forward(params, {"embeds": frames})
+    torch.cuda.synchronize()
+    forward_s = time.monotonic() - t0
+    changed = frames.clone()
+    changed[:, -1] = 0.0
+    l2, _ = model.forward(params, {"embeds": changed})
+    moved = float((l1[:, 0] - l2[:, 0]).abs().max())
+    check(bool(torch.isfinite(l1).all()) and tuple(l1.shape) == (
+        *frames.shape[:2], cfg.vocab_size), "hubert logits: shape, finite")
+    check(moved > 1e-6, f"hubert: the last frame moved the first logits by "
+          f"{moved}, not past 1e-6 (not bidirectional)")
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    check(counts["flash_attention_f32"] == 2 * cfg.n_layers,
+          "hubert: one flash launch a layer a forward")
+    profile = profile_calls(torch, lambda: model.forward(
+        params, {"embeds": frames}), 1, FAMILY_MATCH)
+    family_line(torch, smi, "hubert", cfg, params, init_s, counts,
+                ("flash_attention_f32",), wall, 2 * frames.shape[0] *
+                frames.shape[1], forward_s=forward_s,
+                forward_tok_s=frames.shape[0] * frames.shape[1] / forward_s,
+                first_logits_moved_by_last_frame=moved,
+                profile_forward=profile, launches=counts)
+    return counts
+
+
+def phase_families(torch, np, smi):
+    """The archs no earlier phase runs, one at a time (each model's
+    weights freed before the next is built), launch counters reset just
+    before each and read just after.  Returns {model: launch counts}."""
+    from repro_torch.kernels import ops
+    t_phase = time.monotonic()
+    per_model = {}
+    for name, run in (("phi3.5-moe", family_moe),
+                      ("llama4-scout", family_scout),
+                      ("granite-int8-cache", family_int8),
+                      ("zamba2", family_zamba2),
+                      ("paligemma", family_paligemma),
+                      ("hubert", family_hubert)):
+        torch.cuda.empty_cache()
+        per_model[name] = run(torch, np, ops, smi)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    counts = {k: sum(c[k] for c in per_model.values())
+              for k in per_model["hubert"]}
+    emit({"phase": "families", "launches": counts,
+          "phase_s": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return per_model
+
+
 def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -3935,10 +4725,14 @@ def main() -> int:
     del data
     dense_counts = phase_dense(torch, np, smi, served)
     train_counts = phase_train(torch, np, smi)
+    family_counts = phase_families(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, spec_counts, pool_counts, reduced_counts, isp_counts,
-            dense_counts, train_counts))
+            dense_counts, train_counts, *family_counts.values()))
+        if "families_model" in entry:
+            entry["launches_in_families"] = family_counts[
+                entry["families_model"]][entry["kernel"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,16 @@ on one device.
       [--speculative] [--temperature 0.8 --top-p 0.9] [--prefill-chunk 256]
 
 Without ``--paged`` (the default path): one prefill of all prompts, the
-KV cache of a transformer padded to ``prompt_len + gen``, then ``gen``
-decode steps (``make_serving_fns``); transformer and RWKV6 archs.
+KV cache of a transformer or of Zamba2's shared block padded to
+``prompt_len + gen``, then ``gen`` decode steps (``make_serving_fns``);
+transformer (dense or MoE FFN, never dropping a token, as the JAX
+launcher builds it), RWKV6 and Zamba2 archs.
 Tokens are greedy, or with ``--temperature > 0`` drawn from the
 temperature/top-p distribution with the Gumbel noise of
 ``fold_in(key(0), step)`` over the whole [batch, vocab] row block, as
 the JAX launcher draws them.  ``--paged`` serves a transformer from the
-paged KV store; ``--speculative`` (needs ``--horizon >= 2``) runs
+paged KV store (transformer archs only, as in the JAX launcher);
+``--speculative`` (needs ``--horizon >= 2``) runs
 draft-verify passes and prints the speculation telemetry.  ``--pool``
 serves a transformer from a ``PoolServer`` of ``--nodes`` DockerSSD
 nodes emulated on the one card (``--hbm-pages`` window pages each;
@@ -107,7 +110,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = get_model(cfg)
+    model = get_model(cfg, moe_no_drop=True)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen, device=device)
     rng = np.random.default_rng(0)
@@ -127,7 +130,7 @@ def main(argv=None):
               f"in {dt:.2f}s ({toks / dt:.1f} tok/s)")
         return out
     if cfg.block_type != "transformer":
-        raise SystemExit("--paged serves transformer archs")
+        raise SystemExit("--paged demo path supports transformer archs")
     server = PagedServer(model, params, page_size=args.page_size,
                          hbm_pages=args.hbm_pages,
                          page_dtype=args.page_dtype, device=device)
@@ -154,7 +157,7 @@ def _serve_pool(args, model, params, prompts, device, sampling, t0):
     """The pool path: PoolServer + StoragePool frontend + PoolRouter.
     Returns {request: generated tokens}."""
     if model.cfg.block_type != "transformer":
-        raise SystemExit("--pool serves transformer archs")
+        raise SystemExit("--pool demo path supports transformer archs")
     server = PoolServer(model, params, n_nodes=args.nodes or None,
                         page_size=args.page_size,
                         hbm_pages_per_node=args.hbm_pages,
@@ -193,7 +196,8 @@ def dense_pick(logits, sampling, key, step: int):
 
 
 def _serve_dense(model, params, prompts, gen, device, sampling=None):
-    """Prefill, grow a transformer's KV cache to ``prompt_len + gen``,
+    """Prefill, grow a KV cache (a transformer's, Zamba2's shared
+    block's) to ``prompt_len + gen``,
     then ``gen`` decode steps, tokens picked by :func:`dense_pick`.
     Returns {request: gen tokens}."""
     prefill, decode = make_serving_fns(model)

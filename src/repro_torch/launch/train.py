@@ -8,8 +8,11 @@
 Grad-accum AdamW train step (``runtime.train.make_train_step``) with a
 warm-up cosine schedule, the deterministic sharded data pipeline, async
 atomic checkpoints with restart (``--resume``), and the gradient
-compression option.  ``TransformerLM`` archs; attention runs through the
-flash-attention kernels and their backward.  Each layer is recomputed
+compression option.  ``TransformerLM`` archs (dense or MoE FFN, the
+loss with its load-balancing term; a frontend arch trains on
+``frontends.synth_embeddings`` drawn at seed ``step``, as the JAX
+launcher feeds it); attention runs through the flash-attention kernels
+and their backward.  Each layer is recomputed
 in the backward pass (``remat="full"``) unless ``--reduced``, as in the
 reference.  Runs on ``cuda`` unless ``--device cpu`` is given; without a
 card it raises rather than run on the CPU.  Weights are random, drawn
@@ -28,6 +31,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.data import ShardedLoader
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model
+from repro_torch.models.frontends import synth_embeddings
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.optim import compression as comp
 from repro_torch.runtime.train import make_train_step
@@ -76,8 +80,6 @@ def build(args: argparse.Namespace, cfg=None) -> SimpleNamespace:
             cfg = cfg.reduced()
     model = get_model(cfg, compute_dtype=DTYPES[args.dtype],
                       remat="none" if args.reduced else "full")
-    if model.uses_embeds():
-        raise NotImplementedError("frontend embeddings: not yet ported")
     sched = warmup_cosine(args.lr, max(args.steps // 10, 1), args.steps)
     init_fn, upd_fn = adamw(lr=sched)
 
@@ -115,6 +117,11 @@ def main(argv=None):
     try:
         for step in range(run.step0, args.steps):
             batch = to_device(next(loader), run.device)
+            if run.model.uses_embeds():
+                batch = {"embeds": synth_embeddings(
+                    run.cfg, args.batch, args.seq,
+                    torch.Generator(device=run.device).manual_seed(step),
+                    device=run.device), "labels": batch["labels"]}
             if args.compression != "none":
                 params, opt_state, residuals, metrics = run.step(
                     params, opt_state, residuals, batch)

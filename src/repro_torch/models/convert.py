@@ -2,9 +2,11 @@
 
 Both sides use the same nested-dict layout (stacked layers, ``[d_in,
 d_out]`` weights), so conversion is leaf by leaf, whatever the tree
-holds: the transformer's ``attn``/``mlp`` blocks and tied embedding, or
-RWKV6's stacked ``time_mix``/``channel_mix`` blocks, its ``ln0`` and its
-untied ``lm_head``; the AdamW state converts the same way
+holds: the transformer's ``attn``/``mlp`` blocks and tied embedding
+(an MoE ``mlp``: the ``router`` and ``w_gate``/``w_up``/``w_down`` as
+[L, E, d, f]), RWKV6's stacked ``time_mix``/``channel_mix`` blocks, its
+``ln0`` and its untied ``lm_head``, or Zamba2's ``shared_attn``, stacked
+``layers.mamba`` and ``lm_head``; the AdamW state converts the same way
 (:func:`opt_state_from_jax`).  The JAX side hands over plain
 ``np.ndarray`` leaves (``jax.device_get`` on its params), so this module
 needs neither JAX nor the JAX package.

@@ -8,8 +8,11 @@ tests compare like with like:
   * softmax and norms run in f32;
   * prefill and full-forward attention go through the flash-attention
     kernel (``kernels.ops.flash_attention``); one-token decode attention
-    stays plain torch, as the JAX package computes it with ``einsum``
-    outside any kernel.
+    (f32/bf16 or int8 cache) stays plain torch, as the JAX package
+    computes it with ``einsum`` outside any kernel;
+  * the MoE FFN routes as the reference's ``apply_moe`` does and runs
+    each expert's products on its kept rows only (``torch.matmul``, as
+    the reference's ``einsum``), not on capacity-sized buffers.
 """
 from __future__ import annotations
 
@@ -104,8 +107,26 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# attention projections
+# attention
 # ---------------------------------------------------------------------------
+
+
+def init_attention(generator, cfg, *, lead=(), dtype=torch.float32,
+                   device=None):
+    """GQA projections of shape ``lead + ...`` (fan-in init; zero QKV
+    biases where ``cfg.qkv_bias``)."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kw = dict(dtype=dtype, device=device)
+    p = {"wq": dense_init(generator, (*lead, d, h * hd), **kw),
+         "wk": dense_init(generator, (*lead, d, hkv * hd), **kw),
+         "wv": dense_init(generator, (*lead, d, hkv * hd), **kw),
+         "wo": dense_init(generator, (*lead, h * hd, d), **kw)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, h * hd), **kw)
+        p["bk"] = torch.zeros((*lead, hkv * hd), **kw)
+        p["bv"] = torch.zeros((*lead, hkv * hd), **kw)
+    return p
+
 
 
 def _qkv(p, x, cfg):
@@ -184,8 +205,61 @@ def decode_attention(p, x, cfg, k_cache, v_cache, index: int):
     return out, k_cache, v_cache
 
 
+def quantize_kv(x):
+    """Symmetric per-token int8 quantization over the last dim.
+    x: [..., D] float -> (int8 codes [..., D], f32 scale [...])."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _bf16_f32(x):
+    """``x`` rounded to bf16, back in f32: the reference's bf16 operands
+    with f32 accumulation (``preferred_element_type``).  Products of
+    bf16 values are exact in f32, so an f32 product of the rounded
+    operands is that product; a bf16 ``einsum`` would round its output."""
+    return x.to(torch.bfloat16).float()
+
+
+def decode_attention_q8(p, x, cfg, k_cache, v_cache, k_scale, v_scale,
+                        index: int):
+    """``decode_attention`` over an int8 KV cache.
+
+    k_cache/v_cache: int8 [B, Hkv, S, D]; k_scale/v_scale: f32 [B, Hkv,
+    S]; the new position is quantized and written in place at ``index``.
+    Operands go to bf16 with f32 sums, and the scales fold in the
+    reference's order: ``logits * k_scale / sqrt(D)``, then ``probs *
+    v_scale`` before the bf16 cast.  Returns (attn_out [B, 1, d],
+    k_cache, v_cache, k_scale, v_scale)."""
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = k_cache.shape[2]
+    q, k, v = _qkv(p, x, cfg)
+    if cfg.rope:
+        pos = torch.full((b, 1), index, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    kq, ks = quantize_kv(k[:, 0])                        # [B,Hkv,D],[B,Hkv]
+    vq, vs = quantize_kv(v[:, 0])
+    k_cache[:, :, index] = kq
+    v_cache[:, :, index] = vq
+    k_scale[:, :, index] = ks
+    v_scale[:, :, index] = vs
+    qg = q.reshape(b, hkv, h // hkv, hd)
+    logits = torch.einsum("bhgd,bhsd->bhgs", _bf16_f32(qg), k_cache.float())
+    logits = logits * k_scale[:, :, None, :] / math.sqrt(hd)
+    valid = torch.arange(s, device=x.device) <= index
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    pw = probs * v_scale[:, :, None, :]
+    out = torch.einsum("bhgs,bhsd->bhgd", _bf16_f32(pw), v_cache.float())
+    out = out.to(x.dtype).reshape(b, 1, h * hd) @ p["wo"].to(x.dtype)
+    return out, k_cache, v_cache, k_scale, v_scale
+
+
 # ---------------------------------------------------------------------------
-# MLP (gated / plain)
+# MLP (gated / plain) and MoE
 # ---------------------------------------------------------------------------
 
 
@@ -195,6 +269,21 @@ def _gate_act(x, act):
     return F.gelu(x, approximate="tanh")   # geglu; jax.nn.gelu's default
 
 
+def init_mlp(generator, cfg, *, lead=(), dtype=torch.float32, device=None):
+    """A gated MLP (``w_gate``, ``w_up``, ``w_down``), or for ``act ==
+    "gelu"`` a plain one with biases, of shape ``lead + ...``."""
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device)
+    if cfg.act == "gelu":
+        return {"w_up": dense_init(generator, (*lead, d, f), **kw),
+                "b_up": torch.zeros((*lead, f), **kw),
+                "w_down": dense_init(generator, (*lead, f, d), **kw),
+                "b_down": torch.zeros((*lead, d), **kw)}
+    return {"w_gate": dense_init(generator, (*lead, d, f), **kw),
+            "w_up": dense_init(generator, (*lead, d, f), **kw),
+            "w_down": dense_init(generator, (*lead, f, d), **kw)}
+
+
 def apply_mlp(p, x, act):
     if "w_gate" not in p:
         h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
@@ -202,6 +291,120 @@ def apply_mlp(p, x, act):
         return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
     h = _gate_act(x @ p["w_gate"].to(x.dtype), act) * (x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+def init_moe(generator, cfg, *, lead=(), dtype=torch.float32, device=None):
+    """MoE params of shape ``lead + ...``: the router [d, E] and each
+    expert's gated MLP, ``w_gate``/``w_up`` [E, d, f], ``w_down`` [E, f,
+    d] (fan-in d, d and f, as the reference's ``init_moe``)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    kw = dict(in_axis=-2, dtype=dtype, device=device)
+    return {"router": dense_init(generator, (*lead, d, e), **kw),
+            "w_gate": dense_init(generator, (*lead, e, d, f), **kw),
+            "w_up": dense_init(generator, (*lead, e, d, f), **kw),
+            "w_down": dense_init(generator, (*lead, e, f, d), **kw)}
+
+
+def moe_capacity(cfg, t: int, capacity=None, no_drop: bool = False) -> int:
+    """Rows an expert keeps a slot: every token with ``no_drop``, else
+    ``capacity`` or ``int(capacity_factor * T * k / E)`` (at least 1)."""
+    if no_drop:
+        return t
+    if capacity is None:
+        capacity = max(int(cfg.capacity_factor * t * cfg.top_k /
+                           cfg.n_experts), 1)
+    return capacity
+
+
+def moe_route(p, xt, cfg, capacity: int):
+    """The reference's token-choice top-k routing of ``xt`` [T, d].
+
+    Ties go to the lower expert id (a stable descending sort, as
+    ``lax.top_k`` breaks them); the top-k weights are renormalised; a
+    token's place in slot j's buffer of its expert is its rank among the
+    tokens routed there in slot j, in token order, and it is dropped at
+    ``pos >= capacity``.  Returns (topv [T, k] f32, topi [T, k], keep
+    [T, k] bool, the Switch-style aux loss over ``topi[:, 0]``)."""
+    e, k = cfg.n_experts, cfg.top_k
+    logits = (xt @ p["router"].to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    density = F.one_hot(topi[:, 0], e).float().mean(dim=0)
+    aux = torch.sum(density * probs.mean(dim=0)) * (e ** 2) / e
+    onehot = F.one_hot(topi, e)                               # [T, k, E]
+    pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+    return topv, topi, pos < capacity, aux
+
+
+def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False):
+    """Token-choice top-k MoE.  x: [B, S, d].  Returns (out, aux).
+
+    Routing is the reference's (:func:`moe_route`).  Dispatch differs:
+    the (token, slot) pairs each expert keeps are gathered, sorted by
+    expert, and each expert runs its three products on its own rows, so
+    the work is the routed rows', not E capacity-sized buffers'.  A
+    dropped pair adds nothing; the slots are summed in order j = 0..k-1,
+    each weighted by its ``topv``, as the reference sums them.  One host
+    read a call: the rows each expert keeps."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    topv, topi, keep, aux = moe_route(
+        p, xt, cfg, moe_capacity(cfg, t, capacity, no_drop))
+    # pairs t*k + j sorted by expert, the dropped ones (id e) last
+    eid = torch.where(keep, topi, e).reshape(-1)
+    order = torch.argsort(eid, stable=True)
+    counts = torch.bincount(eid, minlength=e + 1).tolist()
+    kept = order[:t * k - counts[e]]
+    rows = xt[kept // k]
+    ys = []
+    for rows_e, wg, wu, wd in zip(rows.split(counts[:e]),
+                                  p["w_gate"].unbind(0),
+                                  p["w_up"].unbind(0),
+                                  p["w_down"].unbind(0)):
+        if rows_e.shape[0]:
+            h = (_gate_act(rows_e @ wg.to(x.dtype), cfg.act) *
+                 (rows_e @ wu.to(x.dtype)))
+            ys.append(h @ wd.to(x.dtype))
+    y = x.new_zeros((t * k, d)).index_copy(0, kept, torch.cat(ys))
+    y = y.reshape(t, k, d)
+    out = x.new_zeros((t, d))
+    for j in range(k):
+        out = out + y[:, j] * topv[:, j:j + 1].to(x.dtype)
+    return out.reshape(b, s, d), aux
+
+
+def apply_moe_dense(p, x, cfg, capacity=None, no_drop: bool = False):
+    """The reference's dense dispatch, kept as the plain version that
+    :func:`apply_moe` is held to: each slot scatters its kept tokens into
+    [E, capacity + 1, d] buffers (the last row takes the dropped ones)
+    and every expert runs over its whole buffer.  Returns (out, aux)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    cap = moe_capacity(cfg, t, capacity, no_drop)
+    topv, topi, _, aux = moe_route(p, xt, cfg, cap)
+    out = x.new_zeros((t, d))
+    for j in range(k):
+        eid = topi[:, j]
+        onehot = F.one_hot(eid, e)
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+        keep = pos < cap
+        slot = torch.where(keep, pos, cap)
+        buf = x.new_zeros((e, cap + 1, d))
+        buf = buf.index_put((eid, slot), torch.where(keep[:, None], xt, 0),
+                            accumulate=True)[:, :cap]
+        h = _gate_act(torch.einsum("ecd,edf->ecf", buf,
+                                   p["w_gate"].to(x.dtype)), cfg.act)
+        h = h * torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(x.dtype))
+        y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(x.dtype))
+        y = torch.cat([y, y.new_zeros((e, 1, d))], dim=1)
+        out = out + y[eid, slot] * topv[:, j:j + 1].to(x.dtype)
+    return out.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -255,7 +255,8 @@ def draft_ngram(hist, hist_len, n_draft: int):
 
 
 class PagedServer:
-    """Tiered-KV serving for a TransformerLM on one device.
+    """Tiered-KV serving for a TransformerLM (dense or MoE FFN) on one
+    device.
 
     All layers share one page table: a physical page id addresses the
     stacked KV ``[n_layers, page, Hkv, D]`` of that extent, so tiering
@@ -276,8 +277,6 @@ class PagedServer:
                              f"{self.device}")
         self.model = model
         self.cfg = model.cfg
-        if self.cfg.is_moe:
-            raise NotImplementedError("MoE FFN: not yet ported")
         self.params = params
         self._layers = [layer_params(params["layers"], li)
                         for li in range(self.cfg.n_layers)]
@@ -372,11 +371,14 @@ class PagedServer:
         return q, k, v
 
     def _attn_out_ffn(self, lp, h, o_flat):
-        """Attention output-projection residual + FFN residual.
+        """Attention output-projection residual + FFN residual (an MoE
+        FFN never drops a token here: ``no_drop``, as in the reference).
         o_flat: [B, S, H*D]."""
         cfg = self.cfg
         h = h + o_flat @ lp["attn"]["wo"].to(h.dtype)
         m = L.apply_norm(lp["mlp_norm"], h, cfg.norm)
+        if cfg.is_moe:
+            return h + L.apply_moe(lp["mlp"], m, cfg, no_drop=True)[0]
         return h + L.apply_mlp(lp["mlp"], m, cfg.act)
 
     def _kernel_attention(self, q, li, page_table, lengths):

@@ -96,13 +96,13 @@ def test_emulated_3xtf32_flash_matches_plain_and_pallas(d, causal, group):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_kernel_takes_every_configs_attention(arch):
-    """Every configuration's head_dim and GQA group; the ones the port's
-    get_model builds (phi3-mini-3.8b's head_dim is 96) reach the kernel
-    on every prefill."""
+    """Every configuration's head_dim and GQA group (phi3-mini-3.8b's
+    head_dim is 96, paligemma-3b's 256, llama4-scout's group 5); the
+    port's get_model builds every one of them (MoE archs too), so each
+    reaches the kernel on every prefill."""
     cfg = get_arch(arch)
     assert tflash.kernel_takes(cfg.hd, cfg.n_heads // cfg.n_kv_heads)
-    if cfg.block_type == "transformer" and not cfg.is_moe:
-        assert get_model(cfg).cfg is cfg
+    assert get_model(cfg).cfg is cfg
 
 
 @pytest.mark.parametrize("d,group,takes", [

@@ -61,16 +61,63 @@ def test_launcher_runs_on_cpu_when_asked():
     assert {k: len(v) for k, v in out.items()} == {0: 3, 1: 3}
 
 
+LAUNCH = ["--reduced", "--device", "cpu", "--requests", "2", "--prompt-len",
+          "6", "--gen", "4", "--page-size", "4", "--hbm-pages", "16"]
+
+
+def _reference_tokens(flags):
+    """What the JAX launcher serves for ``flags + LAUNCH`` (its weights,
+    ``PRNGKey(0)``; its prompts): the paged path's ``decode`` tokens, or
+    for ``--pool`` the router's outputs (the prefill's token first),
+    which equal the single server's by the pool's contract."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs.base import get_arch as jget_arch
+    from repro.models.api import get_model as jget_model
+    from repro.runtime.serve import PagedServer as JServer
+
+    cfg = jget_arch(flags[1]).reduced()
+    model = jget_model(cfg, compute_dtype=jnp.float32, moe_no_drop=True)
+    params = model.init(jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6),
+                                                dtype=np.int32)
+    server = JServer(model, params, page_size=4, hbm_pages=16)
+    first = [int(np.argmax(server.add_request(i, p)))
+             for i, p in enumerate(prompts)]
+    params = jax.device_get(params)
+    if "--pool" not in flags:
+        return params, server.decode(4)
+    rest = server.decode(3)
+    return params, {i: [first[i], *rest[i]] for i in range(2)}
+
+
 @pytest.mark.parametrize("flags", [
     ["--arch", "phi3.5-moe-42b-a6.6b", "--paged"],
     ["--arch", "phi3.5-moe-42b-a6.6b", "--pool", "--nodes", "2"],
     ["--arch", "zamba2-1.2b", "--pool", "--temperature", "0.8"]])
-def test_launcher_paths_not_yet_ported_exit(flags):
-    """Archs the port does not serve yet (an MoE FFN, the zamba2 hybrid
-    block) stop in the model code, on every launcher path."""
+def test_launcher_paths_not_yet_ported_exit(flags, monkeypatch):
+    """The MoE arch runs the paged and the 2-node pool path on the CPU
+    and, on the JAX launcher's weights, gives its tokens; the zamba2
+    hybrid block stops at the JAX launcher's ``SystemExit`` (those paths
+    serve transformer archs only)."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.main([*flags, "--reduced", "--device", "cpu"])
+    from repro_torch.models.convert import params_from_jax
+    if flags[1] == "zamba2-1.2b":
+        with pytest.raises(SystemExit, match="supports transformer archs"):
+            serve.main([*flags, *LAUNCH])
+        return
+    jparams, want = _reference_tokens(flags)
+    build = serve.get_model
+
+    def on_reference_weights(cfg, **kw):
+        model = build(cfg, **kw)
+        model.impl.init = lambda *a, **k: params_from_jax(jparams,
+                                                          device="cpu")
+        return model
+
+    monkeypatch.setattr(serve, "get_model", on_reference_weights)
+    assert serve.main([*flags, *LAUNCH]) == want
 
 
 def test_launcher_pool_runs_on_cpu_when_asked():
