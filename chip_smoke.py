@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, in phases; each phase prints
-one JSON line and any failure exits non-zero:
+Drives the port's paths (serving, in-storage processing, training) on
+the card, in phases; each phase prints JSON lines and any failure exits
+non-zero:
 
   env      the card (name and power limit from nvidia-smi), torch and
            CUDA versions; fails when torch.cuda.is_available() is false
@@ -146,6 +147,26 @@ one JSON line and any failure exits non-zero:
            embeddings) and hubert-xlarge (bidirectional) at full width
            and depth; one line a model with its wall time, tokens/s, peak
            memory, attention launches and profiles of a step
+  train_families
+           training of the families the train phase does not run, each
+           built on the card from a seeded generator in f32 through
+           launch.train.build and freed before the next, launch counters
+           reset just before and read just after its full run: rwkv6-3b
+           (the wkv scan through the forward kernel's states variant and
+           the backward kernel) and zamba2-1.2b at full depth and width,
+           phi3.5-moe-42b-a6.6b at full width cut to 2 of 32 layers; 3
+           steps of 8 x 512 tokens, grad-accum 2, remat full, AdamW
+           warmup_cosine, one step profiled (GEMM, wkv forward and
+           backward, flash ms; idle share, device operations); then at 2
+           layers of that width one step's loss (1e-5 rel) and gradients
+           (1e-4 x max(1, max|plain|)) against the plain flash and wkv
+           versions on the card (for the MoE both paths' routing
+           observed: a difference must start at a router margin below
+           1e-5, and the plain path is then held to the kernel path's
+           routes), a λFS restart bit-equal to the uninterrupted run
+           (phi3.5-moe at 1 layer), learnable data whose loss falls, and
+           launch.train.main at --reduced for rwkv6-3b and zamba2-1.2b
+           with checkpoints and --resume; one line a model
 
 The kernels phase also holds the flash-attention kernel (causal and not
 at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
@@ -156,11 +177,20 @@ bound of its 3xTF32 route and the f32 bound), the paged kernels at
 phi3.5-moe's serving shape (head_dim 128, group 4: decode and chunk on
 f32 and int8 pages, the pool forms at 2 nodes) and the RWKV6 wkv-scan
 kernel (at rwkv6-3b's, and untimed at WKV_SHAPES) against their plain
-versions.  Then the kernels line (launches: the serve, serve_spec,
-serve_pool, serve_reduced, isp, dense, train and families phases'
-counts; an entry of a families model's shape also its launches in that
-model's run), the nvidia-smi line, and the last line
-``{"ok": true, "device": {...}}``.
+versions; then the wkv training kernels at rwkv6-3b's train microbatch
+(B = 4) and at B = 8, each timed beside its bound and its plain version
+(no single PyTorch call computes either): the forward's states variant
+(o and sT bit-equal to rwkv_scan_f32, the step states within 1e-4 x
+max(1, max|plain|) of ``ref.wkv_states_ref``) and the backward
+rwkv_scan_bwd_f32 (every gradient within 1e-4 x max(1, max|plain|) of
+``ref.wkv_chunked_bwd_ref``, bit-equal over two runs, its distance from
+float64 autograd printed), untimed at WKV_SHAPES (harsh decays: within
+the limit or no farther from float64 than the plain backward).  Then
+the kernels line (launches: the serve, serve_spec, serve_pool,
+serve_reduced, isp, dense, train, families and train_families phases'
+counts, also apart for train and each train_families model; an entry of
+a families model's shape also its launches in that model's run), the
+nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2020,15 +2050,21 @@ DENSE_SOURCE = {"flash_attention_f32":
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "flash_attention_bwd_f32":
                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                "rwkv_scan_f32": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
-# the backward replaces no Pallas kernel: the JAX package takes the
-# gradient by autodiff of chunked_attention
+                "rwkv_scan_f32": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                "rwkv_scan_states_f32":
+                "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                "rwkv_scan_bwd_f32":
+                "src/repro_torch/kernels/csrc/rwkv_scan_bwd.cu"}
+# the backwards replace no Pallas kernel: the JAX package takes the
+# gradients by autodiff of chunked_attention and of wkv_chunked
 DENSE_REPLACES = {"flash_attention_f32":
                   "src/repro/kernels/flash_attention.py:26",
                   "flash_attention_fwd_lse_f32":
                   "src/repro/kernels/flash_attention.py:26",
                   "flash_attention_bwd_f32": "src/repro/models/layers.py:125",
-                  "rwkv_scan_f32": "src/repro/kernels/rwkv_scan.py:21"}
+                  "rwkv_scan_f32": "src/repro/kernels/rwkv_scan.py:21",
+                  "rwkv_scan_states_f32": "src/repro/kernels/rwkv_scan.py:21",
+                  "rwkv_scan_bwd_f32": "src/repro/models/rwkv6.py:56"}
 # granite-3-2b's dense prefill: 8 prompts of 512 tokens, 32 heads over 8
 # kv heads of 64
 FLASH = {"batch": 8, "heads": 32, "kv_heads": 8, "seq": 512, "head_dim": 64}
@@ -2125,6 +2161,8 @@ def phase_dense_kernels(torch, np, flush):
     flash_train_other_shapes(torch, np)
     results += wkv_cases(torch, np, flush)
     wkv_other_shapes(torch, np)
+    results += wkv_train_cases(torch, np, flush)
+    wkv_train_other_shapes(torch, np)
     return results
 
 
@@ -2593,20 +2631,223 @@ def wkv_other_shapes(torch, np):
           "tolerance": f"{WKV_TOL} x max(1, max|plain|)"})
 
 
+# the wkv training kernels at rwkv6-3b's train microbatch (4 x 512, grad-
+# accum 2 of 8 x 512) and at 8 x 512
+WKV_TRAIN_BATCHES = (4, 8)
+WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+
+
+def wkv_bwd_ops_per_step(step, dk, dv):
+    """f32 operations of one step of one (batch, head) in the backward's
+    chunk form: dV = A^T dO (lower triangle) + k~ G; dO S0^T, V G^T, r~^T
+    dO and G's decay; the scores and dP of the pairs s <= t; the pair
+    sums of dr' and dk' (sub, exp, multiply, two FMAs a key dim); the
+    cumulative sums, r~ and k~, the column pass and rowsum(S0 * G)."""
+    pairs = step * (step - 1) // 2
+    return (step * (step + 1) * dv + 2 * step * dk * dv +
+            6 * step * dk * dv + 2 * dk * dv +
+            4 * pairs * dk + 3 * step * dk + 2 * (pairs + step) * dv +
+            6 * pairs * dk + 13 * step * dk + 2 * dk * dv)
+
+
+def wkv_bwd_bound(b, s, h, dk, dv, step):
+    """The backward as a function: r, k, v, logw, do, u, s0 and dsT in,
+    dr, dk, dv, dlogw, du and ds0 out, each once (not the step states the
+    forward's states variant saves for it: printed apart), against the
+    operations of its steps."""
+    n_bytes = 4 * (6 * b * s * h * dk + 3 * b * s * h * dv + 2 * h * dk +
+                   3 * b * h * dk * dv)
+    return bytes_bound(n_bytes, b * h * (s // step) *
+                       wkv_bwd_ops_per_step(step, dk, dv))
+
+
+def wkv_train_inputs(torch, np, rng, b, s, h, dk, dv, sigma=1.0):
+    """(r, k, v, logw, u, s0, do, dsT) on the card, f32, logw =
+    -exp(N(0, sigma))."""
+    def dev(x):
+        return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+    r, k = (dev(rng.standard_normal((b, s, h, dk))) for _ in range(2))
+    v = dev(rng.standard_normal((b, s, h, dv)))
+    logw = dev(-np.exp(sigma * rng.standard_normal((b, s, h, dk))))
+    u = dev(rng.standard_normal((h, dk)))
+    s0 = dev(rng.standard_normal((b, h, dk, dv)))
+    do = dev(rng.standard_normal((b, s, h, dv)))
+    dsT = dev(rng.standard_normal((b, h, dk, dv)))
+    return r, k, v, logw, u, s0, do, dsT
+
+
+def check_wkv_train(torch, ops, args, chunk, what, harsh=False):
+    """The states variant and the backward on ``args`` against their plain
+    versions: o and sT bit-equal to ``rwkv_scan``'s, the states and every
+    gradient within WKV_TOL x max(1, max |plain|) (at harsh decays, or no
+    farther from float64 autograd than the plain backward), the backward
+    bit-equal over two runs.  Returns ({name: err}, states, sT, the
+    harsh-decay readings)."""
+    r, k, v, logw, u, s0, do, dsT = args
+    o1, s1 = ops.rwkv_scan(r, k, v, logw, u, s0, chunk=chunk)
+    o2, s2, states = ops.rwkv_scan_states(r, k, v, logw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    check(torch.equal(o1, o2) and torch.equal(s1, s2),
+          f"{what}: the states variant's o/sT differ from rwkv_scan's")
+    step = ops.ref.wkv_step_tokens(min(chunk, r.shape[1]))
+    want_st = ops.ref.wkv_states_ref(k, v, logw, s0, step)
+    errs = {"states": float((states - want_st).abs().max())}
+    lim = WKV_TOL * max(1.0, float(want_st.abs().max()))
+    check(errs["states"] <= lim or harsh,
+          f"{what}: states max_abs_err {errs['states']} > {lim}")
+    del want_st
+    got = ops.rwkv_scan_bwd(r, k, v, logw, u, s0, states, s2, do, dsT,
+                            chunk=chunk)
+    again = ops.rwkv_scan_bwd(r, k, v, logw, u, s0, states, s2, do, dsT,
+                              chunk=chunk)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two backward runs differ")
+    want = ops.ref.wkv_chunked_bwd_ref(r, k, v, logw, u, s0, do, dsT,
+                                       chunk=chunk)
+    exact = (ops.ref.wkv_chunked_bwd_ref(*(x.double() for x in args),
+                                         chunk=chunk)
+             if harsh else [None] * 6)
+    readings = []
+    for name, g, w, x in zip(WKV_GRADS, got, want, exact):
+        check(bool(torch.isfinite(g).all()), f"{what}: {name} finite")
+        err = float((g - w).abs().max())
+        lim = WKV_TOL * max(1.0, float(w.abs().max()))
+        errs[name] = err
+        if x is None:
+            check(err <= lim, f"{what}: {name} max_abs_err {err} > {lim}")
+            continue
+        k_err = float((g.double() - x).abs().max())
+        p_err = float((w.double() - x).abs().max())
+        check(err <= lim or k_err <= p_err,
+              f"{what}: {name} max_abs_err {err} > {lim} and {k_err} from "
+              f"float64 > the plain version's {p_err}")
+        readings.append({"case": what, "out": name, "vs_plain": err,
+                         "limit": lim, "kernel_vs_float64": k_err,
+                         "plain_vs_float64": p_err})
+    return errs, states, s2, readings
+
+
+def wkv_train_cases(torch, np, flush):
+    """The wkv training kernels at rwkv6-3b's shapes (B = 4, the train
+    microbatch, and 8; S = 512, H = 40, dk = dv = 64, chunk 32), each
+    against its plain version and timed beside its bound: the forward's
+    states variant, and the backward, also against float64 autograd (a
+    reading) and bit-equal over two runs."""
+    from repro_torch.kernels import ops
+
+    results = []
+    rng = np.random.default_rng(13)
+    s, h, dk, dv, chunk = (WKV[k] for k in ("seq", "heads", "dk", "dv",
+                                            "chunk"))
+    step = ops.ref.wkv_step_tokens(chunk)
+    for b in WKV_TRAIN_BATCHES:
+        args = wkv_train_inputs(torch, np, rng, b, s, h, dk, dv)
+        r, k, v, logw, u, s0, do, dsT = args
+        case = (f"B={b} S={s} H={h} dk={dk} dv={dv} chunk {chunk} (step "
+                f"{step}), logw = -exp(N(0,1)), s0, do, dsT ~ N(0,1) "
+                f"(rwkv6-3b {'train microbatch' if b == 4 else 'prefill'})")
+        errs, states, s_t, _ = check_wkv_train(torch, ops, args, chunk,
+                                               f"wkv train B={b}")
+
+        def fwd():
+            return ops.rwkv_scan_states(r, k, v, logw, u, s0, chunk=chunk)
+
+        def fwd_plain():
+            o = ops.ref.wkv_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+            return o, ops.ref.wkv_states_ref(k, v, logw, s0, step)
+        state_bytes = 4 * b * h * (s // step) * dk * dv
+        fwd_bound = wkv_bound(b, s, h, dk, dv, chunk)
+        kernel_line(
+            results, "rwkv_scan_states_f32", case, errs["states"],
+            time_ms(torch, fwd, flush), time_ms(torch, fwd_plain, flush,
+                                                PLAIN_ITERS, 1),
+            (fwd_bound[0] + state_bytes / HBM_BYTES_PER_S * 1e3,
+             fwd_bound[1]), None,
+            "none: no single PyTorch call computes the wkv recurrence",
+            DENSE_SOURCE["rwkv_scan_states_f32"],
+            f"o, sT bit-equal to rwkv_scan_f32; states {WKV_TOL} x max(1, "
+            "max|plain|)")
+
+        def bwd():
+            return ops.rwkv_scan_bwd(r, k, v, logw, u, s0, states, s_t, do,
+                                     dsT, chunk=chunk)
+
+        def bwd_plain():
+            return ops.ref.wkv_chunked_bwd_ref(r, k, v, logw, u, s0, do, dsT,
+                                               chunk=chunk)
+        kernel_line(
+            results, "rwkv_scan_bwd_f32", case,
+            max(errs[n] for n in WKV_GRADS), time_ms(torch, bwd, flush),
+            time_ms(torch, bwd_plain, flush, PLAIN_ITERS, 1),
+            wkv_bwd_bound(b, s, h, dk, dv, step), None,
+            "none: no single PyTorch call computes the wkv backward",
+            DENSE_SOURCE["rwkv_scan_bwd_f32"],
+            f"{WKV_TOL} x max(1, max|plain|) on each gradient")
+        results[-1]["errors"] = errs
+        results[-1]["states_bytes"] = state_bytes
+        results[-1]["deterministic"] = True
+        if b == WKV_TRAIN_BATCHES[0]:
+            got = bwd()
+            want = bwd_plain()
+            exact = ops.ref.wkv_chunked_bwd_ref(*(x.double() for x in args),
+                                                chunk=chunk)
+            results[-1]["vs_float64"] = {
+                name: {"kernel": float((g.double() - x).abs().max()),
+                       "plain": float((w.double() - x).abs().max())}
+                for name, g, w, x in zip(WKV_GRADS, got, want, exact)}
+            emit({"phase": "kernels", "kernel": "rwkv_scan_bwd_f32",
+                  "case": case, "vs_float64": results[-1]["vs_float64"]})
+            del got, want, exact
+        del args, r, k, v, logw, u, s0, do, dsT, states, s_t
+        torch.cuda.empty_cache()
+    return results
+
+
+def wkv_train_other_shapes(torch, np):
+    """The states variant and the backward at WKV_SHAPES (steps of 8-16
+    tokens, dk != dv, a step of 10, a 128 x 128 state, undecayed
+    tokens, harsh decays held to float64), each bit-equal over two runs.
+    Not timed."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(17)
+    worst, harsh = 0.0, []
+    for i, (b, s, h, dk, dv, chunk, sigma) in enumerate(WKV_SHAPES):
+        args = wkv_train_inputs(torch, np, rng, b, s, h, dk, dv, sigma)
+        if i == len(WKV_SHAPES) - 1:
+            args[3][:, ::5] = 0.0
+        what = (f"wkv train B={b} S={s} H={h} dk={dk} dv={dv} chunk "
+                f"{chunk} sigma {sigma}")
+        errs, _, _, readings = check_wkv_train(torch, ops, args, chunk, what,
+                                               harsh=sigma > 1)
+        harsh += readings
+        if sigma <= 1:
+            worst = max(worst, max(errs.values()))
+    emit({"phase": "kernels", "check": "wkv training kernels at other "
+          "shapes", "shapes_b_s_h_dk_dv_chunk_sigma": WKV_SHAPES,
+          "worst_max_abs_err": worst, "harsh_decays": harsh,
+          "tolerance": f"{WKV_TOL} x max(1, max|plain|); o/sT of the "
+          "states variant bit-equal to rwkv_scan_f32"})
+
+
 @contextlib.contextmanager
 def plain_kernels(ops):
     """The same path with the flash and wkv kernels' plain versions on
     the card (the wrappers launch their kernels for every CUDA tensor);
-    training attention differentiates the plain forward by autograd."""
-    saved = ops.flash_attention, ops.rwkv_scan, ops.flash_attention_with_grad
+    training attention and the training wkv scan differentiate the plain
+    forwards by autograd."""
+    saved = (ops.flash_attention, ops.rwkv_scan, ops.flash_attention_with_grad,
+             ops.rwkv_scan_with_grad)
     ops.flash_attention = ops.ref.flash_attention_ref
     ops.rwkv_scan = ops.ref.wkv_chunked_ref
     ops.flash_attention_with_grad = ops.ref.flash_attention_ref
+    ops.rwkv_scan_with_grad = ops.ref.wkv_chunked_ref
     try:
         yield
     finally:
-        (ops.flash_attention, ops.rwkv_scan,
-         ops.flash_attention_with_grad) = saved
+        (ops.flash_attention, ops.rwkv_scan, ops.flash_attention_with_grad,
+         ops.rwkv_scan_with_grad) = saved
 
 
 def dense_run(torch, prefill, decode, params, prompts, gen):
@@ -3629,16 +3870,17 @@ TRAIN = {"arch": "granite-3-2b", "batch": 8, "seq": 512, "grad_accum": 2,
 TRAIN_EXPECTED_GB = 54
 
 
-def train_objects(cfg, steps, *flags):
-    """The launcher's objects (``launch.train.build``) for TRAIN's arch,
-    batch and seq at ``steps`` steps, with ``flags`` added to its command
-    line, on the card: f32, remat "full", random params from a seeded
-    generator, AdamW with warmup_cosine.  ``cfg`` (not None) stands in
-    for the arch's config: the 2-layer cut."""
+def train_objects(cfg, steps, *flags, arch=None):
+    """The launcher's objects (``launch.train.build``) for ``arch``
+    (TRAIN's by default) at TRAIN's batch and seq and ``steps`` steps,
+    with ``flags`` added to its command line, on the card: f32, remat
+    "full", random params from a seeded generator, AdamW with
+    warmup_cosine.  ``cfg`` (not None) stands in for the arch's config:
+    a depth cut."""
     from repro_torch.launch.train import build, parse_args
 
     return build(parse_args([
-        "--arch", TRAIN["arch"], "--batch", str(TRAIN["batch"]),
+        "--arch", arch or TRAIN["arch"], "--batch", str(TRAIN["batch"]),
         "--seq", str(TRAIN["seq"]), "--steps", str(steps),
         "--device", DEVICE, *flags]), cfg=cfg)
 
@@ -4636,6 +4878,345 @@ def phase_families(torch, np, smi):
     return per_model
 
 
+# -- train_families -------------------------------------------------------------
+
+# the train_families phase (after families): training of the families the
+# train phase does not run, each built on the card in f32 from a seeded
+# generator (train_objects: launch.train.build at TRAIN's 8 x 512 tokens,
+# remat "full", AdamW with warmup_cosine), run and freed before the next.  rwkv6-3b and zamba2-1.2b at full depth
+# and width, phi3.5-moe at full width cut to 2 of 32 layers (5 f32 copies
+# of its 2.74B parameters: 55 GB; 3 layers would need 80).  Then at
+# gate_layers of the same width: one step against the plain versions, a
+# λFS restart (phi3.5-moe at restart_layers: its host copies of params and
+# moments), learnable data; and launch.train.main at --reduced.
+TRAIN_FAMILIES = {
+    "grad_accum": 2, "steps": 3, "lr": 3e-4,
+    "gate_layers": 2, "restart_layers": {"phi3.5-moe-42b-a6.6b": 1},
+    "restart_steps": 1, "learnable_steps": 10, "learnable_lr": 1e-3,
+    "reduced": False,
+    "models": (("rwkv6-3b", None), ("zamba2-1.2b", None),
+               ("phi3.5-moe-42b-a6.6b", 2)),
+}
+TRAIN_MATCH = {"gemm": "gemm", "wkv_fwd": "rwkv_scan_kernel",
+               "wkv_bwd": "rwkv_scan_bwd_kernel",
+               "flash_fwd": "flash_3xtf32", "flash_bwd": "flash_bwd_"}
+
+
+def train_family_cfg(arch, layers=None):
+    """``arch``'s config cut to ``layers`` at full width (the reduced
+    config, cut the same way, in a CPU rehearsal)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    if TRAIN_FAMILIES["reduced"]:
+        cfg = cfg.reduced()
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def train_family_kernels(cfg, model):
+    """{kernel: launches a microbatch} of a training step with remat
+    "full": RWKV6 runs the wkv states variant twice a layer (the forward
+    and its recompute) and the backward once; Zamba2's shared block (not
+    recomputed, as the reference's) the flash training forward and
+    backward once an application; a transformer each layer's flash
+    training forward twice and its backward once."""
+    if cfg.block_type == "rwkv6":
+        return {"rwkv_scan_states_f32": 2 * cfg.n_layers,
+                "rwkv_scan_bwd_f32": cfg.n_layers, "rwkv_scan_f32": 0}
+    if cfg.block_type == "mamba2_hybrid":
+        return {"flash_attention_fwd_lse_f32": model.n_attn,
+                "flash_attention_bwd_f32": model.n_attn,
+                "flash_attention_f32": 0}
+    return {"flash_attention_fwd_lse_f32": 2 * cfg.n_layers,
+            "flash_attention_bwd_f32": cfg.n_layers,
+            "flash_attention_f32": 0}
+
+
+@contextlib.contextmanager
+def pinned_routing(torch, recorded):
+    """``layers.moe_route`` replaying ``recorded`` top-k expert ids [T, k]
+    in call order: the weights, the aux term and the capacity drops
+    computed as ``moe_route`` computes them, from this path's router
+    probabilities at those ids (a path held to another at the routes the
+    other took)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    real = L.moe_route
+    it = iter(recorded)
+
+    def pinned(p, xt, cfg, capacity):
+        e = cfg.n_experts
+        topi = next(it)
+        probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), -1)
+        topv = probs.gather(-1, topi)
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        density = F.one_hot(topi[:, 0], e).float().mean(dim=0)
+        aux = torch.sum(density * probs.mean(dim=0)) * (e ** 2) / e
+        onehot = F.one_hot(topi, e)
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+        return topv, topi, pos < capacity, aux
+    L.moe_route = pinned
+    try:
+        yield
+    finally:
+        L.moe_route = real
+
+
+def train_family_gate(torch, np, ops, arch, cfg):
+    """One step's loss and gradients (grad-accum as the full run, no
+    clip) against the same step through the plain flash and wkv versions
+    on the card: loss within 1e-5 rel, each leaf within 1e-4 x max(1,
+    max |plain|).  For an MoE both paths' routing is observed; where it
+    differs, each difference must start at a router near-tie (margin
+    below ROUTE_TIE, printed) and the plain path is held to the kernel
+    path's routes (``pinned_routing``)."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train import make_train_step
+    tf = TRAIN_FAMILIES
+    run = train_objects(cfg, 1, "--grad-accum", str(tf["grad_accum"]),
+                        arch=arch)
+    model, params = run.model, run.params
+    batch = train_batch(torch, np, cfg, 0)
+    grads_only = lambda g, s, p: (g, s)
+    gstep = make_train_step(model, grads_only, grad_accum=tf["grad_accum"],
+                            clip=1e30)
+    observe = (lambda: observed_routing(torch)) if cfg.is_moe else (
+        lambda: contextlib.nullcontext([]))
+    with observe() as calls_k:
+        g_kernel, _, m_kernel = gstep(params, None, batch)
+    with plain_kernels(ops), observe() as calls_p:
+        g_plain, _, m_plain = gstep(params, None, batch)
+    routing = {"calls": len(calls_k), "differing_tokens": 0}
+    if cfg.is_moe:
+        check(len(calls_k) == len(calls_p), "routing calls differ")
+        worst = 0.0
+        for (ids_k, m_k), (ids_p, m_p) in zip(calls_k, calls_p):
+            where = (ids_k != ids_p).any(-1)
+            if bool(where.any()):
+                routing["differing_tokens"] += int(where.sum())
+                worst = max(worst, float(m_k[where].max()),
+                            float(m_p[where].max()))
+        routing["max_margin_of_a_difference"] = worst
+        if routing["differing_tokens"]:
+            emit({"phase": "train_families", "routing_near_tie": arch,
+                  **routing, "route_tie": ROUTE_TIE})
+            check(worst < ROUTE_TIE, f"{arch} gate: routed apart at a "
+                  f"router margin of {worst} (not below {ROUTE_TIE})")
+            del g_plain
+            with plain_kernels(ops), pinned_routing(
+                    torch, [ids for ids, _ in calls_k]):
+                g_plain, _, m_plain = gstep(params, None, batch)
+            routing["plain_path_pinned"] = True
+    loss_rel = abs(float(m_kernel["loss"]) - float(m_plain["loss"])) / abs(
+        float(m_plain["loss"]))
+    check(loss_rel <= 1e-5, f"{arch} gate: loss vs plain {loss_rel}")
+    grad_err = 0.0
+    for a, w in zip(tree_leaves(g_kernel), tree_leaves(g_plain)):
+        e = float((a - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        check(e <= 1e-4 * scale,
+              f"{arch} gate: gradient vs plain {e} > {1e-4 * scale}")
+        grad_err = max(grad_err, e / scale)
+    del g_kernel, g_plain, params, model, run, calls_k, calls_p
+    torch.cuda.empty_cache()
+    return {"loss_rel_err_vs_plain": loss_rel,
+            "grad_err_vs_plain": grad_err, "routing": routing}
+
+
+def train_family_restart(torch, np, arch, cfg):
+    """2 x restart_steps steps straight against restart_steps, a save into
+    λFS, a restore into a fresh template and restart_steps more: params
+    bit-equal (for an MoE: its gathers' gradients deterministic)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.lambda_fs import LambdaFS
+    from repro_torch.optim.adamw import tree_leaves
+    tf = TRAIN_FAMILIES
+    flags = ("--grad-accum", str(tf["grad_accum"]), "--lr", str(tf["lr"]))
+    half = tf["restart_steps"]
+    batches = [train_batch(torch, np, cfg, i) for i in range(2 * half)]
+    run = train_objects(cfg, 2 * half, *flags, arch=arch)
+    p, o, step = run.params, run.opt_state, run.step
+    for b in batches:
+        p, o, _ = step(p, o, b)
+    straight = [x.clone() for x in tree_leaves(p)]
+    del p, o, run
+    torch.cuda.empty_cache()
+    fs = LambdaFS()
+    mgr = CheckpointManager("/unused", fs=fs)
+    run = train_objects(cfg, 2 * half, *flags, arch=arch)
+    p, o, step = run.params, run.opt_state, run.step
+    for b in batches[:half]:
+        p, o, _ = step(p, o, b)
+    t0 = time.monotonic()
+    mgr.save(half, {"params": p, "opt": o})
+    save_s = time.monotonic() - t0
+    del p, o, run
+    torch.cuda.empty_cache()
+    run = train_objects(cfg, 2 * half, *flags, arch=arch)
+    t0 = time.monotonic()
+    state = mgr.restore({"params": run.params, "opt": run.opt_state})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    p, o, step = state["params"], state["opt"], run.step
+    del run
+    for b in batches[half:]:
+        p, o, _ = step(p, o, b)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p), straight)),
+          f"{arch}: the λFS restart is not bit-equal to the uninterrupted "
+          f"run")
+    used = fs.used
+    del p, o, state, straight, mgr, fs
+    torch.cuda.empty_cache()
+    return {"restart_layers": cfg.n_layers, "restart_bit_equal": True,
+            "restart_store": "LambdaFS", "checkpoint_save_s": save_s,
+            "checkpoint_restore_s": restore_s, "lambdafs_bytes": used}
+
+
+def train_family_learnable(torch, np, arch, cfg):
+    """learnable_steps steps on the learnable stream: finite losses, the
+    last below the first."""
+    tf = TRAIN_FAMILIES
+    run = train_objects(cfg, tf["learnable_steps"], "--lr",
+                        str(tf["learnable_lr"]), arch=arch)
+    p, o, step = run.params, run.opt_state, run.step
+    losses = []
+    for i in range(tf["learnable_steps"]):
+        p, o, m = step(p, o, train_batch(torch, np, cfg, i, "learnable"))
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{arch} learnable data: losses {losses}")
+    del p, o, run
+    torch.cuda.empty_cache()
+    return {"learnable_losses": losses}
+
+
+def train_family_launcher(torch, np, ops, arch, kernels):
+    """``launch.train.main`` at --reduced on the card (4 steps with async
+    checkpoints every 2, then --resume to 6): finite losses, checkpoints
+    2/4/6, and ``kernels`` launched."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    ckpt = ROOT / "build" / "chip_smoke_train_families"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tf = TRAIN_FAMILIES
+    argv = ["--arch", arch, "--reduced", "--steps", "4", "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--grad-accum", "2",
+            "--ckpt-dir", str(ckpt), "--ckpt-every", "2", "--log-every", "1",
+            "--device", DEVICE]
+    ops.reset_launch_counts()
+    losses = train.main(argv)
+    resumed = train.main([*argv, "--steps", "6", "--resume"])
+    counts = ops.launch_counts()
+    steps = CheckpointManager(str(ckpt)).steps()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(len(losses) == 4 and len(resumed) == 2 and
+          all(np.isfinite(losses + resumed)),
+          f"{arch} launcher losses {losses}, resumed {resumed}")
+    check(steps == [2, 4, 6], f"{arch} launcher checkpoints {steps}")
+    check(all(counts[k] > 0 for k in kernels),
+          f"{arch} launcher launches {counts}")
+    return {"launcher_losses": losses, "launcher_resumed_losses": resumed,
+            "launcher_checkpoints": steps,
+            "launcher_launches": {k: counts[k] for k in kernels}}
+
+
+def train_family(torch, np, ops, smi, arch, layers):
+    """One family: the full run (launch counters reset just before and
+    read just after, one step profiled), then the gate, the restart,
+    learnable data and, for the SSM families, the launcher.  Returns the
+    full run's launch counts."""
+    tf = TRAIN_FAMILIES
+    ga, n_steps = tf["grad_accum"], tf["steps"]
+    cfg = train_family_cfg(arch, layers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    run = train_objects(cfg, n_steps, "--grad-accum", str(ga), "--lr",
+                        str(tf["lr"]), arch=arch)
+    model, params, opt, step = run.model, run.params, run.opt_state, run.step
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = model.param_count(params)
+    batches = [train_batch(torch, np, cfg, i) for i in range(n_steps + 1)]
+    ops.reset_launch_counts()
+    walls, losses, norms = [], [], []
+    for batch in batches[:n_steps]:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))            # syncs
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.monotonic() - t0)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{arch} train: loss {losses}, grad norm {norms}")
+    want = {k: n * ga * n_steps
+            for k, n in train_family_kernels(cfg, model).items()}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{arch} train launches {got}, expected {want}")
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batches[n_steps])
+        float(m["loss"])
+    profile = profile_calls(torch, one_step, 1, TRAIN_MATCH)
+    steady = statistics.median(walls[1:])
+    line = {"phase": "train_families", "model": arch, "arch": cfg.name,
+            "n_layers": cfg.n_layers,
+            "depth_cut_from": train_family_cfg(arch).n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "params": n_params, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "grad_accum": ga, "remat": "full", "steps": n_steps,
+            "init_s": init_s, "losses": losses, "grad_norms": norms,
+            "step_wall_s": walls, "steady_step_wall_s": steady,
+            "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / steady,
+            "peak_memory_gb": peak_gb, "launches_a_step": {
+                k: n / n_steps for k, n in got.items()},
+            "idle_share": profile.get("idle_share"),
+            "device_ops_per_step": profile.get("device_ops_per_step"),
+            "profile_step": profile}
+    launched = [k for k, n in train_family_kernels(cfg, model).items() if n]
+    del model, params, opt, step, batches, run
+    torch.cuda.empty_cache()
+    gcfg = train_family_cfg(arch, tf["gate_layers"])
+    line.update(gate_layers=gcfg.n_layers,
+                **train_family_gate(torch, np, ops, arch, gcfg))
+    rcfg = train_family_cfg(arch, tf["restart_layers"].get(
+        arch, tf["gate_layers"]))
+    line.update(train_family_restart(torch, np, arch, rcfg))
+    line.update(train_family_learnable(torch, np, arch, gcfg))
+    if not cfg.is_moe:
+        line.update(train_family_launcher(torch, np, ops, arch, launched))
+    emit({**line, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "note": "smoke run, not a benchmark"})
+    return counts
+
+
+def phase_train_families(torch, np, smi):
+    """Training of rwkv6-3b, zamba2-1.2b and phi3.5-moe on the card, one
+    model at a time (each freed before the next).  Returns {model: the
+    full run's launch counts}."""
+    from repro_torch.kernels import ops
+    t_phase = time.monotonic()
+    per_model = {}
+    for arch, layers in TRAIN_FAMILIES["models"]:
+        per_model[arch] = train_family(torch, np, ops, smi, arch, layers)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    emit({"phase": "train_families", "phase_s": time.monotonic() - t_phase,
+          "launches": {a: {k: c[k] for k in c if c[k]}
+                       for a, c in per_model.items()},
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return per_model
+
+
 def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -4726,10 +5307,15 @@ def main() -> int:
     dense_counts = phase_dense(torch, np, smi, served)
     train_counts = phase_train(torch, np, smi)
     family_counts = phase_families(torch, np, smi)
+    tf_counts = phase_train_families(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, spec_counts, pool_counts, reduced_counts, isp_counts,
-            dense_counts, train_counts, *family_counts.values()))
+            dense_counts, train_counts, *family_counts.values(),
+            *tf_counts.values()))
+        entry["launches_in_train"] = train_counts[entry["kernel"]]
+        entry["launches_in_train_families"] = {
+            a: c[entry["kernel"]] for a, c in tf_counts.items()}
         if "families_model" in entry:
             entry["launches_in_families"] = family_counts[
                 entry["families_model"]][entry["kernel"]]

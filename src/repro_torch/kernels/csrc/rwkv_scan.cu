@@ -73,6 +73,13 @@
 // measured 0.416 ms).  The v columns are not split across blocks: that
 // would compute each step's scores twice.
 //
+// The states variant (rwkv_scan_states_f32, STATES): the same kernel
+// also copies the state at the start of every step to states[B, H,
+// S / L, dk, dv] (entry 0 is s0), what the backward kernel
+// (rwkv_scan_bwd.cu) starts each of its steps from.  The copy reads the
+// state in shared memory between two barriers that already order it, and
+// changes no arithmetic: o and sT are the unflagged kernel's, bit for bit.
+//
 // Layouts (row-major, contiguous, 16-byte aligned): r/k/logw [B, S, H, dk],
 // v/o [B, S, H, dv], u [H, dk], s0/sT [B, H, dk, dv], all f32.
 // dk, dv multiples of 4; the chunk (<= 64) divides S.
@@ -165,14 +172,15 @@ __device__ __forceinline__ void outer(float (*acc)[4], const float4& x,
 // DK, DV: the key and value widths when fixed at compile time (rwkv6's
 // 64 x 64, so that every loop over them unrolls), or 0 for any.  MMA:
 // the products on 3xTF32 mma.sync (64 x 64 and steps of 8 or 16 tokens),
-// else on 4 x 4 FMA tiles.
-template <int DK, int DV, bool MMA>
+// else on 4 x 4 FMA tiles.  STATES: also write each step's starting state.
+template <int DK, int DV, bool MMA, bool STATES = false>
 __global__ void __launch_bounds__(kThreads, 3)
 rwkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ logw,
                  const float* __restrict__ u, const float* __restrict__ s0,
                  float* __restrict__ o, float* __restrict__ sT, int seq,
-                 int h, int dk_, int dv_, int step, int parts) {
+                 int h, int dk_, int dv_, int step, int parts,
+                 float* __restrict__ states) {
   extern __shared__ __align__(16) float smem[];
   const int dk = DK ? DK : dk_, dv = DV ? DV : dv_;
   const Layout lay(step, dk, dv);
@@ -231,6 +239,12 @@ rwkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();                          // step c landed; step c-1 done
     if (c + 1 < n_steps) issue(c + 1);
+    if constexpr (STATES) {
+      // the state before step c; the next write to it follows two barriers
+      float* dst = states + ((size_t)bh * n_steps + c) * dk * dv;
+      for (int e = tid; e < dk * dv; e += kThreads)
+        dst[e] = st_s[(e / dv) * ldv + e % dv];
+    }
 
     // The scan lanes: 16 lanes a key column (lane t token t), kScanCols
     // columns side by side.  Inclusive cumulative log2-decays P[t] as
@@ -508,16 +522,13 @@ rwkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     sT[(size_t)bh * dk * dv + e] = st_s[(e / dv) * ldv + e % dv];
 }
 
-}  // namespace
-
-extern "C" {
-
 // Returns cudaGetLastError() right after the launch (0 on success), or
 // cudaErrorInvalidValue for a shape the kernel does not take (including
-// one whose tiles do not fit in a block's shared memory).
-int rwkv_scan_f32(const void* r, const void* k, const void* v, const void* logw,
-                  const void* u, const void* s0, void* o, void* sT, int b,
-                  int seq, int h, int dk, int dv, int chunk, void* stream) {
+// one whose tiles do not fit in a block's shared memory).  states: null,
+// or [B, H, S / step, dk, dv] for the states variant.
+int launch(const void* r, const void* k, const void* v, const void* logw,
+           const void* u, const void* s0, void* o, void* sT, void* states,
+           int b, int seq, int h, int dk, int dv, int chunk, void* stream) {
   if (b < 1 || h < 1 || seq < 1 || chunk < 1 || chunk > kMaxChunk ||
       seq % chunk || dk < 4 || dk % 4 || dv < 4 || dv % 4)
     return (int)cudaErrorInvalidValue;
@@ -540,21 +551,47 @@ int rwkv_scan_f32(const void* r, const void* k, const void* v, const void* logw,
   const bool fixed = dk == 64 && dv == 64 && step % 8 == 0;
   auto kernel = fixed ? rwkv_scan_kernel<64, 64, true>
                       : rwkv_scan_kernel<0, 0, false>;
-  static int smem_set[2] = {0, 0};     // largest size allowed so far
-  if ((int)smem > smem_set[fixed] && smem > 48 * 1024) {
+  static int smem_set[4] = {0, 0, 0, 0};     // largest size allowed so far
+  if (states != nullptr)
+    kernel = fixed ? rwkv_scan_kernel<64, 64, true, true>
+                   : rwkv_scan_kernel<0, 0, false, true>;
+  const int which = (int)fixed + 2 * (states != nullptr);
+  if ((int)smem > smem_set[which] && smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    smem_set[fixed] = (int)smem;
+    smem_set[which] = (int)smem;
   }
   kernel<<<(unsigned)(b * h), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(logw),
       static_cast<const float*>(u), static_cast<const float*>(s0),
       static_cast<float*>(o), static_cast<float*>(sT), seq, h, dk, dv, step,
-      parts);
+      parts, static_cast<float*>(states));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int rwkv_scan_f32(const void* r, const void* k, const void* v, const void* logw,
+                  const void* u, const void* s0, void* o, void* sT, int b,
+                  int seq, int h, int dk, int dv, int chunk, void* stream) {
+  return launch(r, k, v, logw, u, s0, o, sT, nullptr, b, seq, h, dk, dv, chunk,
+                stream);
+}
+
+// rwkv_scan_f32 that also writes states [B, H, S / step, dk, dv], step the
+// largest divisor of the chunk up to 16.
+int rwkv_scan_states_f32(const void* r, const void* k, const void* v,
+                         const void* logw, const void* u, const void* s0,
+                         void* o, void* sT, void* states, int b, int seq, int h,
+                         int dk, int dv, int chunk, void* stream) {
+  if (states == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(r, k, v, logw, u, s0, o, sT, states, b, seq, h, dk, dv, chunk,
+                stream);
 }
 
 // Blocks of the kernel an SM holds at this shape (the occupancy the

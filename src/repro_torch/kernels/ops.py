@@ -4,7 +4,8 @@ The runtime calls the kernels through this module.  A wrapper launches
 its CUDA kernel for tensors on the card and runs its plain version
 (``kernels.ref``) for tensors on the CPU; see ``kernels.paged_attention``,
 ``kernels.isp_scan``, ``kernels.embed_agg``, ``kernels.flash_attention``
-(with its training forward and backward) and ``kernels.rwkv_scan``.
+(with its training forward and backward) and ``kernels.rwkv_scan``
+(the same).
 The ``*_host`` folds are the host-reads-everything path of the offload
 planner: the plain fold over a fetched extent, bit-identical to the
 in-storage kernels.
@@ -32,7 +33,9 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                   paged_attention_q8)
 from repro_torch.kernels.ref import (REDUCE_ROWS, scan_filter_reduce_host,
                                      topk_pad, topk_scan_host)
-from repro_torch.kernels.rwkv_scan import rwkv_scan
+from repro_torch.kernels.rwkv_scan import (rwkv_scan, rwkv_scan_bwd,
+                                           rwkv_scan_states,
+                                           rwkv_scan_with_grad)
 
 __all__ = ["paged_attention", "paged_attention_q8", "paged_attention_pool",
            "paged_attention_pool_q8", "scan_filter_reduce",
@@ -40,6 +43,7 @@ __all__ = ["paged_attention", "paged_attention_q8", "paged_attention_pool",
            "embed_agg", "embed_gather", "validate_embed_args",
            "flash_attention", "flash_attention_lse", "flash_attention_bwd",
            "flash_attention_with_grad", "rwkv_scan",
+           "rwkv_scan_states", "rwkv_scan_bwd", "rwkv_scan_with_grad",
            "REDUCE_ROWS", "topk_pad", "launch_counts",
            "reset_launch_counts", "ref"]
 

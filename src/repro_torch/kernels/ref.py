@@ -1405,3 +1405,175 @@ def wkv_ref(r, k, v, logw, u, s0):
         o, state = wkv_step(r[:, t], k[:, t], v[:, t], logw[:, t], u, state)
         outs.append(o)
     return torch.stack(outs, dim=1), state
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv backward (``csrc/rwkv_scan_bwd.cu``; the JAX package takes this
+# gradient by autodiff of its plain ``wkv_chunked``, ``repro/models/
+# rwkv6.py:56``: there is no Pallas backward)
+# ---------------------------------------------------------------------------
+
+
+def wkv_states_ref(k, v, logw, s0, step: int):
+    """The state at the start of every run of ``step`` tokens: [B, H,
+    S / step, dk, dv] (entry 0 is ``s0``), by the chunk form's state
+    update.  k/logw: [B, S, H, dk]; v: [B, S, H, dv]; s0: [B, H, dk,
+    dv].  What the forward kernel's states variant writes."""
+    s = k.shape[1]
+    if s % step:
+        raise ValueError(f"sequence length {s} is not a multiple of {step}")
+    ks, vs, ws = (x.transpose(1, 2) for x in (k, v, logw))     # [B, H, S, *]
+    state, out = s0, []
+    for c0 in range(0, s, step):
+        out.append(state)
+        part = slice(c0, c0 + step)
+        cum = torch.cumsum(ws[:, :, part], dim=-2)
+        k2 = ks[:, :, part] * torch.exp(cum[..., -1:, :] - cum)
+        state = (torch.exp(cum[..., -1, :])[..., None] * state +
+                 k2.transpose(-1, -2) @ vs[:, :, part])
+    return torch.stack(out, dim=2)
+
+
+def wkv_chunked_bwd_ref(r, k, v, logw, u, s0, do, dsT, chunk: int = 32):
+    """Gradient of :func:`wkv_chunked_ref` (o, sT) with respect to r, k,
+    v, logw, u and s0, given do [B, S, H, dv] and dsT [B, H, dk, dv]:
+    (dr, dk, dv, dlogw [B, S, H, *], du [H, dk], ds0 [B, H, dk, dv]).
+
+    Computed explicitly, not by autograd: a forward pass for the state
+    at each chunk start, then the chunks in reverse, carrying G, the
+    gradient of the state after the chunk (G = dsT after the last).  In
+    a chunk with cumulative log-decays cum (inclusive) and cx = cum -
+    logw, D[t, s] = exp(cx[t] - cum[s]) for s < t (masked before the
+    exp), A[t, s] = sum_i r k D and A[t, t] = r u k, dP = dO V^T:
+      dv = A^T dO + (k exp(cum[-1] - cum)) G
+      dr' = exp(cx) (dO S0^T) + sum_{s<t} dP[t, s] k[s] D[t, s]
+      dk' = exp(cum[-1] - cum) (V G^T) + sum_{t>s} dP[t, s] r[t] D[t, s]
+      dr = dr' + u k dP[t, t];  dk = dk' + u r dP[t, t]
+      du += sum_t r k dP[t, t]  (then summed over the batch, in order)
+      G <- exp(cum[-1]) G + (r exp(cx))^T dO
+    and dlogw by the gated-linear-attention identity, with no division
+    by a decay: r[t] scales as exp(cx[t]) and k[s] as exp(-cum[s]), so
+    dcum[t] = r[t+1] dr'[t+1] - k[t] dk'[t] (+ rowsum(S_end * G_end) at
+    the chunk's last token), and dlogw[t] is its suffix sum over the
+    chunk."""
+    b, s, h, dk = r.shape
+    ck = min(chunk, s)
+    if s % ck:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {ck}")
+    n = s // ck
+    rs, ks, vs, ws, dos = (x.transpose(1, 2) for x in (r, k, v, logw, do))
+    starts = wkv_states_ref(k, v, logw, s0, ck)                 # [B,H,N,..]
+    last = slice(s - ck, s)
+    cum = torch.cumsum(ws[:, :, last], dim=-2)
+    s_end = (torch.exp(cum[..., -1, :])[..., None] * starts[:, :, -1] +
+             (ks[:, :, last] * torch.exp(cum[..., -1:, :] - cum))
+             .transpose(-1, -2) @ vs[:, :, last])
+    g = dsT
+    rho = (s_end * g).sum(-1)                                   # [B, H, dk]
+    tri = torch.ones((ck, ck), dtype=torch.bool, device=r.device).tril(-1)
+    grads = {name: [None] * n for name in ("r", "k", "v", "w")}
+    du = torch.zeros_like(rs[:, :, 0])                          # [B, H, dk]
+    for ci in reversed(range(n)):
+        part = slice(ci * ck, (ci + 1) * ck)
+        rr, kk, vv, ww, oo = (x[:, :, part] for x in (rs, ks, vs, ws, dos))
+        s0c = starts[:, :, ci]
+        cum = torch.cumsum(ww, dim=-2)
+        cx = cum - ww
+        diff = cx[..., :, None, :] - cum[..., None, :, :]       # [.., t, s, dk]
+        dmat = torch.exp(torch.where(tri[:, :, None], diff,
+                                     torch.full_like(diff, float("-inf"))))
+        dp = oo @ vv.transpose(-1, -2)                          # [.., t, s]
+        a = (rr[..., :, None, :] * kk[..., None, :, :] * dmat).sum(-1)
+        a = a + torch.diag_embed((rr * u[:, None, :] * kk).sum(-1))
+        kdec = torch.exp(cum[..., -1:, :] - cum)
+        grads["v"][ci] = a.transpose(-1, -2) @ oo + (kk * kdec) @ g
+        pd = dp[..., None] * dmat                               # [.., t, s, dk]
+        dr_nb = (torch.exp(cx) * (oo @ s0c.transpose(-1, -2)) +
+                 (pd * kk[..., None, :, :]).sum(-2))
+        dk_nb = (kdec * (vv @ g.transpose(-1, -2)) +
+                 (pd * rr[..., :, None, :]).sum(-3))
+        dc = -kk * dk_nb
+        dc[..., :-1, :] += rr[..., 1:, :] * dr_nb[..., 1:, :]
+        dc[..., -1, :] += rho
+        grads["w"][ci] = dc.flip(-2).cumsum(-2).flip(-2)
+        dpd = dp.diagonal(dim1=-2, dim2=-1)[..., None]          # [.., t, 1]
+        grads["r"][ci] = dr_nb + u[:, None, :] * kk * dpd
+        grads["k"][ci] = dk_nb + u[:, None, :] * rr * dpd
+        du = du + (rr * kk * dpd).sum(-2)
+        g = (torch.exp(cum[..., -1, :])[..., None] * g +
+             (rr * torch.exp(cx)).transpose(-1, -2) @ oo)
+        rho = (s0c * g).sum(-1)
+    dr, dk_, dv, dw = (torch.cat(grads[x], dim=2).transpose(1, 2).contiguous()
+                       for x in ("r", "k", "v", "w"))
+    return dr, dk_, dv, dw, du.sum(0), g
+
+
+def wkv_bwd_steps_emulated(r, k, v, logw, u, states, s_t, do, dsT):
+    """A plain emulation of the CUDA wkv backward's plan
+    (``csrc/rwkv_scan_bwd.cu``): the sequence walked in reverse in steps
+    of S / states.shape[2] tokens, each from its given starting state
+    (``wkv_states_ref`` or the forward kernel's states variant); the
+    log-decays scaled by log2(e) in f32 and summed in double, every
+    exponent a difference of two such sums rounded to f32, exps as 2^x;
+    the pair sums, the four products and G's update in f32; dlogw by one
+    walk a column from the step's last token back, starting at
+    rowsum(S_end * G_end); du as each (batch, head)'s share over its steps
+    in reverse, the shares then summed in batch order.  The kernel's sums
+    run in another order and its ex2.approx is within 2 ulp of ``exp2``,
+    so it is held to this within a tolerance.  Same results as
+    :func:`wkv_chunked_bwd_ref`."""
+    b, s, h, dk = r.shape
+    step = s // states.shape[2]
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    rs, ks, vs, ws, dos = (x.transpose(1, 2).float()
+                           for x in (r, k, v, logw, do))
+    g = dsT.float()
+    rho = (s_t * g).sum(-1)
+    tri = torch.ones((step, step), dtype=torch.bool,
+                     device=r.device).tril(-1)
+    out = {name: [None] * states.shape[2] for name in ("r", "k", "v", "w")}
+    du = torch.zeros_like(rs[:, :, 0])                          # shares
+    for ci in reversed(range(states.shape[2])):
+        part = slice(ci * step, (ci + 1) * step)
+        rr, kk, vv, ww, oo = (x[:, :, part] for x in (rs, ks, vs, ws, dos))
+        s0c = states[:, :, ci].float()
+        cum = torch.cat([torch.zeros_like(ww[..., :1, :]).double(),
+                         torch.cumsum((ww * log2e).double(), dim=-2)],
+                        dim=-2)                                 # [.., L+1, dk]
+        cx, cin = cum[..., :-1, :], cum[..., 1:, :]             # before / incl. t
+        ex = torch.where(tri[:, :, None],
+                         cx[..., :, None, :] - cin[..., None, :, :],
+                         torch.zeros((), dtype=torch.float64))
+        dmat = torch.where(tri[:, :, None], torch.exp2(ex.float()),
+                           torch.zeros((), dtype=torch.float32))
+        dp = oo @ vv.transpose(-1, -2)
+        a = (rr[..., :, None, :] * kk[..., None, :, :] * dmat).sum(-1)
+        a = a + torch.diag_embed((rr * u[:, None, :] * kk).sum(-1))
+        kdec = torch.exp2((cum[..., -1:, :] - cin).float())
+        out["v"][ci] = a.transpose(-1, -2) @ oo + (kk * kdec) @ g
+        pd = dp[..., None] * dmat
+        drx = (torch.exp2(cx.float()) * (oo @ s0c.transpose(-1, -2)) +
+               (pd * kk[..., None, :, :]).sum(-2))
+        dkx = kdec * (vv @ g.transpose(-1, -2)) + (pd * rr[..., :, None, :]).sum(-3)
+        dpd = dp.diagonal(dim1=-2, dim2=-1)[..., None]
+        acc, dw = rho, [None] * step
+        for t in reversed(range(step)):
+            if t + 1 < step:
+                acc = acc + rr[..., t + 1, :] * drx[..., t + 1, :]
+            acc = acc - kk[..., t, :] * dkx[..., t, :]
+            dw[t] = acc
+        out["w"][ci] = torch.stack(dw, dim=-2)
+        out["r"][ci] = drx + u[:, None, :] * kk * dpd
+        out["k"][ci] = dkx + u[:, None, :] * rr * dpd
+        for t in reversed(range(step)):
+            du = du + rr[..., t, :] * kk[..., t, :] * dpd[..., t, :]
+        g = (torch.exp2(cum[..., -1, :].float())[..., None] * g +
+             (rr * torch.exp2(cx.float())).transpose(-1, -2) @ oo)
+        rho = (s0c * g).sum(-1)
+    du_sum = du[0]
+    for bb in range(1, b):
+        du_sum = du_sum + du[bb]
+    dr, dk_, dv, dw = (torch.cat(out[x], dim=2).transpose(1, 2).contiguous()
+                       for x in ("r", "k", "v", "w"))
+    return dr, dk_, dv, dw, du_sum, g

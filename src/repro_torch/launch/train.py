@@ -8,13 +8,17 @@
 Grad-accum AdamW train step (``runtime.train.make_train_step``) with a
 warm-up cosine schedule, the deterministic sharded data pipeline, async
 atomic checkpoints with restart (``--resume``), and the gradient
-compression option.  ``TransformerLM`` archs (dense or MoE FFN, the
-loss with its load-balancing term; a frontend arch trains on
-``frontends.synth_embeddings`` drawn at seed ``step``, as the JAX
-launcher feeds it); attention runs through the flash-attention kernels
-and their backward.  Each layer is recomputed
-in the backward pass (``remat="full"``) unless ``--reduced``, as in the
-reference.  Runs on ``cuda`` unless ``--device cpu`` is given; without a
+compression option.  Every family trains: ``TransformerLM`` archs
+(dense or MoE FFN, the loss with its load-balancing term; a frontend
+arch trains on ``frontends.synth_embeddings`` drawn at seed ``step``, as
+the JAX launcher feeds it), ``RWKV6LM`` (rwkv6-3b: the wkv scan through
+its forward kernel's states variant and its backward kernel) and
+``Zamba2LM`` (zamba2-1.2b: the shared block's attention through the
+flash-attention kernels, the SSD scan by autograd); attention runs
+through the flash-attention kernels and their backward.  Each layer is
+recomputed in the backward pass (``remat="full"``) unless ``--reduced``,
+as in the reference; ``build(args, cfg=...)`` takes a depth cut at full
+width.  Runs on ``cuda`` unless ``--device cpu`` is given; without a
 card it raises rather than run on the CPU.  Weights are random, drawn
 from a seeded ``torch.Generator`` on the device.
 """

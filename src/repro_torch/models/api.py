@@ -5,8 +5,10 @@ family class (``TransformerLM``, ``RWKV6LM`` or ``Zamba2LM``).  init / forward /
 prefill / decode_step / cache_spec / init_cache and every other
 attribute (``compute_dtype``, ``remat``, ...) read through to the family
 class, so the serving code takes a :class:`Model` where it took the
-class; the facade adds ``loss`` (raising for a family without one),
-``uses_embeds``, ``synth_batch`` and the param counts.  Options the
+class; the facade adds ``loss`` (every family has one: the transformer's
+chunked CE with the MoE aux term, RWKV6's and Zamba2's CE over the full
+logits, as the reference's), ``uses_embeds``, ``synth_batch`` and the
+param counts.  Options the
 family class does not take are dropped, as the reference's
 ``_filter_kwargs`` drops them.  The reference's
 ``input_specs`` (shape stand-ins for its XLA dry run) is not ported.
@@ -48,9 +50,7 @@ class Model:
         return getattr(self.impl, name)
 
     def loss(self, params, batch):
-        if not hasattr(self.impl, "loss"):
-            raise NotImplementedError(
-                f"{type(self.impl).__name__}.loss: not yet ported")
+        """(total, {"ce", "aux"}) of the family's training objective."""
         return self.impl.loss(params, batch)
 
     # ------------------------------------------------------------------

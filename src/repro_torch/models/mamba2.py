@@ -7,8 +7,14 @@ every exponent is a difference of cumulative log-decays (<= 0, so f32
 holds it).  The JAX package runs it in ``einsum``s outside any kernel,
 and so does the port, in plain torch; the shared block's prefill
 attention goes through the flash-attention kernel
-(``layers.chunked_attention``), its decode through
+(``layers.chunked_attention``; under a gradient the kernel's training
+forward and its backward), its decode through
 ``layers.decode_attention``.  Decode is the O(1)-state recurrence.
+``loss`` is the reference's cross-entropy over the full logits; under
+``remat="full"`` each mamba layer is recomputed in the backward pass, as
+the reference checkpoints its ``mamba_fn`` (the shared block is not).
+The SSD scan, the conv and the gates take their gradient by autograd, as
+the reference's take theirs by autodiff: no Pallas kernel covers them.
 Params use the reference's layout (``layers`` stacked along a leading
 ``n_layers`` dim, ``shared_attn`` unstacked, an untied ``lm_head``), so
 weights convert one to one (``models.convert``).
@@ -20,9 +26,11 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import (REMAT, _needs_grad, layer_params,
+                                            unbind_layers)
 
 D_CONV = 4
 
@@ -223,13 +231,19 @@ class Zamba2LM:
     each group of ``attn_every`` mamba layers (weight-tied across its
     applications, each application keeping its own KV cache).  The
     shared block applies RoPE whatever ``cfg.rope`` says and uses
-    rmsnorm throughout, as the reference's does.  Training (``loss``) is
-    not ported."""
+    rmsnorm throughout, as the reference's does.  Its weights are one
+    set of leaves, so autograd sums the gradients of its applications."""
 
-    def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 64):
+    def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 64,
+                 remat: str = "full"):
+        if remat not in REMAT:
+            raise NotImplementedError(
+                f"remat {remat!r}: not yet ported (the port takes "
+                f"{', '.join(REMAT)})")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.chunk = chunk
+        self.remat = remat
         self.groups = [(i, min(i + cfg.attn_every, cfg.n_layers))
                        for i in range(0, cfg.n_layers, cfg.attn_every)]
         self.n_attn = len(self.groups)
@@ -291,17 +305,32 @@ class Zamba2LM:
 
     # -- full sequence ---------------------------------------------------------
 
+    def _mamba_layer(self, h, lp, conv_state, ssm_state):
+        """One mamba layer with its residual.  Returns (h, conv state,
+        ssm state)."""
+        a = L.apply_norm(lp["norm"], h, "rmsnorm")
+        o, conv, ssm = apply_mamba2_seq(lp["mamba"], a, self.cfg, conv_state,
+                                        ssm_state, chunk=self.chunk)
+        return h + o, conv, ssm
+
     def _run(self, params, h, cache_dtype=None):
         """The groups over positions 0..S-1 from zero states.  Returns
         (h after the final norm, the state: k/v [n_attn, B, Hkv, S, D]
         in ``cache_dtype``, conv [n_layers, B, D_CONV - 1, conv_dim] and
-        ssm [n_layers, B, H, dh, ds]; no k/v without a cache dtype)."""
+        ssm [n_layers, B, H, dh, ds]; no k/v without a cache dtype).
+        When the params need a gradient the mamba layers come from
+        ``unbind_layers``, each recomputed in the backward pass under
+        ``remat="full"``."""
         cfg = self.cfg
         b = h.shape[0]
         _, n_heads, conv_dim = mamba2_dims(cfg)
         conv0 = torch.zeros((b, D_CONV - 1, conv_dim), device=h.device)
         ssm0 = torch.zeros((b, n_heads, cfg.ssm_head_dim, cfg.ssm_state),
                            device=h.device)
+        train = torch.is_grad_enabled() and _needs_grad(params["layers"])
+        layers = (unbind_layers(params["layers"], cfg.n_layers) if train
+                  else [layer_params(params["layers"], li)
+                        for li in range(cfg.n_layers)])
         ks, vs, convs, ssms = [], [], [], []
         for lo, hi in self.groups:
             h, k, v = self._shared_attn_seq(params["shared_attn"], h,
@@ -309,11 +338,13 @@ class Zamba2LM:
             ks.append(k)
             vs.append(v)
             for li in range(lo, hi):
-                lp = layer_params(params["layers"], li)
-                a = L.apply_norm(lp["norm"], h, "rmsnorm")
-                o, conv, ssm = apply_mamba2_seq(lp["mamba"], a, cfg, conv0,
-                                                ssm0, chunk=self.chunk)
-                h = h + o
+                if train and self.remat == "full":
+                    h, conv, ssm = checkpoint(self._mamba_layer, h,
+                                              layers[li], conv0, ssm0,
+                                              use_reentrant=False)
+                else:
+                    h, conv, ssm = self._mamba_layer(h, layers[li], conv0,
+                                                     ssm0)
                 convs.append(conv)
                 ssms.append(ssm)
         h = L.apply_norm(params["final_norm"], h, "rmsnorm")
@@ -330,6 +361,14 @@ class Zamba2LM:
         h, _ = self._run(params, h)
         logits = (h @ params["lm_head"]["w"].to(h.dtype)).float()
         return logits, torch.zeros((), device=h.device)
+
+    def loss(self, params, batch):
+        """(ce, {"ce", "aux": 0}) for ``batch["tokens"]`` and
+        ``batch["labels"]`` [B, S] (label -1: not counted), as the
+        reference's ``loss``."""
+        logits, _ = self.forward(params, batch)
+        ce = L.cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ----------------------------------------------------------------
     #

@@ -8,6 +8,11 @@ and ``forward`` run the chunked wkv recurrence through the RWKV6
 wkv-scan kernel (``kernels.ops.rwkv_scan``); decode is the O(1)
 recurrent step ``wkv_step`` in plain torch, as the JAX package computes
 it outside any kernel.  A Python loop over layers replaces ``lax.scan``.
+``loss`` is the training objective, the reference's: cross-entropy over
+the full logits, no aux term.  Under a gradient the scan goes through
+``ops.rwkv_scan_with_grad`` (the forward kernel's states variant and the
+backward kernel), and under ``remat="full"`` each layer is recomputed in
+the backward pass, as the reference checkpoints its ``layer_fn``.
 """
 from __future__ import annotations
 
@@ -15,13 +20,15 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (wkv_chunk, wkv_ref,  # noqa: F401
                                      wkv_step)
 from repro_torch.kernels.ref import wkv_chunked_ref as wkv_chunked
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import (REMAT, _needs_grad, layer_params,
+                                            unbind_layers)
 
 LORA_R = 32
 DECAY_LORA_R = 64
@@ -30,10 +37,16 @@ __all__ = ["RWKV6LM", "wkv_chunk", "wkv_chunked", "wkv_step", "wkv_ref"]
 
 
 class RWKV6LM:
-    def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 32):
+    def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 32,
+                 remat: str = "full"):
+        if remat not in REMAT:
+            raise NotImplementedError(
+                f"remat {remat!r}: not yet ported (the port takes "
+                f"{', '.join(REMAT)})")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.chunk = chunk
+        self.remat = remat
         self.n_heads = cfg.d_model // cfg.ssm_head_dim
         self.dk = cfg.ssm_head_dim
 
@@ -117,8 +130,12 @@ class RWKV6LM:
         b, s, d = x.shape
         sx = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
         r, k, v, g, logw = self._tm_proj(tm, x, sx)
-        o, s_t = ops.rwkv_scan(r.float(), k.float(), v.float(), logw,
-                               tm["u"].float(), wkv_state, chunk=self.chunk)
+        args = (r.float(), k.float(), v.float(), logw, tm["u"].float(),
+                wkv_state)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            o, s_t = ops.rwkv_scan_with_grad(*args, chunk=self.chunk)
+        else:
+            o, s_t = ops.rwkv_scan(*args, chunk=self.chunk)
         o = L.group_norm_heads(o.to(x.dtype), tm["ln_x"])
         out = (o.reshape(b, s, d) * g) @ tm["wo"].to(x.dtype)
         return out, x[:, -1], s_t
@@ -157,19 +174,33 @@ class RWKV6LM:
                  self.cache_spec(batch, seq, dtype).items()}
         return {**cache, "index": 0}
 
+    def _layer(self, h, lp, st_tm, st_cm, wkv):
+        """One layer (the reference's ``layer_fn``).  Returns (h, the
+        time-mix and channel-mix shift states, the wkv state)."""
+        a = L.apply_norm(lp["ln1"], h, "layernorm")
+        o, n_tm, n_wkv = self._time_mix_seq(lp["time_mix"], a, st_tm, wkv)
+        h = h + o
+        c = L.apply_norm(lp["ln2"], h, "layernorm")
+        o2, n_cm = self._channel_mix_seq(lp["channel_mix"], c, st_cm)
+        return h + o2, n_tm, n_cm, n_wkv
+
     def backbone(self, params, h, state):
+        """Every layer from ``state``.  When the params need a gradient
+        the layers come from ``unbind_layers``, each recomputed in the
+        backward pass under ``remat="full"``."""
+        n = self.cfg.n_layers
+        train = torch.is_grad_enabled() and _needs_grad(params["layers"])
+        layers = (unbind_layers(params["layers"], n) if train else
+                  [layer_params(params["layers"], li) for li in range(n)])
         shift_tm, shift_cm, wkv = [], [], []
-        for li in range(self.cfg.n_layers):
-            lp = layer_params(params["layers"], li)
-            a = L.apply_norm(lp["ln1"], h, "layernorm")
-            o, n_tm, n_wkv = self._time_mix_seq(
-                lp["time_mix"], a, state["shift_tm"][li].to(h.dtype),
-                state["wkv"][li])
-            h = h + o
-            c = L.apply_norm(lp["ln2"], h, "layernorm")
-            o2, n_cm = self._channel_mix_seq(
-                lp["channel_mix"], c, state["shift_cm"][li].to(h.dtype))
-            h = h + o2
+        for li, lp in enumerate(layers):
+            args = (h, lp, state["shift_tm"][li].to(h.dtype),
+                    state["shift_cm"][li].to(h.dtype), state["wkv"][li])
+            if train and self.remat == "full":
+                h, n_tm, n_cm, n_wkv = checkpoint(self._layer, *args,
+                                                  use_reentrant=False)
+            else:
+                h, n_tm, n_cm, n_wkv = self._layer(*args)
             shift_tm.append(n_tm)
             shift_cm.append(n_cm)
             wkv.append(n_wkv)
@@ -197,6 +228,14 @@ class RWKV6LM:
         state = self.init_cache(h.shape[0], 0, self.compute_dtype, h.device)
         h, _ = self.backbone(params, h, state)
         return self._head(params, h), torch.zeros((), device=h.device)
+
+    def loss(self, params, batch):
+        """(ce, {"ce", "aux": 0}) for ``batch["tokens"]`` (or
+        ``batch["embeds"]``) and ``batch["labels"]`` [B, S] (label -1:
+        not counted), as the reference's ``loss``."""
+        logits, _ = self.forward(params, batch)
+        ce = L.cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ------------------------------------------------------------
 

@@ -29,7 +29,8 @@ from repro.optim import warmup_cosine as jwarmup_cosine  # noqa: E402
 from repro.optim.adamw import AdamWState as JAdamWState  # noqa: E402
 from repro.runtime.train import make_train_step as jmake_train_step  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs.base import ArchConfig, ShapeConfig, get_arch  # noqa: E402
+from repro_torch.configs.base import (ARCH_IDS, ArchConfig,  # noqa: E402
+                                      ShapeConfig, get_arch)
 from repro_torch.core.lambda_fs import LambdaFS  # noqa: E402
 from repro_torch.data import ShardedLoader, synthetic_stream  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -514,9 +515,22 @@ def test_model_facade():
     assert d["tokens"].shape == (2,) and d["cache"]["index"] == 0
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_model(cfg, remat="dots")
-    rwkv = get_model(get_arch("rwkv6_3b").reduced())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rwkv.loss({}, {})
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_has_a_loss(arch):
+    """The facade's ``loss`` of every registry arch at ``reduced()`` (a
+    frontend arch on its synthetic embeddings) is a finite f32 scalar,
+    with its gradient: no family raises."""
+    m = get_model(get_arch(arch).reduced(), remat="none")
+    p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = m.synth_batch(ShapeConfig("t", 16, 2, "train"))
+    w = p["final_norm"]["scale"].requires_grad_(True)
+    loss, parts = m.loss(p, batch)
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert torch.isfinite(loss) and set(parts) == {"ce", "aux"}
+    loss.backward()
+    assert torch.isfinite(w.grad).all()
 
 
 def test_train_launcher_runs_on_cpu_when_asked(tmp_path):

@@ -3,7 +3,8 @@ package's ``repro.models.mamba2`` on the same converted weights and numpy
 inputs: the chunked SSD scan (against the reference's and the per-token
 oracle), ``apply_mamba2_seq`` / ``apply_mamba2_step`` with carried
 states, the ``Zamba2LM`` param tree, ``forward``, ``prefill``,
-``decode_step``, greedy tokens of the dense path and the launcher."""
+``decode_step``, greedy tokens of the dense path and the launcher.  Its
+training is held in ``tests/test_torch_train_families.py``."""
 import dataclasses
 
 import numpy as np
@@ -269,17 +270,6 @@ def test_zamba2_forward_goes_through_the_flash_wrapper(models, monkeypatch):
     monkeypatch.setattr(ops, "flash_attention", counted)
     tm.forward(tp, {"tokens": torch.from_numpy(_tokens(jcfg, 1, 8))})
     assert calls == [True] * tm.n_attn
-
-
-@pytest.mark.parametrize("arch", ["zamba2_1_2b", "rwkv6_3b"])
-def test_loss_is_not_yet_ported(arch):
-    """Training of the SSM families waits: the facade's ``loss`` raises
-    for ``Zamba2LM`` and ``RWKV6LM``."""
-    model = get_model(get_arch(arch).reduced())
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="loss: not yet ported"):
-        model.loss(params, {"tokens": toks, "labels": toks})
 
 
 def test_zamba2_launcher_default_path_on_cpu():
