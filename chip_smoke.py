@@ -182,10 +182,12 @@ versions; then the wkv training kernels at rwkv6-3b's train microbatch
 (no single PyTorch call computes either): the forward's states variant
 (o and sT bit-equal to rwkv_scan_f32, the step states within 1e-4 x
 max(1, max|plain|) of ``ref.wkv_states_ref``) and the backward
-rwkv_scan_bwd_f32 (every gradient within 1e-4 x max(1, max|plain|) of
+rwkv_scan_bwd_f32 (its state pass, chunk pass and du sum in one call;
+every gradient within 1e-4 x max(1, max|plain|) of
 ``ref.wkv_chunked_bwd_ref``, bit-equal over two runs, its distance from
-float64 autograd printed), untimed at WKV_SHAPES (harsh decays: within
-the limit or no farther from float64 than the plain backward).  Then
+float64 autograd and its scratch bytes printed), untimed at WKV_SHAPES
+(harsh decays: within the limit or no farther from float64 than the
+plain backward).  Then
 the kernels line (launches: the serve, serve_spec, serve_pool,
 serve_reduced, isp, dense, train, families and train_families phases'
 counts, also apart for train and each train_families model; an entry of
@@ -2787,6 +2789,17 @@ def wkv_train_cases(torch, np, flush):
         results[-1]["errors"] = errs
         results[-1]["states_bytes"] = state_bytes
         results[-1]["deterministic"] = True
+        # the design's scratch beyond the function's own bytes, from the
+        # shapes: the forward's step states read once, the gradient states
+        # (one a step but the last) written and read once, all as if from
+        # DRAM (some are served by L2); a note, not a kernels-line figure
+        emit({"phase": "kernels", "kernel": "rwkv_scan_bwd_f32",
+              "case": case,
+              "note": "scratch computed from shapes, not measured",
+              "scratch_bytes": {
+                  "forward_states_read": state_bytes,
+                  "gradient_states_written_and_read":
+                      2 * state_bytes * (s // step - 1) // (s // step)}})
         if b == WKV_TRAIN_BATCHES[0]:
             got = bwd()
             want = bwd_plain()
@@ -4897,8 +4910,9 @@ TRAIN_FAMILIES = {
     "models": (("rwkv6-3b", None), ("zamba2-1.2b", None),
                ("phi3.5-moe-42b-a6.6b", 2)),
 }
+# (the wkv backward's three kernels: rwkv_scan_bwd_{state,chunk,du}_kernel)
 TRAIN_MATCH = {"gemm": "gemm", "wkv_fwd": "rwkv_scan_kernel",
-               "wkv_bwd": "rwkv_scan_bwd_kernel",
+               "wkv_bwd": "rwkv_scan_bwd_",
                "flash_fwd": "flash_3xtf32", "flash_bwd": "flash_bwd_"}
 
 

@@ -3,7 +3,7 @@ embedding kernels on one card.
 
     python scripts/redesign_check.py [topk] [pools] [paged] [flash] [wkv]
                                      [swizzle] [scan] [scan-split] [embed]
-                                     [train] [--logs DIR]
+                                     [train] [wkv-bwd] [--logs DIR]
 
 Builds every kernel source (``kernels.build.build_all``; with ``--logs``
 nvcc's ``-Xptxas -v`` report of each source is written to DIR), then
@@ -48,9 +48,18 @@ to the plain backward, and runs ``chip_smoke.flash_train_cases`` (the
 forward with lse and the backward at granite-3-2b's and phi3-mini's
 attention, timed beside SDPA's backward), ``flash_train_other_shapes``
 and ``chip_smoke.phase_train`` (granite-3-2b trained at full depth and
-width, then the 2-layer gates).  Prints one JSON
-line per case or reading, the kernels line, then the card's name and
-power limit.  With no case named, topk and flash run.  Card only.
+width, then the 2-layer gates).  ``wkv-bwd`` builds the two wkv sources
+only, prints ptxas's registers and spills of the wkv backward's kernels
+and of its first design (a block per (batch, head) walking every step's
+whole work in reverse, kept in ``scripts/csrc/rwkv_scan_bwd_pr25.cu`` and
+built by the script), times the two designs in turns (as built, first
+design, first design, as built) at rwkv6-3b's training shapes (B = 4 and
+8 x 512 tokens, 40 heads of 64), both held to the plain backward within
+``chip_smoke.WKV_TOL`` x max(1, max |plain|) on every gradient and each
+bit-equal over two runs, then runs ``chip_smoke.wkv_train_cases`` and
+``wkv_train_other_shapes`` (about 3 min with the builds).  Prints one
+JSON line per case or reading, the kernels line, then the card's name
+and power limit.  With no case named, topk and flash run.  Card only.
 """
 from __future__ import annotations
 
@@ -71,23 +80,10 @@ UNSWIZZLE = (("CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE"),
 
 def unswizzled_library():
     """ctypes handle of csrc/isp_scan.cu built with UNSWIZZLE applied."""
-    import ctypes
-    import subprocess
-
     from repro_torch.kernels import build
 
-    text = (build.CSRC / "isp_scan.cu").read_text()
-    for old, new in UNSWIZZLE:
-        if old not in text:
-            raise RuntimeError(f"isp_scan.cu no longer has {old!r}")
-        text = text.replace(old, new)
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / "isp_scan_unswizzled.cu"
-    src.write_text(text)
-    lib = build.BUILD_DIR / "libisp_scan_unswizzled.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(lib))
+    return build.build_variant(build.CSRC / "isp_scan.cu", UNSWIZZLE,
+                               "isp_scan_unswizzled")[0]
 
 
 def swizzle_readings(torch, np, cs, flush):
@@ -129,16 +125,10 @@ def two_pass_library():
     """ctypes handle of the two-launch scan (``TWO_PASS``), built into
     build/repro_torch."""
     import ctypes
-    import subprocess
 
     from repro_torch.kernels import build
 
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = build.BUILD_DIR / "libisp_scan_two_pass.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(TWO_PASS)], check=True, capture_output=True,
-                   text=True)
-    handle = ctypes.CDLL(str(lib))
+    handle = build.build_variant(TWO_PASS, (), "isp_scan_two_pass")[0]
     P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     for fmt in ("f32", "int8", "fp8"):
@@ -260,16 +250,10 @@ def first_design_library():
     """ctypes handle of the first embedding design (``FIRST_DESIGN``),
     built into build/repro_torch."""
     import ctypes
-    import subprocess
 
     from repro_torch.kernels import build
 
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = build.BUILD_DIR / "libembed_agg_first.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(FIRST_DESIGN)], check=True, capture_output=True,
-                   text=True)
-    handle = ctypes.CDLL(str(lib))
+    handle = build.build_variant(FIRST_DESIGN, (), "embed_agg_first")[0]
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     handle.embed_agg.argtypes = [P] * 4 + [I, I, I, P]
     handle.embed_gather_i32.argtypes = [P] * 3 + [LL, I, P]
@@ -373,16 +357,12 @@ def first_bwd_library():
     (``FIRST_BWD_DESIGN``),
     built into build/repro_torch."""
     import ctypes
-    import subprocess
 
     from repro_torch.kernels import build
 
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = build.BUILD_DIR / "libflash_attention_bwd_first.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(FIRST_BWD_DESIGN)], check=True, capture_output=True,
-                   text=True)
-    fn = ctypes.CDLL(str(lib)).flash_attention_bwd_f32
+    handle = build.build_variant(FIRST_BWD_DESIGN, (),
+                                 "flash_attention_bwd_first")[0]
+    fn = handle.flash_attention_bwd_f32
     # q, k, v, out, dout, lse, di, dq, dk, dv, B, H, Hkv, Sq, Sk, D,
     # causal, stream
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
@@ -445,6 +425,90 @@ def train_readings(torch, np, cs, flush):
         torch.cuda.empty_cache()
 
 
+FIRST_WKV_BWD_DESIGN = ROOT / "scripts" / "csrc" / "rwkv_scan_bwd_pr25.cu"
+
+
+def first_wkv_bwd_library():
+    """(ctypes function of the wkv backward's first design
+    (``FIRST_WKV_BWD_DESIGN``), built into build/repro_torch; nvcc's
+    ``-Xptxas -v`` report)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    handle, log = build.build_variant(FIRST_WKV_BWD_DESIGN, (),
+                                      "rwkv_scan_bwd_first")
+    fn = handle.rwkv_scan_bwd_f32
+    # r k v logw u states sT do dsT dr dk dv dlogw du ds0 ws tickets,
+    # n_tickets B S H dk dv step, stream
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 +
+                   [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, log
+
+
+def wkv_bwd_readings(torch, np, cs, flush, as_built_log):
+    """The wkv backward as built against its first design at rwkv6-3b's
+    training shapes (``chip_smoke.WKV_TRAIN_BATCHES``), in turns (as built,
+    first design, first design, as built); both held to the plain backward
+    within ``chip_smoke.WKV_TOL`` x max(1, max |plain|) on every gradient
+    and each bit-equal over two runs."""
+    from repro_torch.kernels import build, ops
+
+    old_fn, old_log = first_wkv_bwd_library()
+    for name, log in (("as built", as_built_log), ("first design", old_log)):
+        print(json.dumps({"ptxas": f"rwkv_scan_bwd ({name})",
+                          "lines": build.ptxas_lines(log)}), flush=True)
+    rng = np.random.default_rng(29)
+    s, h, dk, dv, chunk = (cs.WKV[k] for k in ("seq", "heads", "dk", "dv",
+                                               "chunk"))
+    step = ops.ref.wkv_step_tokens(chunk)
+    for b in cs.WKV_TRAIN_BATCHES:
+        args = cs.wkv_train_inputs(torch, np, rng, b, s, h, dk, dv)
+        r, k, v, logw, u, s0, do, dsT = args
+        _, s_t, states = ops.rwkv_scan_states(r, k, v, logw, u, s0,
+                                              chunk=chunk)
+        old = [torch.empty_like(x) for x in (r, k, v, logw, u, s0)]
+        ws = torch.empty((b, h, dk), dtype=torch.float32, device=r.device)
+        tickets = torch.zeros(h, dtype=torch.int32, device=r.device)
+
+        def new_run():
+            return ops.rwkv_scan_bwd(r, k, v, logw, u, s0, states, s_t, do,
+                                     dsT, chunk=chunk)
+
+        def old_run():
+            err = old_fn(*(t.data_ptr() for t in (
+                r, k, v, logw, u, states, s_t, do, dsT, *old, ws, tickets)),
+                tickets.numel(), b, s, h, dk, dv, step,
+                torch.cuda.current_stream().cuda_stream)
+            cs.check(err == 0, f"first design: cudaError_t {err}")
+
+        want = ops.ref.wkv_chunked_bwd_ref(r, k, v, logw, u, s0, do, dsT,
+                                           chunk=chunk)
+        reading = {"rwkv_scan_bwd_f32": f"B={b} S={s} H={h} dk={dk} dv={dv} "
+                   f"chunk {chunk} (step {step}), logw = -exp(N(0,1)) "
+                   "(rwkv6-3b train shapes)",
+                   "bound_ms": cs.wkv_bwd_bound(b, s, h, dk, dv, step)}
+        for name, run in (("as built", new_run), ("first design", old_run)):
+            first = [t.clone() for t in (run() or old)]
+            again = run() or old
+            torch.cuda.synchronize()
+            for grad, a, o, w in zip(cs.WKV_GRADS, first, again, want):
+                lim = cs.WKV_TOL * max(1.0, float(w.abs().max()))
+                e = float((o - w).abs().max())
+                cs.check(torch.equal(a, o), f"{name} B={b} {grad}: two runs "
+                         f"differ")
+                cs.check(e <= lim, f"{name} B={b} {grad}: {e} > {lim}")
+                reading[f"{name} {grad} err_vs_plain"] = e
+        for name, run in (("as built", new_run), ("first design", old_run),
+                          ("first design", old_run), ("as built", new_run)):
+            reading.setdefault(f"{name} ms", []).append(
+                cs.time_ms(torch, run, flush))
+        print(json.dumps(reading), flush=True)
+        del args, r, k, v, logw, u, s0, do, dsT, s_t, states, old, ws, want
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -459,7 +523,7 @@ def main(argv) -> int:
         argv = [a for a in argv if a not in ("--logs", str(logs_dir))]
     which = set(argv) or {"topk", "flash"}
     if which - {"topk", "pools", "paged", "flash", "wkv", "swizzle", "scan",
-                "scan-split", "embed", "train"}:
+                "scan-split", "embed", "train", "wkv-bwd"}:
         print(f"redesign_check: unknown case {which}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -468,8 +532,9 @@ def main(argv) -> int:
     resolve_device("cuda")
     smi = cs.phase_env(torch)
     t0 = time.monotonic()
-    logs = build.build_all(["flash_attention", "flash_attention_bwd"]
-                           if which == {"train"} else None)
+    logs = build.build_all(
+        ["flash_attention", "flash_attention_bwd"] if which == {"train"} else
+        ["rwkv_scan", "rwkv_scan_bwd"] if which == {"wkv-bwd"} else None)
     print(json.dumps({"build_s": time.monotonic() - t0}), flush=True)
     if logs_dir is not None:
         logs_dir.mkdir(parents=True, exist_ok=True)
@@ -500,6 +565,10 @@ def main(argv) -> int:
             if entry["kernel"] in ("flash_attention_fwd_lse_f32",
                                    "flash_attention_bwd_f32"):
                 entry["launches"] = counts[entry["kernel"]]
+    if "wkv-bwd" in which:
+        wkv_bwd_readings(torch, np, cs, flush, logs.get("rwkv_scan_bwd", ""))
+        results += cs.wkv_train_cases(torch, np, flush)
+        cs.wkv_train_other_shapes(torch, np)
     if "swizzle" in which:
         swizzle_readings(torch, np, cs, flush)
     if "scan-split" in which:

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -83,6 +83,38 @@ def build_all(names=None) -> Dict[str, str]:
     names = sorted(names or (p.stem for p in CSRC.glob("*.cu")))
     jobs = {n: _start(n) for n in names}
     return {n: _finish(n, job) for n, job in jobs.items()}
+
+
+def build_variant(source: Path, edits, tag: str) -> Tuple[ctypes.CDLL, str]:
+    """Build a copy of the CUDA source ``source`` with each ``(old, new)``
+    of ``edits`` replaced in its text into ``BUILD_DIR/lib<tag>.so`` and
+    load it: (the library, nvcc's output with its ``-Xptxas -v`` report).
+    For scripts that time or check a variant of a kernel; an edit whose
+    ``old`` is not in the text, or a failed build, raises."""
+    text = Path(source).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{tag}: {Path(source).name} has no {old!r}")
+        text = text.replace(old, new)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"{tag}.cu"
+    lib = BUILD_DIR / f"lib{tag}.so"
+    src.write_text(text)
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    log = done.stdout + done.stderr
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {tag} (exit "
+                           f"{done.returncode}):\n{log}")
+    return ctypes.CDLL(str(lib)), log
+
+
+def ptxas_lines(log: str):
+    """The registers, stack and spill lines of nvcc's ``-Xptxas -v``
+    report, each after its function's name."""
+    return [line.strip() for line in log.splitlines()
+            if "Function properties" in line or "spill" in line or
+            "registers" in line]
 
 
 @functools.lru_cache(maxsize=None)

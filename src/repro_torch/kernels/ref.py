@@ -1509,71 +1509,115 @@ def wkv_chunked_bwd_ref(r, k, v, logw, u, s0, do, dsT, chunk: int = 32):
     return dr, dk_, dv, dw, du.sum(0), g
 
 
-def wkv_bwd_steps_emulated(r, k, v, logw, u, states, s_t, do, dsT):
-    """A plain emulation of the CUDA wkv backward's plan
-    (``csrc/rwkv_scan_bwd.cu``): the sequence walked in reverse in steps
-    of S / states.shape[2] tokens, each from its given starting state
-    (``wkv_states_ref`` or the forward kernel's states variant); the
-    log-decays scaled by log2(e) in f32 and summed in double, every
-    exponent a difference of two such sums rounded to f32, exps as 2^x;
-    the pair sums, the four products and G's update in f32; dlogw by one
-    walk a column from the step's last token back, starting at
-    rowsum(S_end * G_end); du as each (batch, head)'s share over its steps
-    in reverse, the shares then summed in batch order.  The kernel's sums
-    run in another order and its ex2.approx is within 2 ulp of ``exp2``,
-    so it is held to this within a tolerance.  Same results as
-    :func:`wkv_chunked_bwd_ref`."""
+def wkv_grad_states_ref(r, logw, do, dsT, step: int):
+    """The backward kernel's state pass (``csrc/rwkv_scan_bwd.cu``): the
+    gradient of the state after every run of ``step`` tokens, walked in
+    reverse from ``dsT`` by G <- 2^cum[-1] G + (r * 2^cx)^T dO, with the
+    log-decays scaled by log2(e) in f32 and summed in double, each
+    exponent (a cumulative sum, <= 0) rounded to f32, the update in f32.
+    Returns (gs [B, H, S / step, dk, dv], entry c the gradient of the state
+    after step c (entry -1 is ``dsT``), ds0).  r/logw: [B, S, H, dk]; do:
+    [B, S, H, dv]; dsT: [B, H, dk, dv]."""
     b, s, h, dk = r.shape
-    step = s // states.shape[2]
+    if s % step:
+        raise ValueError(f"sequence length {s} is not a multiple of {step}")
+    n = s // step
     log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
-    rs, ks, vs, ws, dos = (x.transpose(1, 2).float()
-                           for x in (r, k, v, logw, do))
-    g = dsT.float()
-    rho = (s_t * g).sum(-1)
+    rr, ww, oo = (x.float().transpose(1, 2).reshape(b, h, n, step, -1)
+                  for x in (r, logw, do))
+    cum = torch.cumsum((ww * log2e).double(), dim=-2)           # inclusive
+    cx = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
+                   dim=-2)                                      # before t
+    r_dec = rr * torch.exp2(cx.float())
+    wl = torch.exp2(cum[..., -1, :].float())[..., None]         # [B,H,N,dk,1]
+    g, out = dsT.float(), [None] * n
+    for ci in reversed(range(n)):
+        out[ci] = g
+        g = wl[:, :, ci] * g + r_dec[:, :, ci].transpose(-1, -2) @ oo[:, :, ci]
+    return torch.stack(out, dim=2), g
+
+
+def wkv_bwd_chunks_emulated(r, k, v, logw, u, states, do, dsT):
+    """A plain emulation of the CUDA wkv backward's plan
+    (``csrc/rwkv_scan_bwd.cu``), in steps of S / states.shape[2] tokens:
+
+    * the state pass, :func:`wkv_grad_states_ref`: the gradient of the
+      state after every step, walked in reverse (the only sequential
+      part), and ds0;
+    * the chunk pass, every step at once (a CUDA block each), from its
+      starting state (``states``, what the forward kernel's states
+      variant saves) and the gradient of the state after it: log-decays
+      scaled by log2(e) in f32 and summed in double, every exponent a
+      difference of two such sums rounded to f32, exps as 2^x; the scores
+      A and dP = dO V^T; dV = [A^T | k~] [dO ; G] (one product); dr' =
+      2^cx (dO S0^T) + the pair sums, dk' = 2^(cum[-1] - cum) (V G^T) +
+      the pair sums, the three products as :func:`mm_3xtf32` where the
+      kernel runs them on the tensor cores (:func:`wkv_mma_products`);
+      the end state's dlogw term rowsum(S_end * G) with S_end rebuilt as
+      2^cum[-1] S0 + k~^T V, that is 2^cum[-1] rowsum(S0 * G) + sum_t k
+      dk'_state (no read of the state after the step); dlogw by one walk
+      a column from the step's last token back; dr, dk and the step's du
+      share (its tokens summed from the last back);
+    * du: each (batch, head)'s shares from the last step back, then the
+      batch in order.
+
+    The kernel's ex2.approx is within 2 ulp of ``exp2`` and its sums run
+    in another order, so it is held to this within a tolerance.  Same
+    results as :func:`wkv_chunked_bwd_ref`."""
+    b, s, h, dk = r.shape
+    dv = v.shape[-1]
+    n = states.shape[2]
+    step = s // n
+    mm = mm_3xtf32 if wkv_mma_products(dk, dv, step) else torch.matmul
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    g_end, ds0 = wkv_grad_states_ref(r, logw, do, dsT, step)
+    rr, kk, vv, ww, oo = (x.float().transpose(1, 2).reshape(b, h, n, step,
+                                                            -1)
+                          for x in (r, k, v, logw, do))
+    s0 = states.float()
+    cum = torch.cat([torch.zeros_like(ww[..., :1, :]).double(),
+                     torch.cumsum((ww * log2e).double(), dim=-2)],
+                    dim=-2)                                     # [.., L+1, dk]
+    cx, cin = cum[..., :-1, :], cum[..., 1:, :]                 # before / incl. t
     tri = torch.ones((step, step), dtype=torch.bool,
                      device=r.device).tril(-1)
-    out = {name: [None] * states.shape[2] for name in ("r", "k", "v", "w")}
-    du = torch.zeros_like(rs[:, :, 0])                          # shares
-    for ci in reversed(range(states.shape[2])):
-        part = slice(ci * step, (ci + 1) * step)
-        rr, kk, vv, ww, oo = (x[:, :, part] for x in (rs, ks, vs, ws, dos))
-        s0c = states[:, :, ci].float()
-        cum = torch.cat([torch.zeros_like(ww[..., :1, :]).double(),
-                         torch.cumsum((ww * log2e).double(), dim=-2)],
-                        dim=-2)                                 # [.., L+1, dk]
-        cx, cin = cum[..., :-1, :], cum[..., 1:, :]             # before / incl. t
-        ex = torch.where(tri[:, :, None],
-                         cx[..., :, None, :] - cin[..., None, :, :],
-                         torch.zeros((), dtype=torch.float64))
-        dmat = torch.where(tri[:, :, None], torch.exp2(ex.float()),
-                           torch.zeros((), dtype=torch.float32))
-        dp = oo @ vv.transpose(-1, -2)
-        a = (rr[..., :, None, :] * kk[..., None, :, :] * dmat).sum(-1)
-        a = a + torch.diag_embed((rr * u[:, None, :] * kk).sum(-1))
-        kdec = torch.exp2((cum[..., -1:, :] - cin).float())
-        out["v"][ci] = a.transpose(-1, -2) @ oo + (kk * kdec) @ g
-        pd = dp[..., None] * dmat
-        drx = (torch.exp2(cx.float()) * (oo @ s0c.transpose(-1, -2)) +
-               (pd * kk[..., None, :, :]).sum(-2))
-        dkx = kdec * (vv @ g.transpose(-1, -2)) + (pd * rr[..., :, None, :]).sum(-3)
-        dpd = dp.diagonal(dim1=-2, dim2=-1)[..., None]
-        acc, dw = rho, [None] * step
-        for t in reversed(range(step)):
-            if t + 1 < step:
-                acc = acc + rr[..., t + 1, :] * drx[..., t + 1, :]
-            acc = acc - kk[..., t, :] * dkx[..., t, :]
-            dw[t] = acc
-        out["w"][ci] = torch.stack(dw, dim=-2)
-        out["r"][ci] = drx + u[:, None, :] * kk * dpd
-        out["k"][ci] = dkx + u[:, None, :] * rr * dpd
-        for t in reversed(range(step)):
-            du = du + rr[..., t, :] * kk[..., t, :] * dpd[..., t, :]
-        g = (torch.exp2(cum[..., -1, :].float())[..., None] * g +
-             (rr * torch.exp2(cx.float())).transpose(-1, -2) @ oo)
-        rho = (s0c * g).sum(-1)
-    du_sum = du[0]
+    ex = torch.where(tri[:, :, None],
+                     cx[..., :, None, :] - cin[..., None, :, :],
+                     torch.zeros((), dtype=torch.float64))
+    dmat = torch.where(tri[:, :, None], torch.exp2(ex.float()),
+                       torch.zeros((), dtype=torch.float32))
+    dp = oo @ vv.transpose(-1, -2)
+    uu = u.float()[:, None, None, :]
+    a = (rr[..., :, None, :] * kk[..., None, :, :] * dmat).sum(-1)
+    a = a + torch.diag_embed((rr * uu * kk).sum(-1))
+    kdec = torch.exp2((cum[..., -1:, :] - cin).float())
+    dv_ = mm(torch.cat([a.transpose(-1, -2), kk * kdec], dim=-1),
+             torch.cat([oo, g_end], dim=-2))
+    drs = torch.exp2(cx.float()) * mm(oo, s0.transpose(-1, -2))
+    dks = kdec * mm(vv, g_end.transpose(-1, -2))
+    pd = dp[..., None] * dmat
+    drx = drs + (pd * kk[..., None, :, :]).sum(-2)
+    dkx = dks + (pd * rr[..., :, None, :]).sum(-3)
+    rho = (torch.exp2(cum[..., -1, :].float()) * (s0 * g_end).sum(-1) +
+           (kk * dks).sum(-2))
+    acc, dw = rho, [None] * step
+    for t in reversed(range(step)):
+        if t + 1 < step:
+            acc = acc + rr[..., t + 1, :] * drx[..., t + 1, :]
+        acc = acc - kk[..., t, :] * dkx[..., t, :]
+        dw[t] = acc
+    dpd = dp.diagonal(dim1=-2, dim2=-1)[..., None]
+    share = torch.zeros_like(rr[..., 0, :])                     # [B, H, N, dk]
+    for t in reversed(range(step)):
+        share = share + rr[..., t, :] * kk[..., t, :] * dpd[..., t, :]
+    per_bh = share[:, :, n - 1]
+    for ci in reversed(range(n - 1)):
+        per_bh = per_bh + share[:, :, ci]
+    du = per_bh[0]
     for bb in range(1, b):
-        du_sum = du_sum + du[bb]
-    dr, dk_, dv, dw = (torch.cat(out[x], dim=2).transpose(1, 2).contiguous()
-                       for x in ("r", "k", "v", "w"))
-    return dr, dk_, dv, dw, du_sum, g
+        du = du + per_bh[bb]
+
+    def back(x):
+        return x.reshape(b, h, s, -1).transpose(1, 2).contiguous()
+    return (back(drx + uu * kk * dpd), back(dkx + uu * rr * dpd), back(dv_),
+            back(torch.stack(dw, dim=-2)), du, ds0)

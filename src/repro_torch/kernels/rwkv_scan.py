@@ -11,10 +11,11 @@ kernel launches.
 
 Training: :func:`rwkv_scan_states` is the same kernel also writing the
 state at the start of every step of ``ref.wkv_step_tokens(chunk)``
-tokens, and :func:`rwkv_scan_bwd` launches the backward kernel of
+tokens, and :func:`rwkv_scan_bwd` launches the backward kernels of
 ``csrc/rwkv_scan_bwd.cu`` from those states (the JAX package takes this
 gradient by autodiff of its plain ``wkv_chunked``; there is no Pallas
-backward).  :class:`WkvScanFn` ties the two together under autograd; on
+backward): a state pass, a chunk pass over every step at once and du's
+ordered sum, one launcher call counted once.  :class:`WkvScanFn` ties the two together under autograd; on
 CPU tensors they run ``ref.wkv_chunked_ref``, ``ref.wkv_states_ref`` and
 ``ref.wkv_chunked_bwd_ref``.
 """
@@ -26,7 +27,6 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.scratch import merge_tickets
 
 LAUNCHES = {"rwkv_scan_f32": 0, "rwkv_scan_states_f32": 0,
             "rwkv_scan_bwd_f32": 0}
@@ -50,9 +50,9 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _bwd():
     fn = build.load_library("rwkv_scan_bwd").rwkv_scan_bwd_f32
-    # r k v logw u states sT do dsT dr dk dv dlogw du ds0 ws tickets,
-    # n_tickets B S H dk dv step, stream
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [
+    # r k v logw u states do dsT dr dk dv dlogw du ds0 gs ws, B S H dk dv
+    # step, stream
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -151,9 +151,13 @@ def rwkv_scan_bwd(r, k, v, logw, u, s0, states, s_t, do, dsT,
     s0, from the forward's ``states`` and ``s_t`` (:func:`rwkv_scan_states`)
     and the outputs' gradients ``do`` [B, S, H, dv] and ``dsT`` [B, H, dk,
     dv].  Returns (dr, dk, dv, dlogw, du [H, dk], ds0), f32;
-    deterministic (du's batch shares merged in batch order, no float
-    atomics).  On CPU tensors the plain ``ref.wkv_chunked_bwd_ref``,
-    which recomputes the states itself."""
+    deterministic (du's step and batch shares summed in order, no float
+    atomics).  ``s_t`` is checked but not read on the card: each step's
+    end state enters only through rowsum(S_end * G), which the kernel
+    takes from the step's start state.  Scratch: the gradient of the
+    state after every step (as large as ``states``) and the du shares,
+    freed after the call.  On CPU tensors the plain
+    ``ref.wkv_chunked_bwd_ref``, which recomputes the states itself."""
     b, s, h, dk, dv, ck = _check(r, k, v, logw, u, s0, chunk)
     if do.shape != v.shape or tuple(dsT.shape) != (b, h, dk, dv) or \
             tuple(s_t.shape) != (b, h, dk, dv):
@@ -171,19 +175,17 @@ def rwkv_scan_bwd(r, k, v, logw, u, s0, states, s_t, do, dsT,
             or states.dtype != torch.float32:
         raise ValueError(f"states must be f32 [B, H, S / step, dk, dv] = "
                          f"{(b, h, s // step, dk, dv)} (rwkv_scan_states)")
-    tensors = (r, k, v, logw, u, states, s_t, do, dsT)
-    _check_card(r, tensors, ck, dk, dv)
-    if b * h > 2 ** 31 - 1:
-        raise ValueError("B * H must fit the grid")
+    tensors = (r, k, v, logw, u, states, do, dsT)
+    _check_card(r, (*tensors, s_t), ck, dk, dv)
+    if b * h * (s // step) > 2 ** 31 - 1:
+        raise ValueError("B * H * S / step must fit the grid")
     grads = [torch.empty_like(x) for x in (r, k, v, logw, u, s0)]
-    ws = torch.empty((b, h, dk), dtype=torch.float32, device=r.device)
+    gs = torch.empty_like(states)
+    ws = torch.empty((b, h, s // step, dk), dtype=torch.float32,
+                     device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    tickets = merge_tickets(r.device, stream, h)
-    err = _bwd()(*(t.data_ptr() for t in tensors),
-                 grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
-                 grads[3].data_ptr(), grads[4].data_ptr(), grads[5].data_ptr(),
-                 ws.data_ptr(), tickets.data_ptr(), tickets.numel(), b, s, h,
-                 dk, dv, step, stream)
+    err = _bwd()(*(t.data_ptr() for t in (*tensors, *grads, gs, ws)),
+                 b, s, h, dk, dv, step, stream)
     if err != 0:
         raise RuntimeError(f"rwkv_scan_bwd_f32 launch failed: cudaError_t "
                            f"{err}")

@@ -5,11 +5,14 @@ autograd through the per-token recurrence ``ref.wkv_ref`` and against
 ``jax.vjp`` of the reference's ``wkv_chunked``; ``WkvScanFn`` under
 ``gradcheck`` in float64 and under ``torch.utils.checkpoint``; the
 states the forward kernel's states variant writes (``ref.wkv_states_ref``);
-the backward kernel's plan (``ref.wkv_bwd_steps_emulated``: steps of the
-forward's step tokens walked in reverse from those states, log2 decays
-summed in double, du's batch shares) against the plain backward and
-float64; the RWKV6 layer's training and serving routes.  The kernels
-themselves run on the card only (``chip_smoke.py``)."""
+the backward kernel's plan (``ref.wkv_bwd_chunks_emulated``: the state
+pass walking the gradient of the state back over the forward's steps,
+then every step at once from its saved state, log2 decays summed in
+double, du's step and batch shares summed in order) against the plain
+backward and float64; the state pass's gradient states
+(``ref.wkv_grad_states_ref``) against a float64 reverse recurrence; the
+RWKV6 layer's training and serving routes.  The kernels themselves run
+on the card only (``chip_smoke.py``, ``tests/test_torch_card.py``)."""
 import numpy as np
 import pytest
 
@@ -25,7 +28,8 @@ from repro_torch.models.api import get_model  # noqa: E402
 
 F64_TOL = 1e-9     # float64 both sides: only the association differs
 # f32 against float64 or the JAX package's f32: times max(1, max |exact|);
-# the chunk forms' exponents are differences of f32 cumulative sums
+# the chunk forms' exponents are differences of f32 cumulative sums (the
+# kernel's plan: of double sums rounded to f32)
 GRAD_TOL = 1e-4
 
 # (B, S, H, dk, dv, chunk, sigma): chunks 8-64, dk != dv both ways, one
@@ -179,19 +183,44 @@ def test_states_are_the_recurrence_at_every_step(chunk):
 @pytest.mark.parametrize("b,s,h,dk,dv,chunk,sigma", CASES)
 def test_bwd_plan_emulation_matches_plain_and_float64(b, s, h, dk, dv,
                                                       chunk, sigma):
-    """The kernel's plan from the states variant's states: within
-    GRAD_TOL of the plain backward and of float64 autograd."""
+    """The kernel's plan (state pass, then every step from the states
+    variant's states) within GRAD_TOL of the plain backward and of
+    float64 autograd, harsh decays included."""
     args = _inputs(b, s, h, dk, dv, sigma)
     exact = _exact(args)
     t = [torch.from_numpy(a).float() for a in args]
-    _, s_t, states = ops.rwkv_scan_states(*t[:6], chunk=chunk)
-    got = ref.wkv_bwd_steps_emulated(*t[:5], states, s_t, t[6], t[7])
+    _, _, states = ops.rwkv_scan_states(*t[:6], chunk=chunk)
+    got = ref.wkv_bwd_chunks_emulated(*t[:5], states, t[6], t[7])
     plain = ref.wkv_chunked_bwd_ref(*t, chunk=chunk)
     for name, g, p, x in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
                              plain, exact):
         assert g.shape == p.shape, name
         assert _err(g, p) <= GRAD_TOL, name
         assert _err(g, x) <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,sigma", CASES)
+def test_grad_states_match_float64_reverse_recurrence(b, s, h, dk, dv,
+                                                      chunk, sigma):
+    """The state pass (``ref.wkv_grad_states_ref``, f32): the gradient of
+    the state after every step, and ds0, within GRAD_TOL x max(1, max
+    |exact|) of the per-token reverse recurrence G_{t-1} = diag(w_t) G_t +
+    r_t dO_t^T in float64 from G = dsT, harsh decays included."""
+    r, _, _, logw, _, _, do, dsT = _inputs(b, s, h, dk, dv, sigma)
+    step = ref.wkv_step_tokens(min(chunk, s))
+    gs, ds0 = ref.wkv_grad_states_ref(
+        *(torch.from_numpy(x).float() for x in (r, logw, do, dsT)), step)
+    assert gs.shape == (b, h, s // step, dk, dv) and gs.dtype == torch.float32
+    g, want = dsT, {}
+    for tok in reversed(range(s)):
+        if (tok + 1) % step == 0:
+            want[tok // step] = g           # after the step ending at tok
+        g = (np.exp(logw[:, tok])[..., None] * g +
+             r[:, tok][..., :, None] * do[:, tok][..., None, :])
+    for c in range(s // step):
+        assert _err(gs[:, :, c], want[c]) <= GRAD_TOL, c
+    assert torch.equal(gs[:, :, -1], torch.from_numpy(dsT).float())
+    assert _err(ds0, g) <= GRAD_TOL
 
 
 def test_bwd_wrapper_checks_and_cpu_route():
