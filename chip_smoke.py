@@ -14,8 +14,8 @@ non-zero:
   kernels  each kernel against its plain version, timed with CUDA events
            (device time: a sleep kernel holds the card while the host
            enqueues) beside its bound and a library call: paged attention
-           at the serving path's shapes, f32, int8 and fp8 pages, within
-           1e-4 (and the pool form at 4 nodes x 80 pages, placed and
+           at the serving path's shapes, f32, bf16, int8 and fp8 pages,
+           within 1e-4 (and the pool form at 4 nodes x 80 pages, placed and
            striped, decode and chunk: node partials against the plain
            per-node partials, the merge inside its launch bit-equal to
            paged_combine_f32 of its unmerged partials, 1 node bit-equal
@@ -59,6 +59,21 @@ non-zero:
            chunk form, every decode step through the decode form, per
            page type); a few horizon-1 steps under
            torch.profiler give the step's device busy time
+  serve_knobs
+           the reference's serving keyword arguments on the serve phase's
+           weights: prefix_cache=False against the prefix-cached run on
+           the 8 prompts made to share their first 256 tokens (tokens
+           identical, 4,096 against 2,304 prompt tokens computed); a bf16
+           page store (dtype=torch.bfloat16, the window of hbm_bytes =
+           the f32 window's 838,860,800 bytes: 640 pages), its first step
+           within 4 bf16 ulps of the largest logit of step_reference, its
+           tokens against the same path with the plain attention by the
+           near-tie rule (limit: those 4 ulps), its agreement with the
+           f32 store printed; the pages that byte budget admits for f32,
+           bf16, int8 and fp8, the int8 window served; the pair again on
+           a 4-node PoolServer (cold against the single cold run, bf16
+           against the single bf16 run, near-tie rule); launch counters
+           reset just before and read just after
   serve_spec
            sampled and speculative serving and the continuous batcher on
            the serve phase's weights: 8 prompts of 512 tokens (the serve
@@ -114,6 +129,22 @@ non-zero:
            runs, and RAG over the 1M x 768 corpus feeds the serve
            phase's granite-3-2b in two waves (the second rides the
            prefix cache)
+  facade   PagedKVCache at granite-3-2b's KV width (8 kv heads of 64,
+           page 16, 160 pages), f32 and bf16 pages: 8 sequences of 512
+           tokens appended one at a time, four sharing a 256-token prefix
+           through cache.table (copy-on-write splits), the window spilling;
+           kernel_view of each group of 4 through ops.paged_attention
+           (q of 32 heads) against the plain version (1e-4) and the dense
+           copy (exact); a view unchanged after appends and evictions
+  analytical
+           the port's analytical models: Fig 12b, Fig 11 / Fig 3 ratios
+           and the Fig 13 crossovers on tests/test_analytical.py's bands;
+           kv_tier_terms of the serve phase, data_plane_terms of the SF-1
+           JOB frame, fit_horizon_overheads on the serve phase's h1/h8
+           tok/s, printed
+  examples each example twin's main (examples/serve_pool_torch.py,
+           serve_rag_torch.py, distributed_inference_torch.py) on the
+           card at its own demo size, its invariants held
 
   dense    the launcher's default (non-paged) path through get_model +
            make_serving_fns, launch counters reset just before and read
@@ -188,20 +219,23 @@ every gradient within 1e-4 x max(1, max|plain|) of
 float64 autograd and its scratch bytes printed), untimed at WKV_SHAPES
 (harsh decays: within the limit or no farther from float64 than the
 plain backward).  Then
-the kernels line (launches: the serve, serve_spec, serve_pool,
-serve_reduced, isp, dense, train, families and train_families phases'
-counts, also apart for train and each train_families model; an entry of
-a families model's shape also its launches in that model's run), the
+the kernels line (launches: the serve, serve_knobs, serve_spec,
+serve_pool, serve_reduced, isp, facade, examples, dense, train, families
+and train_families phases' counts, also apart for train and each
+train_families model; an entry of a families model's shape also its
+launches in that model's run; every entry launched at least once), the
 nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -225,13 +259,18 @@ KERNEL_TOL = 1e-4              # f32 outputs ~N(0,1); only the sum order differs
 LOGITS_TOL = 1e-3
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 REPLACES = {"f32": "src/repro/kernels/paged_attention.py:39",
+            "bf16": "src/repro/kernels/paged_attention.py:39",
             "int8": "src/repro/kernels/paged_attention.py:77",
             "fp8": "src/repro/kernels/paged_attention.py:77"}
 # the wrappers' two forms, one compiled kernel each per page type
-DECODE_OF = {"f32": "paged_decode_f32", "int8": "paged_decode_q8_int8",
-             "fp8": "paged_decode_q8_fp8"}
-CHUNK_OF = {"f32": "paged_chunk_f32", "int8": "paged_chunk_q8_int8",
-            "fp8": "paged_chunk_q8_fp8"}
+DECODE_OF = {"f32": "paged_decode_f32", "bf16": "paged_decode_bf16",
+             "int8": "paged_decode_q8_int8", "fp8": "paged_decode_q8_fp8"}
+CHUNK_OF = {"f32": "paged_chunk_f32", "bf16": "paged_chunk_bf16",
+            "int8": "paged_chunk_q8_int8", "fp8": "paged_chunk_q8_fp8"}
+# the bf16 instantiations are a source of their own
+SOURCE_OF = {"bf16": "src/repro_torch/kernels/csrc/paged_attention_bf16.cu "
+                     "(instantiates src/repro_torch/kernels/csrc/"
+                     "paged_attention.cu at bf16)"}
 COMBINE = "paged_combine_f32"
 # rows a sequence in a speculative verify pass (the serve_spec horizon)
 VERIFY_H = 8
@@ -380,18 +419,28 @@ def kernel_cases(np):
 
 
 def paged_pages(torch, k, v):
-    """{page type: (k, v, k_scale, v_scale)} on the card, quantized by
-    the port's own page quantizer."""
+    """{page type: (k, v, k_scale, v_scale)} on the card: f32, bf16
+    (rounded from the f32 pages) and int8 / fp8 quantized by the port's
+    own page quantizer."""
     from repro_torch.core.kv_tier import quantize_page_kv
     dev = torch.device(DEVICE)
     k_t, v_t = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
-    pages = {"f32": (k_t, v_t, None, None)}
+    pages = {"f32": (k_t, v_t, None, None),
+             "bf16": (k_t.bfloat16(), v_t.bfloat16(), None, None)}
     for code, dtype, qmax in (("int8", torch.int8, 127.0),
                               ("fp8", torch.float8_e4m3fn, 448.0)):
         kq, ks = quantize_page_kv(k_t, qmax, dtype)
         vq, vs = quantize_page_kv(v_t, qmax, dtype)
         pages[code] = (kq, vq, ks, vs)
     return pages
+
+
+def dense_pages(kp, vp, ks, vs):
+    """The pages as f32 for the library call (SDPA takes one dtype):
+    bf16 widened, codes dequantised; made outside the timing."""
+    if ks is None:
+        return kp.float(), vp.float()
+    return kp.float() * ks[..., None], vp.float() * vs[..., None]
 
 
 def paged_fns(ops, q, kp, vp, ks, vs, table, lengths):
@@ -472,8 +521,7 @@ def phase_kernels(torch, np):
                 split_ms = time_ms(torch, lambda: pa.split_partials(
                     q, kp, vp, table, lengths, ks, vs,
                     pages_per_split=per), flush)
-            kd, vd = (kp, vp) if ks is None else (
-                kp.float() * ks[..., None], vp.float() * vs[..., None])
+            kd, vd = dense_pages(kp, vp, ks, vs)
             library_ms = time_ms(torch, library_call(torch, F, q, kd, vd,
                                                      table, lengths, page,
                                                      case), flush)
@@ -483,10 +531,10 @@ def phase_kernels(torch, np):
                                kp.element_size(), ks is not None,
                                VERIFY_H if form == "verify" else 1)
             results.append({
-                "name": ("paged_attention" if code == "f32"
+                "name": ("paged_attention" if ks is None
                          else "paged_attention_q8"),
                 "kernel": name, "form": form, "pages": code, "case": case,
-                "route": "cuda", "source": SOURCE,
+                "route": "cuda", "source": SOURCE_OF.get(code, SOURCE),
                 "replaces": REPLACES[code], "launches": None,
                 "max_abs_err": err, "split_partials_max_abs_err": split_err,
                 "split_kernel_ms": split_ms,
@@ -643,9 +691,11 @@ def chunk_padding_zeros(torch, np, ops, pages, cases):
 # kernels phase's 320-page store, node s owning [s * 80, (s + 1) * 80)
 POOL_NODES, POOL_LOCAL = 4, 80
 POOL_DECODE_OF = {"f32": "paged_pool_decode_f32",
+                  "bf16": "paged_pool_decode_bf16",
                   "int8": "paged_pool_decode_q8_int8",
                   "fp8": "paged_pool_decode_q8_fp8"}
 POOL_CHUNK_OF = {"f32": "paged_pool_chunk_f32",
+                 "bf16": "paged_pool_chunk_bf16",
                  "int8": "paged_pool_chunk_q8_int8",
                  "fp8": "paged_pool_chunk_q8_fp8"}
 
@@ -774,17 +824,16 @@ def pool_kernel_cases(torch, np, ops, pages, cases, flush):
                 check(torch.equal(one, single(q, kp, vp, *scales, table,
                                               lengths)),
                       f"{what}: one node != paged_attention bit for bit")
-                kd, vd = (kp, vp) if ks is None else (
-                    kp.float() * ks[..., None], vp.float() * vs[..., None])
+                kd, vd = dense_pages(kp, vp, ks, vs)
                 b_ms, b_by = bound(torch, q, table, lengths, page, hkv,
                                    kp.element_size(), ks is not None)
                 results.append({
-                    "name": ("paged_attention" if code == "f32"
+                    "name": ("paged_attention" if ks is None
                              else "paged_attention_q8"),
                     "kernel": name, "form": f"pool {form}", "pages": code,
                     "case": f"{POOL_NODES} nodes x {POOL_LOCAL} pages, "
                             f"{policy}: {case}",
-                    "route": "cuda", "source": SOURCE,
+                    "route": "cuda", "source": SOURCE_OF.get(code, SOURCE),
                     "replaces": REPLACES[code], "launches": None,
                     "max_abs_err": err, "node_partials_max_err": part_err,
                     "one_node_bit_equal": True,
@@ -1742,6 +1791,7 @@ def phase_isp(torch, np, smi, served, data):
     planner on the device and on the host, a dlrm-embed container, and
     RAG over the 1M x 768 corpus into full-width granite-3-2b."""
     import urllib.parse
+    from repro_torch.core import analytical as A
     from repro_torch.core.container import (ImageManifest, from_jsonable,
                                             make_blob)
     from repro_torch.core.extent_store import AnalyticsJob, analytics_blob
@@ -1828,6 +1878,10 @@ def phase_isp(torch, np, smi, served, data):
         check(np.array_equal(b, plain_scan(store, "lineitem", j)),
               f"SF-1 JOB frame job {j.job_id} != plain version")
     scanned = len(jobs) * store.extents["lineitem"].nbytes
+    job_stats = types.SimpleNamespace(**{
+        k: v - before[k] for k, v in vars(stats).items()
+        if isinstance(v, (int, float))})
+    served["data_plane"] = A.data_plane_terms(job_stats, scanned, len(jobs))
     out["sf1_job_frame"] = {
         "rows": li.shape[0], "pages": sf1_pages, "jobs": len(jobs),
         "ingest_s": put_s, "frame_wall_s": frame_s,
@@ -1836,6 +1890,7 @@ def phase_isp(torch, np, smi, served, data):
         "upcalls": stats.rx_completions - before["rx_completions"],
         "wire_bytes": wire_b, "bytes_scanned": scanned,
         "reduction_ratio": scanned / wire_b,
+        "data_plane_terms": served["data_plane"],
         "counts": [float(b[0, 0]) for b in blocks],
         "blocks_equal_plain_version": True}
     # the host leg at full size for one job: the whole extent through
@@ -3189,8 +3244,450 @@ def phase_serve(torch, np, smi):
           "note": "smoke run, not a benchmark"})
     served = {"cfg": cfg, "model": model, "params": params,
               "prompts": prompts, "paged_first_step": (seqs, logits),
-              "tokens_h1": tokens_h1}
+              "tokens_h1": tokens_h1, "tier_h1": runs["h1"]["tier"],
+              "decode_tok_s": {h: runs[f"h{h}"]["decode_tok_s"]
+                               for h in (1, 8)}}
     return counts, served
+
+
+# the serve_knobs phase: the serve phase's weights and prompts, the
+# first SERVE_KNOBS["shared"] tokens of every prompt made prompt 0's for
+# the cold/warm pair; the byte budget of the f32 window (320 stacked
+# pages of granite-3-2b: 838,860,800 bytes); pools of 4 nodes
+SERVE_KNOBS = {"shared": 256, "pool_nodes": 4, "bf16_ulps": 4}
+
+
+def bf16_tolerance(logits, ulps=SERVE_KNOBS["bf16_ulps"]):
+    """``ulps`` bf16 ulps of the largest |logit|.  A bf16 residual stream
+    rounds every product and elementwise result to 8 significant bits,
+    so two runs that differ only in an attention sum's order (1e-7)
+    differ by whole bf16 ulps of the logits once a rounding flips, not by
+    LOGITS_TOL."""
+    top = float(logits.float().abs().max())
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+@contextlib.contextmanager
+def plain_paged(ops):
+    """The single-device paged path with the plain attention on the card
+    (the wrappers launch their kernels for every CUDA tensor)."""
+    saved = ops.paged_attention
+    ops.paged_attention = ops.ref.paged_attention_ref
+    try:
+        yield
+    finally:
+        ops.paged_attention = saved
+
+
+def knob_run(torch, server, prompts, chunk, gen, first_step=False):
+    """Admit ``prompts`` (chunks of ``chunk``), then ``gen`` greedy
+    tokens at horizon 8 (with ``first_step``, the first through
+    ``step_batch`` after ``step_reference``, whose logits are returned).
+    Returns (streams {rid: [admission token, gen tokens]}, the gaps as
+    ``first_divergences`` takes them (each step's [B] top-2 gaps, and
+    {rid: the admission logits' gap}), the run's line, first-step logits
+    and reference logits or None)."""
+    rec = record_gaps(server)
+    adm = {}
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        top = server.add_request(i, p, chunk=chunk).float().topk(2).values
+        adm[i] = float(top[0] - top[1])
+    prefill_s = time.monotonic() - t0
+    pending = server.pending_tokens()
+    streams = {i: [t] for i, t in pending.items()}
+    firsts = None
+    if first_step:
+        ref_logits = server.step_reference(pending)
+        seqs, logits = server.step_batch(pending)
+        firsts = (logits, ref_logits)
+        nxt = logits.argmax(dim=-1).cpu().tolist()
+        for s, tok in zip(seqs, nxt):
+            server.set_pending(s, tok)
+            streams[s].append(tok)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = server.decode(gen - len(streams[0]) + 1, horizon=8)
+    secs = time.monotonic() - t0
+    for s, toks in out.items():
+        streams[s] += toks
+    line = {"hbm_pages": server.hbm_pages, "prefill_s": prefill_s,
+            "decode_s": secs,
+            "decode_tok_s": sum(map(len, out.values())) / secs,
+            "prefill_tokens_computed": server.prefill_tokens_computed,
+            "prefix_hit_rate": server.prefix_hit_rate(),
+            "tier": server.tier_stats()}
+    return streams, (rec, adm), line, firsts
+
+
+def agreement(a, b):
+    """Share of positions where two runs' streams agree."""
+    pairs = [(x, y) for s in a for x, y in zip(a[s], b[s])]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def phase_serve_knobs(torch, np, smi, served):
+    """The reference's serving keyword arguments on the serve phase's
+    granite-3-2b: the prefix cache off against on (tokens identical,
+    every prompt token computed), a bf16 page store (its first step
+    within 4 bf16 ulps of the plain attention, its tokens against the same
+    path with the plain attention by the near-tie rule, its agreement
+    with the f32 store printed), windows sized by a byte budget (the
+    pages each format admits; the bf16 and int8 windows served), and
+    the prefix and bf16 pair on a 4-node PoolServer."""
+    from repro_torch.core.kv_tier import PageStore
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.pool import PoolServer
+    from repro_torch.runtime.serve import PagedServer
+
+    dev = torch.device(DEVICE)
+    cfg, model, params = served["cfg"], served["model"], served["params"]
+    n_req, plen, gen, q_gen, chunk, page, hbm = (
+        SERVE[k] for k in ("requests", "prompt_len", "gen", "q8_gen",
+                           "chunk", "page", "hbm_pages"))
+    n_shared, nodes = SERVE_KNOBS["shared"], SERVE_KNOBS["pool_nodes"]
+    prompts = served["prompts"]
+    shared = prompts.copy()
+    shared[:, :n_shared] = prompts[0, :n_shared]
+    total = int(shared.size)
+    t_phase = time.monotonic()
+    ops.reset_launch_counts()
+    runs, divergences = {}, []
+
+    def paged(**kw):
+        return PagedServer(model, params, page_size=page, device=dev, **kw)
+
+    # the prefix cache on and off on shared-prefix prompts
+    warm, _, runs["warm"], _ = knob_run(
+        torch, paged(hbm_pages=hbm), shared, chunk, gen)
+    cold, cold_gaps, runs["cold"], _ = knob_run(
+        torch, paged(hbm_pages=hbm, prefix_cache=False), shared, chunk, gen)
+    check(cold == warm, "prefix_cache=False: tokens identical to the "
+          "prefix-cached run")
+    check(runs["cold"]["prefill_tokens_computed"] == total,
+          f"cold run computed {runs['cold']['prefill_tokens_computed']} of "
+          f"{total} prompt tokens")
+    want_warm = plen + (n_req - 1) * (plen - n_shared)
+    check(runs["warm"]["prefill_tokens_computed"] == want_warm,
+          f"warm run computed {runs['warm']['prefill_tokens_computed']}, "
+          f"not {want_warm}")
+    check(runs["cold"]["tier"]["prefix_hits"] == 0, "cold: no prefix hits")
+
+    # windows sized by the f32 window's byte budget
+    geom = dict(n_layers=cfg.n_layers, page_size=page,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd)
+    budget = hbm * PageStore.stacked_page_bytes(**geom)
+    admitted = {}
+    for name, dtype, pd in (("f32", torch.float32, "fp32"),
+                            ("bf16", torch.bfloat16, "fp32"),
+                            ("int8", torch.float32, "int8"),
+                            ("fp8", torch.float32, "fp8")):
+        admitted[name] = max(1, budget // PageStore.stacked_page_bytes(
+            dtype=dtype, page_dtype=pd, **geom))
+
+    # a bf16 page store (the byte budget's window), its first step held
+    # to the plain attention, then against the same path with the plain
+    # attention
+    srv = paged(hbm_bytes=budget, dtype=torch.bfloat16)
+    check(srv.hbm_pages == admitted["bf16"] and
+          srv.store.k_pages.dtype == torch.bfloat16, "bf16 window")
+    bf16, bf16_gaps, runs["bf16"], (logits, ref_logits) = knob_run(
+        torch, srv, prompts, chunk, gen, first_step=True)
+    del srv
+    check(bool(torch.isfinite(logits).all()), "bf16: finite logits")
+    bf16_tol = bf16_tolerance(ref_logits)
+    bf16_err = float((logits - ref_logits).abs().max())
+    check(bf16_err <= bf16_tol, f"bf16 store: step_batch vs step_reference "
+          f"{bf16_err} > {bf16_tol}")
+    with plain_paged(ops):
+        plain, plain_gaps, runs["bf16_plain_attention"], _ = knob_run(
+            torch, paged(hbm_bytes=budget, dtype=torch.bfloat16), prompts,
+            chunk, gen, first_step=True)
+    rids = list(range(n_req))
+    divergences += first_divergences(
+        torch, "bf16 store vs plain attention", rids, plain, bf16,
+        *plain_gaps, phase="serve_knobs", limit=bf16_tol)
+    f32_tokens = served["tokens_h1"]
+    bf16_vs_f32 = {s: bf16[s][1:] for s in bf16}
+    runs["bf16"]["agree_with_f32"] = agreement(f32_tokens, bf16_vs_f32)
+    runs["bf16"]["first_divergence_from_f32"] = [
+        next((i for i, (x, y) in enumerate(zip(f32_tokens[s],
+                                               bf16_vs_f32[s])) if x != y),
+             None) for s in sorted(bf16)]
+
+    # the int8 window of the same budget, served once
+    srv = paged(hbm_bytes=budget, page_dtype="int8")
+    check(srv.hbm_pages == admitted["int8"], "int8 window")
+    int8, _, runs["int8"], _ = knob_run(torch, srv, prompts, chunk, q_gen)
+    del srv
+    runs["int8"]["agree_with_f32"] = agreement(
+        f32_tokens, {s: int8[s][1:] for s in int8})
+
+    # the pair on a 4-node pool
+    def pool(**kw):
+        return PoolServer(model, params, n_nodes=nodes, page_size=page,
+                          device=dev, **kw)
+    pool_cold, _, runs["pool_cold"], _ = knob_run(
+        torch, pool(hbm_pages_per_node=hbm // nodes, prefix_cache=False),
+        shared, chunk, gen)
+    check(runs["pool_cold"]["prefill_tokens_computed"] == total,
+          "pool, prefix cache off: every prompt token computed")
+    divergences += first_divergences(
+        torch, "4-node pool, prefix cache off, vs the single server", rids,
+        cold, pool_cold, *cold_gaps, phase="serve_knobs")
+    pool_bf16, _, runs["pool_bf16"], _ = knob_run(
+        torch, pool(hbm_pages_per_node=admitted["bf16"] // nodes,
+                    dtype=torch.bfloat16), prompts, chunk, gen)
+    divergences += first_divergences(
+        torch, "4-node pool, bf16 store, vs the single server", rids, bf16,
+        pool_bf16, *bf16_gaps, phase="serve_knobs", limit=bf16_tol)
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_chunks = -(-plen // chunk)
+    need = {CHUNK_OF["bf16"]: cfg.n_layers * n_req * n_chunks,
+            POOL_CHUNK_OF["bf16"]: cfg.n_layers * n_req * n_chunks,
+            POOL_CHUNK_OF["f32"]: cfg.n_layers * n_req * n_chunks,
+            CHUNK_OF["int8"]: cfg.n_layers * n_req * n_chunks,
+            CHUNK_OF["f32"]: cfg.n_layers * (
+                n_req * n_chunks + n_chunks + (n_req - 1) *
+                -(-(plen - n_shared) // chunk))}
+    for name, n in need.items():
+        check(counts[name] == n, f"{name} launches {counts[name]} != {n} "
+              "(one per layer and prefill chunk)")
+    for name in (DECODE_OF["bf16"], POOL_DECODE_OF["bf16"],
+                 DECODE_OF["f32"], DECODE_OF["int8"],
+                 POOL_DECODE_OF["f32"]):
+        check(counts[name] >= cfg.n_layers * q_gen,
+              f"{name} launches {counts[name]} (one per layer and step)")
+    n_decode = sum(counts[DECODE_OF[c]] for c in DECODE_OF)
+    check(counts[COMBINE] == n_decode,
+          f"{COMBINE} launches {counts[COMBINE]} != {n_decode}")
+    emit({"phase": "serve_knobs", "arch": cfg.name, "requests": n_req,
+          "prompt_len": plen, "gen": gen, "q8_gen": q_gen,
+          "shared_prefix": n_shared, "pool_nodes": nodes,
+          "tokens_identical_cold_warm": True,
+          "prefill_tokens_computed": {"cold": total, "warm": want_warm},
+          "hbm_bytes": budget, "pages_admitted": admitted,
+          "bf16_first_step_vs_plain": bf16_err, "bf16_tolerance": bf16_tol,
+          "bf16_tolerance_rule": f"{SERVE_KNOBS['bf16_ulps']} bf16 ulps of "
+                                 "the largest logit",
+          "divergences": divergences, "runs": runs, "launches": counts,
+          "launches_needed": need, "phase_s": time.monotonic() - t_phase,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return counts
+
+
+# the facade phase: a PagedKVCache at granite-3-2b's KV width
+FACADE = {"heads": 32, "kv_heads": 8, "head_dim": 64, "page": 16,
+          "hbm_pages": 160, "sequences": 8, "tokens": 512, "shared": 256,
+          "sharers": 4, "group": 4}
+
+
+def phase_facade(torch, np, smi):
+    """The one-layer facade on the card, f32 and bf16 pages: 8 sequences
+    of 512 tokens appended one token at a time, four of them mapping a
+    256-token prefix registered by the first through ``cache.table``
+    (their first append past it splits the shared page), in a window of
+    160 pages (it spills); ``kernel_view`` of each group of 4 through
+    ``ops.paged_attention`` (the decode form) with q of 32 heads against
+    the plain version (1e-4 x max(1, max|plain|)) and against the dense
+    copy gathered through the table (exact); a view taken, then appends
+    and evictions, and the view unchanged bit for bit."""
+    from repro_torch.core import PagedKVCache
+    from repro_torch.kernels import ops
+
+    fc = FACADE
+    dev = torch.device(DEVICE)
+    hkv, d, page, n_tok = fc["kv_heads"], fc["head_dim"], fc["page"], \
+        fc["tokens"]
+    t_phase = time.monotonic()
+    ops.reset_launch_counts()
+    lines = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cache = PagedKVCache(page_size=page, hbm_pages=fc["hbm_pages"],
+                             n_kv_heads=hkv, head_dim=d, dtype=dtype,
+                             device=dev)
+        prefix_ids = np.arange(fc["shared"], dtype=np.int32)
+        dense_k = {s: [] for s in range(fc["sequences"])}
+        dense_v = {s: [] for s in range(fc["sequences"])}
+        t0 = time.monotonic()
+
+        def append(s):
+            k, v = (torch.randn((hkv, d), generator=gen, device=dev)
+                    for _ in range(2))
+            cache.append_token(s, k, v)
+            dense_k[s].append(k.to(dtype))
+            dense_v[s].append(v.to(dtype))
+        cache.add_sequence(0)
+        for _ in range(fc["shared"]):
+            append(0)
+        cache.table.register_prefix(0, prefix_ids)
+        for s in range(1, fc["sequences"]):
+            cache.add_sequence(s)
+            if s < fc["sharers"]:
+                got = cache.table.match_prefix(s, prefix_ids)
+                check(got == fc["shared"] - 1, f"facade: prefix of {got}")
+                dense_k[s] = list(dense_k[0][:got])
+                dense_v[s] = list(dense_v[0][:got])
+        for s in range(fc["sequences"]):
+            while cache.length(s) < n_tok:
+                append(s)
+        append_s = time.monotonic() - t0
+        stats = dict(vars(cache.stats))
+        check(stats["page_outs"] > 0, "facade: the window spills")
+        check(stats["cow_splits"] == fc["sharers"] - 1,
+              f"facade: {stats['cow_splits']} copy-on-write splits")
+        worst = 0.0
+        for g0 in range(0, fc["sequences"], fc["group"]):
+            seqs = list(range(g0, g0 + fc["group"]))
+            kp, vp, table, lengths = cache.kernel_view(seqs)
+            for i, s in enumerate(seqs):
+                rows = table[i].long()
+                for pages, dense in ((kp, dense_k[s]), (vp, dense_v[s])):
+                    got = pages[rows].reshape(-1, hkv, d)[:n_tok]
+                    check(torch.equal(got, torch.stack(dense)),
+                          f"facade {name}: sequence {s}'s view != its "
+                          "dense copy")
+            q = torch.randn((len(seqs), fc["heads"], d), generator=gen,
+                            device=dev)
+            before = ops.launch_counts()[DECODE_OF[name]]
+            out = ops.paged_attention(q, kp, vp, table, lengths)
+            torch.cuda.synchronize()
+            check(ops.launch_counts()[DECODE_OF[name]] == before + 1,
+                  f"facade {name}: the decode form ran")
+            want = ops.ref.paged_attention_ref(q, kp, vp, table, lengths)
+            err = float((out - want).abs().max())
+            check(err <= KERNEL_TOL * max(1.0, float(want.abs().max())),
+                  f"facade {name}: kernel_view through paged_attention, "
+                  f"max_abs_err {err}")
+            worst = max(worst, err)
+        view = cache.kernel_view(list(range(fc["group"])))
+        kept = [t.clone() for t in view]
+        for s in range(fc["group"], fc["sequences"]):
+            append(s)
+        cache.kernel_view(list(range(fc["group"], fc["sequences"])))
+        check(cache.stats.page_outs > stats["page_outs"],
+              "facade: the later views evicted pages")
+        check(all(torch.equal(a, b) for a, b in zip(view, kept)),
+              f"facade {name}: a view changed after appends and evictions")
+        lines[name] = {"append_s": append_s, "tokens": n_tok *
+                       fc["sequences"], "max_abs_err": worst,
+                       "stats_after_fill": stats,
+                       "stats": dict(vars(cache.stats)),
+                       "residency": cache.residency(),
+                       "snapshot_unchanged": True}
+        del cache, dense_k, dense_v
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    emit({"phase": "facade", **fc, "pages": lines, "launches": counts,
+          "tolerance": f"{KERNEL_TOL} x max(1, max|plain|); views exact",
+          "phase_s": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return counts
+
+
+def phase_analytical(smi, served):
+    """The analytical models of the port: the Fig 12b and Fig 11 / Fig 3
+    headline ratios and the Fig 13 crossovers, gated on the bands of
+    ``tests/test_analytical.py``; then the serving terms priced from this
+    run's own counters (the serve phase's tier stats and h1/h8 tok/s, the
+    isp phase's SF-1 JOB frame), printed, not gated."""
+    from repro_torch.core import analytical as A
+    from repro_torch.core import isp_perf as I
+
+    t0 = time.monotonic()
+    r = A.headline_ratios(A.evaluate_pool())
+    for key, lo, hi in (("d_cache_vs_h_cache", 6.0, 10.0),
+                        ("h_cache_vs_h_nocache", 300, 560),
+                        ("d_cache_vs_d_nocache", 3400, 6200),
+                        ("d_cache_vs_h_nocache", 2300, 4300),
+                        ("d_nocache_slowdown_vs_h", 1.4, 2.0)):
+        check(lo <= r[key] <= hi, f"Fig 12b {key} {r[key]} not in "
+              f"[{lo}, {hi}]")
+    ri = I.headline_ratios()
+    for key, lo, hi in (("dvirtfw_vs_pisp", 1.4, 1.8),
+                        ("dvirtfw_vs_dnaive", 1.5, 2.1),
+                        ("dvirtfw_vs_dfullos", 1.4, 1.8),
+                        ("dvirtfw_vs_host", 1.1, 1.5),
+                        ("pispv_vs_pispr", 0.10, 0.17),
+                        ("dfullos_over_pispv", 0.04, 0.15),
+                        ("dnaive_over_dfullos", 0.08, 0.18),
+                        ("host_storage_share", 0.30, 0.46),
+                        ("pisp_comm_share", 0.35, 0.50),
+                        ("pisp_storage_reduction", 0.40, 0.60)):
+        check(lo <= ri[key] <= hi, f"Fig 11/3 {key} {ri[key]} not in "
+              f"[{lo}, {hi}]")
+    check(ri["pisp_vs_host"] > 1.0, "P.ISP slower than the host end to end")
+    rl = A.seq_sensitivity("lamda-137B")
+    rm = A.seq_sensitivity("megatron-1T")
+    cross = {"lamda-137B": A.crossover_point(rl),
+             "megatron-1T": A.crossover_point(rm)}
+    check(cross["lamda-137B"] == 256, f"lamda crossover {cross}")
+    check(256 <= cross["megatron-1T"] <= 2048, f"megatron crossover {cross}")
+    check(8.0 <= rl[-1]["speedup"] <= 12.5 and rl[0]["speedup"] < 1.0,
+          "Fig 13a: converged speedup and the host's short-sequence win")
+    tok_s = served["decode_tok_s"]
+    host_s, dev_s = A.fit_horizon_overheads(1, tok_s[1], 8, tok_s[8])
+    emit({"phase": "analytical", "fig12b": r, "fig11_fig3": ri,
+          "fig13a_crossovers": cross,
+          "fig13a_converged_speedup": rl[-1]["speedup"],
+          "kv_tier_terms_serve_h1": A.kv_tier_terms(served["tier_h1"]),
+          "data_plane_terms_sf1_job_frame": served["data_plane"],
+          "horizon_fit": {"decode_tok_s": tok_s,
+                          "host_overhead_s": host_s, "device_step_s": dev_s,
+                          "modeled_h8": A.horizon_amortized_terms(
+                              512, 8, host_s, dev_s)},
+          "bands": "tests/test_analytical.py", "seconds": time.monotonic()
+          - t0, "nvidia_smi": smi,
+          "note": "the models price the paper's prototype (HW, IspCosts), "
+                  "not this card; the terms read this run's counters"})
+
+
+def phase_examples(torch, smi):
+    """Each example twin's ``main`` on the card at its own demo size; the
+    twins assert their invariants (1-node pool = PagedServer, failover
+    and warm outputs = the single-node / cold runs, speculative =
+    plain horizon, device retrieval = host fold, the pipelined model =
+    the monolithic one), checked here again from what they return."""
+    import importlib.util
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    lines = {}
+    for name, check_out in (
+            ("serve_pool_torch", lambda o: o["one_node_equal"] and
+             o["failover_equal"] and o["warm_equals_cold"] and
+             o["spec_equal"] and o["warm_tokens"] < o["cold_tokens"]),
+            ("serve_rag_torch", lambda o: o["warm_tokens"] <
+             o["cold_tokens"] and o["stats"]["device"] > 0),
+            ("distributed_inference_torch", lambda o: o["err"] < 1e-3 and
+             o["err_after_failure"] < 1e-3)):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = mod.main(["--device", DEVICE])
+        check(check_out(out), f"example {name}: invariants")
+        lines[name] = {"seconds": time.monotonic() - t0,
+                       **{k: v for k, v in out.items()
+                          if k in ("requeues", "spec_alpha", "warm_tokens",
+                                   "cold_tokens", "ids", "err",
+                                   "err_after_failure", "t_warm",
+                                   "t_cold")}}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["topk_scan_f32"] > 0 and counts["embed_gather"] > 0 and
+          counts["paged_pool_decode_f32"] > 0, "the twins ran the kernels")
+    emit({"phase": "examples", "runs": lines, "launches": counts,
+          "nvidia_smi": smi, "note": "demo sizes (the twins' own)"})
+    return counts
 
 
 # the serve_spec phase: the serve phase's granite-3-2b, its first four
@@ -3231,12 +3728,12 @@ def record_gaps(server):
 
 
 def first_divergences(torch, name, rids, want, got, gaps, first_gaps=None,
-                      phase="serve_spec"):
+                      phase="serve_spec", limit=LOGITS_TOL):
     """The near-tie rule for two streams the reference holds identical:
     where ``got[rid]`` differs from ``want[rid]`` (the per-token run's),
     print the first position that differs and the gap there between the
     two largest scores of the per-token run; a divergence passes only at
-    a gap below LOGITS_TOL.  ``gaps``: the per-token run's record (its
+    a gap below ``limit``.  ``gaps``: the per-token run's record (its
     t-th decode step, slot = the rid's index in ``rids``); with
     ``first_gaps`` ({rid: gap}) the streams begin with the token drawn
     after prefill and decode step t is position t + 1.  Returns the
@@ -3259,12 +3756,11 @@ def first_divergences(torch, name, rids, want, got, gaps, first_gaps=None,
         found.append({"run": name, "rid": rid, "position": pos,
                       "per_token": a[pos:pos + 1], "got": b[pos:pos + 1],
                       "top2_gap": gap})
-        emit({"phase": phase, "divergence": found[-1],
-              "limit": LOGITS_TOL})
-        check(gap is not None and gap < LOGITS_TOL,
+        emit({"phase": phase, "divergence": found[-1], "limit": limit})
+        check(gap is not None and gap < limit,
               f"{name}: request {rid} leaves the per-token stream at "
               f"position {pos}, where its two largest scores are {gap} "
-              f"apart: not a near-tie below {LOGITS_TOL}")
+              f"apart: not a near-tie below {limit}")
     return found
 
 
@@ -5313,20 +5809,26 @@ def main() -> int:
     kernels += phase_dense_kernels(torch, np, flush)
     del flush
     counts, served = phase_serve(torch, np, smi)
+    knob_counts = phase_serve_knobs(torch, np, smi, served)
     spec_counts = phase_serve_spec(torch, np, smi, served)
     pool_counts = phase_serve_pool(torch, np, smi, served)
     reduced_counts = phase_serve_reduced(torch, np, smi)
     isp_counts = phase_isp(torch, np, smi, served, data)
     del data
+    facade_counts = phase_facade(torch, np, smi)
+    phase_analytical(smi, served)
+    example_counts = phase_examples(torch, smi)
     dense_counts = phase_dense(torch, np, smi, served)
     train_counts = phase_train(torch, np, smi)
     family_counts = phase_families(torch, np, smi)
     tf_counts = phase_train_families(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
-            counts, spec_counts, pool_counts, reduced_counts, isp_counts,
-            dense_counts, train_counts, *family_counts.values(),
-            *tf_counts.values()))
+            counts, knob_counts, spec_counts, pool_counts, reduced_counts,
+            isp_counts, facade_counts, example_counts, dense_counts,
+            train_counts, *family_counts.values(), *tf_counts.values()))
+        check(entry["launches"] > 0, f"{entry['kernel']} ({entry['case']}) "
+              "was launched no time on the main path")
         entry["launches_in_train"] = train_counts[entry["kernel"]]
         entry["launches_in_train_families"] = {
             a: c[entry["kernel"]] for a, c in tf_counts.items()}

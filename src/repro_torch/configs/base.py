@@ -3,12 +3,15 @@
 A copy of the JAX package's registry (same fields, same ``reduced()``),
 kept here so the port imports nothing of ``repro``.  Every architecture
 is a frozen ``ArchConfig``; every input shape is a ``ShapeConfig``.
+``cells()`` enumerates the runnable (arch x shape) grid with skip
+annotations (encoder-only archs have no decode step; ``long_500k`` only
+runs for sub-quadratic families).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Iterator, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +121,27 @@ def get_arch(name: str) -> ArchConfig:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
         _REGISTRY[key] = mod.CONFIG
     return _REGISTRY[key]
+
+
+def all_archs() -> list:
+    return [get_arch(a) for a in ARCH_IDS]
+
+
+def cell_status(arch: ArchConfig, shape: ShapeConfig) -> str:
+    """'run' or a 'skip:<reason>' marker for an (arch, shape) cell."""
+    if shape.kind == "decode" and not arch.has_decode:
+        return "skip:encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return "skip:long_500k requires sub-quadratic attention (full-attention arch)"
+    return "run"
+
+
+def cells(runnable_only: bool = True) -> Iterator[tuple]:
+    """Yield (arch, shape, status) over the 10 x 4 assigned grid."""
+    for aid in ARCH_IDS:
+        arch = get_arch(aid)
+        for shape in SHAPES.values():
+            status = cell_status(arch, shape)
+            if runnable_only and status != "run":
+                continue
+            yield arch, shape, status

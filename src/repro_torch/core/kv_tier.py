@@ -15,6 +15,9 @@ host/device boundary:
     the JAX package's numpy/hashlib class.  It reaches the store only
     through ``read_page``/``write_page``/``copy_page``/``page_bytes``/
     ``format_key``.
+
+:class:`PagedKVCache` is the thin single-layer facade over the pair for
+code that wants the classic per-layer append/view API.
 """
 from __future__ import annotations
 
@@ -259,6 +262,13 @@ class PageStore:
         """Per-layer slice of :meth:`device_state` (contiguous views the
         kernel reads)."""
         return {n: b[li, :self.hbm_pages] for n, b in self._bufs.items()}
+
+    def layer(self, li: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``li``'s pages [hbm_pages, page, hkv, hd] (kernel
+        convention) as **snapshots**: copies, not views, so that they
+        keep their values when later appends, evictions or page-ins
+        rewrite the window (the reference's arrays are immutable)."""
+        return self.k_pages[li].clone(), self.v_pages[li].clone()
 
 
 class PageTableManager:
@@ -842,3 +852,94 @@ class PageTableManager:
             if lkey in self._host:
                 self._page_in(lkey)
                 self._prefetched.add(lkey)
+
+
+class PagedKVCache:
+    """Single-layer-group facade over PageTableManager + PageStore.
+
+    Keeps the classic per-layer API (``append_token`` one position at a
+    time, ``kernel_view`` snapshots) for tests and tools; the serving
+    path uses the manager/store pair directly with stacked layers and
+    batched in-place appends.  Pages are bf16 by default, as the
+    reference's facade keeps them.
+    """
+
+    def __init__(self, *, page_size: int, hbm_pages: int, n_kv_heads: int,
+                 head_dim: int, dtype=torch.bfloat16, device="cuda"):
+        # single layer group by construction: multi-layer callers use the
+        # manager/store pair directly (see PagedServer)
+        self.store = PageStore(n_layers=1, page_size=page_size,
+                               hbm_pages=hbm_pages, n_kv_heads=n_kv_heads,
+                               head_dim=head_dim, dtype=dtype, device=device)
+        self.table = PageTableManager(self.store)
+        self.page = page_size
+        self.hbm_pages = hbm_pages
+        self.dtype = dtype
+        self.device = self.store.device
+
+    @property
+    def stats(self) -> KVTierStats:
+        return self.table.stats
+
+    # -- sequence management -------------------------------------------------
+
+    def add_sequence(self, seq_id: int):
+        self.table.add_sequence(seq_id)
+
+    def length(self, seq_id: int) -> int:
+        return self.table.length(seq_id)
+
+    def free_sequence(self, seq_id: int) -> int:
+        return self.table.free_sequence(seq_id)
+
+    # -- writes --------------------------------------------------------------
+
+    def append_token(self, seq_id: int, k_tok, v_tok):
+        """k_tok/v_tok: [n_kv_heads, head_dim] for the new position."""
+        pos = self.table.length(seq_id)
+        off = pos % self.page
+        self.table.ensure_page(seq_id, pos // self.page, count=False)
+        # the invariant of every write path: never write into a shared
+        # physical page, split it first
+        phys = self.table.make_writable(seq_id, pos // self.page)
+        self.store.write_token(0, phys, off,
+                               torch.as_tensor(k_tok, device=self.device),
+                               torch.as_tensor(v_tok, device=self.device))
+        self.table.commit_append(seq_id)
+
+    # -- read view for the kernel --------------------------------------------
+
+    def ensure_resident(self, seq_id: int, *, pin: bool = False) -> List[int]:
+        return self.table.ensure_resident(seq_id, pin=pin)
+
+    def prefetch(self, seq_id: int):
+        self.table.prefetch(seq_id)
+
+    def unpin_all(self):
+        self.table.unpin_all()
+
+    def kernel_view(self, seq_ids: List[int]):
+        """(k_pages, v_pages, page_table, lengths) ready for
+        ``repro_torch.kernels.ops.paged_attention``: the pages are
+        snapshots (:meth:`PageStore.layer`), so the view stays valid
+        when later appends or evictions rewrite the window."""
+        tables = []
+        max_pages = max(self.table.pages_needed(self.table.length(s))
+                        for s in seq_ids)
+        try:
+            for s in seq_ids:
+                phys = self.table.ensure_resident(s, pin=True)
+                tables.append(phys + [0] * (max_pages - len(phys)))
+        finally:
+            self.table.unpin_all()
+        page_table = torch.tensor(tables, dtype=torch.int32,
+                                  device=self.device)
+        lengths = torch.tensor([self.table.length(s) for s in seq_ids],
+                               dtype=torch.int32, device=self.device)
+        k_pages, v_pages = self.store.layer(0)
+        return k_pages, v_pages, page_table, lengths
+
+    # -- occupancy -----------------------------------------------------------
+
+    def residency(self) -> float:
+        return self.table.residency()

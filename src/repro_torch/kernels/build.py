@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface,
 ``<checkout>/build/repro_torch/lib<name>_<hash>.so``, where the hash
-covers the source, the shared headers ``csrc/*.cuh`` and the flags, and
+covers the source, the sources it includes, the shared headers
+``csrc/*.cuh`` and the flags, and
 loaded with ``ctypes``.  The build runs at first use (or ahead, from
 :func:`build_all`, one ``nvcc`` per source, all started together); a
 failed build or load raises, and no caller falls back to the plain
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,9 +43,18 @@ def _nvcc() -> str:
                        "the card")
 
 
+def _included_sources(src: Path):
+    """The ``csrc/*.cu`` files ``src`` includes (a source that
+    instantiates another's kernels for more types includes it)."""
+    names = re.findall(r'^#include "([^"]+\.cu)"', src.read_text(), re.M)
+    return [CSRC / n for n in names]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for other in _included_sources(src):
+        h.update(other.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

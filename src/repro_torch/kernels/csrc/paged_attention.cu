@@ -2,11 +2,16 @@
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // repro/kernels/paged_attention.py:
-//   * _paged_kernel (:39)     -> paged_decode_f32, paged_chunk_f32
+//   * _paged_kernel (:39)     -> paged_decode_f32, paged_chunk_f32, and
+//                                on bf16 pages paged_decode_bf16,
+//                                paged_chunk_bf16
 //   * _paged_q8_kernel (:77)  -> paged_decode_q8_{int8,fp8},
 //                                paged_chunk_q8_{int8,fp8}
 // plus paged_combine_f32, the merge of the decode form's split partials,
 // and the pool form of both (paged_pool_decode_*, paged_pool_chunk_*).
+// The bf16 exports are built from this file by paged_attention_bf16.cu
+// (PAGED_BF16 defined), a library of their own, so the two nvcc runs go
+// side by side; each library holds only its exports' instantiations.
 // Same function: for each (query row, query head), a softmax over the
 // positions below the row's length of the pages its table row names
 // (pages at or past the length are never read), out = acc / max(l,
@@ -110,6 +115,11 @@
 // columns are read and written.  A row of codes whose d bytes are not a
 // multiple of 16 (int8/fp8 at d = 8 mod 16) is copied in 8-byte pieces.
 //
+// bf16 pages are unquantized (Q = false): each element is widened to f32
+// where it is read (decode form) or staged (chunk form), as the Pallas
+// body widens its pages, and every product and sum is f32.  A bf16 row
+// of d (a multiple of 8) elements is a whole number of 16-byte chunks.
+//
 // Layouts (row-major): q/out [B, H, d] f32; k/v pages [P, page, Hkv, d]
 // of T, 16-byte aligned (8 for such rows of codes); scales [P, page, Hkv]
 // f32; page_table [B, pps] int32 (the chunk form reads one row); lengths
@@ -122,6 +132,7 @@
 #include <cmath>
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
@@ -138,6 +149,7 @@ constexpr int kStages = 3;         // decode form: tiles in the ring
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ float elem(const uint4& raw, int e) {
@@ -776,7 +788,7 @@ __device__ __forceinline__ void cvt_store(float* dst, const uint4& raw, float) {
 template <typename T>
 __device__ __forceinline__ void cvt_store(float* dst, const uint4& raw, T) {
 #pragma unroll
-  for (int e = 0; e < 16; e += 4)
+  for (int e = 0; e < 16 / (int)sizeof(T); e += 4)
     *reinterpret_cast<float4*>(dst + e) =
         make_float4(elem<T>(raw, e), elem<T>(raw, e + 1), elem<T>(raw, e + 2),
                     elem<T>(raw, e + 3));
@@ -1323,9 +1335,13 @@ extern "C" {
                                nullptr, b, h, hkv, d, pps, page, per, n_split, \
                                1, INT_MAX, 0, stream);                         \
   }
+#ifdef PAGED_BF16
+DECODE(paged_decode_bf16, __nv_bfloat16, false)
+#else
 DECODE(paged_decode_f32, float, false)
 DECODE(paged_decode_q8_int8, int8_t, true)
 DECODE(paged_decode_q8_fp8, __nv_fp8_e4m3, true)
+#endif
 #undef DECODE
 
 // Pool decode form: n_nodes windows of n_local pages; the partials are
@@ -1344,9 +1360,13 @@ DECODE(paged_decode_q8_fp8, __nv_fp8_e4m3, true)
                               tickets, b, h, hkv, d, pps, page, per, n_split,  \
                               n_nodes, n_local, n_tickets, stream);            \
   }
+#ifdef PAGED_BF16
+POOL_DECODE(paged_pool_decode_bf16, __nv_bfloat16, false)
+#else
 POOL_DECODE(paged_pool_decode_f32, float, false)
 POOL_DECODE(paged_pool_decode_q8_int8, int8_t, true)
 POOL_DECODE(paged_pool_decode_q8_fp8, __nv_fp8_e4m3, true)
+#endif
 #undef POOL_DECODE
 
 // Chunk form: table_row is the one [pps] row every query row shares.
@@ -1360,9 +1380,13 @@ POOL_DECODE(paged_pool_decode_q8_fp8, __nv_fp8_e4m3, true)
                               out, nullptr, c, h, hkv, d, pps, page, 1,        \
                               INT_MAX, 0, stream);                             \
   }
+#ifdef PAGED_BF16
+CHUNK(paged_chunk_bf16, __nv_bfloat16, false)
+#else
 CHUNK(paged_chunk_f32, float, false)
 CHUNK(paged_chunk_q8_int8, int8_t, true)
 CHUNK(paged_chunk_q8_fp8, __nv_fp8_e4m3, true)
+#endif
 #undef CHUNK
 
 // Pool chunk form: each node's partial into p_acc [C, H, n_nodes, d], p_m,
@@ -1379,14 +1403,20 @@ CHUNK(paged_chunk_q8_fp8, __nv_fp8_e4m3, true)
                              tickets, c, h, hkv, d, pps, page, n_nodes,        \
                              n_local, n_tickets, stream);                      \
   }
+#ifdef PAGED_BF16
+POOL_CHUNK(paged_pool_chunk_bf16, __nv_bfloat16, false)
+#else
 POOL_CHUNK(paged_pool_chunk_f32, float, false)
 POOL_CHUNK(paged_pool_chunk_q8_int8, int8_t, true)
 POOL_CHUNK(paged_pool_chunk_q8_fp8, __nv_fp8_e4m3, true)
+#endif
 #undef POOL_CHUNK
 
+#ifndef PAGED_BF16
 int paged_combine_f32(const void* p_acc, const void* p_m, const void* p_l,
                       void* out, int rows, int n_split, int d, void* stream) {
   return combine(p_acc, p_m, p_l, out, rows, n_split, d, stream);
 }
+#endif
 
 }  // extern "C"

@@ -4,7 +4,9 @@
 kernels ``_paged_kernel`` and ``_paged_q8_kernel``
 (``repro/kernels/paged_attention.py:39, :77``) with two forms behind
 each wrapper; the function computed and the signature stay the Pallas
-kernel's whichever form runs:
+kernel's whichever form runs.  Full-precision pages are f32 or bf16
+(the bf16 kernels are ``csrc/paged_attention_bf16.cu``'s library, the
+same templates at another element type); q is f32 either way:
 
 * the chunk form, when every row of ``page_table`` is the same row, seen
   as ``page_table.stride(0) == 0`` (the view ``row[None].expand(C,
@@ -54,16 +56,22 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.scratch import merge_tickets
 
-LAUNCHES = {"paged_decode_f32": 0, "paged_decode_q8_int8": 0,
-            "paged_decode_q8_fp8": 0, "paged_chunk_f32": 0,
+LAUNCHES = {"paged_decode_f32": 0, "paged_decode_bf16": 0,
+            "paged_decode_q8_int8": 0, "paged_decode_q8_fp8": 0,
+            "paged_chunk_f32": 0, "paged_chunk_bf16": 0,
             "paged_chunk_q8_int8": 0, "paged_chunk_q8_fp8": 0,
-            "paged_pool_decode_f32": 0, "paged_pool_decode_q8_int8": 0,
-            "paged_pool_decode_q8_fp8": 0, "paged_pool_chunk_f32": 0,
+            "paged_pool_decode_f32": 0, "paged_pool_decode_bf16": 0,
+            "paged_pool_decode_q8_int8": 0, "paged_pool_decode_q8_fp8": 0,
+            "paged_pool_chunk_f32": 0, "paged_pool_chunk_bf16": 0,
             "paged_pool_chunk_q8_int8": 0, "paged_pool_chunk_q8_fp8": 0,
             "paged_combine_f32": 0}
 
-_CODE = {torch.float32: "f32", torch.int8: "q8_int8",
-         torch.float8_e4m3fn: "q8_fp8"}
+_CODE = {torch.float32: "f32", torch.bfloat16: "bf16",
+         torch.int8: "q8_int8", torch.float8_e4m3fn: "q8_fp8"}
+#: page dtypes of the full-precision wrappers (read as f32 in the
+#: kernels) and of the quantized ones (codes with f32 scales)
+FLOAT_PAGES = (torch.float32, torch.bfloat16)
+CODE_PAGES = (torch.int8, torch.float8_e4m3fn)
 
 COMBINE = "paged_combine_f32"
 #: the shapes the kernels take (:func:`kernel_takes`)
@@ -87,7 +95,11 @@ BLOCK_HEADS = 32
 
 @functools.lru_cache(maxsize=None)
 def _bind(name: str, n_pointers: int, n_ints: int):
-    fn = getattr(build.load_library("paged_attention"), name)
+    # the bf16 instantiations are a library of their own
+    # (csrc/paged_attention_bf16.cu)
+    lib = ("paged_attention_bf16" if name.endswith("_bf16")
+           else "paged_attention")
+    fn = getattr(build.load_library(lib), name)
     fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -287,10 +299,8 @@ def split_partials(q, k_pages, v_pages, page_table, lengths, k_scale=None,
     ``ref.paged_split_partials_ref`` (which the CPU runs instead).
     ``page_table`` must be contiguous on the card."""
     quantized = k_scale is not None
-    codes = ((torch.int8, torch.float8_e4m3fn) if quantized
-             else (torch.float32,))
-    b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table,
-                                   lengths, codes)
+    b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table, lengths,
+                                   CODE_PAGES if quantized else FLOAT_PAGES)
     if pages_per_split < 1:
         raise ValueError("pages_per_split must be >= 1")
     if q.device.type == "cpu":
@@ -317,13 +327,15 @@ def split_partials(q, k_pages, v_pages, page_table, lengths, k_scale=None,
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
     """GQA attention over a paged KV pool.
 
-    q: [B, H, D] f32; k_pages/v_pages: [P, page, Hkv, D] f32;
-    page_table: [B, pps] int32 physical ids, contiguous or one row
-    expanded over B (then the chunk form runs); lengths: [B] int32 valid
-    positions (0 = padding row, returns zeros).  Returns [B, H, D] f32.
+    q: [B, H, D] f32; k_pages/v_pages: [P, page, Hkv, D] f32 or bf16
+    (bf16 elements widened to f32 where read, as the Pallas body widens
+    its pages); page_table: [B, pps] int32 physical ids, contiguous or
+    one row expanded over B (then the chunk form runs); lengths: [B]
+    int32 valid positions (0 = padding row, returns zeros).  Returns [B,
+    H, D] f32.
     """
     b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table,
-                                   lengths, (torch.float32,))
+                                   lengths, FLOAT_PAGES)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table,
                                        lengths)
@@ -343,8 +355,7 @@ def paged_attention_q8(q, k_pages, v_pages, k_scale, v_scale, page_table,
     the probabilities; no f32 page is materialised on the card.
     """
     b, h, d, n_phys, page, hkv = _check(q, k_pages, v_pages, page_table,
-                                        lengths, (torch.int8,
-                                                  torch.float8_e4m3fn))
+                                        lengths, CODE_PAGES)
     sshape = (n_phys, page, hkv)
     if tuple(k_scale.shape) != sshape or tuple(v_scale.shape) != sshape:
         raise ValueError(f"scales must be {sshape}")
@@ -428,10 +439,9 @@ def _pool_launch(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
 def _pool(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
           n_nodes, n_local):
     quantized = k_scale is not None
-    codes = ((torch.int8, torch.float8_e4m3fn) if quantized
-             else (torch.float32,))
-    b, h, d, n_phys, page, hkv = _check(q, k_pages, v_pages, page_table,
-                                        lengths, codes)
+    b, h, d, n_phys, page, hkv = _check(
+        q, k_pages, v_pages, page_table, lengths,
+        CODE_PAGES if quantized else FLOAT_PAGES)
     _check_pool(k_pages, n_nodes, n_local)
     if quantized:
         sshape = (n_phys, page, hkv)
@@ -488,10 +498,8 @@ def pool_partials(q, k_pages, v_pages, page_table, lengths, k_scale=None,
     (reshaped to [B, H, N * S, D]) is the pool wrappers' output bit for
     bit on the card.  The CPU runs ``ref.paged_pool_split_partials_ref``."""
     quantized = k_scale is not None
-    codes = ((torch.int8, torch.float8_e4m3fn) if quantized
-             else (torch.float32,))
-    b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table,
-                                   lengths, codes)
+    b, h, d, _, page, hkv = _check(q, k_pages, v_pages, page_table, lengths,
+                                   CODE_PAGES if quantized else FLOAT_PAGES)
     _check_pool(k_pages, n_nodes, n_local)
     if q.device.type == "cpu":
         per = (page_table.shape[1] if pages_per_split is None or

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core.kv_tier import PageStore, PageTableManager
 from repro_torch.kernels import ops
-from repro_torch.runtime.serve import PagedServer
+from repro_torch.runtime.serve import PagedServer, kernel_query
 
 
 def mesh_bucket(n: int) -> int:
@@ -81,7 +81,8 @@ class PoolServer(PagedServer):
 
     def __init__(self, model, params, *, n_nodes: Optional[int] = None,
                  active: Optional[int] = None, page_size: int = 16,
-                 hbm_pages_per_node: int = 32, policy: str = "placed",
+                 hbm_pages_per_node: int = 32, dtype=torch.float32,
+                 policy: str = "placed", prefix_cache: bool = True,
                  page_dtype: str = "fp32",
                  hbm_bytes_per_node: Optional[int] = None, device="cuda"):
         if policy not in ("placed", "striped"):
@@ -113,7 +114,7 @@ class PoolServer(PagedServer):
             pb = PageStore.stacked_page_bytes(
                 n_layers=model.cfg.n_layers, page_size=page_size,
                 n_kv_heads=model.cfg.n_kv_heads, head_dim=model.cfg.hd,
-                dtype=model.compute_dtype, page_dtype=page_dtype)
+                dtype=dtype, page_dtype=page_dtype)
             hbm_pages_per_node = max(1, int(hbm_bytes_per_node) // pb)
         self.pages_per_node = hbm_pages_per_node
         self.policy = policy
@@ -121,6 +122,7 @@ class PoolServer(PagedServer):
         self._dead: set = set()
         super().__init__(model, params, page_size=page_size,
                          hbm_pages=self.n_nodes * hbm_pages_per_node,
+                         dtype=dtype, prefix_cache=prefix_cache,
                          page_dtype=page_dtype, device=device)
 
     # -- table factory -------------------------------------------------------
@@ -352,14 +354,16 @@ class PoolServer(PagedServer):
         for a batch table, chunk form for a prefill chunk's expanded
         row."""
         st = self.store.layer_state(li)
-        q = q.to(self.dtype).contiguous()
+        q = kernel_query(q, self.dtype)
         if self.quantized:
-            return ops.paged_attention_pool_q8(
+            o = ops.paged_attention_pool_q8(
                 q, st["k"], st["v"], st["ks"], st["vs"], page_table, lengths,
                 n_nodes=self.n_nodes, n_local=self.pages_per_node)
-        return ops.paged_attention_pool(
-            q, st["k"], st["v"], page_table, lengths, n_nodes=self.n_nodes,
-            n_local=self.pages_per_node)
+        else:
+            o = ops.paged_attention_pool(
+                q, st["k"], st["v"], page_table, lengths,
+                n_nodes=self.n_nodes, n_local=self.pages_per_node)
+        return o.to(self.dtype)
 
     def step_reference(self, tokens):
         raise NotImplementedError(

@@ -155,6 +155,13 @@ def _f32(x, device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
+def kernel_query(q, dtype) -> torch.Tensor:
+    """The paged kernels' q: rounded to the serving dtype (the reference
+    casts q to it before its kernel), then widened to the f32 the
+    kernels take; contiguous."""
+    return q.to(dtype).float().contiguous()
+
+
 def sampling_log_probs(logits, temperature, top_p):
     """Log-probs of the temperature/top-p target distribution.
 
@@ -262,11 +269,21 @@ class PagedServer:
     stacked KV ``[n_layers, page, Hkv, D]`` of that extent, so tiering
     moves whole stacked pages and a step needs one table per batch.
     ``device`` defaults to ``cuda``; ``params`` must already live there.
+
+    The keyword arguments are the reference's: ``dtype`` is the page
+    store's dtype and the dtype the serving steps compute in (f32 by
+    default, whatever ``model.compute_dtype`` is); the window holds
+    ``hbm_pages`` stacked pages (else ``hbm_pages_per_layer``, else 64),
+    or as many as ``hbm_bytes`` buys at ``dtype`` and ``page_dtype``;
+    ``prefix_cache=False`` turns the shared-prefix page cache off (every
+    admission computes every prompt token: the cold baseline).
     """
 
     def __init__(self, model, params, *, page_size: int = 16,
-                 hbm_pages: int = 64, page_dtype: str = "fp32",
-                 device="cuda"):
+                 hbm_pages: Optional[int] = None, dtype=torch.float32,
+                 hbm_pages_per_layer: Optional[int] = None,
+                 prefix_cache: bool = True, page_dtype: str = "fp32",
+                 hbm_bytes: Optional[int] = None, device="cuda"):
         if page_dtype not in PAGE_DTYPES:
             raise ValueError(f"page_dtype must be one of {PAGE_DTYPES}, "
                              f"got {page_dtype!r}")
@@ -280,11 +297,23 @@ class PagedServer:
         self.params = params
         self._layers = [layer_params(params["layers"], li)
                         for li in range(self.cfg.n_layers)]
-        self.dtype = model.compute_dtype
+        self.dtype = dtype
         self.page = page_size
         self.page_dtype = page_dtype
         self.quantized = page_dtype in ("int8", "fp8")
+        if hbm_bytes is not None:
+            # a byte budget, not a page count: as many (dtype-aware)
+            # stacked pages as fit
+            pb = PageStore.stacked_page_bytes(
+                n_layers=self.cfg.n_layers, page_size=page_size,
+                n_kv_heads=self.cfg.n_kv_heads, head_dim=self.cfg.hd,
+                dtype=dtype, page_dtype=page_dtype)
+            hbm_pages = max(1, int(hbm_bytes) // pb)
+        elif hbm_pages is None:
+            hbm_pages = (hbm_pages_per_layer
+                         if hbm_pages_per_layer is not None else 64)
         self.hbm_pages = hbm_pages
+        self.prefix_cache = prefix_cache
         self.store = self._new_store()
         self.table = self._new_table()
         self._seqs: List[int] = []
@@ -383,14 +412,18 @@ class PagedServer:
 
     def _kernel_attention(self, q, li, page_table, lengths):
         """The paged-attention kernel over layer ``li``'s page state: the
-        f32 kernel for full-precision stores, the fused-dequant q8
-        kernel for int8/fp8 ones."""
+        f32/bf16 kernel for full-precision stores, the fused-dequant q8
+        kernel for int8/fp8 ones.  q is rounded to the server's dtype
+        (as the reference casts it) and handed over as f32; the output
+        comes back in the server's dtype."""
         st = self.store.layer_state(li)
-        q = q.to(self.dtype).contiguous()
+        q = kernel_query(q, self.dtype)
         if self.quantized:
-            return ops.paged_attention_q8(q, st["k"], st["v"], st["ks"],
-                                          st["vs"], page_table, lengths)
-        return ops.paged_attention(q, st["k"], st["v"], page_table, lengths)
+            o = ops.paged_attention_q8(q, st["k"], st["v"], st["ks"],
+                                       st["vs"], page_table, lengths)
+        else:
+            o = ops.paged_attention(q, st["k"], st["v"], page_table, lengths)
+        return o.to(self.dtype)
 
     def _logits(self, h):
         cfg = self.cfg
@@ -594,6 +627,8 @@ class PagedServer:
         self._seqs.append(seq_id)
         self._prefill_state[seq_id] = prompt
         self._history[seq_id] = prompt.tolist()
+        if not self.prefix_cache:
+            return 0
         self._prefill_unmatched.add(seq_id)
         return self.table.probe_prefix(seq_id, prompt)
 
@@ -647,7 +682,8 @@ class PagedServer:
         if start + c < s:
             return None
         del self._prefill_state[seq_id]
-        self.table.register_prefix(seq_id, prompt)
+        if self.prefix_cache:
+            self.table.register_prefix(seq_id, prompt)
         self._pending[seq_id] = int(logits.argmax())
         # the pending token is the first generated one: it is fed (so the
         # drafter sees it) before it is re-emitted

@@ -168,3 +168,51 @@ def test_wkv_scan_fn_trains_through_the_kernels(card):
     want = torch.autograd.grad((o, s_t), leaves, (do, dsT))
     for g, w in zip(got, want):
         assert _close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["decode", "chunk", "pool-decode",
+                                  "pool-chunk"])
+@pytest.mark.parametrize("d", [16, 24, 64, 128])
+def test_paged_bf16_pages_on_the_card(card, form, d):
+    """bf16 pages through the decode, chunk and both pool forms (one
+    launch of the form's bf16 kernel a call): within 1e-4 x max(1,
+    max |plain|) of the plain version on the same pages, length-0 rows
+    zero, and at one node the pool form equals the single form."""
+    from repro_torch.kernels import paged_attention as PA
+    rng = np.random.default_rng(d)
+    h, hkv, page, nodes, local = 8, 2, 16, 4, 12
+    mk = lambda *s: torch.from_numpy(
+        rng.standard_normal(s, dtype=np.float32)).cuda()
+    kp = mk(nodes * local, page, hkv, d).bfloat16()
+    vp = mk(nodes * local, page, hkv, d).bfloat16()
+    if form.endswith("chunk"):
+        lengths = torch.arange(40, dtype=torch.int32, device="cuda") + 49
+        lengths[-3:] = 0
+        row = torch.from_numpy(rng.permutation(nodes * local)[:6].astype(
+            np.int32)).cuda()
+        table = row[None].expand(40, 6)
+    else:
+        lengths = torch.tensor([0, 1, 19, 80, 96], dtype=torch.int32,
+                               device="cuda")
+        table = torch.from_numpy(np.stack([
+            rng.permutation(nodes * local)[:6] for _ in range(5)]).astype(
+                np.int32)).cuda()
+    q = mk(lengths.shape[0], h, d)
+    pool = form.startswith("pool")
+    kernel = f"paged_{'pool_' if pool else ''}{form.split('-')[-1]}_bf16"
+    before = PA.LAUNCHES[kernel]
+    if pool:
+        got = PA.paged_attention_pool(q, kp, vp, table, lengths,
+                                      n_nodes=nodes, n_local=local)
+        one = PA.paged_attention_pool(q, kp, vp, table, lengths, n_nodes=1,
+                                      n_local=nodes * local)
+        assert torch.equal(one, PA.paged_attention(q, kp, vp, table,
+                                                   lengths))
+    else:
+        got = PA.paged_attention(q, kp, vp, table, lengths)
+    want = ref.paged_attention_ref(q, kp, vp, table, lengths)
+    assert float((got - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))
+    assert not got[lengths == 0].any()
+    assert PA.LAUNCHES[kernel] == before + (2 if pool else 1)

@@ -43,6 +43,18 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_port_files_cover_the_smoke_twins_and_core():
+    """The files this check must hold are among those it walks: the
+    smoke, the core package's exports and every example twin."""
+    walked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("chip_smoke.py", "src/repro_torch/core/__init__.py",
+                 "examples/quickstart_torch.py",
+                 "examples/serve_pool_torch.py",
+                 "examples/serve_rag_torch.py",
+                 "examples/distributed_inference_torch.py"):
+        assert name in walked, name
+
+
 def test_launcher_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the launcher would run on it")
