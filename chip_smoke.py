@@ -161,6 +161,18 @@ non-zero:
   train    granite-3-2b trained at full width and depth, then 2 layers
            of that width against the plain attention, a λFS restart,
            int8 compression, learnable data, the launcher and quickstart
+  train_dots
+           remat "dots" (the products without batch dims kept, the rest
+           recomputed): granite-3-2b at full width and depth as the train
+           phase runs it, 3 steps through launch.train.build --remat dots,
+           launch counters reset just before and read just after, one
+           step profiled; its step wall, tokens/s, peak memory, GEMM and
+           flash ms beside the train phase's "full" figures, what one
+           microbatch's forward keeps under "full", "dots" and "none";
+           then at 2 layers of that width the "dots" step against the
+           "full" step (loss 1e-5 rel, gradients 1e-4 x max(1,
+           max|full|)) for granite-3-2b and rwkv6-3b ("dots" is "full"
+           there)
   families the archs no earlier phase runs, each built on the card from
            a seeded generator in f32 and freed before the next, launch
            counters reset just before and read just after each:
@@ -198,6 +210,25 @@ non-zero:
            (phi3.5-moe at 1 layer), learnable data whose loss falls, and
            launch.train.main at --reduced for rwkv6-3b and zamba2-1.2b
            with checkpoints and --resume; one line a model
+  serve_ranks
+           the pool one DockerSSD node a rank (PoolServer(mesh=...)):
+           twins in this process on the serve phase's weights and prompts
+           (PagedServer; one-process PoolServers of 4 nodes, placed and
+           striped, f32, int8 and bf16 pages), then this process's card
+           memory freed and 4 ranks spawned on the card over gloo
+           (launch.mesh.run_ranks of scripts/pool_sessions.py), each
+           building the same weights, prefill chunks of 256: pools of 1
+           and 4 ranks (the 1 the first rank of the 4), a striped pool
+           of 4 (every row's pages on every node), int8 and bf16 pools
+           of 4, a drain of node 2 and a failover of node 3 through a
+           PoolRouter (windows of 160 pages); 1 rank bit-equal to
+           PagedServer, the others' tokens the twin's or apart at a
+           printed near-tie, logits within 1e-4
+           (bf16: 4 bf16 ulps), every rank the same bits; per rank tok/s,
+           ms a token, peak memory, collectives a step and their bytes;
+           launches per form (the ranks' sums).  Cut to 8 tokens and no
+           2-rank run (printed; the CPU tests hold 2 ranks): gloo stages
+           each collective through the host and the ranks share the card
 
 The kernels phase also holds the flash-attention kernel (causal and not
 at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
@@ -220,10 +251,11 @@ float64 autograd and its scratch bytes printed), untimed at WKV_SHAPES
 (harsh decays: within the limit or no farther from float64 than the
 plain backward).  Then
 the kernels line (launches: the serve, serve_knobs, serve_spec,
-serve_pool, serve_reduced, isp, facade, examples, dense, train, families
-and train_families phases' counts, also apart for train and each
-train_families model; an entry of a families model's shape also its
-launches in that model's run; every entry launched at least once), the
+serve_pool, serve_reduced, isp, facade, examples, dense, train,
+train_dots, families, train_families and serve_ranks phases' counts,
+also apart for train, train_dots, serve_ranks and each train_families
+model; an entry of a families model's shape also its launches in that
+model's run; every entry launched at least once), the
 nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -4468,9 +4500,7 @@ def phase_train(torch, np, smi):
         nonlocal params, opt
         params, opt, m = step(params, opt, batches[n_steps])
         float(m["loss"])
-    profile = profile_calls(torch, one_step, 1, {
-        "flash_fwd_lse": "flash_3xtf32_kernel",
-        "flash_bwd": "flash_bwd_"})
+    profile = profile_calls(torch, one_step, 1, TRAIN_DOTS_MATCH)
     granite = {"arch": cfg.name, "n_layers": cfg.n_layers,
                "d_model": cfg.d_model, "vocab": cfg.vocab_size,
                "params": n_params, "batch": TRAIN["batch"],
@@ -4581,6 +4611,192 @@ def phase_train(torch, np, smi):
           "learnable_last_loss": l_losses[-1]})
     train_entry_points(torch, np, ops)
     emit({"phase": "train", "launches": counts,
+          "phase_s": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "smoke run, not a benchmark"})
+    return counts, granite
+
+
+# remat "dots" (the reference's checkpoint_dots_with_no_batch_dims): the
+# train phase's granite-3-2b run at 3 steps, then the 2-layer gates;
+# rwkv6-3b, where "dots" is "full", at 2 layers of full width
+TRAIN_DOTS = {"steps": 3, "gate_layers": 2, "rwkv": "rwkv6-3b",
+              "rwkv_layers": 2,
+              # printed, not asserted: the saved products of a 4 x 512
+              # microbatch (q, k, v, o: 2 x 2048 + 2 x 512 wide; gate, up
+              # 8192; down 2048) over 40 layers, and the step
+              "predicted": {"extra_peak_gb": [5, 8],
+                            "step_vs_full": [0.75, 0.85]}}
+TRAIN_DOTS_MATCH = {"gemm": "gemm", "flash_fwd_lse": "flash_3xtf32_kernel",
+                    "flash_bwd": "flash_bwd_"}
+
+
+def remat_gate(torch, np, ops, arch, cfg, what):
+    """One grad-accum step's loss and gradients of ``arch`` at ``cfg``
+    under remat "dots" against "full" (the same seeded params and batch):
+    the train phase's gate, loss within 1e-5 rel and every gradient
+    within 1e-4 x max(1, max |full|); whether they are bit-equal too."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train import make_train_step
+
+    batch = train_batch(torch, np, cfg, 0)
+    ga = ("--grad-accum", str(TRAIN["grad_accum"]))
+    out = {}
+    for remat in ("full", "dots"):
+        run = train_objects(cfg, 1, *ga, "--remat", remat, arch=arch)
+        check(run.model.remat == remat, f"{what}: remat {remat}")
+        gstep = make_train_step(run.model, lambda g, st, p: (g, st),
+                                grad_accum=TRAIN["grad_accum"], clip=1e30)
+        g, _, m = gstep(run.params, None, batch)
+        out[remat] = (float(m["loss"]), tree_leaves(g))
+        del run, gstep
+    (lf, gf), (ld, gd) = out["full"], out["dots"]
+    rel = abs(ld - lf) / abs(lf)
+    check(rel <= 1e-5, f"{what}: dots loss {ld} vs full {lf}")
+    worst = 0.0
+    for a, w in zip(gd, gf):
+        e = float((a - w).abs().max())
+        lim = 1e-4 * max(1.0, float(w.abs().max()))
+        check(e <= lim, f"{what}: dots gradient vs full {e} > {lim}")
+        worst = max(worst, e / max(1.0, float(w.abs().max())))
+    bits = ld == lf and all(torch.equal(a, w) for a, w in zip(gd, gf))
+    del out, gf, gd
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": rel, "grad_err": worst, "bit_equal": bits}
+
+
+def phase_train_dots(torch, np, smi, full):
+    """remat "dots" on the card: granite-3-2b at full width and depth,
+    as the train phase runs it (8 x 512 tokens, grad-accum 2, AdamW,
+    f32) for TRAIN_DOTS["steps"] steps through ``launch.train.build
+    --remat dots``; launch counters reset just before and read just
+    after (the flash forward runs twice a layer a microbatch, as under
+    "full": the recompute runs it again), one step profiled (GEMM and
+    flash ms, idle share); its step wall, tokens/s and peak memory
+    beside the train phase's "full" figures of the same run (``full``),
+    and what one microbatch's forward keeps for the backward (and its
+    peak with the gradients) above the params and AdamW state under
+    "full", "dots" and "none".
+    Gates at 2 layers of that width: the "dots" step's loss and
+    gradients against the "full" step (the train phase's gate), for
+    granite-3-2b and for rwkv6-3b, whose "dots" is "full"."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import ShardedLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import to_device
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    import dataclasses
+
+    t_phase = time.monotonic()
+    cfg = get_arch(TRAIN["arch"])
+    ga, n_steps = TRAIN["grad_accum"], TRAIN_DOTS["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    # the train phase's schedule (its step count), so the losses of the
+    # first steps are that run's
+    run = train_objects(None, TRAIN["steps"], "--grad-accum", str(ga),
+                        "--lr", str(TRAIN["lr"]), "--remat", "dots")
+    params, opt, step = run.params, run.opt_state, run.step
+    check(run.model.remat == "dots", "train_dots: the model's remat")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    loader = ShardedLoader(global_batch=TRAIN["batch"], seq_len=TRAIN["seq"],
+                           vocab=cfg.vocab_size, n_shards=1, shard=0)
+    try:
+        batches = [to_device(next(loader), DEVICE)
+                   for _ in range(n_steps + 1)]
+    finally:
+        loader.close()
+    ops.reset_launch_counts()
+    walls, losses = [], []
+    for batch in batches[:n_steps]:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.monotonic() - t0)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"train_dots: losses {losses}")
+    n_fwd = counts["flash_attention_fwd_lse_f32"]
+    n_bwd = counts["flash_attention_bwd_f32"]
+    check(n_fwd == 2 * cfg.n_layers * ga * n_steps and
+          n_bwd == cfg.n_layers * ga * n_steps,
+          f"train_dots launches: fwd_lse {n_fwd}, bwd {n_bwd}")
+    # the same data as the train phase's first steps: the same losses
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+              zip(losses, full["losses"])),
+          f"train_dots losses {losses} vs full {full['losses']}")
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batches[n_steps])
+        float(m["loss"])
+    profile = profile_calls(torch, one_step, 1, TRAIN_DOTS_MATCH)
+    steady = statistics.median(walls[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    # what each remat keeps for the backward pass: one microbatch's loss
+    # on the same model, the memory its forward leaves (what the backward
+    # will read) and the peak of its loss and gradients, above what was
+    # held before (the params, the AdamW state)
+    mb = {k: v[:TRAIN["batch"] // ga] for k, v in batches[0].items()}
+    microbatch_gb = {}
+    for remat in ("full", "dots", "none"):
+        run.model.impl.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss, _ = run.model.loss(p, mb)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - held
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        microbatch_gb[remat] = {
+            "kept_by_forward": kept / 1e9,
+            "peak_with_gradients": (torch.cuda.max_memory_allocated() -
+                                    held) / 1e9}
+        del p, loss, grads
+    run.model.impl.remat = "dots"
+    del params, opt, step, batches, run
+    torch.cuda.empty_cache()
+
+    def figures(f, prof):
+        matched = (prof or {}).get("matched", {})
+        return {"steady_step_wall_s": f, "tokens_per_s": tokens / f,
+                "gemm_ms": matched.get("gemm", {}).get("ms_per_step"),
+                "flash_ms": sum(matched.get(k, {}).get("ms_per_step") or 0
+                                for k in ("flash_fwd_lse", "flash_bwd")),
+                "idle_share": (prof or {}).get("idle_share")}
+
+    dots = {**figures(steady, profile), "peak_memory_gb": peak_gb,
+            "step_wall_s": walls, "losses": losses, "init_s": init_s,
+            "profile_step": profile}
+    ref = {**figures(full["steady_step_wall_s"], full["profile_step"]),
+           "peak_memory_gb": full["peak_memory_gb"]}
+    emit({"phase": "train_dots", "run": "granite-3-2b dots",
+          "arch": cfg.name, "n_layers": cfg.n_layers, "batch": TRAIN["batch"],
+          "seq": TRAIN["seq"], "grad_accum": ga, "steps": n_steps,
+          "dots": dots, "full": ref,
+          "peak_gb_over_full": peak_gb - full["peak_memory_gb"],
+          "microbatch_gb": microbatch_gb,
+          "microbatch": [TRAIN["batch"] // ga, TRAIN["seq"]],
+          "step_over_full": steady / full["steady_step_wall_s"],
+          "predicted": TRAIN_DOTS["predicted"],
+          "flash_fwd_lse_launches_a_step": n_fwd / n_steps,
+          "flash_bwd_launches_a_step": n_bwd / n_steps})
+    gates = {}
+    for arch, layers in ((TRAIN["arch"], TRAIN_DOTS["gate_layers"]),
+                         (TRAIN_DOTS["rwkv"], TRAIN_DOTS["rwkv_layers"])):
+        c = dataclasses.replace(get_arch(arch), n_layers=layers)
+        gates[arch] = remat_gate(torch, np, ops, arch, c,
+                                 f"{arch} at {layers} layers")
+    emit({"phase": "train_dots", "gates": gates,
+          "gate": "loss 1e-5 rel, gradients 1e-4 x max(1, max|full|)",
+          "launches": {k: v for k, v in counts.items() if v},
           "phase_s": time.monotonic() - t_phase,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": "smoke run, not a benchmark"})
@@ -5727,6 +5943,242 @@ def phase_train_families(torch, np, smi):
     return per_model
 
 
+# pool serving one node a rank: the serve phase's weights (full-width
+# granite-3-2b, seed 0), its 8 prompts of 512 tokens, prefill chunks of
+# 256 (the serve_pool phase's), pages of 16 and its 320-page store split
+# over the nodes (80 pages a node at 4); ranks spawned on the one card
+# over gloo.  One spawn of 4 ranks serves every run in turn: the 1-rank
+# pool is a mesh of its first rank (the others wait at a barrier).  The
+# striped run spreads every sequence's pages over the 4 nodes, so each
+# rank's partial of a row is live and the merge is not a pick.
+SERVE_RANKS = {"ranks": 4, "gen": 8, "chunk": 256, "timeout_s": 600,
+               "runs": (("1 rank", 1, {}), ("4 ranks", 4, {}),
+                        ("4 ranks striped", 4, {"policy": "striped"}),
+                        ("4 ranks int8", 4, {"page_dtype": "int8"}),
+                        ("4 ranks bf16", 4, {"dtype": "bfloat16"})),
+               # the events at twice the window, so the survivors have
+               # room for a drained or failed node's sequences
+               "drain": {"drain": 2, "drain_after": 2},
+               "failover": {"fail": 3, "fail_after": 2},
+               "event_pages": 160,
+               # what was cut to keep the smoke near 900 s: ranks sharing
+               # the card over gloo take 0.5-0.75 s a token at 4 ranks
+               "cut": "8 generated tokens, not 64; no 2-rank run (the CPU "
+                      "tests hold 2 ranks)"}
+
+
+def paged_twin(torch, server, prompts, chunk, gen):
+    """``pool_sessions.pool_session``'s decode on a ``PagedServer``: every
+    prompt admitted, one step, ``gen - 2`` tokens per token.  Returns
+    its tokens and its prefill and step logits (CPU)."""
+    prefill = [server.add_request(i, p, chunk=chunk).cpu()
+               for i, p in enumerate(prompts)]
+    first = {i: int(lg.argmax()) for i, lg in enumerate(prefill)}
+    step = server.step(first)
+    for s_, lg in step.items():
+        server.set_pending(s_, int(lg.argmax()))
+    rest = server.decode(gen - 2)
+    return {"prefill": prefill, "step": {s_: lg.cpu() for s_, lg in
+                                         step.items()},
+            "tokens": {s_: [first[s_], int(step[s_].argmax())] + rest[s_]
+                       for s_ in rest}}
+
+
+def phase_serve_ranks(torch, np, smi):
+    """Pool serving one DockerSSD node a rank (``PoolServer(mesh=...)``):
+    the twins first, in this process on the serve phase's weights
+    (``PagedServer`` for one rank, one-process ``PoolServer``s of 4
+    nodes, placed and striped, f32 / int8 / bf16 pages), then their card
+    memory freed and 4 ranks spawned on the card over gloo
+    (``launch.mesh.run_ranks`` of ``scripts/pool_sessions.py``'s
+    ``pool_sessions``), each building the same weights.
+    Held: 1 rank bit-equal to ``PagedServer`` (tokens, prefill and
+    first-step logits); 4 ranks' tokens the twin's (or apart at a
+    printed near-tie), logits within 1e-4 (bf16: 4 bf16 ulps of the
+    largest); every rank the same tokens and logits bit for bit; a drain
+    of node 2 (pages by broadcast) with the undrained run's tokens; node
+    3 failed through the router, every request finished.  Printed per
+    rank: tok/s, ms a token, peak memory, collectives a step with their
+    bytes; launches per form (the ranks' sums, into the kernels line).
+    Gloo stages every collective through the host, so the times are
+    those of ranks sharing one card, not a pool of cards."""
+    import collections
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+    from repro_torch.runtime.serve import PagedServer
+
+    # the session harness; the spawned ranks import it by name
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from pool_sessions import pool_session, pool_sessions, session_weights
+
+    t_phase = time.monotonic()
+    cfg = get_arch(SERVE["arch"])
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE["requests"], SERVE["prompt_len"]),
+        dtype=np.int32)
+    gen, n_ranks = SERVE_RANKS["gen"], SERVE_RANKS["ranks"]
+    rids = list(range(len(prompts)))
+    base = {"cfg": dataclasses.asdict(cfg), "seed": 0, "device": DEVICE,
+            "prompts": prompts.tolist(), "gens": [gen] * len(prompts),
+            "chunk": SERVE_RANKS["chunk"]}
+
+    def spec(n, kind="decode", pages=None, **server):
+        return {**base, "kind": kind, "server": {
+            "page_size": SERVE["page"],
+            "hbm_pages_per_node": pages or SERVE["hbm_pages"] // n,
+            **server}}
+
+    # the twins, in this process
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model, params = session_weights(base, torch.device(DEVICE))
+    twins = {"1 rank": paged_twin(torch, PagedServer(
+        model, params, page_size=SERVE["page"],
+        hbm_pages=SERVE["hbm_pages"], device=DEVICE), prompts,
+        SERVE_RANKS["chunk"], gen)}
+    for name, n, kw in SERVE_RANKS["runs"][1:]:
+        twins[name] = pool_session(dict(spec(n, **kw), nodes=n, gaps=True),
+                                   model, params)
+    twins_s = time.monotonic() - t0
+    del model, params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+
+    specs = [dict(spec(n, **kw), ranks=n)
+             for _, n, kw in SERVE_RANKS["runs"]]
+    event_pages = SERVE_RANKS["event_pages"]
+    specs.append(dict(spec(n_ranks, "drain", event_pages), ranks=n_ranks,
+                      **SERVE_RANKS["drain"]))
+    specs.append(dict(spec(n_ranks, "failover", event_pages),
+                      ranks=n_ranks, **SERVE_RANKS["failover"]))
+    names = [r[0] for r in SERVE_RANKS["runs"]] + ["4 ranks drain",
+                                                   "4 ranks failover"]
+    backend = pick_backend("cuda", n_ranks)
+    check(backend == "gloo" or torch.cuda.device_count() >= n_ranks,
+          f"serve_ranks: backend {backend}")
+    t0 = time.monotonic()
+    got = run_ranks(pool_sessions, n_ranks, (specs,), device_type="cuda",
+                    timeout_s=SERVE_RANKS["timeout_s"])
+    spawn_s = time.monotonic() - t0
+    counts = collections.Counter()
+    lines, divergences = {}, []
+    for i, name in enumerate(names):
+        n = specs[i]["ranks"]
+        res = [got[r][i] for r in range(n)]
+        check(all(got[r][i] is None for r in range(n, n_ranks)),
+              f"{name}: idle ranks served nothing")
+        check(all(r["node"] == k for k, r in enumerate(res)),
+              f"{name}: rank k is node k")
+        r0 = res[0]
+        for r in res:
+            counts.update(r["launches"])
+            check(r["tokens"] == r0["tokens"],
+                  f"{name}: node {r['node']}'s tokens differ from node 0's")
+            if "prefill" in r:
+                check(all(torch.equal(a, b) for a, b in
+                          zip(r["prefill"], r0["prefill"])) and
+                      all(torch.equal(r["step"][k], r0["step"][k])
+                          for k in r0["step"]),
+                      f"{name}: node {r['node']}'s logits are not node "
+                      "0's bits")
+        line = {"ranks": n, "backend": backend}
+        if specs[i]["kind"] == "failover":
+            check(sorted(r0["tokens"]) == rids and
+                  all(len(v) == gen for v in r0["tokens"].values()),
+                  f"{name}: every request finished")
+            check(r0["requeues"] >= 1 and
+                  SERVE_RANKS["failover"]["fail"] not in r0["alive"],
+                  f"{name}: the failed node's requests requeued")
+            want = twins["4 ranks"]
+            divergences += first_divergences(
+                torch, name, rids, want["tokens"], r0["tokens"],
+                list(want["gaps"]), want["first_gaps"],
+                phase="serve_ranks")
+            line.update(requeues=r0["requeues"], alive=r0["alive"])
+        elif specs[i]["kind"] == "drain":
+            rep = r0["drain"]
+            check(rep["migrated_pages"] > 0 and not rep["cold"],
+                  f"{name}: pages migrated warm ({rep})")
+            # the undrained run: the 4 ranks' (the same placements; a
+            # moved page changes only which node's partial holds it)
+            undrained = got[0][names.index("4 ranks")]["tokens"]
+            want = twins["4 ranks"]
+            divergences += first_divergences(
+                torch, name, rids, undrained, r0["tokens"],
+                list(want["gaps"]), want["first_gaps"],
+                phase="serve_ranks")
+            line["tokens_equal_undrained"] = r0["tokens"] == undrained
+            check(all(r["collectives"]["broadcast"] > 0 for r in res),
+                  f"{name}: pages moved by broadcast")
+            line.update(migrated_pages=rep["migrated_pages"],
+                        victims=rep["victims"])
+        else:
+            want = twins[name]
+            if n == 1:
+                check(r0["tokens"] == want["tokens"] and
+                      all(torch.equal(a, b) for a, b in
+                          zip(r0["prefill"], want["prefill"])) and
+                      all(torch.equal(r0["step"][k], want["step"][k])
+                          for k in want["step"]),
+                      "1 rank: not PagedServer's bits")
+                line["bit_equal_paged_server"] = True
+            else:
+                err = max(max(float((a - b).abs().max()) for a, b in
+                              zip(r0["prefill"], want["prefill"])),
+                          max(float((r0["step"][k] - want["step"][k])
+                                    .abs().max()) for k in want["step"]))
+                lim = (bf16_tolerance(torch.stack(want["prefill"]))
+                       if "bf16" in name else KERNEL_TOL)
+                check(err <= lim, f"{name}: logits {err} from the "
+                      f"one-process pool's (limit {lim})")
+                divergences += first_divergences(
+                    torch, name, rids, want["tokens"], r0["tokens"],
+                    list(want["gaps"]), want["first_gaps"],
+                    phase="serve_ranks",
+                    limit=lim if "bf16" in name else LOGITS_TOL)
+                line.update(logits_max_abs_err=err, limit=lim)
+        steps = gen - 2                  # the decode after the first step
+        line["per_rank"] = [{
+            "node": r["node"], "session_s": r["session_s"],
+            "tok_s": r.get("tok_s",
+                           sum(map(len, r["tokens"].values())) /
+                           r["session_s"]),
+            "ms_a_token": r.get("step_ms"), "prefill_s": r.get("prefill_s"),
+            "decode_s": r.get("decode_s"),
+            "peak_memory_gb": r["peak_bytes"] / 1e9,
+            "collectives_a_step": {k: v / steps for k, v in
+                                   r.get("collectives", {}).items()},
+            "collectives_session": r["collectives_total"]} for r in res]
+        line["launches"] = dict(sum((collections.Counter(r["launches"])
+                                     for r in res), collections.Counter()))
+        lines[name] = line
+        emit({"phase": "serve_ranks", "run": name, **line})
+    forms = {k: v for k, v in counts.items() if k.startswith("paged_pool")}
+    for code in ("f32", "int8", "bf16"):
+        for name in (POOL_DECODE_OF[code], POOL_CHUNK_OF[code]):
+            check(counts[name] > 0, f"{name} launched on the ranks")
+    emit({"phase": "serve_ranks", "arch": cfg.name,
+          "requests": len(prompts), "prompt_len": SERVE["prompt_len"],
+          "gen": gen, "chunk": SERVE_RANKS["chunk"], "page": SERVE["page"],
+          "node_pages": {n: SERVE["hbm_pages"] // n for n in (1, 4)},
+          "event_node_pages": event_pages, "cut": SERVE_RANKS["cut"],
+          "backend": backend, "spawned_ranks": n_ranks,
+          "twins_s": twins_s, "spawn_s": spawn_s,
+          "parent_card_gb_at_spawn": held_gb,
+          "launches_by_form": forms, "divergences": divergences,
+          "seconds": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": ("gloo stages every collective through the host and the "
+                   "ranks share one card: these times are not a pool of "
+                   "cards'; smoke run, not a benchmark")})
+    return collections.defaultdict(int, counts)
+
+
 def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -5819,17 +6271,22 @@ def main() -> int:
     phase_analytical(smi, served)
     example_counts = phase_examples(torch, smi)
     dense_counts = phase_dense(torch, np, smi, served)
-    train_counts = phase_train(torch, np, smi)
+    train_counts, granite_full = phase_train(torch, np, smi)
+    dots_counts = phase_train_dots(torch, np, smi, granite_full)
     family_counts = phase_families(torch, np, smi)
     tf_counts = phase_train_families(torch, np, smi)
+    rank_counts = phase_serve_ranks(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, knob_counts, spec_counts, pool_counts, reduced_counts,
             isp_counts, facade_counts, example_counts, dense_counts,
-            train_counts, *family_counts.values(), *tf_counts.values()))
+            train_counts, dots_counts, rank_counts,
+            *family_counts.values(), *tf_counts.values()))
         check(entry["launches"] > 0, f"{entry['kernel']} ({entry['case']}) "
               "was launched no time on the main path")
         entry["launches_in_train"] = train_counts[entry["kernel"]]
+        entry["launches_in_train_dots"] = dots_counts[entry["kernel"]]
+        entry["launches_in_serve_ranks"] = rank_counts[entry["kernel"]]
         entry["launches_in_train_families"] = {
             a: c[entry["kernel"]] for a, c in tf_counts.items()}
         if "families_model" in entry:

@@ -15,7 +15,10 @@ The demo asserts the two load-bearing invariants:
   * device retrieval is bit-identical to the host fold, so decode
     outputs are token-identical to a host-side retrieval baseline;
   * warm (prefix-cached) admission computes fewer prompt tokens than
-    the cache-ablated cold path (``prefix_cache=False``), and is faster.
+    the cache-ablated cold path (``prefix_cache=False``), and on the
+    CPU it is faster (the medians of alternating timed waves).  On a
+    card at this width the admission is dispatch-bound and the two
+    medians tie; they are printed there, not compared.
 
   python examples/serve_rag_torch.py [--device cpu]
 
@@ -23,6 +26,7 @@ Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 import argparse
 import dataclasses
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -40,6 +44,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.runtime.retrieval import RetrievalFrontend  # noqa: E402
 from repro_torch.runtime.serve import PagedServer  # noqa: E402
+
+ROUNDS = 8      # timed rounds of one warm and one cold admission wave
 
 
 def main(argv=None):
@@ -115,18 +121,43 @@ def main(argv=None):
     print(f"top-{k} in storage: ids {hit['ids']} (scores "
           f"{[round(s, 3) for s in hit['scores']]})")
 
-    # second wave: fresh questions, same topic; template + retrieved
-    # chunks ride the prefix cache
+    # later waves: fresh questions, same topic; template + retrieved
+    # chunks ride the prefix cache.  One discarded wave on each server,
+    # then ROUNDS rounds of one wave on each, the order alternating, and
+    # the medians compared: a wave is a few ms of host work on a card,
+    # where one wave's noise is as large as the prefix cache's saving
     wave(fe, qtails(), "device")                 # warm-up
-    t_warm, second, warm_tokens = wave(fe, qtails(), "device")
-    t_cold, _, cold_tokens = wave(fe_cold, qtails(), "device")
-    print(f"admission wave: cold {t_cold*1e3:.1f} ms ({cold_tokens} "
-          f"prompt tokens computed) | warm {t_warm*1e3:.1f} ms "
-          f"({warm_tokens}; {t_cold / t_warm:.1f}x)")
+    wave(fe_cold, qtails(), "device")
+    times = {"warm": [], "cold": []}
+    for r in range(ROUNDS):
+        for name in (("cold", "warm") if r % 2 == 0 else ("warm", "cold")):
+            dt, got, n = wave(fe if name == "warm" else fe_cold, qtails(),
+                              "device")
+            times[name].append(dt)
+            if name == "warm" and r == 0:
+                second, warm_tokens = got, n
+            elif r == 0:
+                cold_tokens = n
+    t_warm = statistics.median(times["warm"])
+    t_cold = statistics.median(times["cold"])
+    print(f"admission wave (median of {ROUNDS}): cold {t_cold*1e3:.1f} ms "
+          f"({cold_tokens} prompt tokens computed) | warm "
+          f"{t_warm*1e3:.1f} ms ({warm_tokens}; {t_cold / t_warm:.1f}x)")
     print(f"retrieval placement: {fe.stats}")
     assert warm_tokens < cold_tokens, \
         "prefix-cached admission should compute fewer prompt tokens"
-    assert t_warm < t_cold, "prefix-cached admission should be faster"
+    if device.type == "cpu":
+        assert t_warm < t_cold, "prefix-cached admission should be faster"
+    else:
+        # on a card at this width an admission is dispatch-bound: ~500
+        # eager calls of host time against ~0.3 ms of kernels, and a
+        # 32-row chunk's kernels take what a 128-row chunk's do (4-6 us
+        # a product), so computing the cached tokens costs no admission
+        # time and the medians tie (scripts/rag_admission_probe.py,
+        # scripts/small_gemm_probe.py); they are printed, not compared
+        print(f"on {device.type} at width {cfg.d_model}: warm/cold "
+              f"{t_warm / t_cold:.3f}; computing the cached tokens costs "
+              f"no admission time here")
     print("outputs token-identical to host-side retrieval baseline; "
           "warm admissions rode the shared prefix")
     after = ops.launch_counts()

@@ -30,7 +30,8 @@ from repro_torch.kernels.isp_scan import scan_filter_reduce, topk_scan
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                   paged_attention_pool,
                                                   paged_attention_pool_q8,
-                                                  paged_attention_q8)
+                                                  paged_attention_q8,
+                                                  pool_partials)
 from repro_torch.kernels.ref import (REDUCE_ROWS, scan_filter_reduce_host,
                                      topk_pad, topk_scan_host)
 from repro_torch.kernels.rwkv_scan import (rwkv_scan, rwkv_scan_bwd,
@@ -38,7 +39,7 @@ from repro_torch.kernels.rwkv_scan import (rwkv_scan, rwkv_scan_bwd,
                                            rwkv_scan_with_grad)
 
 __all__ = ["paged_attention", "paged_attention_q8", "paged_attention_pool",
-           "paged_attention_pool_q8", "scan_filter_reduce",
+           "paged_attention_pool_q8", "pool_partials", "scan_filter_reduce",
            "scan_filter_reduce_host", "topk_scan", "topk_scan_host",
            "embed_agg", "embed_gather", "validate_embed_args",
            "flash_attention", "flash_attention_lse", "flash_attention_bwd",

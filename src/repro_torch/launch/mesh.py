@@ -1,0 +1,198 @@
+"""Process groups and device meshes over ``torch.distributed`` ranks; the
+port of ``repro.launch.mesh``.
+
+One rank is one process.  :func:`init_ranks` joins this process to the
+default group with the backend :func:`pick_backend` names, before any
+``DeviceMesh`` is built: ``init_device_mesh("cuda", ...)`` would
+otherwise create an NCCL group, which refuses two ranks on one card.
+The mesh factories keep the reference's shape arithmetic and return a
+``DeviceMesh`` with ``mesh_dim_names``.  :func:`run_ranks` starts N
+ranks of a function on this host (``torch.multiprocessing``, a
+``FileStore`` rendezvous: no TCP port) and joins them with a time
+limit.  ``make_production_mesh`` is not
+ported: it serves the reference's XLA dry run on a faked 512-device
+mesh.
+"""
+from __future__ import annotations
+
+import datetime
+import math
+import os
+import sys
+import tempfile
+import time
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+
+def pick_backend(device_type: str, local_ranks: int,
+                 n_cards: Optional[int] = None) -> str:
+    """The one rule: NCCL when the ranks are on cards and every rank of
+    this host has a card of its own (``local_ranks <= n_cards``); gloo on
+    the CPU and when several ranks share one card (NCCL refuses two ranks
+    on one card; gloo takes CUDA tensors for ``all_reduce`` and
+    ``broadcast`` and stages them through the host)."""
+    if device_type != "cuda":
+        return "gloo"
+    if n_cards is None:
+        n_cards = torch.cuda.device_count()
+    return "nccl" if 0 < local_ranks <= n_cards else "gloo"
+
+
+#: how long a collective may wait for its peers before it raises
+COLLECTIVE_TIMEOUT_S = 300
+
+
+def init_ranks(device_type: str = "cuda", *, rank: Optional[int] = None,
+               world_size: Optional[int] = None,
+               init_method: Optional[str] = None, store=None,
+               verbose: bool = True) -> Tuple[str, torch.device]:
+    """Join this process to the default process group and return
+    (backend, this rank's device).
+
+    Rank and world size come from the arguments, else from the
+    ``torchrun`` environment (``RANK``, ``WORLD_SIZE``, and
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` for the card); the rendezvous
+    from ``store`` (a ``FileStore``, what the tests use), else
+    ``init_method`` (``file://...`` or ``tcp://...``), else ``env://``.
+    The backend is :func:`pick_backend`'s; it is printed (rank 0).  A
+    group that fails to initialise raises, and a collective whose peers
+    do not come within ``COLLECTIVE_TIMEOUT_S`` raises: no path carries
+    on without the collectives."""
+    import torch.distributed as dist
+
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
+    world_size = (int(env.get("WORLD_SIZE", 1)) if world_size is None
+                  else int(world_size))
+    local_rank = int(env.get("LOCAL_RANK", rank))
+    local_ranks = int(env.get("LOCAL_WORLD_SIZE", world_size))
+    backend = pick_backend(device_type, local_ranks)
+    if device_type == "cuda":
+        n_cards = torch.cuda.device_count()
+        if n_cards < 1:
+            raise RuntimeError("init_ranks on cuda: no card visible")
+        device = torch.device("cuda", local_rank % n_cards)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+    if dist.is_initialized():
+        raise RuntimeError("this process already joined a process group")
+    kw = {"backend": backend, "rank": rank, "world_size": world_size,
+          "timeout": datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)}
+    if store is not None:
+        kw["store"] = store
+    else:
+        kw["init_method"] = init_method or "env://"
+    if backend == "nccl":
+        kw["device_id"] = device
+    dist.init_process_group(**kw)
+    if verbose and rank == 0:
+        shared = (" (ranks share a card: gloo stages each collective "
+                  "through the host)" if device_type == "cuda" and
+                  backend == "gloo" else "")
+        print(f"[mesh] {world_size} rank(s), backend {backend} on "
+              f"{device_type}{shared}", flush=True)
+    return backend, device
+
+
+def elastic_mesh_shape(n_devices: int, model_parallel: int = 16):
+    """(data, model) of :func:`make_elastic_mesh`: the model axis kept
+    as wide as divides ``n_devices`` (halving from ``model_parallel``),
+    the data axis the rest."""
+    while model_parallel > 1 and n_devices % model_parallel != 0:
+        model_parallel //= 2
+    return n_devices // model_parallel, model_parallel
+
+
+def _mesh(device_type: str, shape: Sequence[int], axes: Sequence[str]):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a mesh of {n} ranks needs a process group: "
+                           "init_ranks first")
+    if n > dist.get_world_size():
+        raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the group "
+                         f"has {dist.get_world_size()}")
+    return DeviceMesh(device_type, torch.arange(n).view(*shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_elastic_mesh(n_devices: int, *, model_parallel: int = 16,
+                      axis_names=("data", "model"),
+                      device_type: str = "cuda"):
+    """Degraded-capacity mesh after node failures: keeps the model axis
+    intact (shard layout of the checkpoint) and shrinks the data axis."""
+    return _mesh(device_type, elastic_mesh_shape(n_devices, model_parallel),
+                 axis_names)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"),
+                   device_type: str = "cpu"):
+    """Small mesh over the group's first ranks (the CPU tests' gloo
+    ranks)."""
+    return _mesh(device_type, shape, axes)
+
+
+def _rank_main(rank: int, fn: Callable, n: int, args: tuple,
+               device_type: str, workdir: str):
+    import torch.distributed as dist
+
+    # one thread a rank: the ranks share the host's cores
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(workdir, "store"), n)
+    init_ranks(device_type, rank=rank, world_size=n, store=store,
+               verbose=False)
+    try:
+        out = fn(*args)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        # no rank tears its connections down while a peer still reads
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    # the result is saved and the group gone: leave without the exit
+    # handlers, where a transport thread torn down late can abort a
+    # process that has finished its work (seen once on a loaded host)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_ranks(fn: Callable, n: int, args: tuple = (), *,
+              device_type: str = "cpu", timeout_s: float = 300.0,
+              workdir: Optional[str] = None) -> List[Any]:
+    """Run ``fn(*args)`` in ``n`` fresh processes joined as ranks 0..n-1
+    of one process group (:func:`init_ranks` with a ``FileStore`` in
+    ``workdir``; one intra-op thread a rank), and return each rank's return value (through
+    ``torch.save``), rank order.  ``fn`` must be importable (a module's
+    top-level function).  A rank that raises ends the others and raises
+    here; ranks that have not all ended within ``timeout_s`` are killed
+    and ``TimeoutError`` is raised."""
+    import torch.multiprocessing as mp
+
+    own = workdir is None
+    tmp = tempfile.TemporaryDirectory() if own else None
+    wd = tmp.name if own else workdir
+    os.makedirs(wd, exist_ok=True)
+    try:
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, n, tuple(args), device_type, wd),
+            nprocs=n, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                for p in ctx.processes:
+                    p.join()
+                raise TimeoutError(f"{n} ranks of {fn.__name__} did not end "
+                                   f"within {timeout_s:.0f} s")
+        return [torch.load(os.path.join(wd, f"rank{r}.pt"),
+                           weights_only=False) for r in range(n)]
+    finally:
+        if tmp is not None:
+            tmp.cleanup()

@@ -10,6 +10,8 @@ on one device.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --pool --nodes 4 --requests 8 --prompt-len 16 --gen 32 [--horizon 8] \
       [--speculative] [--temperature 0.8 --top-p 0.9] [--prefill-chunk 256]
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch granite-3-2b --pool --nodes 4 --requests 8 --gen 32
 
 Without ``--paged`` (the default path): one prefill of all prompts, the
 KV cache of a transformer or of Zamba2's shared block padded to
@@ -24,8 +26,12 @@ paged KV store (transformer archs only, as in the JAX launcher);
 ``--speculative`` (needs ``--horizon >= 2``) runs
 draft-verify passes and prints the speculation telemetry.  ``--pool``
 serves a transformer from a ``PoolServer`` of ``--nodes`` DockerSSD
-nodes emulated on the one card (``--hbm-pages`` window pages each;
-``--nodes 0``, the default, is one node per visible card), fronted by a
+nodes (``--hbm-pages`` window pages each), emulated on the one card in
+one process (``--nodes 0``, the default, is one node per visible card),
+or, started by ``torchrun``, one node a rank over the pool mesh
+(``runtime.sharding.pool_mesh``; ``--nodes`` must then be the world
+size, or 0 for it; the backend is ``launch.mesh.pick_backend``'s, and
+rank 0 prints), fronted by a
 ``StoragePool`` whose admission, placement and free messages ride
 Ether-oN frames and a ``PoolRouter`` (least-loaded placement, per-node
 admission, failover requeue); it prints the per-node and aggregate tier
@@ -37,6 +43,7 @@ on the device; prompts come from a seeded numpy generator.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -107,6 +114,9 @@ def main(argv=None):
                 if args.temperature > 0 else None)
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.pool:
+        mesh, device = _pool_mesh_for(args.nodes, device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -120,7 +130,7 @@ def main(argv=None):
     t0 = time.monotonic()
     if args.pool:
         return _serve_pool(args, model, params, prompts, device, sampling,
-                           t0)
+                           t0, mesh)
     if not args.paged:
         out = _serve_dense(model, params, prompts, args.gen, device,
                            sampling)
@@ -153,13 +163,43 @@ def main(argv=None):
     return out
 
 
-def _serve_pool(args, model, params, prompts, device, sampling, t0):
-    """The pool path: PoolServer + StoragePool frontend + PoolRouter.
-    Returns {request: generated tokens}."""
+def _under_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _pool_mesh_for(nodes: int, device):
+    """(mesh, this rank's device).  Under ``torchrun`` (or in a process
+    that already joined its ranks): join the ranks and build the pool
+    mesh, one node a rank (``nodes`` 0 = the world size; any other count
+    than the world size raises).  Else (None, device): the one-card
+    emulation."""
+    import torch.distributed as dist
+    joined = dist.is_available() and dist.is_initialized()
+    if not (joined or _under_torchrun()):
+        return None, device
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.runtime.sharding import pool_mesh
+
+    world = (dist.get_world_size() if joined else
+             int(os.environ["WORLD_SIZE"]))
+    if nodes and nodes != world:
+        raise SystemExit(f"--nodes {nodes} over {world} ranks: the pool "
+                         f"serves one node a rank (torchrun "
+                         f"--nproc-per-node {nodes})")
+    if not joined:
+        _, device = init_ranks(device.type)
+    return pool_mesh(world, device_type=device.type), device
+
+
+def _serve_pool(args, model, params, prompts, device, sampling, t0,
+                mesh=None):
+    """The pool path: PoolServer + StoragePool frontend + PoolRouter, on
+    one card or over ``mesh``'s ranks.  Returns {request: generated
+    tokens}."""
     if model.cfg.block_type != "transformer":
         raise SystemExit("--pool demo path supports transformer archs")
     server = PoolServer(model, params, n_nodes=args.nodes or None,
-                        page_size=args.page_size,
+                        mesh=mesh, page_size=args.page_size,
                         hbm_pages_per_node=args.hbm_pages,
                         page_dtype=args.page_dtype, device=device)
     n = server.n_nodes
@@ -172,15 +212,24 @@ def _serve_pool(args, model, params, prompts, device, sampling, t0):
     for i in range(args.requests):
         router.submit(Request(rid=i, prompt=prompts[i], max_tokens=args.gen))
     stats = router.run_to_completion()
+    server.sync_check()
     out = {r.rid: r.output for r in router.finished}
     toks = sum(len(v) for v in out.values())
     dt = time.monotonic() - t0
-    print(f"pool of {n} nodes on {device} | per-node tier stats: "
-          f"{server.node_tier_stats()}")
-    print("aggregate tier stats:", stats["tier"])
-    print("control plane:", A.control_plane_terms(pool.driver.stats, toks))
-    print(f"served {len(out)} requests, {toks} tokens on {device} "
-          f"in {dt:.2f}s ({toks / dt:.1f} tok/s)")
+    if mesh is None or server.node == 0:
+        where = ("one card" if mesh is None else
+                 f"{n} ranks, node {server.node}: collectives "
+                 f"{server.collective_stats}")
+        print(f"pool of {n} nodes on {device} ({where}) | per-node tier "
+              f"stats: {server.node_tier_stats()}")
+        print("aggregate tier stats:", stats["tier"])
+        print("control plane:", A.control_plane_terms(pool.driver.stats,
+                                                      toks))
+        print(f"served {len(out)} requests, {toks} tokens on {device} "
+              f"in {dt:.2f}s ({toks / dt:.1f} tok/s)")
+    if mesh is not None and _under_torchrun():
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return out
 
 

@@ -17,7 +17,9 @@ its forward kernel's states variant and its backward kernel) and
 flash-attention kernels, the SSD scan by autograd); attention runs
 through the flash-attention kernels and their backward.  Each layer is
 recomputed in the backward pass (``remat="full"``) unless ``--reduced``,
-as in the reference; ``build(args, cfg=...)`` takes a depth cut at full
+as in the reference; ``--remat none|full|dots`` chooses otherwise
+(``"dots"``: every product without batch dims kept, the rest
+recomputed).  ``build(args, cfg=...)`` takes a depth cut at full
 width.  Runs on ``cuda`` unless ``--device cpu`` is given; without a
 card it raises rather than run on the CPU.  Weights are random, drawn
 from a seeded ``torch.Generator`` on the device.
@@ -65,6 +67,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--remat", default=None, choices=["none", "full", "dots"],
+                    help="activation rematerialisation (default: none "
+                         "with --reduced, else full)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -82,8 +87,8 @@ def build(args: argparse.Namespace, cfg=None) -> SimpleNamespace:
         cfg = get_arch(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
-    model = get_model(cfg, compute_dtype=DTYPES[args.dtype],
-                      remat="none" if args.reduced else "full")
+    remat = args.remat or ("none" if args.reduced else "full")
+    model = get_model(cfg, compute_dtype=DTYPES[args.dtype], remat=remat)
     sched = warmup_cosine(args.lr, max(args.steps // 10, 1), args.steps)
     init_fn, upd_fn = adamw(lr=sched)
 

@@ -11,8 +11,9 @@ attention goes through the flash-attention kernel
 forward and its backward), its decode through
 ``layers.decode_attention``.  Decode is the O(1)-state recurrence.
 ``loss`` is the reference's cross-entropy over the full logits; under
-``remat="full"`` each mamba layer is recomputed in the backward pass, as
-the reference checkpoints its ``mamba_fn`` (the shared block is not).
+``remat="full"`` (or "dots", the same here) each mamba layer is
+recomputed in the backward pass, as the reference checkpoints its
+``mamba_fn`` (the shared block is not).
 The SSD scan, the conv and the gates take their gradient by autograd, as
 the reference's take theirs by autodiff: no Pallas kernel covers them.
 Params use the reference's layout (``layers`` stacked along a leading
@@ -232,14 +233,17 @@ class Zamba2LM:
     applications, each application keeping its own KV cache).  The
     shared block applies RoPE whatever ``cfg.rope`` says and uses
     rmsnorm throughout, as the reference's does.  Its weights are one
-    set of leaves, so autograd sums the gradients of its applications."""
+    set of leaves, so autograd sums the gradients of its applications.
+    ``remat`` is "none" or, for "full" and "dots" alike, each mamba layer
+    recomputed whole in the backward pass: the reference checkpoints its
+    ``mamba_fn`` with no policy for any value but "none", so "dots" means
+    "full" here too."""
 
     def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 64,
                  remat: str = "full"):
         if remat not in REMAT:
-            raise NotImplementedError(
-                f"remat {remat!r}: not yet ported (the port takes "
-                f"{', '.join(REMAT)})")
+            raise ValueError(f"remat {remat!r}: the port takes "
+                             f"{', '.join(REMAT)}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.chunk = chunk
@@ -319,8 +323,8 @@ class Zamba2LM:
         in ``cache_dtype``, conv [n_layers, B, D_CONV - 1, conv_dim] and
         ssm [n_layers, B, H, dh, ds]; no k/v without a cache dtype).
         When the params need a gradient the mamba layers come from
-        ``unbind_layers``, each recomputed in the backward pass under
-        ``remat="full"``."""
+        ``unbind_layers``, each recomputed in the backward pass unless
+        ``remat="none"``."""
         cfg = self.cfg
         b = h.shape[0]
         _, n_heads, conv_dim = mamba2_dims(cfg)
@@ -338,7 +342,7 @@ class Zamba2LM:
             ks.append(k)
             vs.append(v)
             for li in range(lo, hi):
-                if train and self.remat == "full":
+                if train and self.remat != "none":
                     h, conv, ssm = checkpoint(self._mamba_layer, h,
                                               layers[li], conv0, ssm0,
                                               use_reentrant=False)

@@ -11,8 +11,8 @@ it outside any kernel.  A Python loop over layers replaces ``lax.scan``.
 ``loss`` is the training objective, the reference's: cross-entropy over
 the full logits, no aux term.  Under a gradient the scan goes through
 ``ops.rwkv_scan_with_grad`` (the forward kernel's states variant and the
-backward kernel), and under ``remat="full"`` each layer is recomputed in
-the backward pass, as the reference checkpoints its ``layer_fn``.
+backward kernel), and under ``remat="full"`` (or "dots", which is the
+same here) each layer is recomputed in the backward pass, as the reference checkpoints its ``layer_fn``.
 """
 from __future__ import annotations
 
@@ -37,12 +37,16 @@ __all__ = ["RWKV6LM", "wkv_chunk", "wkv_chunked", "wkv_step", "wkv_ref"]
 
 
 class RWKV6LM:
+    """RWKV-6 LM.  ``remat`` is "none" or, for "full" and "dots" alike,
+    each layer recomputed whole in the backward pass: the reference
+    checkpoints its ``layer_fn`` with no policy for any value but
+    "none", so "dots" means "full" here too."""
+
     def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 32,
                  remat: str = "full"):
         if remat not in REMAT:
-            raise NotImplementedError(
-                f"remat {remat!r}: not yet ported (the port takes "
-                f"{', '.join(REMAT)})")
+            raise ValueError(f"remat {remat!r}: the port takes "
+                             f"{', '.join(REMAT)}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.chunk = chunk
@@ -187,7 +191,7 @@ class RWKV6LM:
     def backbone(self, params, h, state):
         """Every layer from ``state``.  When the params need a gradient
         the layers come from ``unbind_layers``, each recomputed in the
-        backward pass under ``remat="full"``."""
+        backward pass unless ``remat="none"``."""
         n = self.cfg.n_layers
         train = torch.is_grad_enabled() and _needs_grad(params["layers"])
         layers = (unbind_layers(params["layers"], n) if train else
@@ -196,7 +200,7 @@ class RWKV6LM:
         for li, lp in enumerate(layers):
             args = (h, lp, state["shift_tm"][li].to(h.dtype),
                     state["shift_cm"][li].to(h.dtype), state["wkv"][li])
-            if train and self.remat == "full":
+            if train and self.remat != "none":
                 h, n_tm, n_cm, n_wkv = checkpoint(self._layer, *args,
                                                   use_reentrant=False)
             else:

@@ -13,7 +13,8 @@ serving path (``runtime.serve.PagedServer``) consumes the same params.
 ``loss`` is the training objective: seq-chunked cross-entropy, so the
 [B, S, V] logits are never materialised, plus ``AUX_LOSS_COEF`` times
 the MoE load-balancing term, with each layer recomputed in the backward
-pass under ``remat="full"``.
+pass under ``remat="full"``, or everything but its matrix products
+without batch dims under ``remat="dots"`` (:func:`remat_call`).
 """
 from __future__ import annotations
 
@@ -21,12 +22,46 @@ import math
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 
 AUX_LOSS_COEF = 0.01
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots")
+
+#: The products without batch dims, as they reach the dispatcher: a 2-D
+#: ``x @ W``, and a 3-D one, which ``matmul`` folds to one 2-D product
+#: when the input needs a gradient or is contiguous.  ``bmm`` (the
+#: attention's batched products) is not among them.
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, func, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``, the reference's
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: keep
+    the output of every product in :data:`DOT_OPS`, recompute the rest
+    (elementwise ops, norms, batched products, and whatever the flash and
+    wkv ``autograd.Function``s compute)."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if func in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the remat policy: as is (``"none"``),
+    recomputed whole in the backward pass (``"full"``), or recomputed but
+    for the products :func:`dots_policy` keeps (``"dots"``)."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def layer_params(stacked, li: int):
@@ -75,9 +110,8 @@ class TransformerLM:
                  loss_chunk: int = 256, moe_no_drop: bool = False,
                  kv_quant: str = "none"):
         if remat not in REMAT:
-            raise NotImplementedError(
-                f"remat {remat!r}: not yet ported (the port takes "
-                f"{', '.join(REMAT)})")
+            raise ValueError(f"remat {remat!r}: the port takes "
+                             f"{', '.join(REMAT)}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -153,18 +187,14 @@ class TransformerLM:
         Returns (hidden [B, S, d] before the final norm, per-layer k and
         v [B, Hkv, S, D] in ``cache_dtype`` (none without one), the MoE
         aux summed over layers).  When the params need a gradient the
-        layers come from ``unbind_layers``, each recomputed in the
-        backward pass under ``remat="full"``."""
+        layers come from ``unbind_layers``, each under the remat policy
+        (:func:`remat_call`)."""
         cfg = self.cfg
         ks, vs = [], []
         aux = torch.zeros((), device=h.device)
         if torch.is_grad_enabled() and _needs_grad(params["layers"]):
             for lp in unbind_layers(params["layers"], cfg.n_layers):
-                if self.remat == "full":
-                    h, a = checkpoint(self._train_layer, h, lp,
-                                      use_reentrant=False)
-                else:
-                    h, a = self._train_layer(h, lp)
+                h, a = remat_call(self.remat, self._train_layer, h, lp)
                 if a is not None:
                     aux = aux + a
             return h, ks, vs, aux
@@ -209,8 +239,9 @@ class TransformerLM:
 
     def _chunked_ce(self, params, h, labels):
         """Seq-chunked CE: logits materialised one chunk at a time (each
-        chunk recomputed in the backward pass unless ``remat="none"``),
-        the sums carried in chunk order as the reference's scan does."""
+        chunk under the remat policy, as the reference's ``_maybe_remat``
+        of its chunk), the sums carried in chunk order as the
+        reference's scan does."""
         b, s, _ = h.shape
         ck = min(self.loss_chunk, s)
         n = s // ck
@@ -218,14 +249,10 @@ class TransformerLM:
             n, ck = 1, s
         nll = torch.zeros((), device=h.device)
         cnt = torch.zeros((), device=h.device)
-        remat = self.remat != "none" and torch.is_grad_enabled()
+        remat = self.remat if torch.is_grad_enabled() else "none"
         for i in range(n):
             hh, ll = h[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
-            if remat:
-                part, c = checkpoint(self._ce_chunk, params, hh, ll,
-                                     use_reentrant=False)
-            else:
-                part, c = self._ce_chunk(params, hh, ll)
+            part, c = remat_call(remat, self._ce_chunk, params, hh, ll)
             nll, cnt = nll + part, cnt + c
         return nll / torch.clamp(cnt, min=1.0)
 

@@ -1,15 +1,32 @@
-"""Pool serving: the distributed decode path over DockerSSD nodes, on one
-card.
+"""Pool serving: the distributed decode path over DockerSSD nodes.
 
 ``PoolServer`` turns the single-device :class:`~repro_torch.runtime.
 serve.PagedServer` into one system spanning the storage pool (the
 paper's preferred offloading mode, Fig 8b).  The port of
-``repro.runtime.pool``: there, each node of the pool is one device of a
-mesh and its HBM window is that device's shard of the PageStore; here N
-nodes are emulated on one card, and node ``s``'s window is the slice
-``[s * P, (s + 1) * P)`` of one PageStore's pages (P =
-``hbm_pages_per_node``).  One device step per token serves every
-sequence in the pool, wherever its pages live.
+``repro.runtime.pool``, where each node of the pool is one device of a
+mesh and its HBM window is that device's shard of the PageStore.  Two
+routes, one host program:
+
+  * **one card** (no ``mesh``): N nodes emulated in one process; node
+    ``s``'s window is the slice ``[s * P, (s + 1) * P)`` of one
+    PageStore's pages (P = ``hbm_pages_per_node``), and the pool form of
+    the paged-attention kernels merges the nodes' partials in one launch;
+  * **one node a rank** (``mesh=``, a ``DeviceMesh`` with a ``model``
+    dim; ``runtime.sharding.pool_mesh``): rank r of the ``model`` group
+    is node r and holds only its window, a :class:`NodeWindowStore` of P
+    pages (the reference's ``pool_store_spec``).  Every rank runs the
+    same host program (page table, placement, router, autoscaler) over
+    the global page ids, node r owning ``[r * P, (r + 1) * P)``; K/V
+    appends land only in the pages a rank owns; attention runs the pool
+    form over the rank's own window, unmerged, folds its splits, and
+    merges across ranks with ``combine_partials(..., group=)``: one
+    ``all_reduce`` MAX and one SUM, the reference's ``pmax`` and two
+    ``psum``s.  Pages that cross nodes (a drain's migration, a page-in
+    or copy-on-write onto another node) move by ``broadcast`` from the
+    owner.  Tokens agree across ranks because every rank receives the
+    same merged attention; :meth:`PoolServer.sync_check` all-reduces a
+    digest of the tables, the tokens and the logits and raises on a
+    mismatch.
 
 Placement policies (``PageTableManager.shard_of``):
 
@@ -24,48 +41,169 @@ Placement policies (``PageTableManager.shard_of``):
 Both run through the same device step, because attention is
 ownership-driven: every node computes q/k/v for the new tokens (each
 DockerSSD stores the full model in its flash), the new K/V lands in its
-page's slot of the one store, each node runs paged attention over the
-pages of *its own* window only (the pool form of the paged-attention
-kernels), and the nodes' online-softmax partials ``(acc, m, l)`` are
-merged exactly by max-rebase in one launch.  The reference's
-``shard_map`` bodies (decode, horizon, speculative verify, prefill
-chunk) all reach attention through one hook, so here they reduce to one
-override of ``PagedServer._kernel_attention``; its appends stay one
-write at the global physical id (the reference drops every non-owner's
-write, and one store has one slot).  Control traffic (admission /
-placement / free) rides Ether-oN frames.
+page's slot, each node runs paged attention over the pages of *its own*
+window only, and the nodes' online-softmax partials ``(acc, m, l)`` are
+merged exactly by max-rebase.  The reference's ``shard_map`` bodies
+(decode, horizon, speculative verify, prefill chunk) all reach
+attention through one hook, so here they reduce to one override of
+``PagedServer._kernel_attention``, plus the window store's append.
+Control traffic (admission / placement / free) rides Ether-oN frames.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.core.kv_tier import PageStore, PageTableManager
 from repro_torch.kernels import ops
-from repro_torch.runtime.serve import PagedServer, kernel_query
+from repro_torch.runtime.serve import (PagedServer, combine_partials,
+                                       kernel_query)
+from repro_torch.runtime.sharding import POOL_AXIS
+from repro_torch.runtime.sharding import mesh_bucket  # noqa: F401
 
 
-def mesh_bucket(n: int) -> int:
-    """Pow2 capacity bucket for an elastic pool of ``n`` nodes (the
-    reference's ``runtime.sharding.mesh_bucket``): membership changes
-    inside the bucket keep every node's window; growing past it means
-    provisioning a new server."""
-    if n < 1:
-        raise ValueError(f"pool capacity must be >= 1, got {n}")
-    return 1 << (n - 1).bit_length()
+#: host steps between two :meth:`PoolServer.sync_check`s on ranks
+SYNC_CHECK_EVERY = 16
 
 
-def _visible_devices(device) -> int:
-    """The reference's default pool size, its visible devices: the cards
-    torch sees for a CUDA server, one for a CPU one."""
+def _visible_devices(device, mesh=None) -> int:
+    """The reference's default pool size: the mesh's ``model`` ranks when
+    a mesh is given, else its visible devices (the cards torch sees for a
+    CUDA server, one for a CPU one)."""
+    if mesh is not None:
+        return int(mesh.size(mesh.mesh_dim_names.index(POOL_AXIS)))
     dev = torch.device(device)
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def window_rows(rows: torch.Tensor, node: int, n_local: int) -> torch.Tensor:
+    """Global page ids -> node ``node``'s window ids: an id in ``[node *
+    n_local, (node + 1) * n_local)`` becomes its offset there, any other
+    id ``n_local``.  The one rule of the rank route: ``n_local`` is the
+    window store's sentinel (an append there is dropped), and the id the
+    one-node pool form's ownership test (``phys // n_local == 0``, in the
+    kernel, its wrapper and ``ref.pool_split_owned``) rejects."""
+    loc = rows - node * n_local
+    return torch.where((loc >= 0) & (loc < n_local), loc,
+                       torch.full_like(loc, n_local))
+
+
+def _new_stats() -> Dict[str, int]:
+    return {"all_reduce": 0, "all_reduce_bytes": 0, "broadcast": 0,
+            "broadcast_bytes": 0}
+
+
+class NodeWindowStore:
+    """One rank's share of a pool's PageStore: the window of node ``node``
+    (``n_local`` stacked pages, a :class:`PageStore` of its own) behind
+    the global page ids ``[0, n_nodes * n_local)`` the host program
+    uses, so the ``PageTableManager`` runs unchanged on every rank.
+
+    * :meth:`append` and :meth:`layer_state` act on the window: a row
+      whose target lies outside it (another node's page, or the
+      sentinel) goes to the local sentinel, as the reference's
+      ``append_target`` drops non-owned writes.
+    * :meth:`read_page` / :meth:`write_page` (the flash tier) and
+      :meth:`copy_page` (copy-on-write, a drain's migration) are called
+      on every rank in the same order; the rank that owns the source
+      holds the bytes, and a page that moves between nodes goes by
+      ``broadcast`` from the source rank, written only by the
+      destination's.
+    """
+
+    def __init__(self, *, node: int, n_nodes: int, n_local: int, group,
+                 stats: Dict[str, int], **store_kw):
+        self.node, self.n_nodes, self.n_local = node, n_nodes, n_local
+        self.group = group
+        self.stats = stats
+        self.local = PageStore(hbm_pages=n_local, **store_kw)
+        self.base = node * n_local
+        self.hbm_pages = n_nodes * n_local
+        for name in ("page", "device", "dtype", "page_dtype", "quantized",
+                     "qmax"):
+            setattr(self, name, getattr(self.local, name))
+
+    @property
+    def format_key(self) -> str:
+        return self.local.format_key
+
+    def page_bytes(self) -> int:
+        return self.local.page_bytes()
+
+    def node_of(self, phys: int) -> int:
+        return int(phys) // self.n_local
+
+    def _local_id(self, phys: int) -> int:
+        return int(phys) - self.base
+
+    def local_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Global page ids -> this window's ids (:func:`window_rows`)."""
+        return window_rows(rows, self.node, self.n_local)
+
+    def append(self, li: int, rows, offs, k_new, v_new):
+        self.local.append(li, self.local_rows(rows), offs, k_new, v_new)
+
+    def layer_state(self, li: int) -> Dict[str, torch.Tensor]:
+        return self.local.layer_state(li)
+
+    def _page(self, phys: int):
+        """This rank's stacked page ``phys`` (it must own it): one view a
+        buffer, all layers."""
+        return [b[:, self._local_id(phys)] for b in self.local._bufs.values()]
+
+    def _move(self, src_node: int, data, dst_phys: int):
+        """Bring the stacked page ``data`` (held by ``src_node``'s rank;
+        None elsewhere) to ``dst_phys``'s node: a write there when it is
+        the same node, else a ``broadcast`` from the source rank, which
+        every rank joins and only the destination's writes."""
+        import torch.distributed as dist
+
+        dst_node = self.node_of(dst_phys)
+        if src_node == dst_node:
+            if self.node == dst_node:
+                for buf, t in zip(self._page(dst_phys), data):
+                    buf.copy_(t)
+            return
+        src_rank = dist.get_global_rank(self.group, src_node)
+        for i, buf in enumerate(self.local._bufs.values()):
+            # the page's bytes, whatever its dtype (fp8 codes included)
+            t = (data[i].to(self.device).contiguous().view(torch.uint8)
+                 if self.node == src_node else
+                 torch.empty(buf.shape[:1] + buf.shape[2:], dtype=buf.dtype,
+                             device=self.device).view(torch.uint8))
+            dist.broadcast(t, src=src_rank, group=self.group)
+            self.stats["broadcast"] += 1
+            self.stats["broadcast_bytes"] += t.numel()
+            if self.node == dst_node:
+                buf[:, self._local_id(dst_phys)].copy_(t.view(buf.dtype))
+
+    def read_page(self, phys: int):
+        """Device -> host (a page-out): ``(owner node, the page's tensors
+        on the CPU)`` on the owner's rank, ``(owner node, None)`` on the
+        others.  Opaque: pass it back to :meth:`write_page`."""
+        node = self.node_of(phys)
+        if node != self.node:
+            return node, None
+        return node, tuple(t.to("cpu", copy=True) for t in self._page(phys))
+
+    def write_page(self, phys: int, src_node: int, data):
+        """Host -> device (a page-in) at ``phys``, from the host copy of
+        ``src_node``'s rank."""
+        self._move(src_node, data, phys)
+
+    def copy_page(self, src: int, dst: int):
+        """Stacked-page copy (copy-on-write, migration): local when both
+        pages are on one node, else a broadcast from the source rank."""
+        node = self.node_of(src)
+        self._move(node, self._page(src) if node == self.node else None, dst)
+
+
 class PoolServer(PagedServer):
-    """Tiered-KV serving across the storage pool, the nodes emulated on
-    one card.
+    """Tiered-KV serving across the storage pool: the nodes emulated on
+    one card, or, with ``mesh``, one node a rank of the mesh's ``model``
+    group (see the module docstring).
 
     Same public surface as :class:`PagedServer` (the router and the
     StoragePool frontend talk to it identically) plus the pool surface:
@@ -76,11 +214,16 @@ class PoolServer(PagedServer):
 
     The page-table manager allocates per shard (each node tiers against
     its own window and flash), and attention runs the pool form of the
-    paged-attention kernels over the N windows.
+    paged-attention kernels over the N windows, merged in the launch on
+    one card and by ``all_reduce`` across ranks.  On ranks, every
+    ``SYNC_CHECK_EVERY`` host steps and at the end of :meth:`decode` the
+    ranks compare digests (:meth:`sync_check`), and
+    ``collective_stats`` counts the collectives and their bytes.
     """
 
     def __init__(self, model, params, *, n_nodes: Optional[int] = None,
-                 active: Optional[int] = None, page_size: int = 16,
+                 active: Optional[int] = None, mesh=None,
+                 page_size: int = 16,
                  hbm_pages_per_node: int = 32, dtype=torch.float32,
                  policy: str = "placed", prefix_cache: bool = True,
                  page_dtype: str = "fp32",
@@ -92,12 +235,35 @@ class PoolServer(PagedServer):
                 "elastic pools (active=) need the placed policy — a "
                 "striped extent spans every node by construction, so "
                 "membership cannot change under it")
-        n = n_nodes if n_nodes else _visible_devices(device)
-        if active is not None:
-            # elastic capacity is sized for the pow2 bucket: membership
-            # changes inside the bucket keep every window, growing past
-            # it means provisioning a new server
-            n = mesh_bucket(n)
+        self.mesh, self.group, self.node = mesh, None, None
+        self.collective_stats = _new_stats()
+        self._digest = hashlib.blake2b(digest_size=16)
+        self._host_steps = 0
+        self._last_logits = None
+        self._lt_src = self._lt = None
+        if mesh is not None:
+            if POOL_AXIS not in (mesh.mesh_dim_names or ()):
+                raise ValueError(f"pool mesh needs a {POOL_AXIS!r} axis")
+            # the mesh is the pool: one node a rank of its model group
+            n = _visible_devices(device, mesh)
+            if n_nodes is not None and n_nodes != n:
+                raise ValueError(f"n_nodes={n_nodes} over a pool mesh of "
+                                 f"{n} ranks: the pool serves one node a "
+                                 f"rank")
+            if active is not None and mesh_bucket(n) != n:
+                raise ValueError(f"an elastic pool (active=) needs a pool "
+                                 f"mesh of its pow2 bucket, got {n} ranks "
+                                 f"(bucket {mesh_bucket(n)})")
+            self.group = mesh.get_group(POOL_AXIS)
+            self.node = int(mesh.get_local_rank(POOL_AXIS))
+        else:
+            n = n_nodes if n_nodes else _visible_devices(device)
+            if active is not None:
+                # elastic capacity is sized for the pow2 bucket:
+                # membership changes inside the bucket keep every
+                # window, growing past it means provisioning a new
+                # server
+                n = mesh_bucket(n)
         self.n_nodes = int(n)
         if active is not None and not (1 <= active <= self.n_nodes):
             raise ValueError(f"active={active} must be in "
@@ -125,7 +291,18 @@ class PoolServer(PagedServer):
                          dtype=dtype, prefix_cache=prefix_cache,
                          page_dtype=page_dtype, device=device)
 
-    # -- table factory -------------------------------------------------------
+    # -- store / table factories ---------------------------------------------
+
+    def _new_store(self):
+        if self.group is None:
+            return super()._new_store()
+        return NodeWindowStore(
+            node=self.node, n_nodes=self.n_nodes,
+            n_local=self.pages_per_node, group=self.group,
+            stats=self.collective_stats, n_layers=self.cfg.n_layers,
+            page_size=self.page, n_kv_heads=self.cfg.n_kv_heads,
+            head_dim=self.cfg.hd, dtype=self.dtype,
+            page_dtype=self.page_dtype, device=self.device)
 
     def _new_table(self) -> PageTableManager:
         table = PageTableManager(self.store, n_shards=self.n_nodes,
@@ -191,12 +368,10 @@ class PoolServer(PagedServer):
             return None
         return node
 
-    def begin_request(self, seq_id: int, prompt, *,
-                      node: Optional[int] = None) -> int:
-        """Open an admission onto the pool.  ``node`` pins the placement
-        (the StoragePool frontend routes it there); default prefers the
-        node already holding the prompt's prefix, else least-loaded.
-        Striped policy ignores ``node``."""
+    def _open_request(self, seq_id: int, prompt, *,
+                      node: Optional[int] = None):
+        """Place the sequence, then queue its prompt (see
+        :meth:`begin_request`)."""
         if self.policy == "placed" and seq_id not in self._placement:
             if node is None:
                 node = self.pick_prefix_node(prompt)
@@ -205,17 +380,29 @@ class PoolServer(PagedServer):
                 raise RuntimeError(f"node {target} is dead")
             self._placement[seq_id] = target
         try:
-            return super().begin_request(seq_id, prompt)
+            return super()._open_request(seq_id, prompt)
         except Exception:
             self._placement.pop(seq_id, None)
             raise
+
+    def begin_request(self, seq_id: int, prompt, *,
+                      node: Optional[int] = None) -> int:
+        """Open an admission onto the pool.  ``node`` pins the placement
+        (the StoragePool frontend routes it there); default prefers the
+        node already holding the prompt's prefix, else least-loaded.
+        Striped policy ignores ``node``.  Returns the prompt tokens the
+        cache covers right now."""
+        prompt = self._open_request(seq_id, prompt, node=node)
+        if not self.prefix_cache:
+            return 0
+        return self.table.probe_prefix(seq_id, prompt)
 
     def add_request(self, seq_id: int, prompt, *,
                     node: Optional[int] = None,
                     chunk: Optional[int] = None):
         """Blocking admission: placement + cached-prefix match + chunked
         prefill of the uncached suffix (see PagedServer.add_request)."""
-        self.begin_request(seq_id, prompt, node=node)
+        self._open_request(seq_id, prompt, node=node)
         logits = None
         while logits is None:
             logits = self.prefill_chunk(seq_id, chunk)
@@ -350,11 +537,13 @@ class PoolServer(PagedServer):
     def _kernel_attention(self, q, li, page_table, lengths):
         """Every node's ownership-masked attention over layer ``li``,
         merged across the pool: the pool form of the paged-attention
-        kernels (f32, or fused-dequant over int8/fp8 codes), decode form
-        for a batch table, chunk form for a prefill chunk's expanded
-        row."""
+        kernels (f32 / bf16, or fused-dequant over int8/fp8 codes),
+        decode form for a batch table, chunk form for a prefill chunk's
+        expanded row.  On ranks, see :meth:`_rank_attention`."""
         st = self.store.layer_state(li)
         q = kernel_query(q, self.dtype)
+        if self.group is not None:
+            return self._rank_attention(q, st, page_table, lengths)
         if self.quantized:
             o = ops.paged_attention_pool_q8(
                 q, st["k"], st["v"], st["ks"], st["vs"], page_table, lengths,
@@ -364,6 +553,119 @@ class PoolServer(PagedServer):
                 q, st["k"], st["v"], page_table, lengths,
                 n_nodes=self.n_nodes, n_local=self.pages_per_node)
         return o.to(self.dtype)
+
+    def _local_table(self, page_table):
+        """The step's table in this rank's window ids (the store's
+        ``local_rows``), once a step: every layer gets the same table
+        object.  An expanded row (the chunk form's) stays expanded."""
+        if page_table is not self._lt_src:
+            if page_table.dim() == 2 and page_table.stride(0) == 0:
+                row = self.store.local_rows(page_table[0])
+                self._lt = row[None].expand(page_table.shape)
+            else:
+                self._lt = self.store.local_rows(page_table)
+            self._lt_src = page_table
+        return self._lt
+
+    def _rank_attention(self, q, st, page_table, lengths):
+        """This rank's node: the pool form over its own window (one node
+        of ``pages_per_node`` pages, the table in window ids), launched
+        unmerged, its splits folded by max-rebase, then the exact merge
+        across the ranks by ``all_reduce`` (``combine_partials(...,
+        group=)``).  A one-rank group has nothing to reduce: its merge is
+        the launch's own, the one-card one-node pool's bits."""
+        table = self._local_table(page_table)
+        ks, vs = st.get("ks"), st.get("vs")
+        if self.n_nodes == 1:
+            if self.quantized:
+                o = ops.paged_attention_pool_q8(
+                    q, st["k"], st["v"], ks, vs, table, lengths, n_nodes=1,
+                    n_local=self.pages_per_node)
+            else:
+                o = ops.paged_attention_pool(
+                    q, st["k"], st["v"], table, lengths, n_nodes=1,
+                    n_local=self.pages_per_node)
+            return o.to(self.dtype)
+        acc, m, l = ops.pool_partials(q, st["k"], st["v"], table, lengths,
+                                      ks, vs, n_nodes=1,
+                                      n_local=self.pages_per_node)
+        acc, m, l = ops.ref.merge_split_partials(acc[:, :, 0], m[:, :, 0],
+                                                 l[:, :, 0])
+        cs = self.collective_stats
+        cs["all_reduce"] += 2
+        cs["all_reduce_bytes"] += 4 * (m.numel() + l.numel() + acc.numel())
+        return combine_partials(acc, m, l, group=self.group).to(self.dtype)
+
+    # -- ranks: the host programs agree ---------------------------------------
+
+    def _note(self, *items):
+        """Fold host-side results into the running digest; every
+        ``SYNC_CHECK_EVERY`` host steps, :meth:`sync_check`."""
+        if self.group is None:
+            return
+        for it in items:
+            self._digest.update(repr(it).encode())
+        self._host_steps += 1
+        if self._host_steps % SYNC_CHECK_EVERY == 0:
+            self.sync_check()
+
+    def sync_check(self):
+        """On ranks: all-reduce a digest of this rank's page table,
+        placements, the tokens so far and the last logits' bytes, and
+        raise unless every rank's is the same (the host programs
+        diverged, or the collectives did not give every rank the same
+        bits).  A no-op on one card."""
+        if self.group is None:
+            return
+        import torch.distributed as dist
+
+        h = self._digest.copy()
+        t = self.table
+        h.update(repr((list(t._resident.items()), sorted(t._lengths.items()),
+                       sorted(self._placement.items()), sorted(self._dead),
+                       sorted(self._parked), self._seqs)).encode())
+        if self._last_logits is not None:
+            h.update(self._last_logits.float().cpu().numpy().tobytes())
+        d = int.from_bytes(h.digest()[:7], "little")
+        both = torch.tensor([d, -d], dtype=torch.int64, device=self.device)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.group)
+        self.collective_stats["all_reduce"] += 1
+        self.collective_stats["all_reduce_bytes"] += 16
+        if int(both[0]) != -int(both[1]):
+            raise RuntimeError(
+                f"pool ranks diverged (node {self.node}): digests differ "
+                f"after {self._host_steps} host steps")
+
+    def prefill_chunk(self, seq_id: int, chunk: Optional[int] = None):
+        logits = super().prefill_chunk(seq_id, chunk)
+        if logits is not None and self.group is not None:
+            self._last_logits = logits
+            self._note("prefill", seq_id)
+        return logits
+
+    def step_batch(self, tokens: Dict[int, int]):
+        seqs, logits = super().step_batch(tokens)
+        if self.group is not None:
+            self._last_logits = logits
+            self._note("step", sorted(tokens.items()))
+        return seqs, logits
+
+    def horizon_batch(self, tokens, budgets, horizon, eos_id=None,
+                      sampling=None, _key=None):
+        out = super().horizon_batch(tokens, budgets, horizon, eos_id,
+                                    sampling, _key)
+        self._note("horizon", sorted(out.items()))
+        return out
+
+    def spec_horizon_batch(self, *args, **kwargs):
+        out = super().spec_horizon_batch(*args, **kwargs)
+        self._note("spec", sorted(out.items()))
+        return out
+
+    def decode(self, *args, **kwargs):
+        out = super().decode(*args, **kwargs)
+        self.sync_check()
+        return out
 
     def step_reference(self, tokens):
         raise NotImplementedError(

@@ -81,17 +81,38 @@ def paged_attention_partial(q, k_pages, v_pages, local_table, col_owned,
                                       lengths, k_scale, v_scale, col_owned)
 
 
-def combine_partials(acc, m, l):
-    """Exact merge of per-node online-softmax partials, the node axis
-    leading (one card holds every node, so no collective): rebase every
-    node's accumulator to the global max and sum.  acc [N, B, H, D], m/l
-    [N, B, H] -> [B, H, D].  Nodes owning nothing contribute (0,
-    NEG_INF, 0) and vanish; a fully-masked (padding) row ends with l ==
-    0 and yields 0, the kernels' ``acc / max(l, 1e-30)`` convention."""
-    m_glob = m.amax(dim=0)
-    scale = torch.exp(m - m_glob)
-    l_glob = (l * scale).sum(dim=0)
-    acc_glob = (acc * scale[..., None]).sum(dim=0)
+def combine_partials(acc, m, l, group=None):
+    """Exact merge of per-node online-softmax partials: rebase every
+    node's accumulator to the global max and sum (the reference's
+    ``combine_partials``).  Two routes:
+
+      * ``group=None``: every node on one card, the node axis leading:
+        acc [N, B, H, D], m/l [N, B, H] -> [B, H, D];
+      * ``group``: one node a rank of that ``torch.distributed`` group,
+        this rank's own partial acc [B, H, D], m/l [B, H]: the
+        reference's one ``pmax`` and two ``psum``s as ``all_reduce`` MAX
+        of m, then one ``all_reduce`` SUM of ``l * scale`` and ``acc *
+        scale`` in one buffer.  Every rank gets the same [B, H, D].
+
+    Nodes owning nothing contribute (0, NEG_INF, 0) and vanish; a
+    fully-masked (padding) row ends with l == 0 and yields 0, the
+    kernels' ``acc / max(l, 1e-30)`` convention."""
+    if group is None:
+        m_glob = m.amax(dim=0)
+        scale = torch.exp(m - m_glob)
+        l_glob = (l * scale).sum(dim=0)
+        acc_glob = (acc * scale[..., None]).sum(dim=0)
+    else:
+        import torch.distributed as dist
+
+        m_glob = m.clone()
+        dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+        scale = torch.exp(m - m_glob)
+        buf = torch.cat([(acc * scale[..., None]).reshape(-1),
+                         (l * scale).reshape(-1)])
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        acc_glob = buf[:acc.numel()].view(acc.shape)
+        l_glob = buf[acc.numel():].view(l.shape)
     return acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
 
 
@@ -215,6 +236,12 @@ def sampled_token(logits, sampling, stream: int, position: int) -> int:
 # to SPEC_MAX_MATCH trailing tokens
 SPEC_MIN_MATCH = 3
 SPEC_MAX_MATCH = 8
+
+# on a card a prefill chunk runs at least this many rows (the padding is
+# masked, as a pow2 bucket's): for an f32 ``x @ w`` of 8 or 16 rows into
+# 128 columns cuBLAS picks a split-K kernel of ~50 us, 10x what it takes
+# at 4 or 24-32 rows (scripts/small_gemm_probe.py)
+PREFILL_MIN_ROWS_CUDA = 32
 
 
 def draft_ngram(hist, hist_len, n_draft: int):
@@ -616,10 +643,9 @@ class PagedServer:
 
     # -- request handling ----------------------------------------------------
 
-    def begin_request(self, seq_id: int, prompt: np.ndarray) -> int:
-        """Open an admission: queue the prompt for :meth:`prefill_chunk`.
-        The cached-prefix match runs lazily at the first chunk.  Returns
-        the prompt tokens the cache covers right now."""
+    def _open_request(self, seq_id: int, prompt) -> np.ndarray:
+        """Queue the prompt for :meth:`prefill_chunk` (the cached-prefix
+        match runs lazily at the first chunk).  Returns it as int32."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.shape[0] < 1:
             raise ValueError("empty prompt")
@@ -627,9 +653,17 @@ class PagedServer:
         self._seqs.append(seq_id)
         self._prefill_state[seq_id] = prompt
         self._history[seq_id] = prompt.tolist()
+        if self.prefix_cache:
+            self._prefill_unmatched.add(seq_id)
+        return prompt
+
+    def begin_request(self, seq_id: int, prompt: np.ndarray) -> int:
+        """Open an admission: queue the prompt for :meth:`prefill_chunk`.
+        The cached-prefix match runs lazily at the first chunk.  Returns
+        the prompt tokens the cache covers right now."""
+        prompt = self._open_request(seq_id, prompt)
         if not self.prefix_cache:
             return 0
-        self._prefill_unmatched.add(seq_id)
         return self.table.probe_prefix(seq_id, prompt)
 
     def prefill_pending(self, seq_id: int) -> int:
@@ -641,7 +675,8 @@ class PagedServer:
 
     def prefill_chunk(self, seq_id: int, chunk: Optional[int] = None):
         """Run ONE prefill chunk of at most ``chunk`` tokens (default:
-        the whole remaining suffix), bucketed up to a power of two, with
+        the whole remaining suffix), bucketed up to a power of two (on a
+        card at least ``PREFILL_MIN_ROWS_CUDA``), with
         the page row padded to a pow2 width.  Returns the last prompt
         position's logits [V] when this chunk completes the prompt,
         else None."""
@@ -669,7 +704,10 @@ class PagedServer:
                 self.table.unpin_all()
             row = np.zeros((_pow2(len(rows)),), np.int32)
             row[:len(rows)] = rows
-            tokens = np.zeros((1, _pow2(c)), np.int32)
+            n_rows = _pow2(c)
+            if self.device.type == "cuda":
+                n_rows = max(n_rows, PREFILL_MIN_ROWS_CUDA)
+            tokens = np.zeros((1, n_rows), np.int32)
             tokens[0, :c] = prompt[start:start + c]
             logits = self.prefill_chunk_step(row, tokens, start, c)
         except Exception:
@@ -694,8 +732,9 @@ class PagedServer:
                     chunk: Optional[int] = None):
         """Admit a sequence: cached-prefix match, then chunked prefill of
         the uncached suffix.  Returns the last prompt position's logits
-        [V]."""
-        self.begin_request(seq_id, prompt)
+        [V].  (It skips :meth:`begin_request`'s probe: the match runs
+        before the first chunk anyway.)"""
+        self._open_request(seq_id, prompt)
         logits = None
         while logits is None:
             logits = self.prefill_chunk(seq_id, chunk)

@@ -1,10 +1,15 @@
 """The port's training kernels on the card (flash attention and the wkv
-scan, forward with its saved values and backward): run there with
+scan, forward with its saved values and backward), bf16 pages in the
+paged forms, and the pool's rank route (each node's window through the
+one-node pool form, ranks sharing the card over gloo): run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 
 Imports torch only (the machine with the card has no JAX); every test
 is marked ``cuda`` and skips without a card."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -216,3 +221,159 @@ def test_paged_bf16_pages_on_the_card(card, form, d):
         1e-4 * max(1.0, float(want.abs().max()))
     assert not got[lengths == 0].any()
     assert PA.LAUNCHES[kernel] == before + (2 if pool else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("form", ["decode", "chunk"])
+def test_window_route_on_the_card(card, code, form):
+    """The rank route's one rule on the card: node r's pool form over its
+    own window (one node, the table through ``runtime.pool.window_rows``)
+    gives node r's partials of the pool form over all windows bit for
+    bit, and the plain split partials of the window
+    (``ref.paged_pool_split_partials_ref``) within 1e-4 x max(1, max
+    |plain|); the nodes merged (``combine_partials``) are the pool
+    wrapper's output within 1e-5."""
+    from repro_torch.core import kv_tier as tkv
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.pool import window_rows
+    from repro_torch.runtime.serve import combine_partials
+    rng = np.random.default_rng(5)
+    h, hkv, d, page, nodes, local, per = 32, 8, 64, 16, 4, 20, 2
+    mk = lambda *s: torch.from_numpy(
+        rng.standard_normal(s, dtype=np.float32)).cuda()
+    k, v = mk(nodes * local, page, hkv, d), mk(nodes * local, page, hkv, d)
+    ks = vs = None
+    if code == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif code != "f32":
+        cd, qmax = tkv._CODE[code]
+        k, ks = tkv.quantize_page_kv(k, qmax, cd)
+        v, vs = tkv.quantize_page_kv(v, qmax, cd)
+    if form == "chunk":
+        lengths = torch.arange(48, dtype=torch.int32, device="cuda") + 100
+        row = torch.from_numpy(rng.permutation(nodes * local)[:10].astype(
+            np.int32)).cuda()
+        table = row[None].expand(48, 10)
+    else:
+        lengths = torch.tensor([0, 1, 37, 160, 96, 155], dtype=torch.int32,
+                               device="cuda")
+        table = torch.from_numpy(np.stack([
+            rng.permutation(nodes * local)[:10] for _ in range(6)]).astype(
+                np.int32)).cuda()
+    q = mk(lengths.shape[0], h, d)
+    acc, m, l = ops.pool_partials(q, k, v, table, lengths, ks, vs,
+                                  n_nodes=nodes, n_local=local,
+                                  pages_per_split=per)
+    parts = []
+    for r in range(nodes):
+        sl = slice(r * local, (r + 1) * local)
+        win = (window_rows(table[0], r, local)[None].expand(table.shape)
+               if form == "chunk" else window_rows(table, r, local))
+        wk, wv = k[sl], v[sl]
+        wks, wvs = (None, None) if ks is None else (ks[sl], vs[sl])
+        got = ops.pool_partials(q, wk, wv, win, lengths, wks, wvs, n_nodes=1,
+                                n_local=local, pages_per_split=per)
+        for a, w in zip(got, (acc[:, :, r:r + 1], m[:, :, r:r + 1],
+                              l[:, :, r:r + 1])):
+            assert torch.equal(a, w)
+        plain = ref.paged_pool_split_partials_ref(
+            q, wk, wv, win, lengths, 1, local,
+            win.shape[1] if form == "chunk" else per, wks, wvs)
+        a_k, m_k, l_k = (x[:, :, 0] for x in got)
+        a_p, m_p, l_p = plain
+        lim = 1e-4 * max(1.0, float(a_p.abs().max()))
+        assert float((a_k - a_p).abs().max()) <= lim
+        assert torch.equal(m_k == -1e30, m_p == -1e30)
+        parts.append(ref.merge_split_partials(a_k, m_k, l_k))
+    merged = combine_partials(*(torch.stack(x) for x in zip(*parts)))
+    whole = (ops.paged_attention_pool(q, k, v, table, lengths,
+                                      n_nodes=nodes, n_local=local)
+             if ks is None else
+             ops.paged_attention_pool_q8(q, k, v, ks, vs, table, lengths,
+                                         n_nodes=nodes, n_local=local))
+    assert float((merged - whole).abs().max()) <= 1e-5
+
+
+def _rank_spec(n):
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    cfg = dataclasses.replace(get_arch("granite_3_2b").reduced(),
+                              n_layers=2, vocab_size=64)
+    rng = np.random.default_rng(0)
+    return {"cfg": dataclasses.asdict(cfg), "seed": 0, "device": "cuda",
+            "prompts": [rng.integers(0, 64, 40).tolist() for _ in range(5)],
+            "gens": [12] * 5, "chunk": 16,
+            "server": {"page_size": 16, "hbm_pages_per_node": 32 // n}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_pool_ranks_share_the_card(card, tmp_path, n):
+    """``PoolServer(mesh=...)`` with ``n`` ranks on the one card over gloo
+    (``launch.mesh.run_ranks``): tokens equal to the one-process pool of
+    ``n`` nodes, prefill and step logits within 1e-4 (bit-equal at one
+    rank), every rank the same bits; the pool form launched on every
+    rank."""
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    from pool_sessions import pool_session
+    spec = _rank_spec(n)
+    single = pool_session(dict(spec, nodes=n))
+    ranks = run_ranks(pool_session, n, (dict(spec, ranks=True),),
+                      device_type="cuda", timeout_s=240,
+                      workdir=str(tmp_path))
+    for r in ranks:
+        assert r["tokens"] == single["tokens"] == ranks[0]["tokens"]
+        for a, b in zip(r["prefill"], ranks[0]["prefill"]):
+            assert torch.equal(a, b)
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip(r["prefill"], single["prefill"]))
+        assert err == 0.0 if n == 1 else err <= 1e-4
+        assert r["launches"].get("paged_pool_decode_f32", 0) > 0
+        assert r["launches"].get("paged_pool_chunk_f32", 0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("suffix", [1, 8, 16, 40])
+def test_short_prefill_chunks_pad_to_min_rows(card, monkeypatch, suffix):
+    """On the card a prefill chunk runs at least ``PREFILL_MIN_ROWS_CUDA``
+    rows: a cached prefix plus ``suffix`` new tokens gives the logits of
+    the chunk at its bare pow2 bucket within 1e-5 (the padding is masked;
+    only cuBLAS's kernel for the products changes), and the chunk's
+    tokens are the rows the server ran."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.api import get_model
+    from repro_torch.runtime import serve as S
+
+    cfg = dataclasses.replace(get_arch("granite-3-2b"), n_layers=2,
+                              d_model=128, n_heads=8, n_kv_heads=4,
+                              d_ff=256, vocab_size=512)
+    model = get_model(cfg, compute_dtype=torch.float32)
+    params = model.init(torch.Generator(device=card).manual_seed(0),
+                        device=card)
+    rng = np.random.default_rng(suffix)
+    prefix = rng.integers(0, 512, 32, dtype=np.int32)
+    prompt = np.concatenate([prefix,
+                             rng.integers(0, 512, suffix, dtype=np.int32)])
+    rows = []
+    inner = S.PagedServer.prefill_chunk_step
+
+    def seen(self, page_row, tokens, start, n_valid):
+        rows.append(tokens.shape[1])
+        return inner(self, page_row, tokens, start, n_valid)
+    monkeypatch.setattr(S.PagedServer, "prefill_chunk_step", seen)
+    out, least = {}, S.PREFILL_MIN_ROWS_CUDA
+    for min_rows in (least, 1):
+        monkeypatch.setattr(S, "PREFILL_MIN_ROWS_CUDA", min_rows)
+        srv = S.PagedServer(model, params, page_size=8, hbm_pages=32,
+                            device=card)
+        srv.add_request(0, prefix)
+        srv.free_sequence(0)
+        out[min_rows] = srv.add_request(1, prompt)
+    bucket = 1 << (suffix - 1).bit_length()
+    assert rows[1] == max(bucket, least)
+    assert rows[3] == bucket
+    err = float((out[1] - out[least]).abs().max())
+    assert err <= 1e-5 * max(1.0, float(out[1].abs().max()))

@@ -51,8 +51,22 @@ def test_port_files_cover_the_smoke_twins_and_core():
                  "examples/quickstart_torch.py",
                  "examples/serve_pool_torch.py",
                  "examples/serve_rag_torch.py",
-                 "examples/distributed_inference_torch.py"):
+                 "examples/distributed_inference_torch.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/runtime/sharding.py"):
         assert name in walked, name
+
+
+def test_ranks_on_cuda_without_a_card_raise():
+    """Joining ranks on ``cuda`` without a card raises before any group
+    is made: no rank falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the ranks would join on it")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+    with pytest.raises(RuntimeError, match="no card"):
+        init_ranks("cuda", rank=0, world_size=1)
+    assert not dist.is_initialized()
 
 
 def test_launcher_without_cuda_raises():

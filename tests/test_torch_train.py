@@ -513,8 +513,13 @@ def test_model_facade():
     assert torch.isfinite(loss)
     d = m.synth_batch(ShapeConfig("d", 8, 2, "decode"))
     assert d["tokens"].shape == (2,) and d["cache"]["index"] == 0
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(cfg, remat="dots")
+    dots = get_model(cfg, remat="dots")               # builds and trains
+    assert dots.remat == "dots"
+    w = tree_map(lambda x: x.detach().clone().requires_grad_(True), p)
+    loss, _ = dots.loss(w, b)
+    loss.backward()
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(x.grad).all() for x in tree_leaves(w))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

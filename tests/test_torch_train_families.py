@@ -166,13 +166,6 @@ def test_remat_full_matches_none(fam):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "zamba2_1_2b", "granite_3_2b"])
-def test_remat_dots_is_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(ArchConfig(**dataclasses.asdict(
-            jget_arch(arch).reduced())), remat="dots")
-
-
 def _port_step(model, lr, ga=1):
     init_fn, upd_fn = adamw(lr=lr)
     return init_fn, make_train_step(model, upd_fn, grad_accum=ga)
