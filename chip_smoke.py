@@ -95,7 +95,8 @@ non-zero:
            and the batcher's TTFT and latency percentiles are printed,
            launch counters reset just before and read just after
   serve_pool
-           pool serving on the same weights and prompts: a 1-node
+           pool serving on the same weights cut to their first 8 of 40
+           layers (printed; the smoke's time) and prompts: a 1-node
            PoolServer against PagedServer bit for bit (prefill logits
            and every step's logits; f32 and int8 at h1 and h8, fp8 at
            h8); 4-node placed and striped and 2-node placed pools on the
@@ -143,8 +144,9 @@ non-zero:
            JOB frame, fit_horizon_overheads on the serve phase's h1/h8
            tok/s, printed
   examples each example twin's main (examples/serve_pool_torch.py,
-           serve_rag_torch.py, distributed_inference_torch.py) on the
-           card at its own demo size, its invariants held
+           serve_rag_torch.py, distributed_inference_torch.py,
+           elastic_training_torch.py: 8 then 6 gloo ranks sharing the
+           card) on the card at its own demo size, its invariants held
 
   dense    the launcher's default (non-paged) path through get_model +
            make_serving_fns, launch counters reset just before and read
@@ -212,8 +214,9 @@ non-zero:
            with checkpoints and --resume; one line a model
   serve_ranks
            the pool one DockerSSD node a rank (PoolServer(mesh=...)):
-           twins in this process on the serve phase's weights and prompts
-           (PagedServer; one-process PoolServers of 4 nodes, placed and
+           twins in this process on seeded granite-3-2b weights at full
+           width cut to 4 of 40 layers (printed; the smoke's time) and the
+           serve phase's prompts (PagedServer; one-process PoolServers of 4 nodes, placed and
            striped, f32, int8 and bf16 pages), then this process's card
            memory freed and 4 ranks spawned on the card over gloo
            (launch.mesh.run_ranks of scripts/pool_sessions.py), each
@@ -229,6 +232,22 @@ non-zero:
            launches per form (the ranks' sums).  Cut to 8 tokens and no
            2-rank run (printed; the CPU tests hold 2 ranks): gloo stages
            each collective through the host and the ranks share the card
+  mesh     the dense model over a (data, model) mesh of 4 gloo ranks on
+           the card (launch.mesh.run_ranks of scripts/mesh_sessions.py):
+           granite-3-2b at full width cut to 4 layers (printed), on (2,
+           2) and (1, 4) one train step of 8 x 512 tokens, grad-accum 2,
+           remat full (FSDP over data, tensor parallelism over model)
+           against the one-process step on rank 0 (loss 1e-5 rel,
+           gradients 1e-4 x max(1, max|g|), params by
+           mesh_sessions.step_check), and make_serving_fns over the mesh:
+           prefill 8 x 512, 8 greedy decode steps with the cache
+           sequence-sharded over model (f32, and int8 from the
+           one-process prefill's cache quantized), tokens identical to
+           the one-process dense path, prefill and first-step logits
+           within 1e-4; a checkpoint of (2, 2) shards restored onto (1,
+           2) bit-equal; collectives a step / a token and their bytes,
+           ms a step / a token, peak memory a rank, backend; launches
+           of the mesh path (the ranks' sums)
 
 The kernels phase also holds the flash-attention kernel (causal and not
 at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
@@ -252,9 +271,9 @@ float64 autograd and its scratch bytes printed), untimed at WKV_SHAPES
 plain backward).  Then
 the kernels line (launches: the serve, serve_knobs, serve_spec,
 serve_pool, serve_reduced, isp, facade, examples, dense, train,
-train_dots, families, train_families and serve_ranks phases' counts,
-also apart for train, train_dots, serve_ranks and each train_families
-model; an entry of a families model's shape also its launches in that
+train_dots, families, train_families, serve_ranks and mesh phases'
+counts, also apart for train, train_dots, serve_ranks, mesh and each
+train_families model; an entry of a families model's shape also its launches in that
 model's run; every entry launched at least once), the
 nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -2185,6 +2204,12 @@ FLASH_CASES = (
     ("hubert-xlarge encoder", {
         "batch": 8, "heads": 16, "kv_heads": 16, "seq": 512, "head_dim": 80,
         "family": "hubert"}, (False,)),
+    # the mesh phase's prefill, one rank's heads and rows
+    ("granite-3-2b prefill a rank of (2, 2)", {**FLASH, "batch": 4,
+                                                "heads": 16, "kv_heads": 4},
+     (True,)),
+    ("granite-3-2b prefill a rank of (1, 4)", {**FLASH, "heads": 8,
+                                               "kv_heads": 2}, (True,)),
 )
 # rwkv6-3b's prefill: 8 prompts of 512 tokens, 40 heads of 64, chunk 32
 WKV = {"batch": 8, "seq": 512, "heads": 40, "dk": 64, "dv": 64, "chunk": 32}
@@ -2352,6 +2377,11 @@ FLASH_TRAIN_CASES = (
     ("granite-3-2b train microbatch", {**FLASH, "batch": 4}),
     ("phi3-mini-3.8b train", {"batch": 8, "heads": 32, "kv_heads": 32,
                               "seq": 512, "head_dim": 96}),
+    # the mesh phase's microbatch (grad-accum 2), one rank's rows and heads
+    ("granite-3-2b train microbatch a rank of (2, 2)",
+     {**FLASH, "batch": 2, "heads": 16, "kv_heads": 4}),
+    ("granite-3-2b train microbatch a rank of (1, 4)",
+     {**FLASH, "batch": 4, "heads": 8, "kv_heads": 2}),
 )
 # untimed: FLASH_SHAPES, head_dim 16 at a group of 16, and head_dim 128
 # at a group of 8 (the backward's 16-row tiles with the heads' merge)
@@ -3698,7 +3728,9 @@ def phase_examples(torch, smi):
             ("serve_rag_torch", lambda o: o["warm_tokens"] <
              o["cold_tokens"] and o["stats"]["device"] > 0),
             ("distributed_inference_torch", lambda o: o["err"] < 1e-3 and
-             o["err_after_failure"] < 1e-3)):
+             o["err_after_failure"] < 1e-3),
+            ("elastic_training_torch", lambda o: o["err"] < 1e-5 and
+             o["degraded_mesh"] == (3, 2))):
         spec = importlib.util.spec_from_file_location(
             name, ROOT / "examples" / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
@@ -3712,7 +3744,8 @@ def phase_examples(torch, smi):
                           if k in ("requeues", "spec_alpha", "warm_tokens",
                                    "cold_tokens", "ids", "err",
                                    "err_after_failure", "t_warm",
-                                   "t_cold")}}
+                                   "t_cold", "healthy_mesh",
+                                   "degraded_mesh")}}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     check(counts["topk_scan_f32"] > 0 and counts["embed_gather"] > 0 and
@@ -3730,6 +3763,21 @@ def phase_examples(torch, smi):
 SERVE_SPEC = {"phrase": 16, "repeats": 32, "horizon": 8, "max_active": 8,
               "temperature": 0.8, "top_p": 0.9, "seed": 0,
               "cold_temperature": 0.05}
+
+
+def served_cut(served, layers):
+    """The serve phase's model and weights cut to their first ``layers``
+    layers (views of the stacked leaves, no copy): (cfg, model, params)."""
+    import dataclasses
+
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import tree_map
+
+    layers = min(layers, served["cfg"].n_layers)
+    cfg = dataclasses.replace(served["cfg"], n_layers=layers)
+    params = {**served["params"], "layers": tree_map(
+        lambda x: x[:layers], served["params"]["layers"])}
+    return cfg, get_model(cfg), params
 
 
 def spec_prompts(np, random_prompts, first_seed, vocab):
@@ -4048,6 +4096,10 @@ def phase_serve_spec(torch, np, smi, served):
 # steps, and the elastic bucket (4 nodes of 80 pages, 2 active: half
 # the requests wait until a node joins)
 SERVE_POOL = {"store_pages": 320, "horizon": 8, "kill_after": 2,
+              # the serve phase's weights cut to their first 8 layers:
+              # the smoke's time (its 1,200 s limit) once the mesh phase
+              # came in
+              "layers": 8,
               "runs": ((4, "placed"), (4, "striped"), (2, "placed")),
               "router_node_pages": 160,
               "elastic": {"nodes": 4, "active": 2, "grow_to": 3,
@@ -4079,7 +4131,7 @@ def phase_serve_pool(torch, np, smi, served):
     from repro_torch.runtime.scheduler import PoolRouter, Request
     from repro_torch.runtime.serve import PagedServer
 
-    cfg, model, params = served["cfg"], served["model"], served["params"]
+    cfg, model, params = served_cut(served, SERVE_POOL["layers"])
     prompts = served["prompts"]
     gen, q_gen, chunk, page = (SERVE[k] for k in ("gen", "q8_gen", "chunk",
                                                   "page"))
@@ -4309,6 +4361,8 @@ def phase_serve_pool(torch, np, smi, served):
           "single-device decode-form launch; the pool form merges in its "
           "own launch)")
     emit({"phase": "serve_pool", "arch": cfg.name, "requests": len(prompts),
+          "layers": cfg.n_layers, "cut": f"{cfg.n_layers} of "
+          f"{served['cfg'].n_layers} layers (the smoke's time)",
           "prompt_len": SERVE["prompt_len"], "gen": gen, "q8_gen": q_gen,
           "store_pages": store, "horizon": hzn, "one_node": one,
           "pools": pool_runs,
@@ -5943,8 +5997,8 @@ def phase_train_families(torch, np, smi):
     return per_model
 
 
-# pool serving one node a rank: the serve phase's weights (full-width
-# granite-3-2b, seed 0), its 8 prompts of 512 tokens, prefill chunks of
+# pool serving one node a rank: full-width granite-3-2b cut to
+# SERVE_RANKS["layers"] layers (seed 0), the serve phase's 8 prompts of 512 tokens, prefill chunks of
 # 256 (the serve_pool phase's), pages of 16 and its 320-page store split
 # over the nodes (80 pages a node at 4); ranks spawned on the one card
 # over gloo.  One spawn of 4 ranks serves every run in turn: the 1-rank
@@ -5963,8 +6017,10 @@ SERVE_RANKS = {"ranks": 4, "gen": 8, "chunk": 256, "timeout_s": 600,
                "event_pages": 160,
                # what was cut to keep the smoke near 900 s: ranks sharing
                # the card over gloo take 0.5-0.75 s a token at 4 ranks
-               "cut": "8 generated tokens, not 64; no 2-rank run (the CPU "
-                      "tests hold 2 ranks)"}
+               # (40 layers); the depth is cut for the mesh phase's time
+               "layers": 4,
+               "cut": "4 of 40 layers; 8 generated tokens, not 64; no "
+                      "2-rank run (the CPU tests hold 2 ranks)"}
 
 
 def paged_twin(torch, server, prompts, chunk, gen):
@@ -5986,8 +6042,9 @@ def paged_twin(torch, server, prompts, chunk, gen):
 
 def phase_serve_ranks(torch, np, smi):
     """Pool serving one DockerSSD node a rank (``PoolServer(mesh=...)``):
-    the twins first, in this process on the serve phase's weights
-    (``PagedServer`` for one rank, one-process ``PoolServer``s of 4
+    the twins first, in this process on seeded weights (granite-3-2b at
+    full width cut to SERVE_RANKS["layers"] layers; ``PagedServer`` for
+    one rank, one-process ``PoolServer``s of 4
     nodes, placed and striped, f32 / int8 / bf16 pages), then their card
     memory freed and 4 ranks spawned on the card over gloo
     (``launch.mesh.run_ranks`` of ``scripts/pool_sessions.py``'s
@@ -6015,7 +6072,8 @@ def phase_serve_ranks(torch, np, smi):
     from pool_sessions import pool_session, pool_sessions, session_weights
 
     t_phase = time.monotonic()
-    cfg = get_arch(SERVE["arch"])
+    cfg = dataclasses.replace(get_arch(SERVE["arch"]),
+                              n_layers=SERVE_RANKS["layers"])
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (SERVE["requests"], SERVE["prompt_len"]),
         dtype=np.int32)
@@ -6179,6 +6237,157 @@ def phase_serve_ranks(torch, np, smi):
     return collections.defaultdict(int, counts)
 
 
+# the mesh phase: granite-3-2b at full width (d 2048, 32/8 heads of 64,
+# ffn 8192, vocab 49,155 tied: the table split over d) cut to MESH
+# ["layers"] layers, on 4 gloo ranks sharing the card
+MESH = {"arch": "granite-3-2b", "layers": 4, "ranks": 4,
+        "meshes": ((2, 2), (1, 4)), "batch": 8, "seq": 512,
+        "grad_accum": 2, "remat": "full", "gen": 8, "restore": ((1, 2),),
+        "lr": ("warmup_cosine", 3e-3, 2, 10), "timeout_s": 900,
+        # params after the step: elements whose one-process gradient is
+        # below step_band x eps take the bound GRAD_TOL implies
+        # (mesh_sessions.step_check).  At this width the mesh's gradients
+        # lie up to 1.03e-8 from one process's and elements at 1.1e-8
+        # sit just above eps; past 10 eps AdamW's slope is below 1 /
+        # (121 eps), so a 1.6e-8 gap at lr 1.5e-3 stays inside atol 2e-5
+        "step_band": 10,
+        "cut": "4 of 40 layers (the phase's time; the train phase runs "
+               "all 40 in one process)"}
+
+
+def phase_mesh(torch, np, smi):
+    """The dense model over a ``(data, model)`` mesh of ranks, on
+    MESH["ranks"] gloo ranks sharing the card (``launch.mesh.run_ranks``
+    of ``scripts/mesh_sessions.py``'s ``mesh_sessions``), granite-3-2b at
+    full width cut to MESH["layers"] layers, every rank building the same
+    seeded weights; on each of MESH["meshes"]:
+
+      * one train step (``make_train_step(..., mesh=)``: FSDP over data,
+        tensor parallelism over model) of 8 x 512 tokens, grad-accum 2,
+        remat full, against the same step in one process on rank 0 (loss
+        1e-5 rel, the pre-clip grad_norm 1e-5 rel, the gradients fed to
+        AdamW within 1e-4 x max(1, max|g|), params by
+        ``mesh_sessions.step_check`` with its band MESH["step_band"]);
+      * serving (``make_serving_fns(model, mesh)``): a prefill of 8 x 512
+        into a cache of 520 positions sequence-sharded over model (the
+        D-Cache schedule), 8 greedy decode steps, f32 cache, and 8 on the
+        int8 quantization of the one-process prefill's cache; greedy
+        tokens identical to the one-process dense path's, the prefill's
+        and the first step's logits within 1e-4, or 3x the one-process
+        path's own spread at the first step where that is larger (its
+        gap on the batch in halves, printed as "floor": 3.9e-4 with an
+        int8 cache at this width, its bf16 operands flipping codes);
+
+    then a checkpoint of (2, 2) shards restored onto MESH["restore"] on
+    2 ranks, bit-equal.  Printed: collectives a step / a token and their
+    bytes, ms a train step and a token, peak memory a rank, the backend.
+    Launches: the mesh path's (the ranks' sums, twins excluded).  Gloo
+    stages every collective through the host and the ranks share one
+    card: these are not times across cards."""
+    import collections
+    import dataclasses
+    import gc
+    import tempfile
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from mesh_sessions import mesh_sessions
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_arch(MESH["arch"]), n_layers=MESH["layers"])
+    rng = np.random.default_rng(29)
+    b, s = MESH["batch"], MESH["seq"]
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+    prompts = rng.integers(0, cfg.vocab_size, (b, s))
+    base = {"cfg": dataclasses.asdict(cfg), "seed": 0, "device": DEVICE}
+    n = MESH["ranks"]
+    backend = pick_backend("cuda", n)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ckpt = tempfile.TemporaryDirectory()
+    cases = {}
+    for mesh in MESH["meshes"]:
+        m = "x".join(map(str, mesh))
+        cases[f"train {m}"] = dict(
+            base, kind="train", mesh=mesh, batches=[batch], lr=MESH["lr"],
+            ga=MESH["grad_accum"], remat=MESH["remat"], twin=True,
+            step_band=MESH["step_band"])
+        for kv in ("f32", "int8"):
+            cases[f"serve {kv} {m}"] = dict(
+                base, kind="serve", mesh=mesh, kv=kv, prompts=prompts,
+                cache_len=s + MESH["gen"], gen=MESH["gen"], twin=True)
+    cases["save 2x2"] = dict(base, kind="save", mesh=(2, 2), dir=ckpt.name)
+    names = list(cases)
+    t0 = time.monotonic()
+    got = run_ranks(mesh_sessions, n, ([cases[k] for k in names],),
+                    device_type=DEVICE, timeout_s=MESH["timeout_s"])
+    spawn_s = time.monotonic() - t0
+    restores = [dict(base, kind="restore", mesh=mesh, dir=ckpt.name)
+                for mesh in MESH["restore"]]
+    t0 = time.monotonic()
+    back = run_ranks(mesh_sessions, 2, (restores,), device_type=DEVICE,
+                     timeout_s=MESH["timeout_s"])
+    restore_s = time.monotonic() - t0
+    ckpt.cleanup()
+    counts = collections.Counter()
+    note = ("gloo stages every collective through the host and the ranks "
+            "share one card: these are not times across cards")
+    for i, name in enumerate(names):
+        res = [got[r][i] for r in range(n)]
+        for r in res:
+            counts.update(r.get("launches", {}))
+        r0 = res[0]
+        line = {"phase": "mesh", "run": name, "backend": backend,
+                "ranks": n, "session_s": r0["session_s"]}
+        if name.startswith("train"):
+            check(all(r["losses"] == r0["losses"] for r in res),
+                  f"{name}: ranks' losses differ")
+            line.update(
+                twin=r0["twin"], loss=r0["losses"][0],
+                ms_a_step=r0["ms"][0],
+                tokens_a_step=b * s,
+                collectives_a_step=r0["collectives"],
+                launches=dict(sum((collections.Counter(r["launches"])
+                                   for r in res), collections.Counter())),
+                peak_memory_gb=[(r["peak_bytes"] or 0) / 1e9 for r in res])
+        elif name.startswith("serve"):
+            check(all(torch.equal(r["tokens"], r0["tokens"]) for r in res),
+                  f"{name}: ranks' tokens differ")
+            gen = MESH["gen"]
+            line.update(
+                twin=r0["twin"], cache_shape_a_rank=r0["cache_shape"],
+                prefill_ms=r0.get("prefill_ms"),
+                ms_a_token=statistics.median(r0["ms"]),
+                ms_tokens=r0["ms"],
+                collectives_a_token={k: v / gen for k, v in
+                                     r0["collectives"].items()},
+                launches=dict(sum((collections.Counter(r["launches"])
+                                   for r in res), collections.Counter())),
+                peak_memory_gb=[(r["peak_bytes"] or 0) / 1e9 for r in res])
+        emit({**line, "note": note})
+    for mesh, r in zip(MESH["restore"], back[0]):
+        check(r["local_equal"] and r["whole_equal"],
+              f"restore onto {mesh}")
+        emit({"phase": "mesh", "run": f"restore 2x2 -> {mesh}",
+              "bit_equal": True, "session_s": r["session_s"]})
+    for k in ("flash_attention_f32", "flash_attention_fwd_lse_f32",
+              "flash_attention_bwd_f32"):
+        check(counts[k] > 0, f"{k} launched on the mesh ranks")
+    emit({"phase": "mesh", "arch": cfg.name, "layers": cfg.n_layers,
+          "cut": MESH["cut"], "meshes": MESH["meshes"], "backend": backend,
+          "spawned_ranks": n, "spawn_s": spawn_s, "restore_s": restore_s,
+          "parent_card_gb_at_spawn": held_gb, "launches": dict(counts),
+          "seconds": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": note + "; smoke run, not a benchmark"})
+    return collections.defaultdict(int, counts)
+
+
 def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -6276,17 +6485,19 @@ def main() -> int:
     family_counts = phase_families(torch, np, smi)
     tf_counts = phase_train_families(torch, np, smi)
     rank_counts = phase_serve_ranks(torch, np, smi)
+    mesh_counts = phase_mesh(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, knob_counts, spec_counts, pool_counts, reduced_counts,
             isp_counts, facade_counts, example_counts, dense_counts,
-            train_counts, dots_counts, rank_counts,
+            train_counts, dots_counts, rank_counts, mesh_counts,
             *family_counts.values(), *tf_counts.values()))
         check(entry["launches"] > 0, f"{entry['kernel']} ({entry['case']}) "
               "was launched no time on the main path")
         entry["launches_in_train"] = train_counts[entry["kernel"]]
         entry["launches_in_train_dots"] = dots_counts[entry["kernel"]]
         entry["launches_in_serve_ranks"] = rank_counts[entry["kernel"]]
+        entry["launches_in_mesh"] = mesh_counts[entry["kernel"]]
         entry["launches_in_train_families"] = {
             a: c[entry["kernel"]] for a, c in tf_counts.items()}
         if "families_model" in entry:

@@ -14,6 +14,12 @@
     JAX package restores here and the other way round.
   * λFS: with ``fs=`` the blobs live in a DockerSSD's private namespace
     (``repro_torch.core.lambda_fs``), the pool's checkpoint store.
+  * Over a mesh of ranks: ``save(..., mesh=, specs=)`` assembles each
+    sharded leaf whole (``runtime.sharding.gather_tree``) and rank 0
+    writes the same format (the others wait for its commit), and
+    ``restore(..., mesh=, specs=)`` gives each rank its slices under
+    that mesh, which may differ from the one that saved (an elastic
+    restart onto fewer ranks).
 """
 from __future__ import annotations
 
@@ -97,15 +103,33 @@ class CheckpointManager:
         self.fs_prefix = fs_prefix
         self._save_thread: Optional[threading.Thread] = None
         self._last_error: Optional[Exception] = None
+        self._mesh_pending = False
         if fs is None:
             os.makedirs(directory, exist_ok=True)
 
     # -- save -----------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, *, blocking: bool = True):
+    def save(self, step: int, tree: Any, *, blocking: bool = True,
+             mesh=None, specs=None):
         """Serialize a tree of tensors.  With blocking=False the write
         happens on a background thread (async checkpointing); the
-        leaves are on the host before this returns."""
+        leaves are on the host before this returns.  With ``mesh`` and
+        ``specs`` (the tree's spec tree) ``tree`` is this rank's shards:
+        every rank of the mesh calls this, the leaves are assembled
+        whole, rank 0 writes them, and every rank returns from the
+        blocking save (or from :meth:`wait`) once the step is committed."""
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from repro_torch.runtime.sharding import gather_tree
+
+            self.wait()
+            tree = gather_tree(tree, mesh, specs)
+            if dist.get_rank() != 0:
+                self._mesh_pending = True
+                if blocking:
+                    self.wait()
+                return
         arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
         manifest = {
             "step": step,
@@ -117,8 +141,10 @@ class CheckpointManager:
         # for a blocking save, which then races a pending async save of
         # the same step over step_N.tmp)
         self.wait()
+        self._mesh_pending = mesh is not None
         if blocking:
             self._write(step, arrays, manifest)
+            self.wait()
         else:
             self._save_thread = threading.Thread(
                 target=self._write_guarded, args=(step, arrays, manifest),
@@ -163,9 +189,16 @@ class CheckpointManager:
         self._gc()
 
     def wait(self):
+        """Until the last save is committed (over a mesh: on rank 0, every
+        rank waiting); raises a background write's error."""
         if self._save_thread is not None:
             self._save_thread.join()
             self._save_thread = None
+        if self._mesh_pending:
+            import torch.distributed as dist
+
+            self._mesh_pending = False
+            dist.barrier()
         if self._last_error is not None:
             e, self._last_error = self._last_error, None
             raise e
@@ -191,9 +224,13 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, *, step: Optional[int] = None) -> Any:
+    def restore(self, template: Any, *, step: Optional[int] = None,
+                mesh=None, specs=None) -> Any:
         """Restore into the structure of ``template``; each leaf lands on
-        the device of the template's leaf (the host for a non-tensor)."""
+        the device of the template's leaf (the host for a non-tensor).
+        With ``mesh`` and ``specs`` (a spec tree for that mesh) each rank
+        gets its slices under that mesh (``runtime.sharding.shard_tree``),
+        whatever mesh saved the step."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError("no checkpoints")
@@ -206,4 +243,9 @@ class CheckpointManager:
             return np.load(os.path.join(self.dir, f"step_{step}", fname))
 
         loaded = {k: load(k) for k in _flatten(template)}
-        return _unflatten(template, loaded)
+        tree = _unflatten(template, loaded)
+        if mesh is not None:
+            from repro_torch.runtime.sharding import shard_tree
+
+            tree = shard_tree(tree, mesh, specs)
+        return tree

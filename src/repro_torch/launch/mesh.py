@@ -9,12 +9,16 @@ The mesh factories keep the reference's shape arithmetic and return a
 ``DeviceMesh`` with ``mesh_dim_names``.  :func:`run_ranks` starts N
 ranks of a function on this host (``torch.multiprocessing``, a
 ``FileStore`` rendezvous: no TCP port) and joins them with a time
-limit.  ``make_production_mesh`` is not
+limit.  :class:`MeshPlacement` gives the model code a rank's place on a
+``(data, model)`` mesh: its coordinate and one :class:`MeshAxis` (the
+axis's process group and its counted collectives) an axis.
+``make_production_mesh`` is not
 ported: it serves the reference's XLA dry run on a faked 512-device
 mesh.
 """
 from __future__ import annotations
 
+import collections
 import datetime
 import math
 import os
@@ -135,6 +139,136 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
     """Small mesh over the group's first ranks (the CPU tests' gloo
     ranks)."""
     return _mesh(device_type, shape, axes)
+
+
+class MeshAxis:
+    """One axis of a mesh as this rank sees it: ``name``, its process
+    ``group`` (``None``: the default group), ``size``, this rank's
+    ``index`` on it, and its collectives, each counted in ``stats``
+    (calls and bytes sent by kind, shared by a placement's axes).  An
+    axis of size 1 runs no collective: every call returns its input."""
+
+    def __init__(self, name: str, group, size: int, index: int,
+                 stats: collections.Counter):
+        self.name, self.group, self.size = name, group, int(size)
+        self.index, self.stats = int(index), stats
+
+    def note(self, kind: str, t: torch.Tensor):
+        """Count one collective of ``kind`` over ``t``'s bytes."""
+        self.stats[kind] += 1
+        self.stats[kind + "_bytes"] += t.numel() * t.element_size()
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A new tensor: ``x`` summed (``op="sum"``) or maxed (``"max"``)
+        over the axis."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+
+        y = x.contiguous().clone()
+        self.note("all_reduce", y)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else
+                        dist.ReduceOp.SUM, group=self.group)
+        return y
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` of the axis, joined along ``dim`` in index
+        order."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        self.note("all_gather", x)
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` summed over the axis, this rank's ``1 / size`` slice
+        along ``dim`` (the inverse of :meth:`all_gather`'s layout)."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+
+        xm = x.movedim(dim, 0).contiguous()
+        out = xm.new_empty((xm.shape[0] // self.size, *xm.shape[1:]))
+        self.note("reduce_scatter", xm)
+        # the name changed in torch 2.13; the same call
+        rs = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        rs(out, xm, group=self.group)
+        return out.movedim(0, dim)
+
+    def part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's ``1 / size`` slice of ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
+
+
+#: the axes the model code places over (ROADMAP: ``pod`` is the pipeline's)
+MODEL_AXES = ("data", "model")
+
+
+class MeshPlacement:
+    """A rank's place on a ``(data, model)`` mesh: ``sizes`` and
+    ``coord`` ({axis: int}; an axis the mesh lacks has size 1), one
+    :class:`MeshAxis` an axis (``data``, ``model``) and ``world`` (every
+    rank of the mesh), and ``stats``, the count of their collectives.
+    Raises ``TypeError`` for what is not a ``DeviceMesh``, ``ValueError``
+    for a mesh that does not cover every rank of the default group, and
+    ``NotImplementedError`` for an axis other than ``data`` and
+    ``model``."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        if not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"a DeviceMesh with mesh_dim_names, not "
+                            f"{type(mesh).__name__}")
+        names = tuple(mesh.mesh_dim_names or ())
+        extra = [a for a in names if a not in MODEL_AXES]
+        if extra:
+            raise NotImplementedError(
+                f"mesh axes {extra}: the model code places over "
+                f"{MODEL_AXES} only (a pod axis is the pipeline's, ROADMAP "
+                "A7 rest: runtime/pipeline_par.py)")
+        n = mesh.size()
+        if n != dist.get_world_size():
+            raise ValueError(f"a mesh of {n} ranks over a group of "
+                             f"{dist.get_world_size()}: the model code "
+                             "places over every rank of the group")
+        self.mesh = mesh
+        self.stats = collections.Counter()
+        coord = mesh.get_coordinate()
+        self.sizes = {a: 1 for a in MODEL_AXES}
+        self.coord = {a: 0 for a in MODEL_AXES}
+        self.axes = {}
+        for i, a in enumerate(names):
+            self.sizes[a], self.coord[a] = mesh.shape[i], coord[i]
+        for a in MODEL_AXES:
+            group = mesh.get_group(a) if a in names else None
+            self.axes[a] = MeshAxis(a, group, self.sizes[a], self.coord[a],
+                                    self.stats)
+        self.world = MeshAxis("world", None, n, dist.get_rank(), self.stats)
+
+    @property
+    def data(self) -> MeshAxis:
+        return self.axes["data"]
+
+    @property
+    def model(self) -> MeshAxis:
+        return self.axes["model"]
+
+    def over(self, axes) -> Optional[MeshAxis]:
+        """The axis spanning ``axes`` (names): one of them, ``world`` for
+        both, ``None`` for none."""
+        axes = set(axes)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.axes[axes.pop()]
+        return self.world
 
 
 def _rank_main(rank: int, fn: Callable, n: int, args: tuple,

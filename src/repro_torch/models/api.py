@@ -53,6 +53,12 @@ class Model:
         """(total, {"ce", "aux"}) of the family's training objective."""
         return self.impl.loss(params, batch)
 
+    def on_mesh(self, mesh) -> "Model":
+        """The model placed on a ``(data, model)`` mesh of ranks
+        (``TransformerLM.on_mesh``; RWKV6LM, Zamba2LM and the MoE
+        transformer raise ``NotImplementedError``)."""
+        return Model(self.cfg, self.impl.on_mesh(mesh))
+
     # ------------------------------------------------------------------
     def uses_embeds(self) -> bool:
         """Frontend archs feed precomputed embeddings for train/prefill."""

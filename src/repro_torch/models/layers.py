@@ -12,7 +12,19 @@ tests compare like with like:
     computes it with ``einsum`` outside any kernel;
   * the MoE FFN routes as the reference's ``apply_moe`` does and runs
     each expert's products on its kept rows only (``torch.matmul``, as
-    the reference's ``einsum``), not on capacity-sized buffers.
+    the reference's ``einsum``), not on capacity-sized buffers;
+  * tensor parallelism: the attention, MLP, embedding and unembedding
+    functions take ``group``, the ``model`` axis of a mesh
+    (``launch.mesh.MeshAxis``), and then hold this rank's shard of each
+    weight, as ``runtime.sharding.param_spec`` places it: ``wq``, ``wk``,
+    ``wv``, ``w_gate``, ``w_up`` by columns (this rank's heads and ffn
+    columns), ``wo`` and ``w_down`` by rows (their outputs summed over
+    the axis), the embedding table by vocabulary rows or, where the
+    vocabulary does not divide, by ``d``.  The collectives that carry a
+    gradient are Megatron's: :func:`copy_to_group` (identity, gradient
+    summed), :func:`reduce_from_group` (summed, gradient identity) and
+    :func:`gather_from_group` (all-gathered, gradient sliced).
+    ``group=None`` is the one-process code path.
 """
 from __future__ import annotations
 
@@ -22,6 +34,78 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# collectives that carry a gradient (tensor parallelism over ``group``)
+# ---------------------------------------------------------------------------
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Forward the identity, backward the gradient summed over the group:
+    the input of a column-parallel product, replicated over the group,
+    takes each rank's share of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Forward the sum over the group, backward the identity: the output
+    of a row-parallel product (each rank's partial sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Forward every rank's slice joined along ``dim``, backward this
+    rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.part(g, ctx.dim).contiguous(), None, None
+
+
+def _alone(group) -> bool:
+    return group is None or group.size == 1
+
+
+def copy_to_group(x, group):
+    return x if _alone(group) else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x, group):
+    return x if _alone(group) else _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x, group, dim: int):
+    return x if _alone(group) else _GatherFromGroup.apply(x, group, dim)
+
+
+def _local_cols(bias, n: int, group):
+    """A replicated bias's columns of this rank's shard of a
+    column-parallel product with ``n`` local columns (its gradient, zero
+    past them, summed over the group: every rank's columns)."""
+    if group is None or bias.shape[-1] == n:
+        return bias
+    return copy_to_group(bias, group).narrow(-1, group.index * n, n)
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -129,18 +213,21 @@ def init_attention(generator, cfg, *, lead=(), dtype=torch.float32,
 
 
 
-def _qkv(p, x, cfg):
+def _qkv(p, x, cfg, group=None):
+    """q [B, S, H, D], k/v [B, S, Hkv, D]; over ``group`` this rank's
+    heads (H / n and Hkv / n: its columns of wq, wk, wv)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    x = copy_to_group(x, group)
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
-            v.reshape(b, s, hkv, hd))
+        q = q + _local_cols(p["bq"], q.shape[-1], group).to(x.dtype)
+        k = k + _local_cols(p["bk"], k.shape[-1], group).to(x.dtype)
+        v = v + _local_cols(p["bv"], v.shape[-1], group).to(x.dtype)
+    return (q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
+            v.reshape(b, s, -1, hd))
 
 
 def chunked_attention(q, k, v, *, causal: bool):
@@ -161,28 +248,34 @@ def chunked_attention(q, k, v, *, causal: bool):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def attention_block(p, x, cfg):
+def attention_block(p, x, cfg, group=None):
     """Full (forward / prefill) attention incl. projections.  Returns
     (attn_out [B, S, d], k, v [B, S, Hkv, D] after RoPE: what prefill
-    caches)."""
+    caches).  Over ``group`` the flash kernels run on this rank's heads
+    and k, v are this rank's heads; ``wo``'s partial sums are reduced."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, group)
     if cfg.rope:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=cfg.causal)
-    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype), k, v
+    out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    return reduce_from_group(out, group), k, v
 
 
-def decode_attention(p, x, cfg, k_cache, v_cache, index: int):
+def decode_attention(p, x, cfg, k_cache, v_cache, index: int, group=None):
     """One-token decode against a dense KV cache, in plain torch.
 
     x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S, D], written in place at
     position ``index`` (the JAX package returns updated copies; its
     serving step donates the old ones).  Returns (attn_out [B, 1, d],
     k_cache, v_cache).  A bf16 cache is up-cast to f32 for the products,
-    as jnp's type promotion does."""
+    as jnp's type promotion does.  Over ``group`` the cache is this
+    rank's sequence extent of every head (:func:`_dcache_step`, the
+    D-Cache schedule)."""
+    if group is not None:
+        return _dcache_step(p, x, cfg, (k_cache, v_cache), index, group)
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = k_cache.shape[2]
@@ -205,6 +298,83 @@ def decode_attention(p, x, cfg, k_cache, v_cache, index: int):
     return out, k_cache, v_cache
 
 
+def _dcache_step(p, x, cfg, cache, index: int, group):
+    """One decode token over ``group`` (the mesh's ``model`` axis) with
+    the KV cache sequence-sharded over it: the paper's D-Cache schedule
+    (the reference's ``decode_attention`` under its cache placement).
+
+    ``cache``: (k, v) [B, Hkv, S / n, D], this rank's extent of every
+    head (positions ``index_on_axis * S / n`` on), or for int8 (k, v,
+    k_scale, v_scale).  The projections give this rank's heads; q and
+    the new k, v (B x H x D floats) are gathered over the group, the new
+    position (and its scales) written only on the rank that owns
+    ``index``.  Each rank scores every head over its extent, masked
+    ``<= index``:
+
+      * f32 / bf16 cache: the partial ``(acc, m, l)`` merged by
+        ``runtime.serve.combine_partials`` over the group;
+      * int8 cache: the global max and sum first (``all_reduce`` MAX,
+        then SUM), the weights normalised before they are rounded to
+        bf16 with ``v_scale`` folded in (the reference rounds its
+        normalised ``probs * v_scale``), and the partial outputs summed.
+
+    This rank's heads of the merged output go through its rows of
+    ``wo``, summed over the group.  Returns (attn_out [B, 1, d], *cache).
+    """
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    quant = len(cache) == 4
+    k_cache, v_cache = cache[:2]
+    sl = k_cache.shape[2]
+    start = group.index * sl
+    q, k, v = _qkv(p, x, cfg, group)                     # this rank's heads
+    if cfg.rope:
+        pos = torch.full((b, 1), index, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    q = group.all_gather(q, 2)                           # [B, 1, H, D]
+    kv = group.all_gather(torch.cat([k, v], dim=2), 2)   # each rank's k, v
+    kv = kv.reshape(b, 1, group.size, 2, hkv // group.size, hd)
+    k = kv[:, 0, :, 0].reshape(b, hkv, hd)
+    v = kv[:, 0, :, 1].reshape(b, hkv, hd)
+    if start <= index < start + sl:
+        at = index - start
+        if quant:
+            for i, t in ((0, k), (1, v)):
+                code, scale = quantize_kv(t)
+                cache[i][:, :, at] = code
+                cache[2 + i][:, :, at] = scale
+        else:
+            k_cache[:, :, at] = k.to(k_cache.dtype)
+            v_cache[:, :, at] = v.to(v_cache.dtype)
+    qg = q.reshape(b, hkv, h // hkv, hd)
+    valid = start + torch.arange(sl, device=x.device) <= index
+    if quant:
+        logits = torch.einsum("bhgd,bhsd->bhgs", _bf16_f32(qg),
+                              k_cache.float())
+        logits = logits * cache[2][:, :, None, :] / math.sqrt(hd)
+    else:
+        logits = torch.einsum("bhgd,bhsd->bhgs", qg.float(),
+                              k_cache.float()) / math.sqrt(hd)
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    m = logits.amax(dim=-1)
+    if not quant:
+        e = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+        acc = torch.einsum("bhgs,bhsd->bhgd", e, v_cache.float())
+        from repro_torch.runtime.serve import combine_partials
+        out = combine_partials(acc, m, e.sum(dim=-1), group=group)
+    else:
+        m = group.all_reduce(m, "max")
+        e = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+        probs = e / group.all_reduce(e.sum(dim=-1))[..., None]
+        w = _bf16_f32(probs * cache[3][:, :, None, :])
+        out = group.all_reduce(torch.einsum("bhgs,bhsd->bhgd", w,
+                                            v_cache.float()))
+    out = out.reshape(b, group.size, -1)[:, group.index]
+    out = out.to(x.dtype).reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+    return (reduce_from_group(out, group), *cache)
+
+
 def quantize_kv(x):
     """Symmetric per-token int8 quantization over the last dim.
     x: [..., D] float -> (int8 codes [..., D], f32 scale [...])."""
@@ -223,7 +393,7 @@ def _bf16_f32(x):
 
 
 def decode_attention_q8(p, x, cfg, k_cache, v_cache, k_scale, v_scale,
-                        index: int):
+                        index: int, group=None):
     """``decode_attention`` over an int8 KV cache.
 
     k_cache/v_cache: int8 [B, Hkv, S, D]; k_scale/v_scale: f32 [B, Hkv,
@@ -231,7 +401,11 @@ def decode_attention_q8(p, x, cfg, k_cache, v_cache, k_scale, v_scale,
     Operands go to bf16 with f32 sums, and the scales fold in the
     reference's order: ``logits * k_scale / sqrt(D)``, then ``probs *
     v_scale`` before the bf16 cast.  Returns (attn_out [B, 1, d],
-    k_cache, v_cache, k_scale, v_scale)."""
+    k_cache, v_cache, k_scale, v_scale).  Over ``group``: this rank's
+    sequence extent (:func:`_dcache_step`)."""
+    if group is not None:
+        return _dcache_step(p, x, cfg, (k_cache, v_cache, k_scale, v_scale),
+                            index, group)
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = k_cache.shape[2]
@@ -284,13 +458,18 @@ def init_mlp(generator, cfg, *, lead=(), dtype=torch.float32, device=None):
             "w_down": dense_init(generator, (*lead, f, d), **kw)}
 
 
-def apply_mlp(p, x, act):
+def apply_mlp(p, x, act, group=None):
+    """The MLP; over ``group`` this rank's ffn columns (``w_gate``,
+    ``w_up``) and rows (``w_down``), the output summed over the group."""
+    x = copy_to_group(x, group)
     if "w_gate" not in p:
-        h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
-                   approximate="tanh")
-        return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+        up = x @ p["w_up"].to(x.dtype)
+        h = F.gelu(up + _local_cols(p["b_up"], up.shape[-1], group)
+                   .to(x.dtype), approximate="tanh")
+        return (reduce_from_group(h @ p["w_down"].to(x.dtype), group) +
+                p["b_down"].to(x.dtype))
     h = _gate_act(x @ p["w_gate"].to(x.dtype), act) * (x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    return reduce_from_group(h @ p["w_down"].to(x.dtype), group)
 
 
 def init_moe(generator, cfg, *, lead=(), dtype=torch.float32, device=None):
@@ -412,16 +591,40 @@ def apply_moe_dense(p, x, cfg, capacity=None, no_drop: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(p, tokens, compute_dtype):
-    return p["table"][tokens].to(compute_dtype)
+def embed_tokens(p, tokens, compute_dtype, group=None, split=None):
+    """Rows of the table.  Over ``group``, ``split`` is the table dim its
+    spec splits over the group: 0, this rank's vocabulary rows (a token
+    outside them looks up zeros, and the rows are summed over the
+    group), or 1, this rank's columns of d (gathered over the group)."""
+    if group is None:
+        return p["table"][tokens].to(compute_dtype)
+    table = p["table"]
+    if split == 1:
+        return gather_from_group(table[tokens].to(compute_dtype), group, -1)
+    n = table.shape[0]
+    local = tokens - group.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(compute_dtype)
+    return reduce_from_group(torch.where(inside[..., None], rows, 0.0),
+                             group)
 
 
-def unembed(p_embed, p_head, x, tie: bool):
+def unembed(p_embed, p_head, x, tie: bool, group=None, split=None):
+    """f32 logits [..., V].  Over ``group``, ``split`` is the dim of the
+    table (tied) or of ``lm_head`` its spec splits over the group: by
+    vocabulary (the table's 0, lm_head's 1) each rank's logits are
+    gathered; by d (the table's 1, lm_head's 0) each rank's partial
+    product over its columns of ``x`` is summed over the group."""
     if tie:
         w = p_embed["table"].to(x.dtype).T
     else:
         w = p_head["w"].to(x.dtype)
-    return (x @ w).float()
+    if group is None:
+        return (x @ w).float()
+    x = copy_to_group(x, group)
+    if split == (0 if tie else 1):
+        return gather_from_group((x @ w).float(), group, -1)
+    return reduce_from_group((group.part(x, -1) @ w).float(), group)
 
 
 def nll_sum(logits, labels, ignore_id: int = -1):

@@ -252,6 +252,13 @@ class Zamba2LM:
                        for i in range(0, cfg.n_layers, cfg.attn_every)]
         self.n_attn = len(self.groups)
 
+    def on_mesh(self, mesh):
+        """Not ported: Zamba2LM over a mesh raises rather than run
+        replicated."""
+        raise NotImplementedError(
+            "Zamba2LM over a mesh: not yet ported (ROADMAP A7 rest: the "
+            "families over a mesh)")
+
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, Any]:
         """Random params on ``device``, drawn from ``generator``: the JAX

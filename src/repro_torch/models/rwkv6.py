@@ -56,6 +56,13 @@ class RWKV6LM:
 
     # -- init ---------------------------------------------------------------
 
+    def on_mesh(self, mesh):
+        """Not ported: RWKV6LM over a mesh raises rather than run
+        replicated."""
+        raise NotImplementedError(
+            "RWKV6LM over a mesh: not yet ported (ROADMAP A7 rest: the "
+            "families over a mesh)")
+
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, Any]:
         """Random params on ``device``, drawn from ``generator`` (a

@@ -15,13 +15,20 @@ serving path (``runtime.serve.PagedServer``) consumes the same params.
 the MoE load-balancing term, with each layer recomputed in the backward
 pass under ``remat="full"``, or everything but its matrix products
 without batch dims under ``remat="dots"`` (:func:`remat_call`).
+
+``on_mesh(mesh)`` gives the same model placed on a ``(data, model)``
+mesh of ranks (:meth:`TransformerLM.on_mesh`): tensor parallelism over
+``model`` in the layer functions, the batch's rows over ``data``, the
+decode cache's sequence over ``model`` (the D-Cache schedule).
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
@@ -118,6 +125,62 @@ class TransformerLM:
         self.loss_chunk = loss_chunk
         self.moe_no_drop = moe_no_drop
         self.kv_quant = kv_quant
+        # the placement (on_mesh): none in one process
+        self.place = self.tp = self.specs = None
+        self.embed_split = self.head_split = None
+
+    def on_mesh(self, mesh) -> "TransformerLM":
+        """This model placed on ``mesh`` (a ``DeviceMesh`` of ``data`` and
+        ``model`` over every rank of the group): a copy whose methods
+        take this rank's params as ``runtime.sharding.param_specs``
+        places them over ``model`` (tensor parallelism: this rank's heads
+        and ffn columns; the embedding table by vocabulary or, where it
+        does not divide, by d), already gathered over ``data``
+        (``runtime.train`` / ``runtime.serve`` gather the FSDP shards),
+        and this rank's rows of a batch.  ``loss`` is the mean over the
+        valid tokens of every ``data`` rank; ``forward``, ``prefill`` and
+        ``decode_step`` give this rank's rows; the dense cache
+        (``cache_spec``, ``init_cache``, ``prefill``'s) is this rank's
+        rows and its extent of the sequence, every head.  An MoE FFN over
+        a mesh is not ported (ROADMAP)."""
+        from repro_torch.launch.mesh import MeshPlacement
+        from repro_torch.runtime.sharding import param_specs
+
+        cfg = self.cfg
+        if cfg.is_moe:
+            raise NotImplementedError(
+                "an MoE TransformerLM over a mesh: not yet ported (ROADMAP "
+                "A7 rest: layers.apply_moe_shardmap, then the families "
+                "over a mesh)")
+        placed = copy.copy(self)
+        placed.place = place = MeshPlacement(mesh)
+        placed.specs = specs = param_specs(
+            mesh, self.init(torch.Generator(), device="meta"))
+        n = place.sizes["model"]
+        if n > 1:
+            placed.tp = place.model
+            layer = specs["layers"]
+            dims = {"wq": -1, "wk": -1, "wv": -1, "wo": -2}
+            want = [("attn", w, d) for w, d in dims.items()] + [
+                ("mlp", w, -1 if w != "w_down" else -2)
+                for w in layer["mlp"] if w.startswith("w_")]
+            bad = [f"{blk}/{w}" for blk, w, d in want
+                   if layer[blk][w][d] != "model"]
+            if cfg.n_heads % n or cfg.n_kv_heads % n or bad:
+                raise NotImplementedError(
+                    f"{cfg.name} over model = {n}: the heads "
+                    f"({cfg.n_heads}/{cfg.n_kv_heads}) or the products "
+                    f"{bad} do not split over the model axis")
+            tables = [("embed", "table")] + (
+                [] if cfg.tie_embeddings else [("lm_head", "w")])
+            split = [specs[a][b].index("model") if "model" in specs[a][b]
+                     else None for a, b in tables]
+            if None in split:
+                raise NotImplementedError(
+                    f"{cfg.name} over model = {n}: neither the vocabulary "
+                    "nor d splits over the model axis")
+            placed.embed_split, placed.head_split = split[0], split[-1]
+        return placed
 
     # -- init ---------------------------------------------------------------
 
@@ -157,14 +220,14 @@ class TransformerLM:
         cfg = self.cfg
         if cfg.is_moe:
             return L.apply_moe(lp["mlp"], m, cfg, no_drop=no_drop)
-        return L.apply_mlp(lp["mlp"], m, cfg.act), None
+        return L.apply_mlp(lp["mlp"], m, cfg.act, self.tp), None
 
     def _layer(self, h, lp):
         """One block: attention, then the FFN, each with its residual.
         Returns (h, k, v, aux or None)."""
         cfg = self.cfg
         a = L.apply_norm(lp["attn_norm"], h, cfg.norm)
-        o, k, v = L.attention_block(lp["attn"], a, cfg)
+        o, k, v = L.attention_block(lp["attn"], a, cfg, self.tp)
         h = h + o
         m = L.apply_norm(lp["mlp_norm"], h, cfg.norm)
         mo, aux = self._ffn(lp, m, self.moe_no_drop)
@@ -179,13 +242,21 @@ class TransformerLM:
         given, else the embedding of ``batch["tokens"]`` [B, S]."""
         if "embeds" in batch:
             return batch["embeds"].to(self.compute_dtype)
-        return L.embed_tokens(params["embed"], batch["tokens"],
-                              self.compute_dtype)
+        return self._embed(params, batch["tokens"])
 
-    def _backbone(self, params, h, cache_dtype=None):
+    def _embed(self, params, tokens):
+        return L.embed_tokens(params["embed"], tokens, self.compute_dtype,
+                              self.tp, self.embed_split)
+
+    def _unembed(self, params, h):
+        return L.unembed(params["embed"], params.get("lm_head"), h,
+                         self.cfg.tie_embeddings, self.tp, self.head_split)
+
+    def _backbone(self, params, h, cache_dtype=None, cache_len=None):
         """Every layer over positions 0..S-1 of the embedded input ``h``.
         Returns (hidden [B, S, d] before the final norm, per-layer k and
-        v [B, Hkv, S, D] in ``cache_dtype`` (none without one), the MoE
+        v [B, Hkv, S, D] in ``cache_dtype`` (none without one; padded to
+        ``cache_len`` positions where given, :meth:`_cache_kv`), the MoE
         aux summed over layers).  When the params need a gradient the
         layers come from ``unbind_layers``, each under the remat policy
         (:func:`remat_call`)."""
@@ -203,9 +274,23 @@ class TransformerLM:
             if a is not None:
                 aux = aux + a
             if cache_dtype is not None:
-                ks.append(k.transpose(1, 2).to(cache_dtype))
-                vs.append(v.transpose(1, 2).to(cache_dtype))
+                ks.append(self._cache_kv(k, cache_dtype, cache_len))
+                vs.append(self._cache_kv(v, cache_dtype, cache_len))
         return h, ks, vs, aux
+
+    def _cache_kv(self, k, cache_dtype, cache_len):
+        """A layer's k (or v) [B, S, Hkv, D] in the cache's layout [B,
+        Hkv, cache_len, D], zeros past S.  Over a mesh ``k`` holds this
+        rank's heads: they are gathered over ``model`` and this rank
+        keeps its extent of the positions, every head."""
+        if self.tp is not None:
+            k = self.tp.all_gather(k, 2)
+        k = k.transpose(1, 2)
+        if cache_len is not None and cache_len > k.shape[2]:
+            k = F.pad(k, (0, 0, 0, cache_len - k.shape[2]))
+        if self.tp is not None:
+            k = self.tp.part(k, 2)
+        return k.to(cache_dtype)
 
     def forward(self, params, batch):
         """Full logits for ``batch["tokens"]`` or ``batch["embeds"]``
@@ -215,9 +300,7 @@ class TransformerLM:
         h, _, _, aux = self._backbone(params, self._inputs_to_h(params,
                                                                  batch))
         h = L.apply_norm(params["final_norm"], h, cfg.norm)
-        logits = L.unembed(params["embed"], params.get("lm_head"), h,
-                           cfg.tie_embeddings)
-        return logits, aux
+        return self._unembed(params, h), aux
 
     # -- training loss -------------------------------------------------------
 
@@ -234,8 +317,7 @@ class TransformerLM:
 
     def _ce_chunk(self, params, hh, ll):
         """(sum of the chunk's NLL over counted labels, their count)."""
-        return L.nll_sum(L.unembed(params["embed"], params.get("lm_head"),
-                                   hh, self.cfg.tie_embeddings), ll)
+        return L.nll_sum(self._unembed(params, hh), ll)
 
     def _chunked_ce(self, params, h, labels):
         """Seq-chunked CE: logits materialised one chunk at a time (each
@@ -254,6 +336,9 @@ class TransformerLM:
             hh, ll = h[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
             part, c = remat_call(remat, self._ce_chunk, params, hh, ll)
             nll, cnt = nll + part, cnt + c
+        if self.place is not None:          # the mean over every data rank
+            nll = L.reduce_from_group(nll, self.place.data)
+            cnt = self.place.data.all_reduce(cnt)
         return nll / torch.clamp(cnt, min=1.0)
 
     # -- dense serving ------------------------------------------------------
@@ -265,14 +350,27 @@ class TransformerLM:
     # ``decode_step`` writes the cache tensors in place.
 
     def cache_spec(self, batch: int, seq: int, dtype=torch.bfloat16):
-        """{name: (shape, dtype)} of the cache tensors."""
+        """{name: (shape, dtype)} of the cache tensors; on a mesh this
+        rank's: its rows of ``batch`` (all where they do not split over
+        ``data``) and its ``seq / model`` positions."""
         cfg = self.cfg
+        batch, seq = self._local_cache_dims(batch, seq)
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.hd)
         if self.kv_quant == "int8":
             return {"k": (shape, torch.int8), "v": (shape, torch.int8),
                     "k_scale": (shape[:-1], torch.float32),
                     "v_scale": (shape[:-1], torch.float32)}
         return {"k": (shape, dtype), "v": (shape, dtype)}
+
+    def _local_cache_dims(self, batch: int, seq: int):
+        if self.place is None:
+            return batch, seq
+        sizes = self.place.sizes
+        if seq % sizes["model"]:
+            raise ValueError(f"a cache of {seq} positions does not split "
+                             f"over model = {sizes['model']}")
+        return (batch // sizes["data"] if batch % sizes["data"] == 0
+                else batch), seq // sizes["model"]
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
                    device=None):
@@ -281,19 +379,23 @@ class TransformerLM:
                  self.cache_spec(batch, seq, dtype).items()}
         return {**cache, "index": 0}
 
-    def prefill(self, params, batch, cache_dtype=torch.bfloat16):
+    def prefill(self, params, batch, cache_dtype=torch.bfloat16,
+                cache_len=None):
         """Returns (last-token logits [B, V] f32, cache of the prompt's
-        K/V in ``cache_dtype``).  The cache is that one under
+        K/V in ``cache_dtype``, ``cache_len`` positions (default the
+        prompt's; zeros past it)).  The cache is that one under
         kv_quant="int8" too, as in the reference (``layers.quantize_kv``
         of it is the int8 cache).  The MoE FFN drops tokens unless
-        ``moe_no_drop``."""
+        ``moe_no_drop``.  On a mesh: this rank's rows, and its extent of
+        the cache (``cache_len`` must split over ``model``)."""
         cfg = self.cfg
         h = self._inputs_to_h(params, batch)
         s = h.shape[1]
-        h, ks, vs, _ = self._backbone(params, h, cache_dtype)
+        if self.place is not None:
+            self._local_cache_dims(h.shape[0], cache_len or s)
+        h, ks, vs, _ = self._backbone(params, h, cache_dtype, cache_len)
         h = L.apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
-        logits = L.unembed(params["embed"], params.get("lm_head"), h,
-                           cfg.tie_embeddings)[:, 0]
+        logits = self._unembed(params, h)[:, 0]
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
                         "index": s}
 
@@ -303,22 +405,21 @@ class TransformerLM:
         FFN never drops here (``no_drop``, as in the reference)."""
         cfg = self.cfg
         index = cache["index"]
-        h = L.embed_tokens(params["embed"], tokens[:, None],
-                           self.compute_dtype)
+        h = self._embed(params, tokens[:, None])
         for li in range(cfg.n_layers):
             lp = layer_params(params["layers"], li)
             a = L.apply_norm(lp["attn_norm"], h, cfg.norm)
             if self.kv_quant == "int8":
                 o = L.decode_attention_q8(
                     lp["attn"], a, cfg, cache["k"][li], cache["v"][li],
-                    cache["k_scale"][li], cache["v_scale"][li], index)[0]
+                    cache["k_scale"][li], cache["v_scale"][li], index,
+                    self.tp)[0]
             else:
                 o = L.decode_attention(lp["attn"], a, cfg, cache["k"][li],
-                                       cache["v"][li], index)[0]
+                                       cache["v"][li], index, self.tp)[0]
             h = h + o
             m = L.apply_norm(lp["mlp_norm"], h, cfg.norm)
             h = h + self._ffn(lp, m, no_drop=True)[0]
         h = L.apply_norm(params["final_norm"], h, cfg.norm)
-        logits = L.unembed(params["embed"], params.get("lm_head"), h,
-                           cfg.tie_embeddings)[:, 0]
+        logits = self._unembed(params, h)[:, 0]
         return logits, {**cache, "index": index + 1}

@@ -34,11 +34,14 @@ def tree_leaves(tree):
     return [tree]
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sum_squares=None):
     """Scales ``grads`` in place so that their global norm is at most
-    ``max_norm``.  Returns (grads, the norm before clipping, f32)."""
+    ``max_norm``.  Returns (grads, the norm before clipping, f32).
+    ``sum_squares(grads)``, where given, is their summed squares (over a
+    mesh: every shard's, each element once)."""
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves)
+                    if sum_squares is None else sum_squares(grads))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in leaves:
         g.mul_(scale.to(g.dtype))

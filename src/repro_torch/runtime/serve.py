@@ -52,6 +52,7 @@ from repro_torch.core.kv_tier import (PAGE_DTYPES, PageStore,
                                       PageTableManager, write_slots)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import MeshAxis
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_params
 from repro_torch.runtime.prng import fold_in, gumbel, prng_key
@@ -88,11 +89,13 @@ def combine_partials(acc, m, l, group=None):
 
       * ``group=None``: every node on one card, the node axis leading:
         acc [N, B, H, D], m/l [N, B, H] -> [B, H, D];
-      * ``group``: one node a rank of that ``torch.distributed`` group,
-        this rank's own partial acc [B, H, D], m/l [B, H]: the
-        reference's one ``pmax`` and two ``psum``s as ``all_reduce`` MAX
-        of m, then one ``all_reduce`` SUM of ``l * scale`` and ``acc *
-        scale`` in one buffer.  Every rank gets the same [B, H, D].
+      * ``group``: one node a rank of that ``torch.distributed`` group
+        (or of a mesh's ``launch.mesh.MeshAxis``, which counts the
+        collectives in its ``stats``), this rank's own partial acc [B,
+        H, D], m/l [B, H]: the reference's one ``pmax`` and two
+        ``psum``s as ``all_reduce`` MAX of m, then one ``all_reduce``
+        SUM of ``l * scale`` and ``acc * scale`` in one buffer.  Every
+        rank gets the same [B, H, D].
 
     Nodes owning nothing contribute (0, NEG_INF, 0) and vanish; a
     fully-masked (padding) row ends with l == 0 and yields 0, the
@@ -105,12 +108,18 @@ def combine_partials(acc, m, l, group=None):
     else:
         import torch.distributed as dist
 
-        m_glob = m.clone()
-        dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+        if isinstance(group, MeshAxis):
+            reduce = group.all_reduce
+        else:
+            def reduce(x, op):
+                x = x.clone()
+                dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else
+                                dist.ReduceOp.SUM, group=group)
+                return x
+        m_glob = reduce(m, "max")
         scale = torch.exp(m - m_glob)
-        buf = torch.cat([(acc * scale[..., None]).reshape(-1),
-                         (l * scale).reshape(-1)])
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        buf = reduce(torch.cat([(acc * scale[..., None]).reshape(-1),
+                                (l * scale).reshape(-1)]), "sum")
         acc_glob = buf[:acc.numel()].view(acc.shape)
         l_glob = buf[acc.numel():].view(l.shape)
     return acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
@@ -127,12 +136,47 @@ def normalize_partials(acc, m, l):
 def make_serving_fns(model, mesh=None):
     """(prefill, decode_step) of the dense serving path: the model's own
     methods, run eagerly (the JAX package jits them and donates the
-    cache; ``decode_step`` here writes the cache in place).  Sharding
-    over a mesh is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("make_serving_fns over a mesh (sharded "
-                                  "serving): not yet ported")
-    return model.prefill, model.decode_step
+    cache; ``decode_step`` here writes the cache in place).
+
+    Over ``mesh`` (a ``(data, model)`` ``DeviceMesh`` of every rank):
+    the params are this rank's shards as ``runtime.sharding.
+    param_specs`` places them, as the reference places them, and each
+    call gathers the leaves split over ``data`` first.  ``prefill(params,
+    batch, cache_dtype=bf16, cache_len=None)`` and ``decode_step(params,
+    cache, tokens)`` take the global batch and tokens ([B, S], [B]) and
+    return the global logits [B, V] on every rank; the cache is this
+    rank's (``model.on_mesh``: its rows, and its extent of the sequence,
+    every head: the D-Cache placement).  Both functions carry the rank's
+    ``placement`` (``launch.mesh.MeshPlacement``; ``stats`` counts its
+    collectives).  RWKV6LM, Zamba2LM and the MoE transformer over a mesh
+    raise ``NotImplementedError``."""
+    if mesh is None:
+        return model.prefill, model.decode_step
+    from repro_torch.runtime.train import batch_rows, gather_data
+
+    placed = model.on_mesh(mesh)
+    place, specs = placed.place, placed.specs
+
+    def whole(logits, batch: int):
+        split = batch % place.sizes["data"] == 0
+        return place.data.all_gather(logits, 0) if split else logits
+
+    @torch.no_grad()
+    def prefill(params, batch, cache_dtype=torch.bfloat16, cache_len=None):
+        rows = {k: batch_rows(place, v) for k, v in batch.items()}
+        logits, cache = placed.prefill(gather_data(place, specs, params),
+                                       rows, cache_dtype, cache_len)
+        return whole(logits, next(iter(batch.values())).shape[0]), cache
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens):
+        logits, cache = placed.decode_step(gather_data(place, specs, params),
+                                           cache, batch_rows(place, tokens))
+        return whole(logits, tokens.shape[0]), cache
+
+    # the rank's placement: its collectives' counts
+    prefill.placement = decode_step.placement = place
+    return prefill, decode_step
 
 
 def _pow2(n: int) -> int:

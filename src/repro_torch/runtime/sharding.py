@@ -7,6 +7,10 @@ product), or ``None`` (replicated); ``()`` replicates a tensor whole.
 :func:`to_placements` turns one into ``torch.distributed.tensor``
 placements.  A mesh is a ``DeviceMesh`` with ``mesh_dim_names``, or a
 ``{name: size}`` dict (the rules read only the axis sizes).
+:func:`shard_tree` and :func:`gather_tree` are the counterpart of the
+reference's ``device_put(tree, NamedSharding(mesh, spec))`` and of
+reading the placed arrays back whole: a rank keeps the slice of each leaf
+its mesh coordinate names.
 
 Axis roles:
   * ``model``: tensor parallelism (heads / ffn / vocab / experts) and, for
@@ -22,6 +26,7 @@ so the same rules serve every arch and mesh.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -243,6 +248,136 @@ def to_placements(mesh, spec: Spec):
                 if ax == name or (isinstance(ax, tuple) and name in ax)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# placing trees: a rank's slices, and the whole leaves back
+# ---------------------------------------------------------------------------
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: ``()``, ``(name,)`` or a tuple's
+    names (the dim split over their product, the first one major)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def mesh_coordinate(mesh) -> Dict[str, int]:
+    """This rank's {axis: index} on a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _block(sizes, coord, axes) -> Tuple[int, int]:
+    """(index, count) of the block that ``coord`` holds of a dim split
+    over ``axes``: row-major over the axes, as a ``PartitionSpec``'s
+    tuple entry splits it."""
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+    return idx, n
+
+
+def shard_leaf(x, sizes, coord, spec):
+    """``x``'s slice at mesh coordinate ``coord`` ({axis: index}) under
+    ``spec``: a contiguous copy (of the whole tensor where the spec
+    splits nothing: the step updates its leaves in place; a non-tensor
+    as it is)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            idx, n = _block(sizes, coord, axes)
+            if x.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                 f"split over {axes} ({n})")
+            w = x.shape[d] // n
+            x = x.narrow(d, idx * w, w)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def assemble_leaf(shards: Dict[tuple, Any], mesh, spec):
+    """The whole leaf from ``shards`` ({coordinate tuple in the mesh's
+    axis order: that coordinate's slice}; every coordinate of the mesh,
+    as :func:`shard_leaf` cut them), the inverse of :func:`shard_leaf`."""
+    sizes = mesh_axes(mesh)
+    names = tuple(sizes)
+    first = next(iter(shards.values()))
+    if not isinstance(first, torch.Tensor) or not any(spec_axes(e)
+                                                      for e in spec):
+        return first
+    out = None
+    for key, part in shards.items():
+        coord = dict(zip(names, key))
+        if out is None:
+            shape = list(part.shape)
+            for d, entry in enumerate(spec):
+                shape[d] *= _block(sizes, coord, spec_axes(entry))[1]
+            out = part.new_empty(shape)
+        view = out
+        for d, entry in enumerate(spec):
+            axes = spec_axes(entry)
+            if axes:
+                idx, _ = _block(sizes, coord, axes)
+                view = view.narrow(d, idx * part.shape[d], part.shape[d])
+        view.copy_(part)
+    return out
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (nested dicts and NamedTuples, as
+    the params and the AdamW state) and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, v, s)
+                            for v, s in zip(tree, specs)))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, mesh, specs, coord: Optional[Dict[str, int]] = None):
+    """This rank's slice of every leaf of ``tree`` under ``specs`` (the
+    spec tree of ``param_specs`` / ``cache_spec_shardings`` / ...; for
+    an AdamW state ``AdamWState(step=(), m=specs, v=specs)``), by its
+    coordinate on ``mesh`` (``coord`` given: that coordinate, and
+    ``mesh`` may be a dict of sizes).  No communication: every rank
+    holds the whole tree and keeps its slices."""
+    sizes = mesh_axes(mesh)
+    if coord is None:
+        coord = mesh_coordinate(mesh)
+    return _zip_map(lambda x, sp: shard_leaf(x, sizes, coord, sp), tree,
+                    specs)
+
+
+def gather_tree(tree, mesh, specs):
+    """The whole leaves of a tree placed by :func:`shard_tree`: each split
+    leaf's slices all-gathered over every rank of ``mesh`` (a
+    ``DeviceMesh`` over the whole default group) and put back in
+    place.  Every rank gets the whole tree; replicated leaves are
+    returned as they are."""
+    import torch.distributed as dist
+
+    names = tuple(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    coords = {int(grid[idx]): idx for idx in
+              itertools.product(*map(range, grid.shape))}
+    n = grid.numel()
+    if n != dist.get_world_size():
+        raise ValueError(f"a mesh of {n} ranks over a group of "
+                         f"{dist.get_world_size()}")
+
+    def one(x, spec):
+        if not isinstance(x, torch.Tensor) or not any(spec_axes(e)
+                                                      for e in spec):
+            return x
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        return assemble_leaf({coords[r]: p for r, p in enumerate(parts)},
+                             dict(zip(names, grid.shape)), spec)
+
+    return _zip_map(one, tree, specs)
 
 
 # ---------------------------------------------------------------------------

@@ -377,3 +377,39 @@ def test_short_prefill_chunks_pad_to_min_rows(card, monkeypatch, suffix):
     assert rows[3] == bucket
     err = float((out[1] - out[least]).abs().max())
     assert err <= 1e-5 * max(1.0, float(out[1].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_mesh_ranks_share_the_card(card, tmp_path, mesh):
+    """The dense model over a ``(data, model)`` mesh of 2 gloo ranks on the
+    card (``scripts/mesh_sessions.py``, reduced granite-3-2b): a train
+    step (grad-accum 2, remat full) and greedy serving with the cache
+    sequence-sharded over ``model`` (f32 and int8), each held by rank 0
+    to the same work in one process; the flash kernels launched on every
+    rank."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    from mesh_sessions import mesh_sessions
+    cfg = dataclasses.asdict(get_arch("granite_3_2b").reduced())
+    rng = np.random.default_rng(0)
+    base = {"cfg": cfg, "seed": 0, "device": "cuda", "mesh": mesh,
+            "twin": True}
+    batch = {"tokens": rng.integers(0, 128, (8, 64)),
+             "labels": rng.integers(-1, 128, (8, 64))}
+    prompts = rng.integers(0, 128, (4, 60))
+    cases = [dict(base, kind="train", batches=[batch], ga=2, remat="full"),
+             dict(base, kind="serve", kv="f32", prompts=prompts,
+                  cache_len=64, gen=4),
+             dict(base, kind="serve", kv="int8", prompts=prompts,
+                  cache_len=64, gen=4)]
+    got = run_ranks(mesh_sessions, 2, (cases,), device_type="cuda",
+                    timeout_s=240, workdir=str(tmp_path))
+    train, f32, q8 = got[0]
+    assert train["twin"]["loss_rel_err"] <= 1e-5
+    assert f32["twin"]["tokens_equal"] and q8["twin"]["tokens_equal"]
+    for r in got:
+        assert r[0]["launches"].get("flash_attention_bwd_f32", 0) > 0
+        assert r[1]["launches"].get("flash_attention_f32", 0) > 0

@@ -287,8 +287,10 @@ def test_dense_tokens_equal_the_paged_servers():
 
 
 def test_make_serving_fns_over_a_mesh_is_not_ported():
+    """Serving over a mesh is ported (``tests/test_torch_mesh.py``);
+    what is not a ``DeviceMesh`` is refused."""
     model = get_model(get_arch("granite_3_2b").reduced())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_serving_fns(model, mesh=object())
 
 

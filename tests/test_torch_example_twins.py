@@ -43,3 +43,13 @@ def test_distributed_inference_twin():
     out = _load("distributed_inference_torch").main(["--device", "cpu"])
     assert out["err"] < 1e-3 and out["err_after_failure"] < 1e-3
     assert out["rescheduled"] != out["placement"]
+
+
+def test_elastic_training_twin():
+    """8 gloo ranks on (2, 4), an async save, 6 ranks restored resharded
+    onto (3, 2): the loss trajectory of the restored run against the
+    same checkpoint restored onto (2, 4) (the twin asserts < 1e-5)."""
+    out = _load("elastic_training_torch").main(["--device", "cpu"])
+    assert out["err"] < 1e-5
+    assert out["healthy_mesh"] == (2, 4) and out["degraded_mesh"] == (3, 2)
+    assert out["losses"][-1] < out["losses"][0]

@@ -53,7 +53,19 @@ def test_port_files_cover_the_smoke_twins_and_core():
                  "examples/serve_rag_torch.py",
                  "examples/distributed_inference_torch.py",
                  "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/runtime/sharding.py"):
+                 "src/repro_torch/runtime/sharding.py",
+                 "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/models/api.py",
+                 "src/repro_torch/models/rwkv6.py",
+                 "src/repro_torch/models/mamba2.py",
+                 "src/repro_torch/runtime/train.py",
+                 "src/repro_torch/runtime/serve.py",
+                 "src/repro_torch/checkpoint/manager.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/optim/compression.py",
+                 "scripts/mesh_sessions.py",
+                 "examples/elastic_training_torch.py"):
         assert name in walked, name
 
 

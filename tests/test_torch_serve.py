@@ -173,11 +173,13 @@ def test_step_batch_matches_step_reference(models, page_dtype):
 
 
 def test_not_yet_ported_options_raise(models):
-    """Sharded serving over a mesh is not ported yet.  (Sampling and
-    speculative decoding are: tests/test_torch_speculative.py.)"""
+    """Sharded serving over a mesh is ported (tests/test_torch_mesh.py),
+    as are sampling and speculative decoding
+    (tests/test_torch_speculative.py); a mesh that is not a
+    ``DeviceMesh`` is refused."""
     from repro_torch.runtime.serve import make_serving_fns
     _, _, (tm, _) = models
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_serving_fns(tm, mesh=object())
 
 

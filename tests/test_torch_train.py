@@ -7,6 +7,7 @@ against the reference; the reference's own training cases
 packages; the ``Model`` facade, the launcher and the quickstart."""
 import dataclasses
 import os
+import sys
 import threading
 import time
 
@@ -43,9 +44,11 @@ from repro_torch.optim import compression as comp  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime.train import make_train_step  # noqa: E402
 
-LOSS_RTOL = 1e-5           # f32 both sides; only summation orders differ
-GRAD_TOL = 1e-4            # times max(1, max |g_ref|), per leaf
-STEP_TOL = dict(atol=2e-5, rtol=2e-4)   # tests/test_train.py's own
+# the step comparison the mesh tests share; spawned ranks import the
+# harness by name from this path
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scripts"))
+from mesh_sessions import GRAD_TOL, LOSS_RTOL, STEP_TOL, step_check  # noqa: E402,E501
 
 
 @pytest.fixture(autouse=True)
@@ -212,12 +215,52 @@ def _ref_step(jmodel, lr, ga=1):
 
 
 def test_adamw_step_matches_reference(setup):
+    """One AdamW step (warmup_cosine, clip 1.0) against the reference's,
+    in two checks.
+
+    (a) The port's ``adamw`` update fed the reference's own clipped
+    gradients, state and params: every element of the params and both
+    moments at STEP_TOL.
+
+    (b) The whole step (its own gradients): loss, norm, moments, and the
+    params by ``mesh_sessions.step_check``, which holds every element at
+    STEP_TOL but those whose reference gradient is below eps.  AdamW's
+    first step moves an element by ``lr * (g / (|g| + eps) + wd * p)``
+    (bias correction cancels ``1 - b1`` and ``sqrt(1 - b2)``).  The
+    decay term is the same on both sides; ``f(g) = g / (|g| + eps)``
+    has ``|f| < 1`` and slope ``eps / (|g| + eps)**2``, at most
+    ``1 / eps``, reached at ``g = 0``.  The gradients are held to
+    ``delta = GRAD_TOL * max(1, max |g_ref|)`` of the leaf, so an element
+    with ``|g_ref| < eps`` may move ``lr * min(2, delta / eps)`` more or
+    less than the reference's (with delta = 1e-4 >> eps, 2 lr) on top
+    of STEP_TOL.  That is the bound such elements take; the count that
+    took it is printed.  (One element of ``w_gate``, gradient -5.02e-9
+    against -5.81e-9, moved 4.95e-5 apart on some hosts: an 8e-10 gap in
+    its gradient, inside GRAD_TOL, blown up by the ``1 / eps`` slope.)"""
     jmodel, jparams, model, cfg = setup
     batch = _np_batches(cfg, 1)[0]
-    jinit, jstep = _ref_step(jmodel, jwarmup_cosine(3e-3, 2, 10))
+    jinit, jupd = jadamw(lr=jwarmup_cosine(3e-3, 2, 10))
     jp = jax.tree.map(jnp.asarray, jparams)
-    jp1, jo1, jm = jstep(jp, jinit(jp), _jb(batch))
-    init, step = _port_step(model, warmup_cosine(3e-3, 2, 10))
+    jp1, jo1, jm = jax.jit(jmake_train_step(jmodel, jupd))(
+        jp, jinit(jp), _jb(batch))
+    # the gradients the reference's step fed its update
+    jg = jax.grad(lambda p: jmodel.loss(p, _jb(batch))[0])(jp)
+    jg, _ = jclip(jax.tree.map(lambda g: g.astype(jnp.float32), jg), 1.0)
+    jg = jax.device_get(jg)
+    init, upd = adamw(lr=warmup_cosine(3e-3, 2, 10))
+
+    # (a) the update alone, on the reference's gradients and state
+    tp = _tparams(jparams)
+    tp1, to1 = upd(params_from_jax(jg, "cpu"), init(tp), tp)
+    ju1, jou1 = jax.jit(jupd)(jax.tree.map(jnp.asarray, jg), jinit(jp), jp)
+    assert int(to1.step) == int(jou1.step) == 1
+    for want_tree, got_tree in ((ju1, tp1), (jou1.m, to1.m),
+                                (jou1.v, to1.v)):
+        for path, want, got in _pairs(jax.device_get(want_tree), got_tree):
+            np.testing.assert_allclose(got, want, err_msg=path, **STEP_TOL)
+
+    # (b) the whole step
+    step = make_train_step(model, upd)
     tp = _tparams(jparams)
     tp1, to1, m = step(tp, init(tp), _tb(batch))
     assert float(m["loss"]) == pytest.approx(float(jm["loss"]),
@@ -225,8 +268,11 @@ def test_adamw_step_matches_reference(setup):
     assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
                                                   rel=1e-4)
     assert int(to1.step) == int(jo1.step) == 1
-    for path, want, got in _pairs(jax.device_get(jp1), tp1):
-        np.testing.assert_allclose(got, want, err_msg=path, **STEP_TOL)
+    lr1 = float(warmup_cosine(3e-3, 2, 10)(torch.ones((), dtype=torch.int32)))
+    got = step_check(tp1, jax.device_get(jp1), jg, lr1)
+    print(f"step_check: {got['exempt']} of {got['elements']} elements "
+          f"below eps took the GRAD_TOL bound; worst {got['worst']:.3g} "
+          f"of its limit ({got['worst_leaf']})")
     # the moments carry the gradients' gap, scaled by 1 - b1 (m) and
     # 1 - b2 times 2|g| (v)
     for tree, jtree in ((to1.m, jo1.m), (to1.v, jo1.v)):
