@@ -2210,6 +2210,14 @@ FLASH_CASES = (
      (True,)),
     ("granite-3-2b prefill a rank of (1, 4)", {**FLASH, "heads": 8,
                                                "kv_heads": 2}, (True,)),
+    # the mesh_families phase's prefill, one rank of (1, 4): 8 of
+    # phi3.5-moe's 32 heads (G = 4), 8 of zamba2's 32 shared-block heads
+    ("phi3.5-moe-42b-a6.6b prefill a rank of (1, 4)", {
+        "batch": 8, "heads": 8, "kv_heads": 2, "seq": 512, "head_dim": 128,
+        "family": "phi3.5-moe"}, (True,)),
+    ("zamba2-1.2b shared block a rank of (1, 4)", {
+        "batch": 8, "heads": 8, "kv_heads": 8, "seq": 512, "head_dim": 64,
+        "family": "zamba2"}, (True,)),
 )
 # rwkv6-3b's prefill: 8 prompts of 512 tokens, 40 heads of 64, chunk 32
 WKV = {"batch": 8, "seq": 512, "heads": 40, "dk": 64, "dv": 64, "chunk": 32}
@@ -2382,6 +2390,12 @@ FLASH_TRAIN_CASES = (
      {**FLASH, "batch": 2, "heads": 16, "kv_heads": 4}),
     ("granite-3-2b train microbatch a rank of (1, 4)",
      {**FLASH, "batch": 4, "heads": 8, "kv_heads": 2}),
+    # the mesh_families phase's microbatch (grad-accum 2), one rank of
+    # (1, 4): phi3.5-moe's 8 heads over 2 kv heads of 128, zamba2's 8
+    ("phi3.5-moe-42b-a6.6b train microbatch a rank of (1, 4)",
+     {"batch": 4, "heads": 8, "kv_heads": 2, "seq": 512, "head_dim": 128}),
+    ("zamba2-1.2b shared block train microbatch a rank of (1, 4)",
+     {"batch": 4, "heads": 8, "kv_heads": 8, "seq": 512, "head_dim": 64}),
 )
 # untimed: FLASH_SHAPES, head_dim 16 at a group of 16, and head_dim 128
 # at a group of 8 (the backward's 16-row tiles with the heads' merge)
@@ -2635,9 +2649,19 @@ def wkv_cases(torch, np, flush):
     from repro_torch.kernels import ops
 
     results = []
+    for h, label in ((WKV["heads"], "rwkv6-3b prefill"),
+                     (WKV["heads"] // 4, "rwkv6-3b prefill a rank of (1, 4)")):
+        results += _wkv_case(torch, np, flush, h, label)
+    return results
+
+
+def _wkv_case(torch, np, flush, h, label):
+    from repro_torch.kernels import ops
+
+    results = []
     rng = np.random.default_rng(7)
-    b, s, h, dk, dv, chunk = (WKV[k] for k in ("batch", "seq", "heads", "dk",
-                                               "dv", "chunk"))
+    b, s, dk, dv, chunk = (WKV[k] for k in ("batch", "seq", "dk", "dv",
+                                            "chunk"))
 
     def dev(x):
         return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
@@ -2665,13 +2689,15 @@ def wkv_cases(torch, np, flush):
     kernel_line(
         results, "rwkv_scan_f32",
         f"B={b} S={s} H={h} dk={dk} dv={dv} chunk {chunk}, logw = "
-        "-exp(N(0,1)), s0 ~ N(0,1) (rwkv6-3b prefill)", max(errs),
+        f"-exp(N(0,1)), s0 ~ N(0,1) ({label})", max(errs),
         time_ms(torch, kernel, flush),
         time_ms(torch, plain, flush, PLAIN_ITERS, 1),
         wkv_bound(b, s, h, dk, dv, chunk), None,
         "none: no single PyTorch call computes the wkv recurrence",
         DENSE_SOURCE["rwkv_scan_f32"],
         f"{WKV_TOL} x max(1, max|plain|) on o and sT")
+    if h != WKV["heads"]:
+        return results
     # both against the float64 per-token recurrence (a reading, no gate)
     exact = ops.ref.wkv_ref(*(x.double() for x in (r, k, v, logw, u, s0)))
     results[-1]["vs_float64"] = {
@@ -2753,6 +2779,9 @@ def wkv_other_shapes(torch, np):
 # the wkv training kernels at rwkv6-3b's train microbatch (4 x 512, grad-
 # accum 2 of 8 x 512) and at 8 x 512
 WKV_TRAIN_BATCHES = (4, 8)
+# and at the mesh_families phase's microbatch on one rank of (1, 4): 10 of
+# rwkv6-3b's 40 heads
+WKV_RANK_TRAIN = (4, 10)
 WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "ds0")
 
 
@@ -2857,15 +2886,17 @@ def wkv_train_cases(torch, np, flush):
 
     results = []
     rng = np.random.default_rng(13)
-    s, h, dk, dv, chunk = (WKV[k] for k in ("seq", "heads", "dk", "dv",
-                                            "chunk"))
+    s, dk, dv, chunk = (WKV[k] for k in ("seq", "dk", "dv", "chunk"))
     step = ops.ref.wkv_step_tokens(chunk)
-    for b in WKV_TRAIN_BATCHES:
+    runs = [(b, WKV["heads"], "train microbatch" if b == 4 else "prefill")
+            for b in WKV_TRAIN_BATCHES] + [
+        (*WKV_RANK_TRAIN, "train microbatch a rank of (1, 4)")]
+    for i, (b, h, label) in enumerate(runs):
         args = wkv_train_inputs(torch, np, rng, b, s, h, dk, dv)
         r, k, v, logw, u, s0, do, dsT = args
         case = (f"B={b} S={s} H={h} dk={dk} dv={dv} chunk {chunk} (step "
                 f"{step}), logw = -exp(N(0,1)), s0, do, dsT ~ N(0,1) "
-                f"(rwkv6-3b {'train microbatch' if b == 4 else 'prefill'})")
+                f"(rwkv6-3b {label})")
         errs, states, s_t, _ = check_wkv_train(torch, ops, args, chunk,
                                                f"wkv train B={b}")
 
@@ -2917,7 +2948,7 @@ def wkv_train_cases(torch, np, flush):
                   "forward_states_read": state_bytes,
                   "gradient_states_written_and_read":
                       2 * state_bytes * (s // step - 1) // (s // step)}})
-        if b == WKV_TRAIN_BATCHES[0]:
+        if i == 0:
             got = bwd()
             want = bwd_plain()
             exact = ops.ref.wkv_chunked_bwd_ref(*(x.double() for x in args),
@@ -3316,7 +3347,12 @@ def phase_serve(torch, np, smi):
 # first SERVE_KNOBS["shared"] tokens of every prompt made prompt 0's for
 # the cold/warm pair; the byte budget of the f32 window (320 stacked
 # pages of granite-3-2b: 838,860,800 bytes); pools of 4 nodes
-SERVE_KNOBS = {"shared": 256, "pool_nodes": 4, "bf16_ulps": 4}
+SERVE_KNOBS = {"shared": 256, "pool_nodes": 4, "bf16_ulps": 4,
+               # the serve phase's weights cut to their first 8 layers: the
+               # smoke's time; the bf16 and int8 stores' agreement
+               # with the serve phase's f32 tokens (a reading) then has no
+               # f32 run of the same weights to read
+               "layers": 8, "cut": "8 of 40 layers (the smoke's time)"}
 
 
 def bf16_tolerance(logits, ulps=SERVE_KNOBS["bf16_ulps"]):
@@ -3403,7 +3439,7 @@ def phase_serve_knobs(torch, np, smi, served):
     from repro_torch.runtime.serve import PagedServer
 
     dev = torch.device(DEVICE)
-    cfg, model, params = served["cfg"], served["model"], served["params"]
+    cfg, model, params = served_cut(served, SERVE_KNOBS["layers"])
     n_req, plen, gen, q_gen, chunk, page, hbm = (
         SERVE[k] for k in ("requests", "prompt_len", "gen", "q8_gen",
                            "chunk", "page", "hbm_pages"))
@@ -3469,21 +3505,25 @@ def phase_serve_knobs(torch, np, smi, served):
     divergences += first_divergences(
         torch, "bf16 store vs plain attention", rids, plain, bf16,
         *plain_gaps, phase="serve_knobs", limit=bf16_tol)
-    f32_tokens = served["tokens_h1"]
+    # the serve phase's f32 tokens, where the weights are that phase's
+    f32_tokens = (served["tokens_h1"] if cfg.n_layers ==
+                  served["cfg"].n_layers else None)
     bf16_vs_f32 = {s: bf16[s][1:] for s in bf16}
-    runs["bf16"]["agree_with_f32"] = agreement(f32_tokens, bf16_vs_f32)
-    runs["bf16"]["first_divergence_from_f32"] = [
-        next((i for i, (x, y) in enumerate(zip(f32_tokens[s],
-                                               bf16_vs_f32[s])) if x != y),
-             None) for s in sorted(bf16)]
+    if f32_tokens is not None:
+        runs["bf16"]["agree_with_f32"] = agreement(f32_tokens, bf16_vs_f32)
+        runs["bf16"]["first_divergence_from_f32"] = [
+            next((i for i, (x, y) in enumerate(zip(f32_tokens[s],
+                                                   bf16_vs_f32[s]))
+                  if x != y), None) for s in sorted(bf16)]
 
     # the int8 window of the same budget, served once
     srv = paged(hbm_bytes=budget, page_dtype="int8")
     check(srv.hbm_pages == admitted["int8"], "int8 window")
     int8, _, runs["int8"], _ = knob_run(torch, srv, prompts, chunk, q_gen)
     del srv
-    runs["int8"]["agree_with_f32"] = agreement(
-        f32_tokens, {s: int8[s][1:] for s in int8})
+    if f32_tokens is not None:
+        runs["int8"]["agree_with_f32"] = agreement(
+            f32_tokens, {s: int8[s][1:] for s in int8})
 
     # the pair on a 4-node pool
     def pool(**kw):
@@ -3526,6 +3566,7 @@ def phase_serve_knobs(torch, np, smi, served):
     check(counts[COMBINE] == n_decode,
           f"{COMBINE} launches {counts[COMBINE]} != {n_decode}")
     emit({"phase": "serve_knobs", "arch": cfg.name, "requests": n_req,
+          "layers": cfg.n_layers, "cut": SERVE_KNOBS["cut"],
           "prompt_len": plen, "gen": gen, "q8_gen": q_gen,
           "shared_prefix": n_shared, "pool_nodes": nodes,
           "tokens_identical_cold_warm": True,
@@ -3762,7 +3803,13 @@ def phase_examples(torch, smi):
 # these 8 and 8 more of the two kinds
 SERVE_SPEC = {"phrase": 16, "repeats": 32, "horizon": 8, "max_active": 8,
               "temperature": 0.8, "top_p": 0.9, "seed": 0,
-              "cold_temperature": 0.05}
+              "cold_temperature": 0.05,
+              # the serve phase's weights cut to their first 8 layers: the
+              # smoke's time once the pipeline and mesh_families phases
+              # came in; the per-token greedy run is then no longer
+              # the serve phase's 40-layer run, so that cross-check goes
+              "layers": 8,
+              "cut": "8 of 40 layers (the smoke's time)"}
 
 
 def served_cut(served, layers):
@@ -3884,7 +3931,7 @@ def phase_serve_spec(torch, np, smi, served):
     from repro_torch.runtime.prng import prng_key
     from repro_torch.runtime.scheduler import ContinuousBatcher, Request
 
-    cfg, model, params = served["cfg"], served["model"], served["params"]
+    cfg, model, params = served_cut(served, SERVE_SPEC["layers"])
     gen, q_gen, chunk, page, hbm, plen = (SERVE[k] for k in (
         "gen", "q8_gen", "chunk", "page", "hbm_pages", "prompt_len"))
     hzn = SERVE_SPEC["horizon"]
@@ -3961,9 +4008,10 @@ def phase_serve_spec(torch, np, smi, served):
     gaps = record_gaps(server)
     greedy_h1 = decode(server, "greedy_h1", gen)
     del server
-    divergences += first_divergences(
-        torch, "serve phase's h1 (its first four prompts)", rids1[:4],
-        greedy_h1, served["tokens_h1"], gaps)
+    if cfg.n_layers == served["cfg"].n_layers:
+        divergences += first_divergences(
+            torch, "serve phase's h1 (its first four prompts)", rids1[:4],
+            greedy_h1, served["tokens_h1"], gaps)
     server = admit(batch1, rids1)[0]
     greedy_spec = decode(server, "greedy_spec_h8", gen, horizon=hzn,
                          speculative=True)
@@ -4072,6 +4120,7 @@ def phase_serve_spec(torch, np, smi, served):
     check(counts[COMBINE] == n_decode,
           f"{COMBINE} launches {counts[COMBINE]} != {n_decode}")
     emit({"phase": "serve_spec", "arch": cfg.name, "requests": 8,
+          "layers": cfg.n_layers, "cut": SERVE_SPEC["cut"],
           "batcher_requests": 16, "prompt_len": plen, "gen": gen,
           "q8_gen": q_gen, "horizon": hzn, "sampling": {
               "temperature": sc.temperature, "top_p": sc.top_p,
@@ -4096,10 +4145,10 @@ def phase_serve_spec(torch, np, smi, served):
 # steps, and the elastic bucket (4 nodes of 80 pages, 2 active: half
 # the requests wait until a node joins)
 SERVE_POOL = {"store_pages": 320, "horizon": 8, "kill_after": 2,
-              # the serve phase's weights cut to their first 8 layers:
+              # the serve phase's weights cut to their first 4 layers:
               # the smoke's time (its 1,200 s limit) once the mesh phase
-              # came in
-              "layers": 8,
+              # (8 layers) and the mesh_families phase (4) came in
+              "layers": 4,
               "runs": ((4, "placed"), (4, "striped"), (2, "placed")),
               "router_node_pages": 160,
               "elastic": {"nodes": 4, "active": 2, "grow_to": 3,
@@ -5673,8 +5722,15 @@ TRAIN_FAMILIES = {
     "gate_layers": 2, "restart_layers": {"phi3.5-moe-42b-a6.6b": 1},
     "restart_steps": 1, "learnable_steps": 10, "learnable_lr": 1e-3,
     "reduced": False,
-    "models": (("rwkv6-3b", None), ("zamba2-1.2b", None),
+    # depth cut for the smoke's time (once the pipeline and
+    # mesh_families phases came in): rwkv6-3b 2 of 32 layers, zamba2-1.2b
+    # 6 of 38 (one application of the shared block)
+    "models": (("rwkv6-3b", 2), ("zamba2-1.2b", 6),
                ("phi3.5-moe-42b-a6.6b", 2)),
+    "cut": {"rwkv6-3b": "2 of 32 layers (the smoke's time)",
+            "zamba2-1.2b": "6 of 38 layers, one application of the shared "
+                           "block (the smoke's time)",
+            "phi3.5-moe-42b-a6.6b": "2 of 32 layers (card memory)"},
 }
 # (the wkv backward's three kernels: rwkv_scan_bwd_{state,chunk,du}_kernel)
 TRAIN_MATCH = {"gemm": "gemm", "wkv_fwd": "rwkv_scan_kernel",
@@ -5990,6 +6046,7 @@ def phase_train_families(torch, np, smi):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     emit({"phase": "train_families", "phase_s": time.monotonic() - t_phase,
+          "cut": TRAIN_FAMILIES["cut"],
           "launches": {a: {k: c[k] for k in c if c[k]}
                        for a, c in per_model.items()},
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -6018,9 +6075,10 @@ SERVE_RANKS = {"ranks": 4, "gen": 8, "chunk": 256, "timeout_s": 600,
                # what was cut to keep the smoke near 900 s: ranks sharing
                # the card over gloo take 0.5-0.75 s a token at 4 ranks
                # (40 layers); the depth is cut for the mesh phase's time
-               "layers": 4,
-               "cut": "4 of 40 layers; 8 generated tokens, not 64; no "
-                      "2-rank run (the CPU tests hold 2 ranks)"}
+               "layers": 2,
+               "cut": "2 of 40 layers; 8 generated "
+                      "tokens, not 64; no 2-rank run (the CPU tests hold "
+                      "2 ranks)"}
 
 
 def paged_twin(torch, server, prompts, chunk, gen):
@@ -6388,6 +6446,302 @@ def phase_mesh(torch, np, smi):
     return collections.defaultdict(int, counts)
 
 
+# RWKV6, Zamba2 and the MoE transformer over a (data, model) mesh, each at
+# full width cut in depth: phi3.5-moe at 1 of 32 layers (one f32 layer of
+# experts is 16 x 3 x 4096 x 6400 x 4 B = 5.03 GB: params, gradients and
+# two moments on the one-process twin beside the four ranks' put two
+# layers past the card's 80 GB) under both moe_impls, rwkv6-3b at 2 of
+# 32, zamba2-1.2b at 2 of 38 (one application of the shared block)
+FAMILIES_MESH = {
+    "ranks": 4, "meshes": ((2, 2), (1, 4)), "batch": 8, "seq": 512,
+    "grad_accum": 2, "remat": "full", "gen": 8, "timeout_s": 900,
+    "lr": ("warmup_cosine", 3e-3, 2, 10), "step_band": 10,
+    # (arch, layers, moe_impls, spread): with spread the train step's
+    # grad_norm and gradient limits are at least 3x the one-process
+    # path's own spread (mesh_sessions._grad_spread): rwkv6-3b at init
+    # amplifies rounding (a 1-ulp nudge of the weights moves its
+    # grad_norm by ~1e-4 rel; the mesh's first run: 1.45e-4)
+    "models": (("phi3.5-moe-42b-a6.6b", 1, ("dense", "shardmap"), False),
+               ("rwkv6-3b", 2, ("dense",), True),
+               ("zamba2-1.2b", 2, ("dense",), False)),
+    # the train step's one-process twin: True holds the loss, grad_norm,
+    # every gradient and every param; "scalars" the loss and grad_norm
+    # (no tree gathered to rank 0: 12.6 GB for phi3.5-moe, ~30 s over
+    # gloo a session, measured on one H100; its gradients and params are
+    # held elementwise on the CPU, tests/test_torch_mesh_families.py);
+    # False none (the shardmap impl on one data rank, held to the dense
+    # impl's run bit for bit).  Keyed (MoE, impl, mesh): the smoke's time
+    "twins": {(True, "dense", (2, 2)): "scalars",
+              (True, "shardmap", (2, 2)): "scalars",
+              (True, "dense", (1, 4)): "scalars",
+              (True, "shardmap", (1, 4)): False,
+              (False, "dense", (2, 2)): True,
+              (False, "dense", (1, 4)): "scalars"},
+    # greedy tokens of phi3.5-moe's serving on (2, 2): each decode call
+    # all-gathers its FSDP shards (1.56 GB a rank) over gloo, ~4.8 s a
+    # token (measured on one H100)
+    "gen_moe_2x2": 2,
+    "cut": {"phi3.5-moe-42b-a6.6b": "1 of 32 layers (card memory); 2 of 8 "
+                                    "greedy tokens on (2, 2); the train "
+                                    "steps held to one process by loss and "
+                                    "grad_norm, not elementwise (the "
+                                    "smoke's time)",
+            "rwkv6-3b": "2 of 32 layers; on (1, 4) the train step held by "
+                        "loss and grad_norm (the smoke's time)",
+            "zamba2-1.2b": "2 of 38 layers, one application of the shared "
+                           "block; on (1, 4) the train step held by loss "
+                           "and grad_norm (the smoke's time)"}}
+
+
+def phase_mesh_families(torch, np, smi):
+    """RWKV6, Zamba2 and the MoE transformer over a ``(data, model)`` mesh
+    of FAMILIES_MESH["ranks"] gloo ranks sharing the card (one spawn of
+    ``run_ranks`` of ``scripts/mesh_sessions.py``'s ``mesh_sessions``),
+    at full width cut in depth, every rank building the same seeded
+    weights; on each of FAMILIES_MESH["meshes"] and, for the MoE, under
+    ``moe_impl`` "dense" and "shardmap":
+
+      * one train step of 8 x 512 tokens, grad-accum 2, remat full
+        (``make_train_step(..., mesh=)``) against the same step in one
+        process on rank 0: loss and the pre-clip grad_norm 1e-5 rel, and
+        where FAMILIES_MESH["twins"] says True the gradients fed to AdamW
+        within 1e-4 x max(1, max|g|) and params by
+        ``mesh_sessions.step_check`` (band FAMILIES_MESH["step_band"]);
+        for rwkv6-3b the grad_norm's and the gradients' limits are at
+        least 3x the one-process path's own spread under a 1-ulp nudge
+        of the weights, and each step takes the gap that opens;
+      * ``make_serving_fns(model, mesh)``: a prefill of 8 x 512 into a
+        cache of 520 positions and 8 greedy decode steps (2 for the MoE
+        on (2, 2)), tokens identical to one process's, the prefill's and
+        first step's logits within 1e-4 or 3x the one-process path's own
+        spread.
+
+    The shardmap MoE on (2, 2), where tokens drop, is held to a
+    one-process model of its local capacity (``mesh_sessions.DataBlocks``:
+    each data rank's rows routed alone, the aux averaged); on (1, 4) it
+    must be the dense impl's run bit for bit (routing pair for pair,
+    losses, norms, each rank's params and gradients, logits and tokens),
+    which that run holds to one process.  Printed: the pairs each impl
+    drops, collectives and bytes a step and a token, ms a step and a
+    token, peak memory a rank, the kernels' launches.  Gloo stages every
+    collective through the host and the ranks share one card: not times
+    across cards."""
+    import collections
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from mesh_sessions import mesh_sessions
+
+    t_phase = time.monotonic()
+    fm = FAMILIES_MESH
+    b, s = fm["batch"], fm["seq"]
+    n = fm["ranks"]
+    backend = pick_backend("cuda", n)
+    note = ("gloo stages every collective through the host and the ranks "
+            "share one card: these are not times across cards")
+    cases, meta = {}, {}
+    for arch, layers, impls, spread in fm["models"]:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        rng = np.random.default_rng(30)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+                 "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+        prompts = rng.integers(0, cfg.vocab_size, (b, s))
+        base = {"cfg": dataclasses.asdict(cfg), "seed": 0, "device": DEVICE,
+                "twin": True}
+        for impl in impls:
+            for mesh in fm["meshes"]:
+                m = "x".join(map(str, mesh))
+                gen = (fm["gen_moe_2x2"] if cfg.is_moe and mesh == (2, 2)
+                       else fm["gen"])
+                twin = fm["twins"][(cfg.is_moe, impl, mesh)]
+                cases[(arch, "train", impl, m)] = dict(
+                    base, kind="train", mesh=mesh, batches=[batch],
+                    lr=fm["lr"], ga=fm["grad_accum"], remat=fm["remat"],
+                    moe_impl=impl, step_band=fm["step_band"], spread=spread,
+                    twin=twin)
+                cases[(arch, "serve", impl, m)] = dict(
+                    base, kind="serve", mesh=mesh, kv="f32", prompts=prompts,
+                    cache_len=s + fm["gen"], gen=gen, moe_impl=impl)
+        meta[arch] = (cfg, layers)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    names = list(cases)
+    t0 = time.monotonic()
+    got = run_ranks(mesh_sessions, n, ([cases[k] for k in names],),
+                    device_type=DEVICE, timeout_s=fm["timeout_s"])
+    spawn_s = time.monotonic() - t0
+    counts = collections.Counter()
+    runs = {}
+    for i, key in enumerate(names):
+        arch, kind, impl, m = key
+        cfg = meta[arch][0]
+        res = [got[r][i] for r in range(n)]
+        runs[key] = res
+        launches = collections.Counter()
+        for r in res:
+            launches.update(r.get("launches", {}))
+        counts.update(launches)
+        r0 = res[0]
+        model_ranks = [r for j, r in enumerate(res)
+                       if j % int(m.split("x")[1]) == 0]
+        moe = {k: sum(r["moe"].get(k, 0) for r in model_ranks)
+               for k in ("pairs", "dropped")} if cfg.is_moe else None
+        line = {"phase": "mesh_families", "arch": arch,
+                "layers": cfg.n_layers, "run": f"{kind} {impl} {m}",
+                "backend": backend, "twin": r0.get("twin"),
+                "moe_pairs_dropped": moe, "launches": dict(launches),
+                "peak_memory_gb": [(r["peak_bytes"] or 0) / 1e9
+                                   for r in res],
+                "session_s": r0["session_s"]}
+        if kind == "train":
+            check(all(r["losses"] == r0["losses"] for r in res),
+                  f"{arch} {key}: ranks' losses differ")
+            line.update(loss=r0["losses"][0], grad_norm=r0["grad_norms"][0],
+                        ms_a_step=r0["ms"][0], tokens_a_step=b * s,
+                        collectives_a_step=r0["collectives"])
+        else:
+            check(all(torch.equal(r["tokens"], r0["tokens"]) for r in res),
+                  f"{arch} {key}: ranks' tokens differ")
+            line.update(prefill_ms=r0.get("prefill_ms"),
+                        ms_a_token=statistics.median(r0["ms"]),
+                        ms_tokens=r0["ms"], greedy_tokens=len(r0["ms"]),
+                        cache_shapes_a_rank=r0["cache_shapes"],
+                        collectives_a_token={
+                            k: v / len(r0["ms"]) for k, v in
+                            r0["collectives"].items()})
+        emit({**line, "note": note})
+    for arch, layers, impls, _ in fm["models"]:
+        if "shardmap" not in impls:
+            continue
+        dense = {k: runs[(arch, k, "dense", "1x4")] for k in ("train",
+                                                              "serve")}
+        smap = {k: runs[(arch, k, "shardmap", "1x4")] for k in ("train",
+                                                               "serve")}
+        for k in ("train", "serve"):
+            check([r["moe"] for r in dense[k]] == [r["moe"] for r in smap[k]],
+                  f"{arch} {k} on (1, 4): the shardmap impl's routing is "
+                  "not the dense impl's")
+        check(all(a["losses"] == c["losses"] and
+                  a["grad_norms"] == c["grad_norms"] and
+                  a["digest"] == c["digest"]
+                  for a, c in zip(dense["train"], smap["train"])),
+              f"{arch} train on (1, 4): the shardmap impl's step is not the "
+              "dense impl's, bit for bit")
+        check(all(torch.equal(x, y) for x, y in zip(
+            dense["serve"][0]["steps"], smap["serve"][0]["steps"])) and
+            torch.equal(dense["serve"][0]["tokens"],
+                        smap["serve"][0]["tokens"]),
+            f"{arch} serve on (1, 4): the shardmap impl's logits are not "
+            "the dense impl's")
+        emit({"phase": "mesh_families", "arch": arch,
+              "check": "shardmap on (1, 4) is the dense impl's run bit for "
+                       "bit (routing, losses, norms, params, gradients, "
+                       "logits, tokens)", "ok": True})
+    for k in ("flash_attention_f32", "flash_attention_fwd_lse_f32",
+              "flash_attention_bwd_f32", "rwkv_scan_f32",
+              "rwkv_scan_states_f32", "rwkv_scan_bwd_f32"):
+        check(counts[k] > 0, f"{k} launched on the mesh_families ranks")
+    emit({"phase": "mesh_families", "meshes": fm["meshes"],
+          "backend": backend, "spawned_ranks": n,
+          "layers": {a: meta[a][1] for a in meta}, "cut": fm["cut"],
+          "spawn_s": spawn_s, "launches": dict(counts),
+          "seconds": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": note + "; smoke run, not a benchmark"})
+    return collections.defaultdict(int, counts)
+
+
+# the GPipe pipeline over pod (runtime.pipeline_par): granite-3-2b at full
+# width cut to 4 layers, 8 x 512 tokens in 4 microbatches a data rank, on
+# (pod 2, data 2) and (pod 4); two steps each, the second the timed one
+PIPE = {"arch": "granite-3-2b", "layers": 4, "ranks": 4, "batch": 8,
+        "seq": 512, "microbatches": 4, "steps": 2, "timeout_s": 600,
+        "meshes": (((2, 2), ("pod", "data")), ((4,), ("pod",))),
+        "cut": "4 of 40 layers (one layer a stage on pod 4; the GPipe "
+               "schedule keeps every microbatch's graph, no remat)"}
+
+
+def phase_pipeline(torch, np, smi):
+    """The GPipe loss over ``pod`` on PIPE["ranks"] gloo ranks sharing the
+    card (``run_ranks`` of ``scripts/mesh_sessions.py``'s ``pipeline``
+    session): each rank's stage params from ``stage_params`` of the same
+    seeded weights, the loss and ``value_and_grad`` PIPE["steps"] times,
+    the gradients gathered whole; rank 0 holds them to ``model.loss`` and
+    its gradients in one process (loss 1e-5 rel, every gradient within
+    1e-4 x max(1, max|g|): ``tests/test_pipeline_par.py``'s bounds).
+    Printed: ms a step (the last), the bytes sent between stages a step,
+    the collectives, the bubble share (S - 1) / (M + S - 1), peak memory a
+    rank.  Gloo stages each send through the host and the ranks share one
+    card: not a pipeline of cards."""
+    import collections
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from mesh_sessions import mesh_sessions
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_arch(PIPE["arch"]), n_layers=PIPE["layers"])
+    rng = np.random.default_rng(30)
+    b, s = PIPE["batch"], PIPE["seq"]
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+    base = {"kind": "pipeline", "cfg": dataclasses.asdict(cfg), "seed": 0,
+            "device": DEVICE, "batches": [batch], "twin": True,
+            "microbatches": PIPE["microbatches"], "steps": PIPE["steps"]}
+    n = PIPE["ranks"]
+    backend = pick_backend("cuda", n)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cases = [dict(base, mesh=shape, axes=axes)
+             for shape, axes in PIPE["meshes"]]
+    t0 = time.monotonic()
+    got = run_ranks(mesh_sessions, n, (cases,), device_type=DEVICE,
+                    timeout_s=PIPE["timeout_s"])
+    spawn_s = time.monotonic() - t0
+    counts = collections.Counter()
+    note = ("gloo stages each send through the host and the ranks share "
+            "one card: not a pipeline of cards")
+    for i, (shape, axes) in enumerate(PIPE["meshes"]):
+        res = [got[r][i] for r in range(n)]
+        launches = collections.Counter()
+        for r in res:
+            launches.update(r["launches"])
+        counts.update(launches)
+        r0 = res[0]
+        check(all(r["loss"] == r0["loss"] for r in res),
+              f"pipeline {axes}: ranks' losses differ")
+        sent = sum(r["collectives_a_step"].get("send_bytes", 0) for r in res)
+        emit({"phase": "pipeline", "mesh": dict(zip(axes, shape)),
+              "backend": backend, "twin": r0["twin"], "loss": r0["loss"],
+              "ms_a_step": r0["ms"][-1], "ms_steps": [x["ms"] for x in res],
+              "tokens_a_step": b * s,
+              "bytes_sent_between_stages_a_step": sent,
+              "collectives_a_step_rank0": r0["collectives_a_step"],
+              "bubble_share": r0["bubble"], "stages": r0["stages"],
+              "microbatches": PIPE["microbatches"],
+              "launches": dict(launches),
+              "peak_memory_gb": [(r["peak_bytes"] or 0) / 1e9 for r in res],
+              "session_s": r0["session_s"], "note": note})
+    for k in ("flash_attention_fwd_lse_f32", "flash_attention_bwd_f32"):
+        check(counts[k] > 0, f"{k} launched on the pipeline ranks")
+    emit({"phase": "pipeline", "arch": cfg.name, "layers": cfg.n_layers,
+          "cut": PIPE["cut"], "spawn_s": spawn_s,
+          "launches": dict(counts), "seconds": time.monotonic() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": note + "; smoke run, not a benchmark"})
+    return collections.defaultdict(int, counts)
+
+
 def profile_decode(torch, server, n_steps, match=None):
     """Where a horizon-1 decode step's time goes: ``n_steps`` committed
     steps of the paged server under ``torch.profiler``."""
@@ -6486,18 +6840,23 @@ def main() -> int:
     tf_counts = phase_train_families(torch, np, smi)
     rank_counts = phase_serve_ranks(torch, np, smi)
     mesh_counts = phase_mesh(torch, np, smi)
+    pipe_counts = phase_pipeline(torch, np, smi)
+    fam_mesh_counts = phase_mesh_families(torch, np, smi)
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, knob_counts, spec_counts, pool_counts, reduced_counts,
             isp_counts, facade_counts, example_counts, dense_counts,
             train_counts, dots_counts, rank_counts, mesh_counts,
-            *family_counts.values(), *tf_counts.values()))
+            pipe_counts, fam_mesh_counts, *family_counts.values(),
+            *tf_counts.values()))
         check(entry["launches"] > 0, f"{entry['kernel']} ({entry['case']}) "
               "was launched no time on the main path")
         entry["launches_in_train"] = train_counts[entry["kernel"]]
         entry["launches_in_train_dots"] = dots_counts[entry["kernel"]]
         entry["launches_in_serve_ranks"] = rank_counts[entry["kernel"]]
         entry["launches_in_mesh"] = mesh_counts[entry["kernel"]]
+        entry["launches_in_pipeline"] = pipe_counts[entry["kernel"]]
+        entry["launches_in_mesh_families"] = fam_mesh_counts[entry["kernel"]]
         entry["launches_in_train_families"] = {
             a: c[entry["kernel"]] for a, c in tf_counts.items()}
         if "families_model" in entry:

@@ -19,7 +19,11 @@ spec's mesh) and returns one result a spec.  Kinds:
     its restore onto this spec's mesh, held to the weights bit for bit;
   * ``"roundtrip"``: ``gather_tree(shard_tree(x))`` bit-equal to ``x`` for
     the params and an AdamW state;
-  * ``"bad_mesh"``: a mesh of fewer ranks than the group must raise.
+  * ``"bad_mesh"``: a mesh of fewer ranks than the group must raise;
+  * ``"pipeline"``: ``runtime.pipeline_par.make_pipeline_loss`` on a
+    ``(pod, data)`` mesh (``axes``), the loss and its gradients from this
+    rank's stage params, gathered whole (rank 0 returns them where
+    ``keep``).
 
 With ``twin`` rank 0 also runs the same work in one process
 (``mesh=None``) on the same weights and holds the mesh's result to it
@@ -52,6 +56,9 @@ from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.optim import compression as comp
 from repro_torch.optim.adamw import AdamWState, tree_leaves, tree_map
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.pipeline_par import (gather_stages,
+                                              make_pipeline_loss,
+                                              stage_params)
 from repro_torch.runtime.serve import make_serving_fns
 from repro_torch.runtime.train import make_train_step
 
@@ -120,32 +127,62 @@ def step_check(got, want, g_ref, lr: float, *, eps: float = ADAM_EPS,
     n = exempt = 0
     worst, worst_leaf = 0.0, None
     for path, g, w in _pairs(got, want):
-        dev = g.device if isinstance(g, torch.Tensor) else "cpu"
-        g, w = _f64(g, dev).reshape(-1), _f64(w, dev).reshape(-1)
-        gr = _f64(_leaf(g_ref, path), dev).reshape(-1)
-        delta = grad_tol * max(1.0, float(gr.abs().max()))
-        lim = atol + rtol * w.abs()
-        small = gr.abs() < band * eps
-        lim = torch.where(small, lim + lr * min(2.0, delta / eps), lim)
-        if g_delta is not None:
-            d = _f64(g_delta[path], dev).reshape(-1)
-            slope = eps / ((gr.abs() - d).clamp(min=0) + eps) ** 2
-            lim = lim + lr * (d * slope).clamp(max=2.0)
-        err = (g - w).abs()
-        ratio = float((err / lim).max()) if err.numel() else 0.0
-        if ratio > worst:
-            worst, worst_leaf = ratio, path
-        bad = int((err > lim).sum())
-        if bad:
-            i = int(torch.argmax(err - lim))
-            raise AssertionError(
-                f"{path}: {bad} elements past the step bound; element {i}: "
-                f"got {float(g[i])!r}, want {float(w[i])!r}, limit "
-                f"{float(lim[i])!r}, reference gradient {float(gr[i])!r}")
-        n += err.numel()
-        exempt += int(small.sum())
+        gr = _leaf(g_ref, path)
+        dev = _device_of(w, g)
+        delta = grad_tol * max(1.0, float(_flat(gr).abs().max()))
+        d_all = None if g_delta is None else _flat(g_delta[path])
+        for at, (gc, wc, grc) in _chunked(dev, g, w, gr):
+            lim = atol + rtol * wc.abs()
+            small = grc.abs() < band * eps
+            lim = torch.where(small, lim + lr * min(2.0, delta / eps), lim)
+            if d_all is not None:
+                d = (d_all if d_all.numel() == 1 else
+                     d_all[at:at + CHUNK]).to(dev, torch.float64)
+                slope = eps / ((grc.abs() - d).clamp(min=0) + eps) ** 2
+                lim = lim + lr * (d * slope).clamp(max=2.0)
+            err = (gc - wc).abs()
+            ratio = float((err / lim).max()) if err.numel() else 0.0
+            if ratio > worst:
+                worst, worst_leaf = ratio, path
+            bad = int((err > lim).sum())
+            if bad:
+                i = int(torch.argmax(err - lim))
+                raise AssertionError(
+                    f"{path}: {bad} elements past the step bound; element "
+                    f"{at + i}: got {float(gc[i])!r}, want {float(wc[i])!r}, "
+                    f"limit {float(lim[i])!r}, reference gradient "
+                    f"{float(grc[i])!r}")
+            n += err.numel()
+            exempt += int(small.sum())
     return {"elements": n, "exempt": exempt, "worst": worst,
             "worst_leaf": worst_leaf}
+
+
+#: elements a comparison moves to its device at once, in float64
+CHUNK = 1 << 25
+
+
+def _device_of(*xs):
+    """The card of the first of ``xs`` on one (a check runs there), else
+    the CPU."""
+    for x in xs:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return x.device
+    return torch.device("cpu")
+
+
+def _flat(x) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.detach().reshape(-1)
+
+
+def _chunked(dev, *xs):
+    """(offset, the float64 chunks on ``dev``) over the flattened
+    ``xs``."""
+    flats = [_flat(x) for x in xs]
+    for at in range(0, flats[0].numel(), CHUNK):
+        yield at, [f[at:at + CHUNK].to(dev, torch.float64) for f in flats]
 
 
 def _leaf(tree, path):
@@ -154,15 +191,16 @@ def _leaf(tree, path):
     return tree
 
 
-def grads_check(got, want, tol: float = GRAD_TOL) -> float:
-    """Each leaf within ``tol * max(1, max |want|)``; returns the largest
-    error over its limit (raises past 1)."""
+def grads_check(got, want, tol: float = GRAD_TOL, floors=None) -> float:
+    """Each leaf within ``tol * max(1, max |want|)``, or the leaf's
+    ``floors[path]`` where that is larger; returns the largest error over
+    its limit (raises past 1)."""
     worst = 0.0
     for path, g, w in _pairs(got, want):
-        dev = g.device if isinstance(g, torch.Tensor) else "cpu"
-        g, w = _f64(g, dev), _f64(w, dev)
-        lim = tol * max(1.0, float(w.abs().max()))
-        err = float((g - w).abs().max())
+        lim = max(tol * max(1.0, float(_flat(w).abs().max())),
+                  (floors or {}).get(path, 0.0))
+        err = max((float((gc - wc).abs().max()) for _, (gc, wc) in
+                   _chunked(_device_of(w, g), g, w)), default=0.0)
         if err > lim:
             raise AssertionError(f"gradient {path}: {err} > {lim}")
         worst = max(worst, err / lim)
@@ -195,8 +233,68 @@ def _weights(spec, model, device):
 
 
 def _model(spec, **kw):
+    kw.setdefault("moe_impl", spec.get("moe_impl", "dense"))
+    kw.setdefault("moe_no_drop", spec.get("moe_no_drop", False))
     return get_model(ArchConfig(**spec["cfg"]), remat=spec.get("remat",
                                                               "none"), **kw)
+
+
+class DataBlocks:
+    """A one-process model of the shardmap MoE's local capacity on ``n``
+    data ranks (``layers.apply_moe_shardmap``): the batch's ``n`` row
+    blocks (each data rank's rows) run alone, each routed with its own
+    capacity; the loss is the CE over every valid token plus
+    ``AUX_LOSS_COEF`` times the blocks' mean aux, prefill's logits and
+    cache the blocks' joined.  Decode never drops, so it is the model's."""
+
+    def __init__(self, model, n: int):
+        self.model, self.n, self.cfg = model, n, model.cfg
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _blocks(self, batch):
+        return [{k: v.chunk(self.n)[i] for k, v in batch.items()}
+                for i in range(self.n)]
+
+    def loss(self, params, batch):
+        from repro_torch.models.transformer import AUX_LOSS_COEF
+
+        nll, cnt, aux = 0.0, 0.0, 0.0
+        for part in self._blocks(batch):
+            _, m = self.model.loss(params, part)
+            c = (part["labels"] != -1).sum().float()
+            nll, cnt, aux = nll + m["ce"] * c, cnt + c, aux + m["aux"]
+        ce = nll / torch.clamp(cnt, min=1.0)
+        aux = aux / self.n
+        return ce + AUX_LOSS_COEF * aux, {"ce": ce, "aux": aux}
+
+    def prefill(self, params, batch, *args):
+        outs = [self.model.prefill(params, part, *args)
+                for part in self._blocks(batch)]
+        cache = {k: (v if k == "index" else
+                     torch.cat([o[1][k] for o in outs], dim=1))
+                 for k, v in outs[0][1].items()}
+        return torch.cat([o[0] for o in outs]), cache
+
+
+def digest(tree) -> list:
+    """The bits of every leaf of this rank's ``tree``, summed as integers
+    (one int a leaf): equal digests, the same bits but by a collision."""
+    return [int(x.detach().contiguous().view(torch.int32).long().sum())
+            if x.dtype == torch.float32 else int(x.long().sum())
+            for x in tree_leaves(tree)]
+
+
+def _twin_model(spec, model):
+    """The one-process model the mesh's work is held to: the model, or
+    for the shardmap MoE on more than one data rank its local-capacity
+    model (:class:`DataBlocks`)."""
+    data = tuple(spec["mesh"])[0]
+    if spec.get("moe_impl") == "shardmap" and data > 1 and \
+            model.cfg.is_moe:
+        return DataBlocks(model, data)
+    return model
 
 
 def _lr(spec):
@@ -239,6 +337,8 @@ def train_session(spec, device) -> dict:
     params = _weights(spec, model, device)
     mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
     specs = shd.param_specs(mesh, params)
+    local = shd.shard_tree(params, mesh, specs)
+    del params                      # the twin draws its own
     compression = spec.get("compression", "none")
     init, upd = adamw(lr=_lr(spec))
     seen = {}
@@ -249,13 +349,13 @@ def train_session(spec, device) -> dict:
 
     kw = dict(grad_accum=spec.get("ga", 1), compression=compression)
     step = make_train_step(model, update, mesh=mesh, **kw)
-    local = shd.shard_tree(params, mesh, specs)
     opt = init(local)
     res = comp.init_residuals(local) if compression != "none" else None
     batches = _batches(spec, device)
     before = ops.launch_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    L.moe_drops(True)
     losses, norms, ms = [], [], []
     for b in batches:
         _sync(device)
@@ -270,17 +370,22 @@ def train_session(spec, device) -> dict:
         norms.append(float(m["grad_norm"]))
     out = {"losses": losses, "grad_norms": norms, "ms": ms,
            "launches": _launches(before), "peak_bytes": _peak(device),
-           "collectives": dict(step.placement.stats)}
+           "collectives": dict(step.placement.stats),
+           "moe": dict(L.moe_drops(False)),
+           "digest": digest({"params": local, "grads": seen["grads"]})}
     tree = {"params": local, "grads": seen["grads"]}
     if res is not None:
         tree["residuals"] = res
     if spec.get("keep"):
         tree.update(m=opt.m, v=opt.v)
-    whole = shd.gather_tree(tree, mesh, {k: specs for k in tree})
+    # the whole tree on rank 0's host only (at full width it does not fit
+    # on every rank's share of the card), where a check reads it
+    whole = (shd.gather_tree(tree, mesh, {k: specs for k in tree}, dst=0)
+             if spec.get("twin") is True or spec.get("keep") else None)
     rank0 = dist.get_rank() == 0
     if spec.get("twin") and rank0:
-        out["twin"] = _train_twin(spec, model, whole, losses, norms, device,
-                                  kw)
+        out["twin"] = _train_twin(spec, _twin_model(spec, model), whole,
+                                  losses, norms, device, kw)
     if spec.get("keep") and rank0:
         out.update(_cpu(whole))
     return out
@@ -293,7 +398,13 @@ def _train_twin(spec, model, whole, losses, mesh_norms, device,
     (NORM_RTOL: a replicated leaf counted once a rank, not once), the
     first step's gradients (GRAD_TOL) and params (:func:`step_check`, its
     band the spec's ``step_band``, else 1), or with ``bit_equal``
-    everything bit for bit (a one-rank mesh)."""
+    everything bit for bit (a one-rank mesh).  ``twin="scalars"`` holds
+    the losses and grad_norms only (no tree is gathered).  With
+    ``spread`` the grad_norm and gradient limits are at least FLOOR_X
+    times the
+    one-process path's own spread (:func:`_grad_spread`), and each
+    element's step takes the gap that opens (``step_check``'s
+    ``g_delta``)."""
     params = _weights(spec, model, device)
     init, upd = adamw(lr=_lr(spec))
     seen = {}
@@ -324,15 +435,25 @@ def _train_twin(spec, model, whole, losses, mesh_norms, device,
         return {"bit_equal": True, "losses": want}
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
     _check(rel <= LOSS_RTOL, f"loss {losses} vs one process {want}")
+    out = {"losses": want, "loss_rel_err": rel, "grad_norms": norms}
+    norm_tol, floors, g_delta = NORM_RTOL, None, None
+    if spec.get("spread"):
+        spread = _grad_spread(spec, model, device, kw, seen["grads"],
+                              norms[0])
+        out["spread"] = spread
+        norm_tol = max(NORM_RTOL, FLOOR_X * spread["norm_rel"])
+        floors = {k: FLOOR_X * v for k, v in spread["grads"].items()}
+        g_delta = floors
     norm_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_norms, norms))
-    _check(norm_rel <= NORM_RTOL, f"grad_norm {mesh_norms} vs one process "
-           f"{norms}")
-    out = {"losses": want, "loss_rel_err": rel, "grad_norms": norms,
-           "grad_norm_rel_err": norm_rel}
-    g_delta = None
+    _check(norm_rel <= norm_tol, f"grad_norm {mesh_norms} vs one process "
+           f"{norms} (limit {norm_tol} rel)")
+    out.update(grad_norm_rel_err=norm_rel, grad_norm_limit=norm_tol)
+    if spec.get("twin") == "scalars":
+        return out
     if res is None:
         out["grads_err_over_limit"] = grads_check(whole["grads"],
-                                                  seen["grads"])
+                                                  seen["grads"],
+                                                  floors=floors)
     else:
         checked, g_delta = _compressed_check(whole, seen["grads"], res,
                                              mesh_norms[0], norms[0])
@@ -342,6 +463,38 @@ def _train_twin(spec, model, whole, losses, mesh_norms, device,
                                    _lr_at_1(spec), g_delta=g_delta,
                                    band=spec.get("step_band", 1.0))
     return out
+
+
+def _grad_spread(spec, model, device, kw, grads, norm) -> dict:
+    """The one-process path's own spread: its first step again on the
+    weights with every element moved by one part in 2^23 (a rounding-
+    level change, signs from a seeded generator), the same batch.
+    Returns {"norm_rel": the pre-clip grad_norm's relative change,
+    "grads": {leaf path: the largest change of the clipped gradient}}.
+    A path whose gradients amplify rounding (RWKV6 at init: heads whose
+    wkv output has a variance near the group norm's eps) moves by far
+    more than the rounding; the mesh's arithmetic, another order of the
+    same sums, can move it as far."""
+    params = _weights(spec, model, device)
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def nudge(x):
+        if not x.is_floating_point():
+            return x
+        sign = torch.randint(0, 2, x.shape, generator=gen, device=device)
+        return x * (1 + (2.0 * sign - 1) * 2.0 ** -23)
+    params = tree_map(nudge, params)
+    init, upd = adamw(lr=_lr(spec))
+    seen = {}
+
+    def update(g, s, p):
+        seen.setdefault("grads", g)
+        return upd(g, s, p)
+    step = make_train_step(model, update, **kw)
+    _, _, m = step(params, init(params), _batches(spec, device)[0])
+    return {"norm_rel": abs(float(m["grad_norm"]) - norm) / norm,
+            "grads": {path: float((a - b).abs().max()) for path, a, b in
+                      _pairs(seen["grads"], grads)}}
 
 
 def _compressed_check(whole, grads, res, got_norm, norm) -> dict:
@@ -396,11 +549,13 @@ def serve_session(spec, device) -> dict:
     prompts = torch.from_numpy(np.asarray(spec["prompts"])).long().to(device)
     cache_len = spec["cache_len"]
     rank0 = dist.get_rank() == 0
-    twin = _serve_twin(spec, model, params, prompts, device) \
-        if spec.get("twin") and rank0 else None
+    twin = _serve_twin(spec, _twin_model(spec, model), params, prompts,
+                       device) if spec.get("twin") and rank0 else None
+    del params
     before = ops.launch_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    L.moe_drops(True)
     out = {}
     _sync(device)
     t0 = time.perf_counter()
@@ -443,9 +598,17 @@ def serve_session(spec, device) -> dict:
         picks.append(tokens.cpu())
         tokens = logits.argmax(-1)
     picks.append(tokens.cpu())
+    if spec.get("keep_cache"):
+        whole = decode.gather_cache(cache, prompts.shape[0])
+        if rank0:
+            out["cache_whole"] = {k: v.cpu() for k, v in whole.items()
+                                  if isinstance(v, torch.Tensor)}
     out.update(steps=steps, tokens=torch.stack(picks, 1), ms=ms,
                launches=_launches(before), peak_bytes=_peak(device),
-               cache_shape=list(cache["k"].shape),
+               moe=dict(L.moe_drops(False)),
+               cache_shape=list(cache["k"].shape) if "k" in cache else None,
+               cache_shapes={k: list(v.shape) for k, v in cache.items()
+                             if isinstance(v, torch.Tensor)},
                collectives={k: v - stats0.get(k, 0)
                             for k, v in place.stats.items()},
                collectives_session=dict(place.stats))
@@ -496,7 +659,8 @@ def _serve_twin(spec, model, params, prompts, device) -> dict:
     first step and at any step."""
     logits, cache = model.prefill(params, {"tokens": prompts},
                                   torch.float32, spec["cache_len"])
-    twin = {"prefill": logits, "cache": {k: cache[k] for k in ("k", "v")}}
+    twin = {"prefill": logits, "cache": {k: v for k, v in cache.items()
+                                         if k != "index"}}
     if spec["kv"] == "int8":
         whole = spec.get("cache")
         if whole is not None:
@@ -632,7 +796,124 @@ def bad_mesh_session(spec, device) -> dict:
                          f"{dist.get_world_size()} ranks did not raise")
 
 
-SESSIONS = {"train": train_session, "serve": serve_session,
+def pipeline_session(spec, device) -> dict:
+    """The GPipe loss and gradients, ``steps`` times (each timed); with
+    ``twin`` rank 0 holds them to ``model.loss`` and its gradients in
+    one process (loss LOSS_RTOL, gradients GRAD_TOL)."""
+    model = _model(spec)
+    params = _weights(spec, model, device)
+    axes = tuple(spec.get("axes", ("pod", "data")))
+    mesh = make_test_mesh(tuple(spec["mesh"]), axes, device_type=device.type)
+    loss_fn = make_pipeline_loss(model, mesh,
+                                 n_microbatches=spec["microbatches"])
+    place = loss_fn.placement
+    local = stage_params(params, mesh)
+    batch = _batches(spec, device)[0]
+    before = ops.launch_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ms, stats = [], []
+    for _ in range(spec.get("steps", 1)):
+        s0 = dict(place.stats)
+        _sync(device)
+        t0 = time.perf_counter()
+        loss, grads = loss_fn.value_and_grad(local, batch)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append({k: v - s0.get(k, 0) for k, v in place.stats.items()})
+    stages = place.sizes["pod"]
+    out = {"loss": float(loss), "ms": ms, "collectives_a_step": stats[-1],
+           "launches": _launches(before), "peak_bytes": _peak(device),
+           "stages": stages, "microbatches": spec["microbatches"],
+           "bubble": (stages - 1) / (spec["microbatches"] + stages - 1)}
+    whole = gather_stages(grads, mesh)
+    if dist.get_rank() == 0:
+        if spec.get("twin"):
+            out["twin"] = _pipeline_twin(model, params, batch, float(loss),
+                                         whole)
+        if spec.get("keep"):
+            out["grads"] = _cpu(whole)
+    return out
+
+
+def _pipeline_twin(model, params, batch, loss, grads) -> dict:
+    leaves = tree_leaves(params)
+    live = [x.detach().requires_grad_(True) for x in leaves]
+    it = iter(live)
+    want, _ = model.loss(tree_map(lambda _: next(it), params), batch)
+    it = iter(torch.autograd.grad(want, live))
+    g_ref = tree_map(lambda _: next(it), params)
+    want = want.detach()
+    rel = abs(loss - float(want)) / abs(float(want))
+    _check(rel <= LOSS_RTOL, f"pipeline loss {loss} vs one process "
+           f"{float(want)}")
+    return {"loss": float(want), "loss_rel_err": rel,
+            "grads_err_over_limit": grads_check(grads, g_ref)}
+
+
+def pipeline_backward_session(spec, device) -> dict:
+    """``loss.backward()`` on this rank's leaves gives ``value_and_grad``'s
+    gradients, bit for bit."""
+    model = _model(spec)
+    params = _weights(spec, model, device)
+    mesh = make_test_mesh(tuple(spec["mesh"]), tuple(spec["axes"]),
+                          device_type=device.type)
+    loss_fn = make_pipeline_loss(model, mesh,
+                                 n_microbatches=spec["microbatches"])
+    local = stage_params(params, mesh)
+    batch = _batches(spec, device)[0]
+    _, grads = loss_fn.value_and_grad(local, batch)
+    live = tree_map(lambda x: x.detach().requires_grad_(True), local)
+    loss_fn(live, batch).backward()
+    return {"equal": all(torch.equal(a.grad, b) for a, b in zip(
+        tree_leaves(live), tree_leaves(grads)))}
+
+
+def pipeline_errors_session(spec, device) -> dict:
+    """What the pipeline and the model code refuse on a pod mesh: layers
+    that do not divide over the stages, a batch that does not divide
+    over data x microbatches, the model code on a pod axis."""
+    import dataclasses
+
+    raised = {}
+    mesh = make_test_mesh((2, 2), ("pod", "data"), device_type=device.type)
+    cfg = ArchConfig(**spec["cfg"])
+    try:
+        make_pipeline_loss(get_model(dataclasses.replace(cfg, n_layers=3)),
+                           mesh, n_microbatches=2)
+    except ValueError as e:
+        raised["layers"] = str(e)
+    model = _model(spec)
+    loss_fn = make_pipeline_loss(model, mesh, n_microbatches=4)
+    toks = torch.zeros((4, 8), dtype=torch.long, device=device)
+    try:
+        loss_fn({}, {"tokens": toks, "labels": toks})
+    except ValueError as e:
+        raised["batch"] = str(e)
+    try:
+        model.impl.on_mesh(mesh)
+    except NotImplementedError as e:
+        raised["pod refused"] = str(e)
+    return {"raised": raised}
+
+
+def raises_session(spec, device) -> dict:
+    """``on_mesh`` of each of ``cfgs`` on this spec's mesh: the message of
+    the ``NotImplementedError`` it raises (None where it places)."""
+    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    out = []
+    for cfg in spec["cfgs"]:
+        try:
+            get_model(ArchConfig(**cfg)).on_mesh(mesh)
+            out.append(None)
+        except NotImplementedError as e:
+            out.append(str(e))
+    return {"raised": out}
+
+
+SESSIONS = {"pipeline": pipeline_session, "raises": raises_session,
+            "pipeline_backward": pipeline_backward_session,
+            "pipeline_errors": pipeline_errors_session, "train": train_session, "serve": serve_session,
             "save": save_session, "restore": restore_session,
             "roundtrip": roundtrip_session, "bad_mesh": bad_mesh_session}
 
@@ -647,5 +928,7 @@ def mesh_sessions(specs: list) -> list:
         res = SESSIONS[spec["kind"]](spec, device)
         res["session_s"] = time.monotonic() - t0
         out.append(res)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         dist.barrier()
     return out

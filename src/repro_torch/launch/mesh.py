@@ -9,9 +9,11 @@ The mesh factories keep the reference's shape arithmetic and return a
 ``DeviceMesh`` with ``mesh_dim_names``.  :func:`run_ranks` starts N
 ranks of a function on this host (``torch.multiprocessing``, a
 ``FileStore`` rendezvous: no TCP port) and joins them with a time
-limit.  :class:`MeshPlacement` gives the model code a rank's place on a
-``(data, model)`` mesh: its coordinate and one :class:`MeshAxis` (the
-axis's process group and its counted collectives) an axis.
+limit.  :class:`MeshPlacement` gives a rank's place on a ``(pod, data,
+model)`` mesh: its coordinate and one :class:`MeshAxis` (the axis's
+process group and its counted collectives) an axis.  The model code
+places over ``data`` and ``model``; the GPipe pipeline
+(``runtime.pipeline_par``) takes ``pod`` as its stage axis.
 ``make_production_mesh`` is not
 ported: it serves the reference's XLA dry run on a faked 512-device
 mesh.
@@ -205,20 +207,64 @@ class MeshAxis:
         n = x.shape[dim] // self.size
         return x.narrow(dim, self.index * n, n)
 
+    def _peer(self, index: int) -> int:
+        import torch.distributed as dist
 
-#: the axes the model code places over (ROADMAP: ``pod`` is the pipeline's)
+        return (index if self.group is None else
+                dist.get_global_rank(self.group, index))
+
+    def send(self, x: torch.Tensor, index: int):
+        """Send ``x`` to the rank at ``index`` on this axis (blocking).
+        Over gloo a card tensor goes through the host, as gloo's own
+        collectives stage it."""
+        import torch.distributed as dist
+
+        x = x.detach().contiguous()
+        if x.is_cuda and dist.get_backend() == "gloo":
+            x = x.cpu()
+        self.note("send", x)
+        dist.send(x, self._peer(index))
+
+    def recv(self, like: torch.Tensor, index: int) -> torch.Tensor:
+        """A tensor shaped and typed as ``like``, on its device, received
+        from the rank at ``index`` on this axis (blocking)."""
+        import torch.distributed as dist
+
+        stage = like.is_cuda and dist.get_backend() == "gloo"
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if stage else like.device)
+        dist.recv(buf, self._peer(index))
+        return buf.to(like.device) if stage else buf
+
+
+#: the axes a placement knows: ``pod`` (the pipeline's stages), ``data``
+#: and ``model``
+MESH_AXES = ("pod", "data", "model")
+#: the axes the model code places over (a pod axis there: ROADMAP A13)
 MODEL_AXES = ("data", "model")
 
 
+def refuse_pod(place, what: str):
+    """The model code's guard: ``NotImplementedError`` where the mesh has a
+    ``pod`` axis (the reference places the batch and FSDP over ``(pod,
+    data)`` and the KV sequence over ``(pod, model)``; not ported)."""
+    if "pod" in place.names:
+        raise NotImplementedError(
+            f"{what} on a mesh with a pod axis: the model code places over "
+            f"{MODEL_AXES} only (ROADMAP A13: the model code on a (pod, "
+            "data, model) mesh; the GPipe pipeline over pod is "
+            "runtime.pipeline_par)")
+
+
 class MeshPlacement:
-    """A rank's place on a ``(data, model)`` mesh: ``sizes`` and
-    ``coord`` ({axis: int}; an axis the mesh lacks has size 1), one
-    :class:`MeshAxis` an axis (``data``, ``model``) and ``world`` (every
-    rank of the mesh), and ``stats``, the count of their collectives.
-    Raises ``TypeError`` for what is not a ``DeviceMesh``, ``ValueError``
-    for a mesh that does not cover every rank of the default group, and
-    ``NotImplementedError`` for an axis other than ``data`` and
-    ``model``."""
+    """A rank's place on a ``(pod, data, model)`` mesh: ``names`` (the
+    mesh's axes), ``sizes`` and ``coord`` ({axis: int}; an axis the mesh
+    lacks has size 1), one :class:`MeshAxis` an axis (``pod``, ``data``,
+    ``model``) and ``world`` (every rank of the mesh), and ``stats``, the
+    count of their collectives.  Raises ``TypeError`` for what is not a
+    ``DeviceMesh``, ``ValueError`` for a mesh that does not cover every
+    rank of the default group, and ``NotImplementedError`` for an axis
+    other than those."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
@@ -227,30 +273,32 @@ class MeshPlacement:
             raise TypeError(f"a DeviceMesh with mesh_dim_names, not "
                             f"{type(mesh).__name__}")
         names = tuple(mesh.mesh_dim_names or ())
-        extra = [a for a in names if a not in MODEL_AXES]
+        extra = [a for a in names if a not in MESH_AXES]
         if extra:
             raise NotImplementedError(
-                f"mesh axes {extra}: the model code places over "
-                f"{MODEL_AXES} only (a pod axis is the pipeline's, ROADMAP "
-                "A7 rest: runtime/pipeline_par.py)")
+                f"mesh axes {extra}: a placement knows {MESH_AXES} only")
         n = mesh.size()
         if n != dist.get_world_size():
             raise ValueError(f"a mesh of {n} ranks over a group of "
                              f"{dist.get_world_size()}: the model code "
                              "places over every rank of the group")
-        self.mesh = mesh
+        self.mesh, self.names = mesh, names
         self.stats = collections.Counter()
         coord = mesh.get_coordinate()
-        self.sizes = {a: 1 for a in MODEL_AXES}
-        self.coord = {a: 0 for a in MODEL_AXES}
+        self.sizes = {a: 1 for a in MESH_AXES}
+        self.coord = {a: 0 for a in MESH_AXES}
         self.axes = {}
         for i, a in enumerate(names):
             self.sizes[a], self.coord[a] = mesh.shape[i], coord[i]
-        for a in MODEL_AXES:
+        for a in MESH_AXES:
             group = mesh.get_group(a) if a in names else None
             self.axes[a] = MeshAxis(a, group, self.sizes[a], self.coord[a],
                                     self.stats)
         self.world = MeshAxis("world", None, n, dist.get_rank(), self.stats)
+
+    @property
+    def pod(self) -> MeshAxis:
+        return self.axes["pod"]
 
     @property
     def data(self) -> MeshAxis:

@@ -28,6 +28,9 @@ tests compare like with like:
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -105,6 +108,62 @@ def _local_cols(bias, n: int, group):
     if group is None or bias.shape[-1] == n:
         return bias
     return copy_to_group(bias, group).narrow(-1, group.index * n, n)
+
+
+def split_to_group(x, group, dim: int):
+    """This rank's ``1 / size`` slice along ``dim`` of a replicated ``x``
+    (every rank's gradient of its slice summed: the whole gradient on
+    every rank)."""
+    if _alone(group):
+        return x
+    return group.part(copy_to_group(x, group), dim)
+
+
+def col_full(x, w, group, split: bool):
+    """The whole ``x @ w`` on every rank, its gradient whole too: over
+    ``group``, ``w`` split by columns (``split``) gives this rank's
+    columns, gathered; else every rank computes the product."""
+    if _alone(group) or not split:
+        return x @ w.to(x.dtype)
+    return gather_from_group(copy_to_group(x, group) @ w.to(x.dtype),
+                             group, -1)
+
+
+def whole_param(w, group, dim: int, split: bool):
+    """A param that this rank uses only in part, whole: gathered along
+    ``dim`` where ``split``, and through :func:`copy_to_group` (each
+    rank's part of its gradient summed, then this rank's slice kept)."""
+    if _alone(group):
+        return w
+    return copy_to_group(gather_from_group(w, group, dim) if split else w,
+                         group)
+
+
+# ---------------------------------------------------------------------------
+# products remat "dots" recomputes
+# ---------------------------------------------------------------------------
+
+_UNSAVED = contextvars.ContextVar("unsaved", default=False)
+
+
+@contextlib.contextmanager
+def unsaved():
+    """Products run inside are ones the reference's remat "dots"
+    (``checkpoint_dots_with_no_batch_dims``) does not keep, though they
+    reach the dispatcher as a 2-D ``mm`` (``transformer.dots_policy``
+    reads :func:`saving`): the FFN's down product, whose output no
+    backward rule reads (JAX's partial evaluation drops it), and the MoE
+    experts' products, batched einsums in the reference."""
+    token = _UNSAVED.set(True)
+    try:
+        yield
+    finally:
+        _UNSAVED.reset(token)
+
+
+def saving() -> bool:
+    """Whether a product run now may be kept (outside :func:`unsaved`)."""
+    return not _UNSAVED.get()
 
 
 # ---------------------------------------------------------------------------
@@ -466,10 +525,13 @@ def apply_mlp(p, x, act, group=None):
         up = x @ p["w_up"].to(x.dtype)
         h = F.gelu(up + _local_cols(p["b_up"], up.shape[-1], group)
                    .to(x.dtype), approximate="tanh")
-        return (reduce_from_group(h @ p["w_down"].to(x.dtype), group) +
-                p["b_down"].to(x.dtype))
+        with unsaved():
+            down = h @ p["w_down"].to(x.dtype)
+        return reduce_from_group(down, group) + p["b_down"].to(x.dtype)
     h = _gate_act(x @ p["w_gate"].to(x.dtype), act) * (x @ p["w_up"].to(x.dtype))
-    return reduce_from_group(h @ p["w_down"].to(x.dtype), group)
+    with unsaved():
+        down = h @ p["w_down"].to(x.dtype)
+    return reduce_from_group(down, group)
 
 
 def init_moe(generator, cfg, *, lead=(), dtype=torch.float32, device=None):
@@ -495,7 +557,24 @@ def moe_capacity(cfg, t: int, capacity=None, no_drop: bool = False) -> int:
     return capacity
 
 
-def moe_route(p, xt, cfg, capacity: int):
+#: MoE routing counts, summed over every routed call while not None
+#: (``moe_drops(True)``): pairs routed, pairs dropped past capacity, and
+#: ``kept_sig``, the sum of ``(token * k + slot) * E + expert`` over the
+#: pairs this rank's experts keep (equal sums: the same routing)
+MOE_DROPS = None
+
+
+def moe_drops(on: bool = True):
+    """Start (``on``) or stop counting the (token, slot) pairs routed and
+    dropped by every MoE call; returns the counts so far (a Counter, or
+    None when off).  The count rides on the routing's one host read."""
+    global MOE_DROPS
+    was = MOE_DROPS
+    MOE_DROPS = collections.Counter() if on else None
+    return was
+
+
+def moe_route(p, xt, cfg, capacity: int, data=None):
     """The reference's token-choice top-k routing of ``xt`` [T, d].
 
     Ties go to the lower expert id (a stable descending sort, as
@@ -503,21 +582,94 @@ def moe_route(p, xt, cfg, capacity: int):
     token's place in slot j's buffer of its expert is its rank among the
     tokens routed there in slot j, in token order, and it is dropped at
     ``pos >= capacity``.  Returns (topv [T, k] f32, topi [T, k], keep
-    [T, k] bool, the Switch-style aux loss over ``topi[:, 0]``)."""
+    [T, k] bool, the Switch-style aux loss over ``topi[:, 0]``).
+
+    Over ``data`` (a mesh's data axis, each rank holding its rows of the
+    global batch in rank order) the routing is the global batch's, the
+    one GSPMD gives the reference: a token's place adds the exclusive
+    prefix of the (slot, expert) counts of the data ranks before this
+    one, and ``aux`` takes the global means of the first slot's density
+    and of the probabilities (the probabilities' sum reduced with
+    :func:`reduce_from_group`: each rank's gradient is its tokens')."""
     e, k = cfg.n_experts, cfg.top_k
     logits = (xt @ p["router"].to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]
     topv = topv / topv.sum(dim=-1, keepdim=True)
-    density = F.one_hot(topi[:, 0], e).float().mean(dim=0)
-    aux = torch.sum(density * probs.mean(dim=0)) * (e ** 2) / e
     onehot = F.one_hot(topi, e)                               # [T, k, E]
     pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+    first = F.one_hot(topi[:, 0], e).float()
+    if _alone(data):
+        density, proxy = first.mean(dim=0), probs.mean(dim=0)
+    else:
+        every = data.all_gather(onehot.sum(dim=0)[None], 0)  # [n, k, E]
+        before = every[:data.index].sum(dim=0)
+        pos = pos + (onehot * before[None]).sum(dim=-1)
+        t_all = xt.shape[0] * data.size
+        density = data.all_reduce(first.sum(dim=0)) / t_all
+        proxy = reduce_from_group(probs.sum(dim=0), data) / t_all
+    aux = torch.sum(density * proxy) * (e ** 2) / e
     return topv, topi, pos < capacity, aux
 
 
-def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False):
+def _expert_rows(p, xt, cfg, topv, topi, keep, ep=None):
+    """``Σ_j topv[:, j] * expert_{topi[:, j]}(x)`` over the kept pairs, each
+    expert's three products on its own rows.  ``p`` holds every expert,
+    or over ``ep`` (the model axis splitting them) this rank's ``E / n``
+    from ``index * E / n``: its pairs' rows, the partial outputs summed
+    over ``ep`` (x and the top-k weights take ``copy_to_group``: each
+    rank's experts give part of their gradients)."""
+    t, d = xt.shape
+    k = cfg.top_k
+    n = p["w_gate"].shape[0]
+    lo = 0 if _alone(ep) else ep.index * n
+    mine = keep & (topi >= lo) & (topi < lo + n)
+    # pairs t*k + j sorted by expert, the others (id n) last
+    eid = torch.where(mine, topi - lo, n).reshape(-1)
+    order = torch.argsort(eid, stable=True)
+    tally = [torch.bincount(eid, minlength=n + 1)]
+    if MOE_DROPS is not None:
+        pair = torch.arange(t * k, device=xt.device).reshape(t, k)
+        tally += [(~keep).sum().reshape(1), torch.where(
+            mine, pair * cfg.n_experts + topi, 0).sum().reshape(1)]
+    counts = torch.cat(tally).tolist()
+    if MOE_DROPS is not None:
+        MOE_DROPS["pairs"] += t * k
+        MOE_DROPS["dropped"] += counts[n + 1]
+        MOE_DROPS["kept_sig"] += counts[n + 2]
+    kept = order[:t * k - counts[n]]
+    xe = copy_to_group(xt, ep)
+    rows = xe[kept // k]
+    ys = []
+    for rows_e, wg, wu, wd in zip(rows.split(counts[:n]),
+                                  p["w_gate"].unbind(0),
+                                  p["w_up"].unbind(0),
+                                  p["w_down"].unbind(0)):
+        if rows_e.shape[0]:
+            with unsaved():
+                h = (_gate_act(rows_e @ wg.to(xt.dtype), cfg.act) *
+                     (rows_e @ wu.to(xt.dtype)))
+                ys.append(h @ wd.to(xt.dtype))
+    y = xt.new_zeros((t * k, d))
+    if ys:
+        y = y.index_copy(0, kept, torch.cat(ys))
+    y = y.reshape(t, k, d)
+    tv = copy_to_group(topv, ep)
+    out = xt.new_zeros((t, d))
+    for j in range(k):
+        out = out + y[:, j] * tv[:, j:j + 1].to(xt.dtype)
+    return reduce_from_group(out, ep)
+
+
+def _expert_axis(p, cfg, place):
+    """The axis splitting the experts on a mesh: ``model`` where this
+    rank holds ``E / model`` of them, else none (every rank all)."""
+    return place.model if p["w_gate"].shape[0] < cfg.n_experts else None
+
+
+def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False,
+              place=None):
     """Token-choice top-k MoE.  x: [B, S, d].  Returns (out, aux).
 
     Routing is the reference's (:func:`moe_route`).  Dispatch differs:
@@ -526,33 +678,54 @@ def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False):
     the work is the routed rows', not E capacity-sized buffers'.  A
     dropped pair adds nothing; the slots are summed in order j = 0..k-1,
     each weighted by its ``topv``, as the reference sums them.  One host
-    read a call: the rows each expert keeps."""
+    read a call: the rows each expert keeps.
+
+    On a mesh (``place``, a ``launch.mesh.MeshPlacement``; ``x`` this
+    data rank's rows, replicated over ``model``) the result is the
+    reference's GSPMD one, the one-process routing of the global batch:
+    the capacity from the global token count, places ranked over the
+    data ranks (:func:`moe_route` over ``data``), the global aux; the
+    experts as ``param_specs`` places them (``E -> model``), each rank
+    running its own on its rows and the outputs summed over ``model``."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
     t = b * s
     xt = x.reshape(t, d)
-    topv, topi, keep, aux = moe_route(
-        p, xt, cfg, moe_capacity(cfg, t, capacity, no_drop))
-    # pairs t*k + j sorted by expert, the dropped ones (id e) last
-    eid = torch.where(keep, topi, e).reshape(-1)
-    order = torch.argsort(eid, stable=True)
-    counts = torch.bincount(eid, minlength=e + 1).tolist()
-    kept = order[:t * k - counts[e]]
-    rows = xt[kept // k]
-    ys = []
-    for rows_e, wg, wu, wd in zip(rows.split(counts[:e]),
-                                  p["w_gate"].unbind(0),
-                                  p["w_up"].unbind(0),
-                                  p["w_down"].unbind(0)):
-        if rows_e.shape[0]:
-            h = (_gate_act(rows_e @ wg.to(x.dtype), cfg.act) *
-                 (rows_e @ wu.to(x.dtype)))
-            ys.append(h @ wd.to(x.dtype))
-    y = x.new_zeros((t * k, d)).index_copy(0, kept, torch.cat(ys))
-    y = y.reshape(t, k, d)
-    out = x.new_zeros((t, d))
-    for j in range(k):
-        out = out + y[:, j] * topv[:, j:j + 1].to(x.dtype)
+    if place is None:
+        topv, topi, keep, aux = moe_route(
+            p, xt, cfg, moe_capacity(cfg, t, capacity, no_drop))
+        return _expert_rows(p, xt, cfg, topv, topi, keep).reshape(
+            b, s, d), aux
+    cap = moe_capacity(cfg, t * place.sizes["data"], capacity, no_drop)
+    topv, topi, keep, aux = moe_route(p, xt, cfg, cap, place.data)
+    out = _expert_rows(p, xt, cfg, topv, topi, keep,
+                       _expert_axis(p, cfg, place))
+    return out.reshape(b, s, d), aux
+
+
+def apply_moe_shardmap(p, x, cfg, no_drop: bool = False, place=None):
+    """The reference's explicit-schedule MoE (``apply_moe_shardmap``): on
+    a mesh each data rank routes its own tokens with the local capacity
+    ``int(cf * T_local * k / E)`` (``T_local`` under ``no_drop``), each
+    model rank runs its ``E / model`` experts on their rows (the
+    weights arrive whole over ``data`` from the FSDP gather), the
+    outputs are summed over ``model`` and ``aux`` is the local Switch
+    loss averaged over ``data``.  Where a token is dropped this is a
+    different result from :func:`apply_moe` on the mesh (global
+    capacity); the two agree under ``no_drop`` or with ``data = 1``.
+    Outside a mesh, on a mesh without a ``model`` axis, or where the
+    experts do not split over it, it runs :func:`apply_moe`, as the
+    reference falls back.  Returns (out, aux)."""
+    if place is None:
+        return apply_moe(p, x, cfg, no_drop=no_drop)
+    if "model" not in place.names or cfg.n_experts % place.sizes["model"]:
+        return apply_moe(p, x, cfg, no_drop=no_drop, place=place)
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    topv, topi, keep, aux = moe_route(p, xt, cfg,
+                                      moe_capacity(cfg, t, None, no_drop))
+    out = _expert_rows(p, xt, cfg, topv, topi, keep, place.model)
+    aux = reduce_from_group(aux, place.data) / place.sizes["data"]
     return out.reshape(b, s, d), aux
 
 
@@ -636,7 +809,11 @@ def nll_sum(logits, labels, ignore_id: int = -1):
     return torch.sum((lse - gold[..., 0]) * mask), torch.sum(mask)
 
 
-def cross_entropy(logits, labels, ignore_id: int = -1):
-    """Mean next-token CE in f32 over labels != ``ignore_id``."""
+def cross_entropy(logits, labels, ignore_id: int = -1, data=None):
+    """Mean next-token CE in f32 over labels != ``ignore_id``; over
+    ``data`` (a mesh's data axis, each rank its rows) the mean over every
+    rank's valid labels."""
     nll, count = nll_sum(logits, labels, ignore_id)
+    if not _alone(data):
+        nll, count = reduce_from_group(nll, data), data.all_reduce(count)
     return nll / torch.clamp(count, min=1.0)

@@ -19,11 +19,16 @@ the reference's take theirs by autodiff: no Pallas kernel covers them.
 Params use the reference's layout (``layers`` stacked along a leading
 ``n_layers`` dim, ``shared_attn`` unstacked, an untied ``lm_head``), so
 weights convert one to one (``models.convert``).
+
+``Zamba2LM.on_mesh(mesh)`` places the model on a ``(data, model)`` mesh:
+the batch's rows over ``data``, FSDP as ``runtime.sharding.param_specs``
+places the weights, and tensor parallelism by heads over ``model``
+(:class:`MambaTP`; the shared block as the dense transformer's).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -179,47 +184,106 @@ def _dt_da(p, dt):
     return dt, -torch.exp(p["a_log"].float()) * dt
 
 
-def apply_mamba2_seq(p, x, cfg, conv_state, ssm_state, chunk: int = 64):
+class MambaTP(NamedTuple):
+    """A Mamba2 block's tensor parallelism over ``group`` (a mesh's
+    ``model`` axis): this rank runs ``H / n`` of the SSM heads.
+    ``in_proj`` packs ``z | x | B | C | dt``, so a contiguous split of its
+    columns (``in_split``, as ``param_spec`` places it) mixes the parts:
+    its product is gathered whole and each rank takes its heads' ``z``,
+    ``x`` and ``dt`` and all of ``B`` and ``C``, which every head shares;
+    ``conv_w`` over the conv channels (``conv_split``) likewise, gathered
+    and sliced to those channels.  ``gate_norm`` normalises over the
+    whole ``d_inner``: the sum of squares is all-reduced.  ``out_proj``
+    splits by rows, its output summed over the axis."""
+    group: Any
+    in_split: bool
+    conv_split: bool
+
+
+def _tp_parts(p, x, cfg, tp: Optional[MambaTP]):
+    """(z, xBC, dt, conv_w, conv_b, the head params {a_log, d_skip,
+    dt_bias}, gate scale) of this rank's heads: its ``x`` channels and
+    all of ``B`` and ``C`` in xBC and the conv's weights (every head in
+    one process)."""
+    d_inner, n_heads, conv_dim = mamba2_dims(cfg)
+    heads = {k: p[k] for k in ("a_log", "d_skip", "dt_bias")}
+    if tp is None:
+        z, xbc, dt = _split_proj(cfg, x @ p["in_proj"].to(x.dtype))
+        return (z, xbc, dt, p["conv_w"], p["conv_b"], heads,
+                p["gate_norm"]["scale"])
+    g = tp.group
+    dl, lo = d_inner // g.size, g.index * (d_inner // g.size)
+    whole = L.copy_to_group(L.col_full(x, p["in_proj"], g, tp.in_split), g)
+    z, xbc, dt = _split_proj(cfg, whole)
+    chans = torch.cat([torch.arange(lo, lo + dl, device=x.device),
+                       torch.arange(d_inner, conv_dim, device=x.device)])
+    conv_w = L.whole_param(p["conv_w"], g, -1, tp.conv_split)
+    conv_b = L.whole_param(p["conv_b"], g, -1, False)
+    return (z.narrow(-1, lo, dl), xbc.index_select(-1, chans),
+            g.part(dt, -1), conv_w.index_select(-1, chans),
+            conv_b.index_select(-1, chans),
+            {k: L.split_to_group(v, g, -1) for k, v in heads.items()},
+            L.split_to_group(p["gate_norm"]["scale"], g, -1))
+
+
+def _gate_out(p, y, z, scale, tp: Optional[MambaTP], eps: float = 1e-6):
+    """``rmsnorm(y * silu(z)) @ out_proj``: over ``tp`` the sum of squares
+    over the whole ``d_inner`` all-reduced (its gradient too) and the
+    row-parallel product summed."""
+    if tp is None:
+        y = L.apply_norm({"scale": scale}, y * F.silu(z), "rmsnorm")
+        return y @ p["out_proj"].to(y.dtype)
+    g = tp.group
+    gz = (y * F.silu(z)).float()
+    ss = L.copy_to_group(L.reduce_from_group(
+        gz.square().sum(-1, keepdim=True), g), g)
+    var = ss / (gz.shape[-1] * g.size)
+    y = (gz * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+    return L.reduce_from_group(y @ p["out_proj"].to(y.dtype), g)
+
+
+def apply_mamba2_seq(p, x, cfg, conv_state, ssm_state, chunk: int = 64,
+                     tp: Optional[MambaTP] = None):
     """x: [B, S, d]; conv_state: [B, D_CONV - 1, conv_dim], prepended to
     the conv's input; ssm_state: [B, H, dh, ds].  Returns (out,
-    new conv state, new ssm state)."""
+    new conv state, new ssm state).  Over ``tp`` the states are this
+    rank's: the conv's its heads' x channels and B, C; the SSM's its
+    heads."""
     b, s, _ = x.shape
-    d_inner, n_heads, _ = mamba2_dims(cfg)
     ds, dh = cfg.ssm_state, cfg.ssm_head_dim
-    z, xbc, dt = _split_proj(cfg, x @ p["in_proj"].to(x.dtype))
+    z, xbc, dt, conv_w, conv_b, hp, scale = _tp_parts(p, x, cfg, tp)
     full = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-    conv = _causal_conv(full, p["conv_w"].to(x.dtype),
-                        p["conv_b"].to(x.dtype))[:, D_CONV - 1:]
+    conv = _causal_conv(full, conv_w.to(x.dtype),
+                        conv_b.to(x.dtype))[:, D_CONV - 1:]
     new_conv = full[:, -(D_CONV - 1):]
-    xs, bm, cm = conv.split([d_inner, ds, ds], dim=-1)
-    xs = xs.reshape(b, s, n_heads, dh)
-    dt, da = _dt_da(p, dt)
+    xs, bm, cm = conv.split([conv.shape[-1] - 2 * ds, ds, ds], dim=-1)
+    xs = xs.reshape(b, s, -1, dh)
+    dt, da = _dt_da(hp, dt)
     y, h_t = ssd_chunked(xs.float(), dt, da, bm.float(), cm.float(),
                          ssm_state, chunk=chunk)
-    y = y + xs.float() * p["d_skip"].float()[:, None]
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = L.apply_norm(p["gate_norm"], y * F.silu(z), "rmsnorm")
-    return y @ p["out_proj"].to(x.dtype), new_conv, h_t
+    y = y + xs.float() * hp["d_skip"].float()[:, None]
+    y = y.reshape(b, s, -1).to(x.dtype)
+    return _gate_out(p, y, z, scale, tp), new_conv, h_t
 
 
-def apply_mamba2_step(p, x, cfg, conv_state, ssm_state):
+def apply_mamba2_step(p, x, cfg, conv_state, ssm_state,
+                      tp: Optional[MambaTP] = None):
     """x: [B, d], one token; conv_state: [B, D_CONV - 1, conv_dim].
-    Returns (out [B, d], new conv state, new ssm state)."""
+    Returns (out [B, d], new conv state, new ssm state); over ``tp``
+    this rank's states, as :func:`apply_mamba2_seq`'s."""
     b, _ = x.shape
-    d_inner, n_heads, _ = mamba2_dims(cfg)
     ds, dh = cfg.ssm_state, cfg.ssm_head_dim
-    z, xbc, dt = _split_proj(cfg, x @ p["in_proj"].to(x.dtype))
+    z, xbc, dt, conv_w, conv_b, hp, scale = _tp_parts(p, x, cfg, tp)
     window = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
-    conv = torch.sum(window * p["conv_w"].to(x.dtype)[None], dim=1)
-    xbc = F.silu(conv + p["conv_b"].to(x.dtype))
-    xs, bm, cm = xbc.split([d_inner, ds, ds], dim=-1)
-    xs = xs.reshape(b, n_heads, dh).float()
-    dt, da = _dt_da(p, dt)
+    conv = torch.sum(window * conv_w.to(x.dtype)[None], dim=1)
+    xbc = F.silu(conv + conv_b.to(x.dtype))
+    xs, bm, cm = xbc.split([xbc.shape[-1] - 2 * ds, ds, ds], dim=-1)
+    xs = xs.reshape(b, -1, dh).float()
+    dt, da = _dt_da(hp, dt)
     y, new_ssm = ssd_step(xs, dt, da, bm.float(), cm.float(), ssm_state)
-    y = y + xs * p["d_skip"].float()[:, None]
-    y = y.reshape(b, d_inner).to(x.dtype)
-    y = L.apply_norm(p["gate_norm"], y * F.silu(z), "rmsnorm")
-    return y @ p["out_proj"].to(x.dtype), window[:, 1:], new_ssm
+    y = y + xs * hp["d_skip"].float()[:, None]
+    y = y.reshape(b, -1).to(x.dtype)
+    return _gate_out(p, y, z, scale, tp), window[:, 1:], new_ssm
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +315,76 @@ class Zamba2LM:
         self.groups = [(i, min(i + cfg.attn_every, cfg.n_layers))
                        for i in range(0, cfg.n_layers, cfg.attn_every)]
         self.n_attn = len(self.groups)
+        # the placement (on_mesh): none in one process
+        self.place = self.tp = self.specs = self.mtp = None
+        self.embed_split = self.head_split = None
 
     def on_mesh(self, mesh):
-        """Not ported: Zamba2LM over a mesh raises rather than run
-        replicated."""
-        raise NotImplementedError(
-            "Zamba2LM over a mesh: not yet ported (ROADMAP A7 rest: the "
-            "families over a mesh)")
+        """This model placed on ``mesh`` (``transformer.place_model``):
+        its methods take this rank's params, gathered over ``data``, and
+        its rows of a batch; ``loss`` is the mean over every data rank's
+        valid labels.  Over ``model`` each mamba layer runs ``H / model``
+        SSM heads (:class:`MambaTP`) and the shared block runs as the
+        dense transformer's (its heads and ffn columns; the gradient of
+        its weights sums over its applications).  The decode cache holds
+        this rank's rows: the shared block's K/V its extent of the
+        sequence, every head (the D-Cache placement of
+        ``cache_spec_shardings``); the conv state its heads' x channels
+        and B, C [L, B, D_CONV - 1, d_inner / model + 2 ds], the SSM state
+        its heads [L, B, H / model, dh, ds] (``cache_spec_shardings``
+        splits the states' last dims, ``conv_dim`` and ``ds``, which is no
+        head split: ROADMAP §C).  ``gather_cache`` gives the whole cache.
+        Raises ``NotImplementedError`` where a head count or a product
+        does not split over ``model``."""
+        from repro_torch.models.transformer import place_model, split_over
+
+        cfg = self.cfg
+        placed = place_model(self, mesh)
+        n = placed.place.sizes["model"]
+        if n > 1:
+            sp, mb = placed.specs["shared_attn"], placed.specs["layers"][
+                "mamba"]
+            want = [("attn", w, -1) for w in ("wq", "wk", "wv")] + [
+                ("attn", "wo", -2), ("mlp", "w_down", -2)] + [
+                ("mlp", w, -1) for w in ("w_gate", "w_up") if w in sp["mlp"]]
+            bad = [f"shared_attn/{blk}/{w}" for blk, w, d in want
+                   if not split_over(sp[blk][w], d)]
+            if not split_over(mb["out_proj"], -2):
+                bad.append("mamba/out_proj")
+            heads = mamba2_dims(cfg)[1]
+            if heads % n or cfg.n_heads % n or cfg.n_kv_heads % n or bad:
+                raise NotImplementedError(
+                    f"{cfg.name} over model = {n}: the SSM heads ({heads}), "
+                    f"the attention heads ({cfg.n_heads}/{cfg.n_kv_heads}) "
+                    f"or the products {bad} do not split over the model "
+                    "axis")
+            placed.mtp = MambaTP(placed.tp, split_over(mb["in_proj"], -1),
+                                 split_over(mb["conv_w"], -1))
+        return placed
+
+    def gather_cache(self, cache, batch: int):
+        """The whole cache of a global batch of ``batch`` rows from this
+        rank's, on every rank of a placed model."""
+        place, tp = self.place, self.tp
+        out = dict(cache)
+        if tp is not None:
+            ds = self.cfg.ssm_state
+            conv = cache["conv"]
+            xs = tp.all_gather(conv[..., :conv.shape[-1] - 2 * ds], -1)
+            out.update(k=tp.all_gather(cache["k"], 3),
+                       v=tp.all_gather(cache["v"], 3),
+                       conv=torch.cat([xs, conv[..., -2 * ds:]], dim=-1),
+                       ssm=tp.all_gather(cache["ssm"], 2))
+        if batch % place.sizes["data"] == 0:
+            for k in ("k", "v", "conv", "ssm"):
+                out[k] = place.data.all_gather(out[k], 1)
+        return out
+
+    def _dims(self):
+        """(conv channels, SSM heads) of this rank."""
+        d_inner, n_heads, conv_dim = mamba2_dims(self.cfg)
+        n = 1 if self.place is None else self.place.sizes["model"]
+        return conv_dim - d_inner + d_inner // n, n_heads // n
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, Any]:
@@ -285,34 +412,49 @@ class Zamba2LM:
 
     # -- shared attention block ------------------------------------------------
 
-    def _shared_attn_seq(self, sp, h, cache_dtype=None):
+    def _shared_attn_seq(self, sp, h, cache_dtype=None, cache_len=None):
         """The shared block over positions 0..S-1, attention through the
         flash kernel.  Returns (h, k and v [B, Hkv, S, D] in
-        ``cache_dtype``; none without one)."""
-        cfg = self.cfg
+        ``cache_dtype``, zeros past S to ``cache_len`` positions where
+        given; none without a dtype).  On a mesh this rank's heads, its
+        products' partial sums reduced; the K/V its extent of the
+        positions, every head."""
+        cfg, tp = self.cfg, self.tp
         b, s, _ = h.shape
         a = L.apply_norm(sp["attn_norm"], h, "rmsnorm")
-        q, k, v = L._qkv(sp["attn"], a, cfg)
+        q, k, v = L._qkv(sp["attn"], a, cfg, tp)
         positions = torch.arange(s, device=h.device)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         o = L.chunked_attention(q, k, v, causal=True)
-        h = h + o.reshape(b, s, -1) @ sp["attn"]["wo"].to(h.dtype)
+        h = h + L.reduce_from_group(
+            o.reshape(b, s, -1) @ sp["attn"]["wo"].to(h.dtype), tp)
         m = L.apply_norm(sp["mlp_norm"], h, "rmsnorm")
-        h = h + L.apply_mlp(sp["mlp"], m, cfg.act)
+        h = h + L.apply_mlp(sp["mlp"], m, cfg.act, tp)
         if cache_dtype is None:
             return h, None, None
-        return (h, k.transpose(1, 2).to(cache_dtype),
-                v.transpose(1, 2).to(cache_dtype))
+        return (h, self._cache_kv(k, cache_dtype, cache_len),
+                self._cache_kv(v, cache_dtype, cache_len))
+
+    def _cache_kv(self, k, cache_dtype, cache_len):
+        if self.tp is not None:
+            k = self.tp.all_gather(k, 2)
+        k = k.transpose(1, 2)
+        if cache_len is not None and cache_len > k.shape[2]:
+            k = F.pad(k, (0, 0, 0, cache_len - k.shape[2]))
+        if self.tp is not None:
+            k = self.tp.part(k, 2)
+        return k.to(cache_dtype)
 
     def _shared_attn_step(self, sp, h, kc, vc, index: int):
         """The shared block on one token; writes its K/V into ``kc``/``vc``
         [B, Hkv, S, D] at ``index``."""
         cfg = self.cfg
         a = L.apply_norm(sp["attn_norm"], h, "rmsnorm")
-        h = h + L.decode_attention(sp["attn"], a, cfg, kc, vc, index)[0]
+        h = h + L.decode_attention(sp["attn"], a, cfg, kc, vc, index,
+                                   self.tp)[0]
         m = L.apply_norm(sp["mlp_norm"], h, "rmsnorm")
-        return h + L.apply_mlp(sp["mlp"], m, cfg.act)
+        return h + L.apply_mlp(sp["mlp"], m, cfg.act, self.tp)
 
     # -- full sequence ---------------------------------------------------------
 
@@ -321,10 +463,11 @@ class Zamba2LM:
         ssm state)."""
         a = L.apply_norm(lp["norm"], h, "rmsnorm")
         o, conv, ssm = apply_mamba2_seq(lp["mamba"], a, self.cfg, conv_state,
-                                        ssm_state, chunk=self.chunk)
+                                        ssm_state, chunk=self.chunk,
+                                        tp=self.mtp)
         return h + o, conv, ssm
 
-    def _run(self, params, h, cache_dtype=None):
+    def _run(self, params, h, cache_dtype=None, cache_len=None):
         """The groups over positions 0..S-1 from zero states.  Returns
         (h after the final norm, the state: k/v [n_attn, B, Hkv, S, D]
         in ``cache_dtype``, conv [n_layers, B, D_CONV - 1, conv_dim] and
@@ -334,7 +477,7 @@ class Zamba2LM:
         ``remat="none"``."""
         cfg = self.cfg
         b = h.shape[0]
-        _, n_heads, conv_dim = mamba2_dims(cfg)
+        conv_dim, n_heads = self._dims()
         conv0 = torch.zeros((b, D_CONV - 1, conv_dim), device=h.device)
         ssm0 = torch.zeros((b, n_heads, cfg.ssm_head_dim, cfg.ssm_state),
                            device=h.device)
@@ -345,7 +488,7 @@ class Zamba2LM:
         ks, vs, convs, ssms = [], [], [], []
         for lo, hi in self.groups:
             h, k, v = self._shared_attn_seq(params["shared_attn"], h,
-                                            cache_dtype)
+                                            cache_dtype, cache_len)
             ks.append(k)
             vs.append(v)
             for li in range(lo, hi):
@@ -364,21 +507,29 @@ class Zamba2LM:
             state.update(k=torch.stack(ks), v=torch.stack(vs))
         return h, state
 
+    def _embed(self, params, tokens):
+        return L.embed_tokens(params["embed"], tokens, self.compute_dtype,
+                              self.tp, self.embed_split)
+
+    def _head(self, params, h):
+        return L.unembed(None, params["lm_head"], h, False, self.tp,
+                         self.head_split)
+
     def forward(self, params, batch):
         """Full logits for ``batch["tokens"]`` [B, S].  Returns (logits
         f32 [B, S, V], aux = 0)."""
-        h = L.embed_tokens(params["embed"], batch["tokens"],
-                           self.compute_dtype)
+        h = self._embed(params, batch["tokens"])
         h, _ = self._run(params, h)
-        logits = (h @ params["lm_head"]["w"].to(h.dtype)).float()
-        return logits, torch.zeros((), device=h.device)
+        return self._head(params, h), torch.zeros((), device=h.device)
 
     def loss(self, params, batch):
         """(ce, {"ce", "aux": 0}) for ``batch["tokens"]`` and
         ``batch["labels"]`` [B, S] (label -1: not counted), as the
-        reference's ``loss``."""
+        reference's ``loss``; on a mesh the mean over every data rank's
+        labels."""
         logits, _ = self.forward(params, batch)
-        ce = L.cross_entropy(logits, batch["labels"])
+        ce = L.cross_entropy(logits, batch["labels"], data=self.place and
+                             self.place.data)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ----------------------------------------------------------------
@@ -388,9 +539,18 @@ class Zamba2LM:
     # ``index`` a host int; ``decode_step`` writes the tensors in place.
 
     def cache_spec(self, batch: int, seq: int, dtype=torch.bfloat16):
-        """{name: (shape, dtype)} of the cache tensors."""
+        """{name: (shape, dtype)} of the cache tensors; on a mesh this
+        rank's (:meth:`on_mesh`)."""
         cfg = self.cfg
-        _, n_heads, conv_dim = mamba2_dims(cfg)
+        conv_dim, n_heads = self._dims()
+        if self.place is not None:
+            sizes = self.place.sizes
+            if seq % sizes["model"]:
+                raise ValueError(f"a cache of {seq} positions does not "
+                                 f"split over model = {sizes['model']}")
+            seq //= sizes["model"]
+            if batch % sizes["data"] == 0:
+                batch //= sizes["data"]
         kv = (self.n_attn, batch, cfg.n_kv_heads, seq, cfg.hd)
         return {"k": (kv, dtype), "v": (kv, dtype),
                 "conv": ((cfg.n_layers, batch, D_CONV - 1, conv_dim),
@@ -405,22 +565,27 @@ class Zamba2LM:
                  self.cache_spec(batch, seq, dtype).items()}
         return {**cache, "index": 0}
 
-    def prefill(self, params, batch, cache_dtype=torch.bfloat16):
+    def prefill(self, params, batch, cache_dtype=torch.bfloat16,
+                cache_len=None):
         """Returns (last-token logits [B, V] f32, the state after the
-        prompt, its K/V in ``cache_dtype`` and as long as the prompt)."""
+        prompt, its K/V in ``cache_dtype`` and as long as the prompt, or
+        ``cache_len`` positions, zeros past it).  On a mesh this rank's
+        rows and cache (:meth:`on_mesh`; ``cache_len`` must split over
+        ``model``)."""
         tokens = batch["tokens"]
-        h = L.embed_tokens(params["embed"], tokens, self.compute_dtype)
-        h, state = self._run(params, h, cache_dtype)
-        logits = (h[:, -1] @ params["lm_head"]["w"].to(h.dtype)).float()
-        return logits, {**state, "index": tokens.shape[1]}
+        if self.place is not None:
+            self.cache_spec(tokens.shape[0], cache_len or tokens.shape[1])
+        h = self._embed(params, tokens)
+        h, state = self._run(params, h, cache_dtype, cache_len)
+        return self._head(params, h[:, -1]), {**state,
+                                              "index": tokens.shape[1]}
 
     def decode_step(self, params, cache, tokens):
         """One token for every sequence.  tokens: [B] int.  Returns
         (logits [B, V] f32, cache with ``index + 1``)."""
         cfg = self.cfg
         index = cache["index"]
-        h = L.embed_tokens(params["embed"], tokens[:, None],
-                           self.compute_dtype)
+        h = self._embed(params, tokens[:, None])
         for g, (lo, hi) in enumerate(self.groups):
             h = self._shared_attn_step(params["shared_attn"], h,
                                        cache["k"][g], cache["v"][g], index)
@@ -429,10 +594,9 @@ class Zamba2LM:
                 a = L.apply_norm(lp["norm"], h, "rmsnorm")
                 o, conv, ssm = apply_mamba2_step(
                     lp["mamba"], a[:, 0], cfg, cache["conv"][li],
-                    cache["ssm"][li])
+                    cache["ssm"][li], self.mtp)
                 cache["conv"][li] = conv
                 cache["ssm"][li] = ssm
                 h = h + o[:, None, :]
         h = L.apply_norm(params["final_norm"], h, "rmsnorm")
-        logits = (h[:, 0] @ params["lm_head"]["w"].to(h.dtype)).float()
-        return logits, {**cache, "index": index + 1}
+        return self._head(params, h[:, 0]), {**cache, "index": index + 1}

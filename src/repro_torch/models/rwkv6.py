@@ -13,6 +13,13 @@ the full logits, no aux term.  Under a gradient the scan goes through
 ``ops.rwkv_scan_with_grad`` (the forward kernel's states variant and the
 backward kernel), and under ``remat="full"`` (or "dots", which is the
 same here) each layer is recomputed in the backward pass, as the reference checkpoints its ``layer_fn``.
+
+``on_mesh(mesh)`` places the model on a ``(data, model)`` mesh: the
+batch's rows over ``data``, the weights as ``runtime.sharding.
+param_specs`` places them (FSDP over ``data``, gathered by
+``runtime.train`` / ``runtime.serve``), and tensor parallelism by heads
+over ``model``, where the placement and the computation differ
+(:meth:`RWKV6LM.on_mesh`).
 """
 from __future__ import annotations
 
@@ -53,15 +60,81 @@ class RWKV6LM:
         self.remat = remat
         self.n_heads = cfg.d_model // cfg.ssm_head_dim
         self.dk = cfg.ssm_head_dim
+        # the placement (on_mesh): none in one process
+        self.place = self.tp = self.specs = None
+        self.embed_split = self.head_split = None
+        self.split = {}
 
     # -- init ---------------------------------------------------------------
 
     def on_mesh(self, mesh):
-        """Not ported: RWKV6LM over a mesh raises rather than run
-        replicated."""
-        raise NotImplementedError(
-            "RWKV6LM over a mesh: not yet ported (ROADMAP A7 rest: the "
-            "families over a mesh)")
+        """This model placed on ``mesh`` (``transformer.place_model``):
+        its methods take this rank's params, gathered over ``data``, and
+        its rows of a batch; ``loss`` is the mean over every data rank's
+        valid labels.  Over ``model`` each rank runs ``H / model`` heads:
+
+          * ``wr``, ``wk``, ``wv``, ``wg`` by columns (its heads), ``wo``
+            by rows, its output summed over the axis;
+          * ``u``, ``ln_x`` and ``w0`` replicated, each rank slicing its
+            heads;
+          * the ddlerp LoRA: ``lora_a`` by columns, its product gathered
+            (every rank needs the five d-wide mixes whole), ``lora_b``
+            replicated;
+          * the decay LoRA: ``wa`` by columns and ``wb`` by rows, the
+            product summed over the axis, then this rank's heads' columns
+            of ``logw``;
+          * the channel mix: ``wk`` by columns and ``wv`` by rows (summed
+            over the axis); ``wr`` by columns, its product gathered,
+            since ``sigmoid(xr @ wr)`` scales the whole d-wide output;
+          * the wkv kernels on this rank's heads.
+
+        The decode state holds this rank's rows, the shift states whole
+        (d wide: every rank's mixes need them) and the wkv state of its
+        heads [L, B, H / model, dk, dk], not ``cache_spec_shardings``'
+        split of the state's last dim (``dv``, no head split; ROADMAP
+        §C).  ``gather_cache`` gives the whole state.  Raises
+        ``NotImplementedError`` where the heads or a product do not
+        split over ``model``."""
+        from repro_torch.models.transformer import place_model, split_over
+
+        cfg = self.cfg
+        placed = place_model(self, mesh)
+        n = placed.place.sizes["model"]
+        placed.split = {}
+        if n > 1:
+            tm = placed.specs["layers"]["time_mix"]
+            cm = placed.specs["layers"]["channel_mix"]
+            bad = [f"time_mix/{w}" for w in ("wr", "wk", "wv", "wg")
+                   if not split_over(tm[w], -1)]
+            bad += [] if split_over(tm["wo"], -2) else ["time_mix/wo"]
+            decay = split_over(tm["wa"], -1)
+            if decay != split_over(tm["wb"], -2):
+                bad += ["time_mix/wa", "time_mix/wb"]
+            ffn = split_over(cm["wk"], -1)
+            if ffn != split_over(cm["wv"], -2):
+                bad += ["channel_mix/wk", "channel_mix/wv"]
+            if self.n_heads % n or bad:
+                raise NotImplementedError(
+                    f"{cfg.name} over model = {n}: the heads "
+                    f"({self.n_heads}) or the products {bad} do not split "
+                    "over the model axis")
+            placed.split = {"lora_a": split_over(tm["lora_a"], -1),
+                            "decay": decay, "ffn": ffn,
+                            "cm_wr": split_over(cm["wr"], -1)}
+        return placed
+
+    def gather_cache(self, cache, batch: int):
+        """The whole decode state of a global batch of ``batch`` rows
+        (every row, every head) from this rank's, on every rank of a
+        placed model."""
+        place = self.place
+        out = dict(cache)
+        if self.tp is not None:
+            out["wkv"] = self.tp.all_gather(cache["wkv"], 2)
+        if batch % place.sizes["data"] == 0:
+            for k in ("shift_tm", "shift_cm", "wkv"):
+                out[k] = place.data.all_gather(out[k], 1)
+        return out
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, Any]:
@@ -115,7 +188,8 @@ class RWKV6LM:
         """Data-dependent token-shift interpolation -> (xw, xk, xv, xr, xg)."""
         dx = sx - x
         xxx = x + dx * tm["mu_x"].to(x.dtype)
-        lo = torch.tanh(xxx @ tm["lora_a"].to(x.dtype))
+        lo = torch.tanh(L.col_full(xxx, tm["lora_a"], self.tp,
+                                   self.split.get("lora_a", False)))
         lo = lo.reshape(*x.shape[:-1], 5, LORA_R)
         mix = torch.einsum("...ck,ckd->...cd", lo, tm["lora_b"].to(x.dtype))
         mus = torch.stack([tm[f"mu_{c}"] for c in "wkvrg"]).to(x.dtype)
@@ -123,33 +197,52 @@ class RWKV6LM:
         return outs.unbind(-2)
 
     def _tm_proj(self, tm, x, sx):
+        """(r, k, v, g, logw) of this rank's heads (every head in one
+        process)."""
         xw, xk, xv, xr, xg = self._ddlerp(tm, x, sx)
         lead = x.shape[:-1]
-        h, dk = self.n_heads, self.dk
-        w_dec = tm["w0"].float() + (
-            torch.tanh(xw @ tm["wa"].to(x.dtype)) @ tm["wb"].to(x.dtype)
-        ).float()
-        logw = -torch.exp(w_dec)                               # [..., d] <= 0
-        r = (xr @ tm["wr"].to(x.dtype)).reshape(*lead, h, dk)
-        k = (xk @ tm["wk"].to(x.dtype)).reshape(*lead, h, dk)
-        v = (xv @ tm["wv"].to(x.dtype)).reshape(*lead, h, dk)
-        g = F.silu(xg @ tm["wg"].to(x.dtype))
-        return r, k, v, g, logw.reshape(*lead, h, dk)
+        dk, tp = self.dk, self.tp
+        if self.split.get("decay"):
+            dec = L.reduce_from_group(torch.tanh(
+                L.copy_to_group(xw, tp) @ tm["wa"].to(x.dtype)) @
+                tm["wb"].to(x.dtype), tp)
+        else:
+            dec = torch.tanh(xw @ tm["wa"].to(x.dtype)) @ tm["wb"].to(x.dtype)
+        w_dec = tm["w0"].float() + dec.float()
+        logw = L.split_to_group(-torch.exp(w_dec), tp, -1)    # <= 0
+        r, k, v, g = (L.copy_to_group(a, tp) @ tm[w].to(x.dtype)
+                      for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
+                                   (xg, "wg")))
+        # over a mesh logw is a slice of each row: the kernels take it
+        # contiguous
+        return (r.reshape(*lead, -1, dk), k.reshape(*lead, -1, dk),
+                v.reshape(*lead, -1, dk), F.silu(g),
+                logw.reshape(*lead, -1, dk).contiguous())
+
+    def _heads(self, tm, name):
+        """This rank's heads of a replicated [H, dk] leaf (``u``,
+        ``ln_x``)."""
+        return L.split_to_group(tm[name], self.tp, -2).contiguous()
+
+    def _out(self, tm, o, g):
+        """The group-normed heads' output through ``wo`` (its rows over a
+        mesh, summed over ``model``)."""
+        o = L.group_norm_heads(o, self._heads(tm, "ln_x"))
+        o = o.reshape(g.shape) * g
+        return L.reduce_from_group(o @ tm["wo"].to(o.dtype), self.tp)
 
     def _time_mix_seq(self, tm, x, shift_state, wkv_state):
         """x: [B, S, d].  Returns (out, last x, new wkv state)."""
         b, s, d = x.shape
         sx = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
         r, k, v, g, logw = self._tm_proj(tm, x, sx)
-        args = (r.float(), k.float(), v.float(), logw, tm["u"].float(),
-                wkv_state)
+        args = (r.float(), k.float(), v.float(), logw,
+                self._heads(tm, "u").float(), wkv_state)
         if torch.is_grad_enabled() and any(t.requires_grad for t in args):
             o, s_t = ops.rwkv_scan_with_grad(*args, chunk=self.chunk)
         else:
             o, s_t = ops.rwkv_scan(*args, chunk=self.chunk)
-        o = L.group_norm_heads(o.to(x.dtype), tm["ln_x"])
-        out = (o.reshape(b, s, d) * g) @ tm["wo"].to(x.dtype)
-        return out, x[:, -1], s_t
+        return self._out(tm, o.to(x.dtype), g), x[:, -1], s_t
 
     def _channel_mix_seq(self, cm, x, shift_state):
         sx = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
@@ -159,9 +252,12 @@ class RWKV6LM:
         dx = sx - x
         xk = x + dx * cm["mu_k"].to(x.dtype)
         xr = x + dx * cm["mu_r"].to(x.dtype)
-        kk = torch.square(torch.relu(xk @ cm["wk"].to(x.dtype)))
-        return torch.sigmoid(xr @ cm["wr"].to(x.dtype)) * (
-            kk @ cm["wv"].to(x.dtype))
+        tp = self.tp if self.split.get("ffn") else None
+        kk = torch.square(torch.relu(L.copy_to_group(xk, tp) @
+                                     cm["wk"].to(x.dtype)))
+        kv = L.reduce_from_group(kk @ cm["wv"].to(x.dtype), tp)
+        return torch.sigmoid(L.col_full(xr, cm["wr"], self.tp,
+                                        self.split.get("cm_wr", False))) * kv
 
     # -- forward ------------------------------------------------------------
     #
@@ -170,12 +266,21 @@ class RWKV6LM:
     # package keeps a device scalar).
 
     def cache_spec(self, batch: int, seq: int, dtype=torch.bfloat16):
-        """{name: (shape, dtype)} of the state tensors; O(1) in ``seq``."""
+        """{name: (shape, dtype)} of the state tensors; O(1) in ``seq``.
+        On a mesh this rank's: its rows (all where they do not split over
+        ``data``), the shift states whole, the wkv state of its heads."""
         del seq
+        if self.place is not None and batch % self.place.sizes["data"] == 0:
+            batch //= self.place.sizes["data"]
+        return self._state_spec(batch, dtype)
+
+    def _state_spec(self, rows: int, dtype):
         cfg = self.cfg
-        shift = (cfg.n_layers, batch, cfg.d_model)
+        heads = self.n_heads // (1 if self.place is None else
+                                 self.place.sizes["model"])
+        shift = (cfg.n_layers, rows, cfg.d_model)
         return {"shift_tm": (shift, dtype), "shift_cm": (shift, dtype),
-                "wkv": ((cfg.n_layers, batch, self.n_heads, self.dk, self.dk),
+                "wkv": ((cfg.n_layers, rows, heads, self.dk, self.dk),
                         torch.float32)}
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
@@ -221,48 +326,62 @@ class RWKV6LM:
             "wkv": torch.stack(wkv), "index": state["index"] + h.shape[1]}
         return L.apply_norm(params["final_norm"], h, "layernorm"), new_state
 
+    def _tokens(self, params, tokens):
+        return L.embed_tokens(params["embed"], tokens, self.compute_dtype,
+                              self.tp, self.embed_split)
+
     def _embed(self, params, batch):
         if "embeds" in batch:
             h = batch["embeds"].to(self.compute_dtype)
         else:
-            h = L.embed_tokens(params["embed"], batch["tokens"],
-                               self.compute_dtype)
+            h = self._tokens(params, batch["tokens"])
         return L.apply_norm(params["ln0"], h, "layernorm")
 
     def _head(self, params, h):
-        return (h @ params["lm_head"]["w"].to(h.dtype)).float()
+        return L.unembed(None, params["lm_head"], h, False, self.tp,
+                         self.head_split)
+
+    def _state0(self, h):
+        """The zero state of ``h``'s rows (this rank's heads)."""
+        spec = self._state_spec(h.shape[0], self.compute_dtype)
+        return {**{name: torch.zeros(shape, dtype=dt, device=h.device)
+                   for name, (shape, dt) in spec.items()}, "index": 0}
 
     def forward(self, params, batch):
         """Full logits (small vocab / parity tests).  Returns (logits f32
         [B, S, V], aux = 0)."""
         h = self._embed(params, batch)
-        state = self.init_cache(h.shape[0], 0, self.compute_dtype, h.device)
-        h, _ = self.backbone(params, h, state)
+        h, _ = self.backbone(params, h, self._state0(h))
         return self._head(params, h), torch.zeros((), device=h.device)
 
     def loss(self, params, batch):
         """(ce, {"ce", "aux": 0}) for ``batch["tokens"]`` (or
         ``batch["embeds"]``) and ``batch["labels"]`` [B, S] (label -1:
-        not counted), as the reference's ``loss``."""
+        not counted), as the reference's ``loss``; on a mesh the mean over
+        every data rank's labels."""
         logits, _ = self.forward(params, batch)
-        ce = L.cross_entropy(logits, batch["labels"])
+        ce = L.cross_entropy(logits, batch["labels"], data=self.place and
+                             self.place.data)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ------------------------------------------------------------
 
-    def prefill(self, params, batch, cache_dtype=torch.bfloat16):
+    def prefill(self, params, batch, cache_dtype=torch.bfloat16,
+                cache_len=None):
         """Returns (last-token logits [B, V] f32, state with the shift
-        states in ``cache_dtype``)."""
+        states in ``cache_dtype``); ``cache_len`` is ignored (the state
+        is O(1) in the sequence).  On a mesh this rank's rows and heads of
+        the state."""
+        del cache_len
         h = self._embed(params, batch)
-        state = self.init_cache(h.shape[0], 0, self.compute_dtype, h.device)
-        h, state = self.backbone(params, h, state)
+        h, state = self.backbone(params, h, self._state0(h))
         state["shift_tm"] = state["shift_tm"].to(cache_dtype)
         state["shift_cm"] = state["shift_cm"].to(cache_dtype)
         return self._head(params, h[:, -1]), state
 
     def decode_step(self, params, cache, tokens):
         """tokens: [B].  O(1) per token: no state grows."""
-        h = L.embed_tokens(params["embed"], tokens, self.compute_dtype)
+        h = self._tokens(params, tokens)
         h = L.apply_norm(params["ln0"], h, "layernorm")          # [B, d]
         shift_tm, shift_cm, wkv = [], [], []
         for li in range(self.cfg.n_layers):
@@ -272,9 +391,9 @@ class RWKV6LM:
             a = L.apply_norm(lp["ln1"], h, "layernorm")
             r, k, v, g, logw = self._tm_proj(tm, a, st_tm.to(a.dtype))
             o, n_wkv = wkv_step(r.float(), k.float(), v.float(), logw,
-                                tm["u"].float(), cache["wkv"][li])
-            o = L.group_norm_heads(o.to(a.dtype), tm["ln_x"])
-            h = h + (o.reshape(h.shape) * g) @ tm["wo"].to(a.dtype)
+                                self._heads(tm, "u").float(),
+                                cache["wkv"][li])
+            h = h + self._out(tm, o.to(a.dtype), g)
             c = L.apply_norm(lp["ln2"], h, "layernorm")
             h = h + self._channel_mix(cm, c, st_cm.to(c.dtype))
             shift_tm.append(a.to(st_tm.dtype))

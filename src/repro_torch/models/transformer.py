@@ -36,6 +36,7 @@ from repro_torch.models import layers as L
 
 AUX_LOSS_COEF = 0.01
 REMAT = ("none", "full", "dots")
+MOE_IMPLS = ("dense", "shardmap")
 
 #: The products without batch dims, as they reach the dispatcher: a 2-D
 #: ``x @ W``, and a 3-D one, which ``matmul`` folds to one 2-D product
@@ -47,11 +48,13 @@ DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def dots_policy(ctx, func, *args, **kwargs):
     """The selective-checkpoint policy of ``remat="dots"``, the reference's
     ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: keep
-    the output of every product in :data:`DOT_OPS`, recompute the rest
-    (elementwise ops, norms, batched products, and whatever the flash and
-    wkv ``autograd.Function``s compute)."""
+    the output of every product in :data:`DOT_OPS` but those the layer
+    code runs under ``layers.unsaved`` (the FFN's down product and the
+    MoE experts' products, which the reference does not keep), recompute
+    the rest (elementwise ops, norms, batched products, and whatever the
+    flash and wkv ``autograd.Function``s compute)."""
     del ctx, args, kwargs
-    return (CheckpointPolicy.MUST_SAVE if func in DOT_OPS
+    return (CheckpointPolicy.MUST_SAVE if func in DOT_OPS and L.saving()
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -112,19 +115,64 @@ def causal_attention(q, k, v, positions):
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def place_model(model, mesh):
+    """A copy of ``model`` placed on ``mesh`` (a ``DeviceMesh`` of ``data``
+    and ``model`` over every rank of the group): ``place`` (its
+    ``launch.mesh.MeshPlacement``), ``specs`` (``runtime.sharding.
+    param_specs`` of its params), ``tp`` (the ``model`` axis where it has
+    more than one rank, else None) and, with ``tp``, the dims of the
+    embedding table and the untied ``lm_head`` that split over it
+    (``embed_split``, ``head_split``).  Raises ``NotImplementedError``
+    for a pod axis and where neither the vocabulary nor d splits."""
+    from repro_torch.launch.mesh import MeshPlacement, refuse_pod
+    from repro_torch.runtime.sharding import param_specs
+
+    cfg = model.cfg
+    placed = copy.copy(model)
+    placed.place = place = MeshPlacement(mesh)
+    refuse_pod(place, type(model).__name__)
+    placed.specs = specs = param_specs(
+        mesh, model.init(torch.Generator(), device="meta"))
+    n = place.sizes["model"]
+    placed.tp = place.model if n > 1 else None
+    placed.embed_split = placed.head_split = None
+    if n > 1:
+        tables = [("embed", "table")] + (
+            [] if cfg.tie_embeddings else [("lm_head", "w")])
+        split = [specs[a][b].index("model") if "model" in specs[a][b]
+                 else None for a, b in tables]
+        if None in split:
+            raise NotImplementedError(
+                f"{cfg.name} over model = {n}: neither the vocabulary "
+                "nor d splits over the model axis")
+        placed.embed_split, placed.head_split = split[0], split[-1]
+    return placed
+
+
+def split_over(spec, dim: int) -> bool:
+    """Whether ``spec`` (a leaf's, from ``param_specs``) splits ``dim``
+    over the ``model`` axis."""
+    return "model" in (spec[dim] if isinstance(spec[dim], tuple)
+                       else (spec[dim],))
+
+
 class TransformerLM:
     def __init__(self, cfg, compute_dtype=torch.float32, remat: str = "full",
                  loss_chunk: int = 256, moe_no_drop: bool = False,
-                 kv_quant: str = "none"):
+                 kv_quant: str = "none", moe_impl: str = "dense"):
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r}: the port takes "
                              f"{', '.join(REMAT)}")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl {moe_impl!r}: the port takes "
+                             f"{', '.join(MOE_IMPLS)}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.remat = remat
         self.loss_chunk = loss_chunk
         self.moe_no_drop = moe_no_drop
         self.kv_quant = kv_quant
+        self.moe_impl = moe_impl
         # the placement (on_mesh): none in one process
         self.place = self.tp = self.specs = None
         self.embed_split = self.head_split = None
@@ -143,27 +191,16 @@ class TransformerLM:
         (``cache_spec``, ``init_cache``, ``prefill``'s) is this rank's
         rows and its extent of the sequence, every head.  An MoE FFN over
         a mesh is not ported (ROADMAP)."""
-        from repro_torch.launch.mesh import MeshPlacement
-        from repro_torch.runtime.sharding import param_specs
-
         cfg = self.cfg
-        if cfg.is_moe:
-            raise NotImplementedError(
-                "an MoE TransformerLM over a mesh: not yet ported (ROADMAP "
-                "A7 rest: layers.apply_moe_shardmap, then the families "
-                "over a mesh)")
-        placed = copy.copy(self)
-        placed.place = place = MeshPlacement(mesh)
-        placed.specs = specs = param_specs(
-            mesh, self.init(torch.Generator(), device="meta"))
-        n = place.sizes["model"]
+        placed = place_model(self, mesh)
+        n = placed.place.sizes["model"]
         if n > 1:
-            placed.tp = place.model
-            layer = specs["layers"]
+            layer = placed.specs["layers"]
             dims = {"wq": -1, "wk": -1, "wv": -1, "wo": -2}
             want = [("attn", w, d) for w, d in dims.items()] + [
                 ("mlp", w, -1 if w != "w_down" else -2)
-                for w in layer["mlp"] if w.startswith("w_")]
+                for w in layer["mlp"]
+                if w.startswith("w_") and not cfg.is_moe]
             bad = [f"{blk}/{w}" for blk, w, d in want
                    if layer[blk][w][d] != "model"]
             if cfg.n_heads % n or cfg.n_kv_heads % n or bad:
@@ -171,15 +208,6 @@ class TransformerLM:
                     f"{cfg.name} over model = {n}: the heads "
                     f"({cfg.n_heads}/{cfg.n_kv_heads}) or the products "
                     f"{bad} do not split over the model axis")
-            tables = [("embed", "table")] + (
-                [] if cfg.tie_embeddings else [("lm_head", "w")])
-            split = [specs[a][b].index("model") if "model" in specs[a][b]
-                     else None for a, b in tables]
-            if None in split:
-                raise NotImplementedError(
-                    f"{cfg.name} over model = {n}: neither the vocabulary "
-                    "nor d splits over the model axis")
-            placed.embed_split, placed.head_split = split[0], split[-1]
         return placed
 
     # -- init ---------------------------------------------------------------
@@ -218,9 +246,13 @@ class TransformerLM:
         """The FFN half on the normed ``m``: (out, the MoE aux; None for
         a dense MLP)."""
         cfg = self.cfg
-        if cfg.is_moe:
-            return L.apply_moe(lp["mlp"], m, cfg, no_drop=no_drop)
-        return L.apply_mlp(lp["mlp"], m, cfg.act, self.tp), None
+        if not cfg.is_moe:
+            return L.apply_mlp(lp["mlp"], m, cfg.act, self.tp), None
+        if self.moe_impl == "shardmap":
+            return L.apply_moe_shardmap(lp["mlp"], m, cfg, no_drop,
+                                        self.place)
+        return L.apply_moe(lp["mlp"], m, cfg, no_drop=no_drop,
+                           place=self.place)
 
     def _layer(self, h, lp):
         """One block: attention, then the FFN, each with its residual.
@@ -361,6 +393,20 @@ class TransformerLM:
                     "k_scale": (shape[:-1], torch.float32),
                     "v_scale": (shape[:-1], torch.float32)}
         return {"k": (shape, dtype), "v": (shape, dtype)}
+
+    def gather_cache(self, cache, batch: int):
+        """The whole cache of a global batch of ``batch`` rows (every row,
+        every position) from this rank's, on every rank of a placed
+        model."""
+        place = self.place
+        out = dict(cache)
+        for k, v in cache.items():
+            if isinstance(v, torch.Tensor):
+                v = place.model.all_gather(v, 3)
+                if batch % place.sizes["data"] == 0:
+                    v = place.data.all_gather(v, 1)
+                out[k] = v
+        return out
 
     def _local_cache_dims(self, batch: int, seq: int):
         if self.place is None:

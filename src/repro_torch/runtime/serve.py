@@ -145,11 +145,13 @@ def make_serving_fns(model, mesh=None):
     batch, cache_dtype=bf16, cache_len=None)`` and ``decode_step(params,
     cache, tokens)`` take the global batch and tokens ([B, S], [B]) and
     return the global logits [B, V] on every rank; the cache is this
-    rank's (``model.on_mesh``: its rows, and its extent of the sequence,
-    every head: the D-Cache placement).  Both functions carry the rank's
+    rank's (``model.on_mesh``: a transformer's its rows and its extent of
+    the sequence, every head, the D-Cache placement; RWKV6's and
+    Zamba2's states those of its heads).  Both functions carry the rank's
     ``placement`` (``launch.mesh.MeshPlacement``; ``stats`` counts its
-    collectives).  RWKV6LM, Zamba2LM and the MoE transformer over a mesh
-    raise ``NotImplementedError``."""
+    collectives), and ``decode_step.gather_cache(cache, batch)`` gives
+    the whole cache of a global batch of ``batch`` rows on every rank
+    (the one-process layout)."""
     if mesh is None:
         return model.prefill, model.decode_step
     from repro_torch.runtime.train import batch_rows, gather_data
@@ -176,6 +178,7 @@ def make_serving_fns(model, mesh=None):
 
     # the rank's placement: its collectives' counts
     prefill.placement = decode_step.placement = place
+    decode_step.gather_cache = placed.gather_cache
     return prefill, decode_step
 
 

@@ -350,12 +350,15 @@ def shard_tree(tree, mesh, specs, coord: Optional[Dict[str, int]] = None):
                     specs)
 
 
-def gather_tree(tree, mesh, specs):
+def gather_tree(tree, mesh, specs, dst: Optional[int] = None):
     """The whole leaves of a tree placed by :func:`shard_tree`: each split
     leaf's slices all-gathered over every rank of ``mesh`` (a
     ``DeviceMesh`` over the whole default group) and put back in
     place.  Every rank gets the whole tree; replicated leaves are
-    returned as they are."""
+    returned as they are.  With ``dst`` (a rank) the slices travel
+    through the host to that rank alone, one leaf at a time: it gets the
+    whole tree on the CPU, every other rank ``None`` (a tree too large
+    to assemble on every rank's card)."""
     import torch.distributed as dist
 
     names = tuple(mesh.mesh_dim_names)
@@ -366,18 +369,29 @@ def gather_tree(tree, mesh, specs):
     if n != dist.get_world_size():
         raise ValueError(f"a mesh of {n} ranks over a group of "
                          f"{dist.get_world_size()}")
+    mine = dst is None or dist.get_rank() == dst
 
     def one(x, spec):
         if not isinstance(x, torch.Tensor) or not any(spec_axes(e)
                                                       for e in spec):
-            return x
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x)
+            if dst is None or not isinstance(x, torch.Tensor):
+                return x
+            return x.cpu() if mine else None
+        if dst is None:
+            x = x.contiguous()
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x)
+        else:
+            x = x.detach().cpu().contiguous()
+            parts = [torch.empty_like(x) for _ in range(n)] if mine else None
+            dist.gather(x, parts, dst=dst)
+            if not mine:
+                return None
         return assemble_leaf({coords[r]: p for r, p in enumerate(parts)},
                              dict(zip(names, grid.shape)), spec)
 
-    return _zip_map(one, tree, specs)
+    out = _zip_map(one, tree, specs)
+    return out if mine else None
 
 
 # ---------------------------------------------------------------------------

@@ -86,6 +86,39 @@ def test_flash_fn_trains_through_the_kernels(card):
             1.0, float(w.abs().max()))
 
 
+# one rank's heads in the mesh_families phase: phi3.5-moe's 32 over 8 kv
+# heads of 128 split over model 4 (8 over 2, G = 4) and 2 (16 over 4),
+# zamba2's shared block's 32 of 64 over model 4 (8 over 8)
+RANK_FLASH = {"phi3.5-moe (1, 4)": (2, 8, 2, 256, 256, 128),
+              "phi3.5-moe (2, 2)": (2, 16, 4, 256, 256, 128),
+              "zamba2 (1, 4)": (2, 8, 8, 256, 256, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RANK_FLASH))
+def test_flash_kernels_at_a_ranks_heads(card, name):
+    """The forward, the forward with lse and the backward at one rank's
+    head counts, causal: each within its bound of the plain version
+    (1e-4 on the output, 1e-5 on lse, 1e-4 x max(1, max |plain|) on the
+    gradients), one launch a call."""
+    q, k, v, do = _inputs(RANK_FLASH[name], seed=8)
+    before = dict(FA.LAUNCHES)
+    out = FA.flash_attention(q, k, v, causal=True)
+    assert float((out - ref.flash_attention_ref(q, k, v, True)).abs()
+                 .max()) <= 1e-4
+    out, lse = FA.flash_attention_lse(q, k, v, causal=True)
+    _, plain_lse = ref.flash_attention_lse_ref(q, k, v, True)
+    assert float((lse - plain_lse).abs().max()) <= 1e-5
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            1.0, float(w.abs().max()))
+    for kname in ("flash_attention_f32", "flash_attention_fwd_lse_f32",
+                  "flash_attention_bwd_f32"):
+        assert FA.LAUNCHES[kname] == before[kname] + 1
+
+
 def _wkv_inputs(b, s, h, dk, dv, seed, sigma=1.0):
     """(r, k, v, logw, u, s0, do, dsT) on the card, f32, logw =
     -exp(N(0, sigma))."""
@@ -150,6 +183,29 @@ def test_wkv_bwd_kernel_on_the_card(card, shape):
                              again, want):
         assert g.shape == w.shape, name
         assert torch.equal(g, a), name
+        assert _close(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [10, 20], ids=["(1, 4)", "(2, 2)"])
+def test_wkv_kernels_at_a_ranks_heads(card, heads):
+    """rwkv6-3b's 40 heads over model 4 and 2: the scan, its states
+    variant and the backward each within 1e-4 x max(1, max |plain|) of
+    the plain version."""
+    from repro_torch.kernels import rwkv_scan as W
+    r, k, v, logw, u, s0, do, dsT = _wkv_inputs(2, 256, heads, 64, 64,
+                                                seed=9)
+    o, s_t = W.rwkv_scan(r, k, v, logw, u, s0, chunk=32)
+    want_o, want_s = ref.wkv_chunked_ref(r, k, v, logw, u, s0, chunk=32)
+    assert _close(o, want_o) and _close(s_t, want_s)
+    _, s_t, states = W.rwkv_scan_states(r, k, v, logw, u, s0, chunk=32)
+    assert _close(states, ref.wkv_states_ref(k, v, logw, s0,
+                                             ref.wkv_step_tokens(32)))
+    got = W.rwkv_scan_bwd(r, k, v, logw, u, s0, states, s_t, do, dsT,
+                          chunk=32)
+    want = ref.wkv_chunked_bwd_ref(r, k, v, logw, u, s0, do, dsT, chunk=32)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                          want):
         assert _close(g, w), name
 
 

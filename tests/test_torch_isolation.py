@@ -61,6 +61,7 @@ def test_port_files_cover_the_smoke_twins_and_core():
                  "src/repro_torch/models/mamba2.py",
                  "src/repro_torch/runtime/train.py",
                  "src/repro_torch/runtime/serve.py",
+                 "src/repro_torch/runtime/pipeline_par.py",
                  "src/repro_torch/checkpoint/manager.py",
                  "src/repro_torch/optim/adamw.py",
                  "src/repro_torch/optim/compression.py",

@@ -21,8 +21,9 @@ reference's unsharded ``decode_step`` (f32 and int8 caches) and greedy
 tokens identical over 8 steps; a vocabulary of 127 (no split over 2 or
 4: the table split over d); grad-accum 2 (remat full) and int8
 compression against one process; restores bit for bit, the checkpoint
-read by the reference's ``CheckpointManager``; RWKV6, Zamba2 and MoE
-over a mesh raise."""
+read by the reference's ``CheckpointManager``; RWKV6, Zamba2 and the MoE
+transformer serve over a mesh as in one process (their parity with the
+reference: ``tests/test_torch_mesh_families.py``)."""
 import dataclasses
 import os
 import sys
@@ -46,10 +47,7 @@ from repro.runtime.train import make_train_step as jmake_train_step  # noqa: E40
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import sharding as shd  # noqa: E402
-from repro_torch.runtime.serve import make_serving_fns  # noqa: E402
-from repro_torch.runtime.train import make_train_step  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the session harness; spawned ranks import it by name from this path
@@ -67,6 +65,7 @@ _OTHER_ARCHS = {
     "gelu-mlp": dataclasses.asdict(dataclasses.replace(
         get_arch("granite-3-2b").reduced(), act="gelu"))}
 MESHES = [(2, 2), (1, 4)]
+FAMILIES = ["rwkv6-3b", "zamba2-1.2b", "phi3.5-moe-42b-a6.6b"]
 LR = ("warmup_cosine", 3e-3, 2, 10)
 B, PROMPT, CACHE, GEN = 4, 16, 32, 8
 
@@ -185,6 +184,13 @@ def ranks(ref, ref127, tmp_path_factory):
         cases[f"{arch} train 2x2"] = {
             "kind": "train", "cfg": cfg, "seed": 0, "mesh": (2, 2),
             "batches": [batch], "twin": True}
+    for arch in FAMILIES:
+        cfg = dataclasses.asdict(get_arch(arch).reduced())
+        prompts = np.random.default_rng(4).integers(0, 128, (4, 16))
+        cases[f"{arch} serve 2x2"] = {
+            "kind": "serve", "cfg": cfg, "seed": 0, "mesh": (2, 2),
+            "kv": "f32", "prompts": prompts, "cache_len": 20, "gen": 4,
+            "twin": True}
     cases["roundtrip 2x2"] = _spec(ref, "roundtrip", (2, 2))
     cases["save 2x2"] = _spec(ref, "save", (2, 2), dir=ckpt, step=3,
                               blocking=False)
@@ -391,18 +397,16 @@ def test_mesh_of_fewer_ranks_raises(ranks):
         assert "over a group of 4" in r["raised"]
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b",
-                                  "phi3.5-moe-42b-a6.6b"])
-def test_families_over_a_mesh_raise(arch):
-    """Not ported over a mesh: they raise, naming ROADMAP, rather than
-    run replicated (before any process group is needed)."""
-    model = get_model(get_arch(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.on_mesh(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serving_fns(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, adamw()[1], mesh=object())
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_over_a_mesh_serve_as_one_process(ranks, arch):
+    """RWKV6, Zamba2 and the MoE transformer placed on (2, 2) by
+    ``make_serving_fns(model, mesh)``: prefill and 4 greedy tokens
+    against the same work in one process (rank 0's twin)."""
+    res = ranks[0][f"{arch} serve 2x2"]
+    twin = res[0]["twin"]
+    assert twin["tokens_equal"] and twin["prefill_err"] <= LOGIT_TOL
+    assert twin["first_step_err"] <= twin["limit"]
+    assert all(torch.equal(r["tokens"], res[0]["tokens"]) for r in res)
 
 
 @pytest.mark.parametrize("case", ["qwen2-72b train", "qwen2-72b serve",

@@ -337,15 +337,16 @@ def test_moe_loss_and_grads_match_jax(arch):
 
 
 def test_moe_model_facade():
-    """``get_model`` builds the MoE arch, drops ``moe_impl`` as the
-    reference's ``_filter_kwargs`` would, and counts active params as the
+    """``get_model`` builds the MoE arch, passes ``moe_impl`` on to the
+    transformer as the reference's ``_filter_kwargs`` does (its
+    ``TransformerLM`` takes it), and counts active params as the
     reference's ``active_param_count`` does."""
     jcfg = jget_arch("phi3_5_moe_42b_a6_6b").reduced()
     jm = jget_model(jcfg, compute_dtype=jnp.float32)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = get_model(_port_cfg(jcfg), moe_impl="shardmap", moe_no_drop=True)
     tp = params_from_jax(jax.device_get(jp), device="cpu")
-    assert tm.moe_no_drop and not hasattr(tm.impl, "moe_impl")
+    assert tm.moe_no_drop and tm.impl.moe_impl == "shardmap"
     assert tm.param_count(tp) == jm.param_count(jp)
     assert tm.active_param_count(tp) == jm.active_param_count(jp) < \
         tm.param_count(tp)

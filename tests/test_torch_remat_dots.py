@@ -4,9 +4,10 @@ The reference's ``"dots"`` is ``jax.checkpoint_policies.
 checkpoint_dots_with_no_batch_dims`` (``TransformerLM._maybe_remat``); the
 port's is a ``torch.utils.checkpoint`` selective-checkpoint policy
 (``models.transformer.dots_policy``).  Held here: the products the port's
-policy keeps for one reduced granite layer against the residuals JAX
-saves for the same layer (``saved_residuals``), as multisets of (element
-count, last dim); the loss and gradients under ``"dots"`` bit-equal to
+policy keeps for one reduced granite layer and one reduced phi3.5-moe
+layer against the residuals JAX saves for the same layer
+(``saved_residuals``), as multisets of (element count, last dim), the
+same sets exactly; the loss and gradients under ``"dots"`` bit-equal to
 ``"full"`` and ``"none"`` for granite, phi3.5-moe, RWKV6 and Zamba2 (the
 last two treat ``"dots"`` as ``"full"``, as the reference does); granite's
 loss and gradients under ``"dots"`` against ``jax.grad`` of the
@@ -72,10 +73,10 @@ def _grads(model, params, batch):
     return loss.detach(), [t.grad for t in tree_leaves(p)]
 
 
-def _layer_inputs():
-    """One reduced granite layer's params (layer 0 of the reference's
-    init) and a seeded input h [B, S, d], as numpy."""
-    jm, jp = _jparams("granite_3_2b")
+def _layer_inputs(arch="granite_3_2b"):
+    """One reduced layer's params (layer 0 of the reference's init) and a
+    seeded input h [B, S, d], as numpy."""
+    jm, jp = _jparams(arch)
     lp = jax.tree.map(lambda x: np.asarray(x[0]), jp["layers"])
     h = np.random.default_rng(1).standard_normal(
         (B, S, jm.cfg.d_model)).astype(np.float32)
@@ -96,7 +97,7 @@ def _reference_saved(jm, lp, h):
             if not why.startswith(("from the argument", "from a constant"))]
 
 
-def _port_saved(lp, h, policy=T.dots_policy):
+def _port_saved(lp, h, policy=T.dots_policy, arch="granite_3_2b"):
     """(element count, last dim) of each output the port's policy keeps
     for one layer, and the op of each, from a policy that records what
     it is asked; the layer runs forward and backward."""
@@ -112,7 +113,7 @@ def _port_saved(lp, h, policy=T.dots_policy):
             saved.append((a.shape[0] * w.shape[1], w.shape[1]))
         return decision
 
-    model = get_model(_cfg("granite_3_2b"), remat="dots")
+    model = get_model(_cfg(arch), remat="dots")
     tlp = {k: tree_map(lambda x: torch.from_numpy(np.array(x))
                        .requires_grad_(True), v) for k, v in lp.items()}
     th = torch.from_numpy(h).requires_grad_(True)
@@ -123,29 +124,30 @@ def _port_saved(lp, h, policy=T.dots_policy):
     return saved, ops_seen
 
 
-def test_dots_saved_set_is_the_references():
-    """The port keeps the reference's saved products (q, k, v, the output
-    projection, the gate and up products), plus one: the FFN's down
-    product, the layer's own output, which JAX's partial evaluation drops
-    because no backward rule reads it, and a selective-checkpoint policy
-    cannot tell from the op (ROADMAP §C)."""
-    jm, lp, h = _layer_inputs()
+@pytest.mark.parametrize("arch,n", [("granite_3_2b", 6),
+                                    ("phi3_5_moe_42b_a6_6b", 5)])
+def test_dots_saved_set_is_the_references(arch, n):
+    """The port keeps exactly the reference's saved products: q, k, v, the
+    output projection, and the gate and up products (granite) or the
+    router's logits (the MoE).  The FFN's down product (its output no
+    backward rule reads) and the MoE experts' products (batched einsums
+    in the reference) run under ``layers.unsaved`` and are recomputed."""
+    jm, lp, h = _layer_inputs(arch)
     want = collections.Counter(_reference_saved(jm, lp, h))
-    got, _ = _port_saved(lp, h)
-    d = jm.cfg.d_model
-    extra = collections.Counter({(B * S * d, d): 1})
-    assert collections.Counter(got) == want + extra, (got, want)
-    assert sum(want.values()) == 6
+    got, _ = _port_saved(lp, h, arch=arch)
+    assert collections.Counter(got) == want, (got, want)
+    assert sum(want.values()) == n
 
 
 def test_dots_policy_sees_every_projection_as_mm():
     """Each projection of the layer reaches the dispatcher as one 2-D
-    ``aten.mm`` (a 3-D ``x @ W`` folds when it needs a gradient); the
-    attention's products, batched, are not kept."""
+    ``aten.mm`` (a 3-D ``x @ W`` folds when it needs a gradient), every
+    one kept but the FFN's down product; the attention's products,
+    batched, are not kept."""
     _, lp, h = _layer_inputs()
     saved, ops_seen = _port_saved(lp, h)
     mm = torch.ops.aten.mm.default
-    assert sum(op == mm for op in ops_seen) == len(saved) == 7
+    assert sum(op == mm for op in ops_seen) == len(saved) + 1 == 7
     assert torch.ops.aten.bmm.default in ops_seen
 
 
