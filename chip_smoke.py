@@ -153,8 +153,9 @@ non-zero:
            just after each model: the serve phase's granite-3-2b on its 8
            prompts of 512 tokens, phi3-mini-3.8b at full width cut to 2
            layers (head_dim 96) on 8 prompts of 512 tokens, 16 greedy
-           tokens, then full-width rwkv6-3b (32 layers, d_model 2560,
-           random f32 weights) on 8 prompts of 512 tokens, 64 greedy
+           tokens, then full-width rwkv6-3b (d_model 2560, cut to 8 of
+           32 layers, printed; random f32 weights) on 8
+           prompts of 512 tokens, 64 greedy
            tokens each; prefill and first decode-step logits within 1e-3
            of the same path with the plain kernel versions on the card
            and greedy tokens identical to it; granite's first decode step
@@ -178,7 +179,7 @@ non-zero:
   families the archs no earlier phase runs, each built on the card from
            a seeded generator in f32 and freed before the next, launch
            counters reset just before and read just after each:
-           phi3.5-moe-42b-a6.6b at full width cut to 4 layers (the
+           phi3.5-moe-42b-a6.6b at full width cut to 2 layers (the
            routed-row MoE against the dense dispatch on 64 tokens; dense
            prefill of 8 x 512 and 4 decode steps; PagedServer at h1 and
            h8 on f32 pages and at h8 on int8 pages, a 2-node PoolServer,
@@ -198,8 +199,9 @@ non-zero:
            launch.train.build and freed before the next, launch counters
            reset just before and read just after its full run: rwkv6-3b
            (the wkv scan through the forward kernel's states variant and
-           the backward kernel) and zamba2-1.2b at full depth and width,
-           phi3.5-moe-42b-a6.6b at full width cut to 2 of 32 layers; 3
+           the backward kernel) at 2 of 32 layers and zamba2-1.2b at 2
+           of 38 (printed cuts), phi3.5-moe-42b-a6.6b at 2 of 32; all at
+           full width; 3
            steps of 8 x 512 tokens, grad-accum 2, remat full, AdamW
            warmup_cosine, one step profiled (GEMM, wkv forward and
            backward, flash ms; idle share, device operations); then at 2
@@ -232,8 +234,9 @@ non-zero:
            launches per form (the ranks' sums).  Cut to 8 tokens and no
            2-rank run (printed; the CPU tests hold 2 ranks): gloo stages
            each collective through the host and the ranks share the card
-  mesh     the dense model over a (data, model) mesh of 4 gloo ranks on
-           the card (launch.mesh.run_ranks of scripts/mesh_sessions.py):
+  mesh     the dense model over a (data, model) and a (pod, data, model)
+           mesh of 4 gloo ranks on the card (launch.mesh.run_ranks of
+           scripts/mesh_sessions.py):
            granite-3-2b at full width cut to 4 layers (printed), on (2,
            2) and (1, 4) one train step of 8 x 512 tokens, grad-accum 2,
            remat full (FSDP over data, tensor parallelism over model)
@@ -245,9 +248,20 @@ non-zero:
            one-process prefill's cache quantized), tokens identical to
            the one-process dense path, prefill and first-step logits
            within 1e-4; a checkpoint of (2, 2) shards restored onto (1,
-           2) bit-equal; collectives a step / a token and their bytes,
-           ms a step / a token, peak memory a rank, backend; launches
-           of the mesh path (the ranks' sums)
+           2) bit-equal; then on (pod 2, data 1, model 2) and (pod 2,
+           data 2, model 1) the same train step and f32 serving (FSDP
+           over (pod, data), the cache's sequence over (pod, model), the
+           prefill's cache moved to the decode layout, its bytes
+           printed); collectives a step / a token and their bytes, ms a
+           step / a token, peak memory a rank, backend; launches of the
+           mesh path (the ranks' sums) and of the pod meshes apart
+  pipeline the GPipe loss over pod (runtime.pipeline_par) on 4 gloo ranks
+  mesh_families
+           RWKV6, Zamba2 and the MoE transformer over (2, 2) and (1, 4),
+           then zamba2-1.2b and the shardmap MoE on (pod 2, data 1,
+           model 2), each a train step and a serving against one
+           process; the last phase.  A line "timing" gives each phase's
+           seconds
 
 The kernels phase also holds the flash-attention kernel (causal and not
 at granite-3-2b's prefill shape, causal at phi3-mini-3.8b's and at
@@ -272,8 +286,9 @@ plain backward).  Then
 the kernels line (launches: the serve, serve_knobs, serve_spec,
 serve_pool, serve_reduced, isp, facade, examples, dense, train,
 train_dots, families, train_families, serve_ranks and mesh phases'
-counts, also apart for train, train_dots, serve_ranks, mesh and each
-train_families model; an entry of a families model's shape also its launches in that
+counts, also apart for train, train_dots, serve_ranks, mesh, the pod
+meshes and each train_families model; an entry of a families model's
+shape also its launches in that
 model's run; every entry launched at least once), the
 nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -2224,7 +2239,9 @@ WKV = {"batch": 8, "seq": 512, "heads": 40, "dk": 64, "dv": 64, "chunk": 32}
 # the dense phase: the serve phase's granite-3-2b and prompts, then
 # rwkv6-3b; 64 greedy tokens a request, f32 caches
 DENSE = {"rwkv_arch": "rwkv6-3b", "rwkv_reduced": False, "requests": 8,
-         "prompt_len": 512, "gen": 64, "profile_steps": 4}
+         "prompt_len": 512, "gen": 64, "profile_steps": 4,
+         # rwkv6-3b at full width cut in depth for the smoke's time
+         "rwkv_layers": 8, "rwkv_cut": "8 of 32 layers (the smoke's time)"}
 # phi3-mini-3.8b through the same path at full width (32 heads of 96),
 # cut to PHI3["layers"] layers: the flash kernel at head_dim 96
 PHI3 = {"arch": "phi3-mini-3.8b", "reduced": False, "layers": 2, "gen": 16}
@@ -3111,6 +3128,8 @@ def phase_dense(torch, np, smi, served):
     """The launcher's default path at full width: granite-3-2b (the serve
     phase's params and prompts), then rwkv6-3b; ``served`` is emptied so
     that granite's weights are freed before rwkv6-3b's are made."""
+    import dataclasses
+
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.api import get_model
@@ -3147,6 +3166,7 @@ def phase_dense(torch, np, smi, served):
     rcfg = get_arch(DENSE["rwkv_arch"])
     if DENSE["rwkv_reduced"]:
         rcfg = rcfg.reduced()
+    rcfg = dataclasses.replace(rcfg, n_layers=DENSE["rwkv_layers"])
     model = get_model(rcfg)
     t0 = time.monotonic()
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
@@ -3167,7 +3187,7 @@ def phase_dense(torch, np, smi, served):
     torch.cuda.empty_cache()
     counts = {k: g_counts[k] + p_counts[k] + r_counts[k] for k in g_counts}
     emit({"phase": "dense", "granite": granite, "phi3_mini": phi3,
-          "rwkv6": rwkv,
+          "rwkv6": rwkv, "rwkv6_cut": DENSE["rwkv_cut"],
           "launches": counts, "logits_tol": LOGITS_TOL,
           "phase_s": time.monotonic() - t_phase,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -3348,11 +3368,11 @@ def phase_serve(torch, np, smi):
 # the cold/warm pair; the byte budget of the f32 window (320 stacked
 # pages of granite-3-2b: 838,860,800 bytes); pools of 4 nodes
 SERVE_KNOBS = {"shared": 256, "pool_nodes": 4, "bf16_ulps": 4,
-               # the serve phase's weights cut to their first 8 layers: the
-               # smoke's time; the bf16 and int8 stores' agreement
-               # with the serve phase's f32 tokens (a reading) then has no
-               # f32 run of the same weights to read
-               "layers": 8, "cut": "8 of 40 layers (the smoke's time)"}
+               # the serve phase's weights cut to their first 4 layers:
+               # the smoke's time; the bf16 and int8
+               # stores' agreement with the serve phase's f32 tokens (a
+               # reading) then has no f32 run of the same weights to read
+               "layers": 4, "cut": "4 of 40 layers (the smoke's time)"}
 
 
 def bf16_tolerance(logits, ulps=SERVE_KNOBS["bf16_ulps"]):
@@ -3804,12 +3824,13 @@ def phase_examples(torch, smi):
 SERVE_SPEC = {"phrase": 16, "repeats": 32, "horizon": 8, "max_active": 8,
               "temperature": 0.8, "top_p": 0.9, "seed": 0,
               "cold_temperature": 0.05,
-              # the serve phase's weights cut to their first 8 layers: the
-              # smoke's time once the pipeline and mesh_families phases
-              # came in; the per-token greedy run is then no longer
-              # the serve phase's 40-layer run, so that cross-check goes
-              "layers": 8,
-              "cut": "8 of 40 layers (the smoke's time)"}
+              # the serve phase's weights cut to their first 4 layers: the
+              # smoke's time once the pipeline, mesh_families and pod
+              # mesh cases came in;
+              # the per-token greedy run is then no longer the serve
+              # phase's 40-layer run, so that cross-check goes
+              "layers": 4,
+              "cut": "4 of 40 layers (the smoke's time)"}
 
 
 def served_cut(served, layers):
@@ -4974,7 +4995,8 @@ def train_entry_points(torch, np, ops):
 # int8 dense-decode cache on the serve phase's weights and prompts
 FAMILIES = {
     "reduced": False, "requests": 8, "prompt_len": 512,
-    "moe": {"arch": "phi3.5-moe-42b-a6.6b", "layers": 4, "decode_steps": 4,
+    # phi3.5-moe cut to 2 of 32 layers: the smoke's time
+    "moe": {"arch": "phi3.5-moe-42b-a6.6b", "layers": 2, "decode_steps": 4,
             "gen": 32, "chunk": 256, "page": 16, "hbm_pages": 320,
             "pool_nodes": 2, "route_tokens": 64},
     "scout": {"arch": "llama4-scout-17b-a16e", "layers": 2,
@@ -5724,11 +5746,11 @@ TRAIN_FAMILIES = {
     "reduced": False,
     # depth cut for the smoke's time (once the pipeline and
     # mesh_families phases came in): rwkv6-3b 2 of 32 layers, zamba2-1.2b
-    # 6 of 38 (one application of the shared block)
-    "models": (("rwkv6-3b", 2), ("zamba2-1.2b", 6),
+    # 2 of 38 (one application of the shared block)
+    "models": (("rwkv6-3b", 2), ("zamba2-1.2b", 2),
                ("phi3.5-moe-42b-a6.6b", 2)),
     "cut": {"rwkv6-3b": "2 of 32 layers (the smoke's time)",
-            "zamba2-1.2b": "6 of 38 layers, one application of the shared "
+            "zamba2-1.2b": "2 of 38 layers, one application of the shared "
                            "block (the smoke's time)",
             "phi3.5-moe-42b-a6.6b": "2 of 32 layers (card memory)"},
 }
@@ -6300,6 +6322,10 @@ def phase_serve_ranks(torch, np, smi):
 # ["layers"] layers, on 4 gloo ranks sharing the card
 MESH = {"arch": "granite-3-2b", "layers": 4, "ranks": 4,
         "meshes": ((2, 2), (1, 4)), "batch": 8, "seq": 512,
+        # (pod, data, model): the batch and FSDP over (pod, data), the
+        # decode cache's rows over data and its sequence over (pod,
+        # model); a train step and an f32 serving each
+        "pod_meshes": ((2, 1, 2), (2, 2, 1)),
         "grad_accum": 2, "remat": "full", "gen": 8, "restore": ((1, 2),),
         "lr": ("warmup_cosine", 3e-3, 2, 10), "timeout_s": 900,
         # params after the step: elements whose one-process gradient is
@@ -6314,11 +6340,14 @@ MESH = {"arch": "granite-3-2b", "layers": 4, "ranks": 4,
 
 
 def phase_mesh(torch, np, smi):
-    """The dense model over a ``(data, model)`` mesh of ranks, on
-    MESH["ranks"] gloo ranks sharing the card (``launch.mesh.run_ranks``
-    of ``scripts/mesh_sessions.py``'s ``mesh_sessions``), granite-3-2b at
-    full width cut to MESH["layers"] layers, every rank building the same
-    seeded weights; on each of MESH["meshes"]:
+    """The dense model over a ``(data, model)`` and a ``(pod, data,
+    model)`` mesh of ranks, on MESH["ranks"] gloo ranks sharing the card
+    (``launch.mesh.run_ranks`` of ``scripts/mesh_sessions.py``'s
+    ``mesh_sessions``), granite-3-2b at full width cut to MESH["layers"]
+    layers, every rank building the same seeded weights; on each of
+    MESH["meshes"] (and, without the int8 cache, of MESH["pod_meshes"]:
+    the prefill's cache moved from rows over (pod, data) to the decode
+    layout, its bytes printed):
 
       * one train step (``make_train_step(..., mesh=)``: FSDP over data,
         tensor parallelism over model) of 8 x 512 tokens, grad-accum 2,
@@ -6341,7 +6370,8 @@ def phase_mesh(torch, np, smi):
     bytes, ms a train step and a token, peak memory a rank, the backend.
     Launches: the mesh path's (the ranks' sums, twins excluded).  Gloo
     stages every collective through the host and the ranks share one
-    card: these are not times across cards."""
+    card: these are not times across cards.  Returns (the launches of
+    every case, those of the pod meshes' cases)."""
     import collections
     import dataclasses
     import gc
@@ -6369,13 +6399,13 @@ def phase_mesh(torch, np, smi):
     held_gb = torch.cuda.memory_allocated() / 1e9
     ckpt = tempfile.TemporaryDirectory()
     cases = {}
-    for mesh in MESH["meshes"]:
+    for mesh in MESH["meshes"] + MESH["pod_meshes"]:
         m = "x".join(map(str, mesh))
         cases[f"train {m}"] = dict(
             base, kind="train", mesh=mesh, batches=[batch], lr=MESH["lr"],
             ga=MESH["grad_accum"], remat=MESH["remat"], twin=True,
             step_band=MESH["step_band"])
-        for kv in ("f32", "int8"):
+        for kv in ("f32", "int8") if len(mesh) == 2 else ("f32",):
             cases[f"serve {kv} {m}"] = dict(
                 base, kind="serve", mesh=mesh, kv=kv, prompts=prompts,
                 cache_len=s + MESH["gen"], gen=MESH["gen"], twin=True)
@@ -6392,13 +6422,16 @@ def phase_mesh(torch, np, smi):
                      timeout_s=MESH["timeout_s"])
     restore_s = time.monotonic() - t0
     ckpt.cleanup()
-    counts = collections.Counter()
+    counts, pod = collections.Counter(), collections.Counter()
     note = ("gloo stages every collective through the host and the ranks "
             "share one card: these are not times across cards")
     for i, name in enumerate(names):
         res = [got[r][i] for r in range(n)]
+        on_pod = name.count("x") == 2
         for r in res:
             counts.update(r.get("launches", {}))
+            if on_pod:
+                pod.update(r.get("launches", {}))
         r0 = res[0]
         line = {"phase": "mesh", "run": name, "backend": backend,
                 "ranks": n, "session_s": r0["session_s"]}
@@ -6424,6 +6457,9 @@ def phase_mesh(torch, np, smi):
                 ms_tokens=r0["ms"],
                 collectives_a_token={k: v / gen for k, v in
                                      r0["collectives"].items()},
+                prefill_redistribute_bytes_a_rank=[
+                    r["collectives_session"].get("redistribute_bytes", 0)
+                    for r in res],
                 launches=dict(sum((collections.Counter(r["launches"])
                                    for r in res), collections.Counter())),
                 peak_memory_gb=[(r["peak_bytes"] or 0) / 1e9 for r in res])
@@ -6436,14 +6472,18 @@ def phase_mesh(torch, np, smi):
     for k in ("flash_attention_f32", "flash_attention_fwd_lse_f32",
               "flash_attention_bwd_f32"):
         check(counts[k] > 0, f"{k} launched on the mesh ranks")
+        check(pod[k] > 0, f"{k} launched on the pod meshes' ranks")
     emit({"phase": "mesh", "arch": cfg.name, "layers": cfg.n_layers,
-          "cut": MESH["cut"], "meshes": MESH["meshes"], "backend": backend,
+          "cut": MESH["cut"], "meshes": MESH["meshes"],
+          "pod_meshes": MESH["pod_meshes"], "backend": backend,
           "spawned_ranks": n, "spawn_s": spawn_s, "restore_s": restore_s,
           "parent_card_gb_at_spawn": held_gb, "launches": dict(counts),
+          "launches_on_pod_meshes": dict(pod),
           "seconds": time.monotonic() - t_phase,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": note + "; smoke run, not a benchmark"})
-    return collections.defaultdict(int, counts)
+    return (collections.defaultdict(int, counts),
+            collections.defaultdict(int, pod))
 
 
 # RWKV6, Zamba2 and the MoE transformer over a (data, model) mesh, each at
@@ -6464,6 +6504,11 @@ FAMILIES_MESH = {
     "models": (("phi3.5-moe-42b-a6.6b", 1, ("dense", "shardmap"), False),
                ("rwkv6-3b", 2, ("dense",), True),
                ("zamba2-1.2b", 2, ("dense",), False)),
+    # (pod, data, model): (arch, moe_impl) on pod_mesh, a train
+    # step held by loss and grad_norm and a serving by logits and tokens
+    "pod_mesh": (2, 1, 2),
+    "pod_models": (("zamba2-1.2b", "dense"),
+                   ("phi3.5-moe-42b-a6.6b", "shardmap")),
     # the train step's one-process twin: True holds the loss, grad_norm,
     # every gradient and every param; "scalars" the loss and grad_norm
     # (no tree gathered to rank 0: 12.6 GB for phi3.5-moe, ~30 s over
@@ -6476,10 +6521,12 @@ FAMILIES_MESH = {
               (True, "dense", (1, 4)): "scalars",
               (True, "shardmap", (1, 4)): False,
               (False, "dense", (2, 2)): True,
-              (False, "dense", (1, 4)): "scalars"},
-    # greedy tokens of phi3.5-moe's serving on (2, 2): each decode call
-    # all-gathers its FSDP shards (1.56 GB a rank) over gloo, ~4.8 s a
-    # token (measured on one H100)
+              (False, "dense", (1, 4)): "scalars",
+              (True, "shardmap", (2, 1, 2)): "scalars",
+              (False, "dense", (2, 1, 2)): "scalars"},
+    # greedy tokens of phi3.5-moe's serving on (2, 2) and (2, 1, 2): each
+    # decode call all-gathers its FSDP shards (1.56 GB a rank on (2, 2))
+    # over gloo, ~4.8 s a token (measured on one H100)
     "gen_moe_2x2": 2,
     "cut": {"phi3.5-moe-42b-a6.6b": "1 of 32 layers (card memory); 2 of 8 "
                                     "greedy tokens on (2, 2); the train "
@@ -6489,8 +6536,8 @@ FAMILIES_MESH = {
             "rwkv6-3b": "2 of 32 layers; on (1, 4) the train step held by "
                         "loss and grad_norm (the smoke's time)",
             "zamba2-1.2b": "2 of 38 layers, one application of the shared "
-                           "block; on (1, 4) the train step held by loss "
-                           "and grad_norm (the smoke's time)"}}
+                           "block; on (1, 4) and (2, 1, 2) the train step "
+                           "held by loss and grad_norm (the smoke's time)"}}
 
 
 def phase_mesh_families(torch, np, smi):
@@ -6521,11 +6568,15 @@ def phase_mesh_families(torch, np, smi):
     each data rank's rows routed alone, the aux averaged); on (1, 4) it
     must be the dense impl's run bit for bit (routing pair for pair,
     losses, norms, each rank's params and gradients, logits and tokens),
-    which that run holds to one process.  Printed: the pairs each impl
-    drops, collectives and bytes a step and a token, ms a step and a
-    token, peak memory a rank, the kernels' launches.  Gloo stages every
-    collective through the host and the ranks share one card: not times
-    across cards."""
+    which that run holds to one process.  Then on FAMILIES_MESH["pod_mesh"]
+    (pod 2, data 1, model 2) FAMILIES_MESH["pod_models"]: zamba2-1.2b and
+    the shardmap MoE (its one-process model: each pod's rows routed
+    alone), each a train step held by loss and grad_norm and a serving by
+    logits and tokens.  Printed: the pairs each impl drops, collectives
+    and bytes a step and a token, ms a step and a token, peak memory a
+    rank, the kernels' launches.  Gloo stages every collective through
+    the host and the ranks share one card: not times across cards.
+    Returns (the launches of every case, those of the pod mesh's)."""
     import collections
     import dataclasses
     import gc
@@ -6567,6 +6618,20 @@ def phase_mesh_families(torch, np, smi):
                     base, kind="serve", mesh=mesh, kv="f32", prompts=prompts,
                     cache_len=s + fm["gen"], gen=gen, moe_impl=impl)
         meta[arch] = (cfg, layers)
+        pod_impls = [i for a, i in fm["pod_models"] if a == arch]
+        for impl in pod_impls:
+            mesh = fm["pod_mesh"]
+            m = "x".join(map(str, mesh))
+            cases[(arch, "train", impl, m)] = dict(
+                base, kind="train", mesh=mesh, batches=[batch],
+                lr=fm["lr"], ga=fm["grad_accum"], remat=fm["remat"],
+                moe_impl=impl, step_band=fm["step_band"], spread=spread,
+                twin=fm["twins"][(cfg.is_moe, impl, mesh)])
+            cases[(arch, "serve", impl, m)] = dict(
+                base, kind="serve", mesh=mesh, kv="f32", prompts=prompts,
+                cache_len=s + fm["gen"],
+                gen=fm["gen_moe_2x2"] if cfg.is_moe else fm["gen"],
+                moe_impl=impl)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6575,7 +6640,7 @@ def phase_mesh_families(torch, np, smi):
     got = run_ranks(mesh_sessions, n, ([cases[k] for k in names],),
                     device_type=DEVICE, timeout_s=fm["timeout_s"])
     spawn_s = time.monotonic() - t0
-    counts = collections.Counter()
+    counts, pod = collections.Counter(), collections.Counter()
     runs = {}
     for i, key in enumerate(names):
         arch, kind, impl, m = key
@@ -6586,9 +6651,11 @@ def phase_mesh_families(torch, np, smi):
         for r in res:
             launches.update(r.get("launches", {}))
         counts.update(launches)
+        if m.count("x") == 2:
+            pod.update(launches)
         r0 = res[0]
         model_ranks = [r for j, r in enumerate(res)
-                       if j % int(m.split("x")[1]) == 0]
+                       if j % int(m.split("x")[-1]) == 0]
         moe = {k: sum(r["moe"].get(k, 0) for r in model_ranks)
                for k in ("pairs", "dropped")} if cfg.is_moe else None
         line = {"phase": "mesh_families", "arch": arch,
@@ -6611,6 +6678,9 @@ def phase_mesh_families(torch, np, smi):
                         ms_a_token=statistics.median(r0["ms"]),
                         ms_tokens=r0["ms"], greedy_tokens=len(r0["ms"]),
                         cache_shapes_a_rank=r0["cache_shapes"],
+                        prefill_redistribute_bytes_a_rank=[
+                            r["collectives_session"].get(
+                                "redistribute_bytes", 0) for r in res],
                         collectives_a_token={
                             k: v / len(r0["ms"]) for k, v in
                             r0["collectives"].items()})
@@ -6646,14 +6716,20 @@ def phase_mesh_families(torch, np, smi):
               "flash_attention_bwd_f32", "rwkv_scan_f32",
               "rwkv_scan_states_f32", "rwkv_scan_bwd_f32"):
         check(counts[k] > 0, f"{k} launched on the mesh_families ranks")
+    for k in ("flash_attention_f32", "flash_attention_fwd_lse_f32",
+              "flash_attention_bwd_f32"):
+        check(pod[k] > 0, f"{k} launched on the pod mesh's ranks")
     emit({"phase": "mesh_families", "meshes": fm["meshes"],
+          "pod_mesh": fm["pod_mesh"], "pod_models": fm["pod_models"],
           "backend": backend, "spawned_ranks": n,
           "layers": {a: meta[a][1] for a in meta}, "cut": fm["cut"],
           "spawn_s": spawn_s, "launches": dict(counts),
+          "launches_on_pod_mesh": dict(pod),
           "seconds": time.monotonic() - t_phase,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": note + "; smoke run, not a benchmark"})
-    return collections.defaultdict(int, counts)
+    return (collections.defaultdict(int, counts),
+            collections.defaultdict(int, pod))
 
 
 # the GPipe pipeline over pod (runtime.pipeline_par): granite-3-2b at full
@@ -6815,33 +6891,52 @@ def main() -> int:
         return 1
     from repro_torch.device import resolve_device
     resolve_device("cuda")                      # f32 contract: TF32 off
-    smi = phase_env(torch)
-    phase_build()
+    seconds = {}
+    t_run = time.monotonic()
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    smi = timed("env", phase_env, torch)
+    timed("build", phase_build)
     data = make_data(np)
-    kernels = phase_kernels(torch, np)
+    kernels = timed("kernels", phase_kernels, torch, np)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEVICE)
-    kernels += phase_isp_kernels(torch, np, data, flush)
-    kernels += phase_dense_kernels(torch, np, flush)
+    kernels += timed("isp_kernels", phase_isp_kernels, torch, np, data,
+                     flush)
+    kernels += timed("dense_kernels", phase_dense_kernels, torch, np, flush)
     del flush
-    counts, served = phase_serve(torch, np, smi)
-    knob_counts = phase_serve_knobs(torch, np, smi, served)
-    spec_counts = phase_serve_spec(torch, np, smi, served)
-    pool_counts = phase_serve_pool(torch, np, smi, served)
-    reduced_counts = phase_serve_reduced(torch, np, smi)
-    isp_counts = phase_isp(torch, np, smi, served, data)
+    counts, served = timed("serve", phase_serve, torch, np, smi)
+    knob_counts = timed("serve_knobs", phase_serve_knobs, torch, np, smi,
+                        served)
+    spec_counts = timed("serve_spec", phase_serve_spec, torch, np, smi,
+                        served)
+    pool_counts = timed("serve_pool", phase_serve_pool, torch, np, smi,
+                        served)
+    reduced_counts = timed("serve_reduced", phase_serve_reduced, torch, np,
+                           smi)
+    isp_counts = timed("isp", phase_isp, torch, np, smi, served, data)
     del data
-    facade_counts = phase_facade(torch, np, smi)
-    phase_analytical(smi, served)
-    example_counts = phase_examples(torch, smi)
-    dense_counts = phase_dense(torch, np, smi, served)
-    train_counts, granite_full = phase_train(torch, np, smi)
-    dots_counts = phase_train_dots(torch, np, smi, granite_full)
-    family_counts = phase_families(torch, np, smi)
-    tf_counts = phase_train_families(torch, np, smi)
-    rank_counts = phase_serve_ranks(torch, np, smi)
-    mesh_counts = phase_mesh(torch, np, smi)
-    pipe_counts = phase_pipeline(torch, np, smi)
-    fam_mesh_counts = phase_mesh_families(torch, np, smi)
+    facade_counts = timed("facade", phase_facade, torch, np, smi)
+    timed("analytical", phase_analytical, smi, served)
+    example_counts = timed("examples", phase_examples, torch, smi)
+    dense_counts = timed("dense", phase_dense, torch, np, smi, served)
+    train_counts, granite_full = timed("train", phase_train, torch, np, smi)
+    dots_counts = timed("train_dots", phase_train_dots, torch, np, smi,
+                        granite_full)
+    family_counts = timed("families", phase_families, torch, np, smi)
+    tf_counts = timed("train_families", phase_train_families, torch, np,
+                      smi)
+    rank_counts = timed("serve_ranks", phase_serve_ranks, torch, np, smi)
+    mesh_counts, mesh_pod = timed("mesh", phase_mesh, torch, np, smi)
+    pipe_counts = timed("pipeline", phase_pipeline, torch, np, smi)
+    fam_mesh_counts, fam_pod = timed("mesh_families", phase_mesh_families,
+                                     torch, np, smi)
+    emit({"phase": "timing", "seconds": seconds,
+          "total_s": time.monotonic() - t_run})
     for entry in kernels:
         entry["launches"] = sum(c[entry["kernel"]] for c in (
             counts, knob_counts, spec_counts, pool_counts, reduced_counts,
@@ -6857,6 +6952,8 @@ def main() -> int:
         entry["launches_in_mesh"] = mesh_counts[entry["kernel"]]
         entry["launches_in_pipeline"] = pipe_counts[entry["kernel"]]
         entry["launches_in_mesh_families"] = fam_mesh_counts[entry["kernel"]]
+        entry["launches_on_pod_meshes"] = (mesh_pod[entry["kernel"]] +
+                                           fam_pod[entry["kernel"]])
         entry["launches_in_train_families"] = {
             a: c[entry["kernel"]] for a, c in tf_counts.items()}
         if "families_model" in entry:

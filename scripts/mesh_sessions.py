@@ -1,6 +1,8 @@
-"""Sessions of the dense transformer on a ``(data, model)`` mesh of ranks:
+"""Sessions of the model code on a ``(pod, data, model)`` mesh of ranks:
 the harness of ``tests/test_torch_mesh*.py`` and of ``chip_smoke.py``'s
-``mesh`` phase.
+``mesh`` phase.  A spec's ``mesh`` is its shape; its axes are
+``spec["axes"]``, else the last ``len(mesh)`` of ``(pod, data, model)``
+(``(2, 2)`` is ``(data, model)``, ``(2, 2, 2)`` all three).
 
 ``mesh_sessions(specs)`` runs each spec in this rank (spawned by
 ``repro_torch.launch.mesh.run_ranks``, every rank of the group on the
@@ -23,7 +25,8 @@ spec's mesh) and returns one result a spec.  Kinds:
   * ``"pipeline"``: ``runtime.pipeline_par.make_pipeline_loss`` on a
     ``(pod, data)`` mesh (``axes``), the loss and its gradients from this
     rank's stage params, gathered whole (rank 0 returns them where
-    ``keep``).
+    ``keep``); with ``model_code`` also the model code's loss placed on
+    the same mesh (``model.on_mesh``: the batch over ``(pod, data)``).
 
 With ``twin`` rank 0 also runs the same work in one process
 (``mesh=None``) on the same weights and holds the mesh's result to it
@@ -48,7 +51,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import MeshPlacement, make_test_mesh
+from repro_torch.launch.mesh import MESH_AXES, MeshPlacement, make_test_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.api import get_model
 from repro_torch.models.convert import params_from_jax
@@ -60,7 +63,8 @@ from repro_torch.runtime.pipeline_par import (gather_stages,
                                               make_pipeline_loss,
                                               stage_params)
 from repro_torch.runtime.serve import make_serving_fns
-from repro_torch.runtime.train import make_train_step
+from repro_torch.runtime.train import (gather_data, make_train_step,
+                                       split_rows)
 
 LOSS_RTOL = 1e-5           # f32 both sides; only summation orders differ
 GRAD_TOL = 1e-4            # times max(1, max |g_ref|), per leaf
@@ -212,6 +216,16 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
+def _axes(spec) -> tuple:
+    return tuple(spec.get("axes") or MESH_AXES[-len(spec["mesh"]):])
+
+
+def _mesh(spec, device):
+    """The spec's mesh over the group's first ranks."""
+    return make_test_mesh(tuple(spec["mesh"]), _axes(spec),
+                          device_type=device.type)
+
+
 def _device(spec):
     if spec.get("device", "cpu") == "cuda":
         return resolve_device(f"cuda:{torch.cuda.current_device()}")
@@ -288,12 +302,14 @@ def digest(tree) -> list:
 
 def _twin_model(spec, model):
     """The one-process model the mesh's work is held to: the model, or
-    for the shardmap MoE on more than one data rank its local-capacity
-    model (:class:`DataBlocks`)."""
-    data = tuple(spec["mesh"])[0]
-    if spec.get("moe_impl") == "shardmap" and data > 1 and \
+    for the shardmap MoE on more than one ``(pod, data)`` rank its
+    local-capacity model (:class:`DataBlocks`, a block a rank in their
+    pod-major order)."""
+    sizes = dict(zip(_axes(spec), spec["mesh"]))
+    blocks = sizes.get("pod", 1) * sizes.get("data", 1)
+    if spec.get("moe_impl") == "shardmap" and blocks > 1 and \
             model.cfg.is_moe:
-        return DataBlocks(model, data)
+        return DataBlocks(model, blocks)
     return model
 
 
@@ -335,7 +351,7 @@ def _batches(spec, device):
 def train_session(spec, device) -> dict:
     model = _model(spec)
     params = _weights(spec, model, device)
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     specs = shd.param_specs(mesh, params)
     local = shd.shard_tree(params, mesh, specs)
     del params                      # the twin draws its own
@@ -541,7 +557,7 @@ def serve_session(spec, device) -> dict:
     model = _model(spec, kv_quant="int8" if spec["kv"] == "int8" else
                    "none")
     params = _weights(spec, model, device)
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     specs = shd.param_specs(mesh, params)
     prefill, decode = make_serving_fns(model, mesh)
     place = prefill.placement
@@ -728,7 +744,7 @@ def _serve_compare(spec, got, twin) -> dict:
 def save_session(spec, device) -> dict:
     model = _model(spec)
     params = _weights(spec, model, device)
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     specs = shd.param_specs(mesh, params)
     mgr = CheckpointManager(spec["dir"])
     mgr.save(spec.get("step", 1), shd.shard_tree(params, mesh, specs),
@@ -743,7 +759,7 @@ def restore_session(spec, device) -> dict:
     for bit."""
     model = _model(spec)
     params = _weights(spec, model, device)
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     specs = shd.param_specs(mesh, params)
     got = CheckpointManager(spec["dir"]).restore(params, mesh=mesh,
                                                  specs=specs)
@@ -762,7 +778,7 @@ def restore_session(spec, device) -> dict:
 def roundtrip_session(spec, device) -> dict:
     model = _model(spec)
     params = _weights(spec, model, device)
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     specs = shd.param_specs(mesh, params)
     init, _ = adamw()
     opt = init(params)
@@ -787,7 +803,7 @@ def roundtrip_session(spec, device) -> dict:
 
 def bad_mesh_session(spec, device) -> dict:
     """A mesh of fewer ranks than the group: the placement raises."""
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     try:
         MeshPlacement(mesh)
     except ValueError as e:
@@ -802,8 +818,7 @@ def pipeline_session(spec, device) -> dict:
     one process (loss LOSS_RTOL, gradients GRAD_TOL)."""
     model = _model(spec)
     params = _weights(spec, model, device)
-    axes = tuple(spec.get("axes", ("pod", "data")))
-    mesh = make_test_mesh(tuple(spec["mesh"]), axes, device_type=device.type)
+    mesh = _mesh(spec, device)
     loss_fn = make_pipeline_loss(model, mesh,
                                  n_microbatches=spec["microbatches"])
     place = loss_fn.placement
@@ -827,6 +842,9 @@ def pipeline_session(spec, device) -> dict:
            "stages": stages, "microbatches": spec["microbatches"],
            "bubble": (stages - 1) / (spec["microbatches"] + stages - 1)}
     whole = gather_stages(grads, mesh)
+    if spec.get("model_code"):
+        out["model_code_loss"] = _model_code_loss(model, params, mesh,
+                                                  batch)
     if dist.get_rank() == 0:
         if spec.get("twin"):
             out["twin"] = _pipeline_twin(model, params, batch, float(loss),
@@ -834,6 +852,21 @@ def pipeline_session(spec, device) -> dict:
         if spec.get("keep"):
             out["grads"] = _cpu(whole)
     return out
+
+
+def _model_code_loss(model, params, mesh, batch) -> float:
+    """The model code's loss on ``mesh`` (``model.on_mesh``): this rank's
+    ``param_specs`` shards gathered over the FSDP axes, its rows of the
+    batch."""
+    placed = model.on_mesh(mesh)
+    place = placed.place
+    local = shd.shard_tree(params, mesh, placed.specs)
+    rows = place.rows_axis(batch["tokens"].shape[0])
+    with torch.no_grad():
+        loss, _ = placed.with_rows(rows).loss(
+            gather_data(place, placed.specs, local),
+            {k: split_rows(rows, v) for k, v in batch.items()})
+    return float(loss)
 
 
 def _pipeline_twin(model, params, batch, loss, grads) -> dict:
@@ -856,8 +889,7 @@ def pipeline_backward_session(spec, device) -> dict:
     gradients, bit for bit."""
     model = _model(spec)
     params = _weights(spec, model, device)
-    mesh = make_test_mesh(tuple(spec["mesh"]), tuple(spec["axes"]),
-                          device_type=device.type)
+    mesh = _mesh(spec, device)
     loss_fn = make_pipeline_loss(model, mesh,
                                  n_microbatches=spec["microbatches"])
     local = stage_params(params, mesh)
@@ -870,9 +902,9 @@ def pipeline_backward_session(spec, device) -> dict:
 
 
 def pipeline_errors_session(spec, device) -> dict:
-    """What the pipeline and the model code refuse on a pod mesh: layers
-    that do not divide over the stages, a batch that does not divide
-    over data x microbatches, the model code on a pod axis."""
+    """What the pipeline refuses on a pod mesh: layers that do not divide
+    over the stages, a batch that does not divide over data x
+    microbatches."""
     import dataclasses
 
     raised = {}
@@ -890,17 +922,31 @@ def pipeline_errors_session(spec, device) -> dict:
         loss_fn({}, {"tokens": toks, "labels": toks})
     except ValueError as e:
         raised["batch"] = str(e)
-    try:
-        model.impl.on_mesh(mesh)
-    except NotImplementedError as e:
-        raised["pod refused"] = str(e)
     return {"raised": raised}
+
+
+def serve_raises_session(spec, device) -> dict:
+    """``make_serving_fns(model, mesh)``'s prefill into a cache of
+    ``cache_len`` positions that do not split over the mesh's sequence
+    axis: the message of the ``ValueError`` it raises."""
+    model = _model(spec)
+    params = _weights(spec, model, device)
+    mesh = _mesh(spec, device)
+    prefill, _ = make_serving_fns(model, mesh)
+    local = shd.shard_tree(params, mesh, shd.param_specs(mesh, params))
+    prompts = torch.from_numpy(np.asarray(spec["prompts"])).long().to(device)
+    try:
+        prefill(local, {"tokens": prompts}, torch.float32, spec["cache_len"])
+    except ValueError as e:
+        return {"raised": str(e)}
+    raise AssertionError(f"a cache of {spec['cache_len']} positions on "
+                         f"{spec['mesh']} did not raise")
 
 
 def raises_session(spec, device) -> dict:
     """``on_mesh`` of each of ``cfgs`` on this spec's mesh: the message of
     the ``NotImplementedError`` it raises (None where it places)."""
-    mesh = make_test_mesh(tuple(spec["mesh"]), device_type=device.type)
+    mesh = _mesh(spec, device)
     out = []
     for cfg in spec["cfgs"]:
         try:
@@ -912,6 +958,7 @@ def raises_session(spec, device) -> dict:
 
 
 SESSIONS = {"pipeline": pipeline_session, "raises": raises_session,
+            "serve_raises": serve_raises_session,
             "pipeline_backward": pipeline_backward_session,
             "pipeline_errors": pipeline_errors_session, "train": train_session, "serve": serve_session,
             "save": save_session, "restore": restore_session,

@@ -11,9 +11,12 @@ ranks of a function on this host (``torch.multiprocessing``, a
 ``FileStore`` rendezvous: no TCP port) and joins them with a time
 limit.  :class:`MeshPlacement` gives a rank's place on a ``(pod, data,
 model)`` mesh: its coordinate and one :class:`MeshAxis` (the axis's
-process group and its counted collectives) an axis.  The model code
-places over ``data`` and ``model``; the GPipe pipeline
-(``runtime.pipeline_par``) takes ``pod`` as its stage axis.
+process group and its counted collectives) an axis or set of axes.  The
+model code places the batch and the FSDP shards over ``fsdp`` (``(pod,
+data)``), tensor parallelism over ``model`` and the decode cache's
+sequence over ``seq`` (``(pod, model)``), as the reference's sharding
+rules do; the GPipe pipeline (``runtime.pipeline_par``) takes ``pod`` as
+its stage axis.
 ``make_production_mesh`` is not
 ported: it serves the reference's XLA dry run on a faked 512-device
 mesh.
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import datetime
+import itertools
 import math
 import os
 import sys
@@ -173,16 +177,17 @@ class MeshAxis:
                         dist.ReduceOp.SUM, group=self.group)
         return y
 
-    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   kind: str = "all_gather") -> torch.Tensor:
         """Every rank's ``x`` of the axis, joined along ``dim`` in index
-        order."""
+        order (counted under ``kind``)."""
         if self.size == 1:
             return x
         import torch.distributed as dist
 
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        self.note("all_gather", x)
+        self.note(kind, x)
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim=dim)
 
@@ -237,34 +242,32 @@ class MeshAxis:
         return buf.to(like.device) if stage else buf
 
 
-#: the axes a placement knows: ``pod`` (the pipeline's stages), ``data``
-#: and ``model``
+#: the axes a placement knows: ``pod`` (the pipeline's stages; beside
+#: ``data`` the batch and the FSDP shards, beside ``model`` the decode
+#: cache's sequence), ``data`` and ``model``
 MESH_AXES = ("pod", "data", "model")
-#: the axes the model code places over (a pod axis there: ROADMAP A13)
-MODEL_AXES = ("data", "model")
-
-
-def refuse_pod(place, what: str):
-    """The model code's guard: ``NotImplementedError`` where the mesh has a
-    ``pod`` axis (the reference places the batch and FSDP over ``(pod,
-    data)`` and the KV sequence over ``(pod, model)``; not ported)."""
-    if "pod" in place.names:
-        raise NotImplementedError(
-            f"{what} on a mesh with a pod axis: the model code places over "
-            f"{MODEL_AXES} only (ROADMAP A13: the model code on a (pod, "
-            "data, model) mesh; the GPipe pipeline over pod is "
-            "runtime.pipeline_par)")
 
 
 class MeshPlacement:
     """A rank's place on a ``(pod, data, model)`` mesh: ``names`` (the
     mesh's axes), ``sizes`` and ``coord`` ({axis: int}; an axis the mesh
     lacks has size 1), one :class:`MeshAxis` an axis (``pod``, ``data``,
-    ``model``) and ``world`` (every rank of the mesh), and ``stats``, the
-    count of their collectives.  Raises ``TypeError`` for what is not a
+    ``model``), ``world`` (every rank of the mesh), and ``stats``, the
+    count of their collectives.  Two compound axes, each over process
+    groups of its own: ``fsdp``, the ranks that share this rank's
+    ``model`` coordinate (``(pod, data)``: the batch's rows and the FSDP
+    shards), and ``seq``, those that share its ``data`` coordinate
+    (``(pod, model)``: the decode cache's sequence).  A compound axis's
+    index is row-major over its axes, pod first, the order in which a
+    spec's tuple entry splits a dim (``runtime.sharding._block``); where
+    one of its axes has size 1 it is the other axis itself, so a mesh
+    without ``pod`` runs the collectives it ran before.  :meth:`over`
+    gives the axis of any set of axes.  Every group is built here, in the
+    same order on every rank.  Raises ``TypeError`` for what is not a
     ``DeviceMesh``, ``ValueError`` for a mesh that does not cover every
-    rank of the default group, and ``NotImplementedError`` for an axis
-    other than those."""
+    rank of the default group (or whose ranks a compound axis needs in
+    row-major order and are not), and ``NotImplementedError`` for an
+    axis other than those."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
@@ -295,6 +298,45 @@ class MeshPlacement:
             self.axes[a] = MeshAxis(a, group, self.sizes[a], self.coord[a],
                                     self.stats)
         self.world = MeshAxis("world", None, n, dist.get_rank(), self.stats)
+        # the rank grid with a dim an axis of MESH_AXES, in that order
+        self._grid = mesh.mesh.permute(
+            [names.index(a) for a in MESH_AXES if a in names]).reshape(
+            [self.sizes[a] for a in MESH_AXES])
+        self._over = {frozenset(c): self._compound(c)
+                      for k in (2, 3) for c in
+                      itertools.combinations(MESH_AXES, k)}
+
+    def _compound(self, axes) -> MeshAxis:
+        """The axis over ``axes`` (in MESH_AXES order): one of them where
+        the others have size 1, ``world`` where they span every rank,
+        else this rank's group of those that share its coordinates on the
+        other axes (one ``new_group`` a coordinate, on every rank)."""
+        import torch.distributed as dist
+
+        live = [a for a in axes if self.sizes[a] > 1]
+        if len(live) <= 1:
+            return self.axes[live[0] if live else axes[-1]]
+        rest = [a for a in MESH_AXES if a not in live]
+        size = math.prod(self.sizes[a] for a in live)
+        groups = self._grid.permute(
+            [MESH_AXES.index(a) for a in rest + live]).reshape(
+            -1, size).tolist()
+        if any(g != sorted(g) for g in groups):
+            raise ValueError(
+                f"the ranks of {self.names} = {tuple(self.mesh.shape)} are "
+                f"not in row-major order over {tuple(live)}: a group's "
+                "index would not be its ranks' order")
+        index = 0
+        for a in live:
+            index = index * self.sizes[a] + self.coord[a]
+        if len(groups) == 1:
+            return self.world
+        me, mine = dist.get_rank(), None
+        for ranks in groups:
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine = group
+        return MeshAxis(",".join(live), mine, size, index, self.stats)
 
     @property
     def pod(self) -> MeshAxis:
@@ -308,27 +350,56 @@ class MeshPlacement:
     def model(self) -> MeshAxis:
         return self.axes["model"]
 
+    @property
+    def fsdp(self) -> MeshAxis:
+        """``(pod, data)``: the batch's rows and the FSDP shards."""
+        return self._over[frozenset(("pod", "data"))]
+
+    @property
+    def seq(self) -> MeshAxis:
+        """``(pod, model)``: the decode cache's sequence."""
+        return self._over[frozenset(("pod", "model"))]
+
     def over(self, axes) -> Optional[MeshAxis]:
-        """The axis spanning ``axes`` (names): one of them, ``world`` for
-        both, ``None`` for none."""
-        axes = set(axes)
+        """The axis spanning ``axes`` (names): one of them, a compound
+        axis for two (``fsdp``, ``seq``, or ``(data, model)``: the ranks
+        of one pod), ``world`` for the three, ``None`` for none."""
+        axes = frozenset(axes)
         if not axes:
             return None
         if len(axes) == 1:
-            return self.axes[axes.pop()]
-        return self.world
+            return self.axes[next(iter(axes))]
+        return self._over[axes]
+
+    def rows_axis(self, n: int, axes=("pod", "data")) -> Optional[MeshAxis]:
+        """The axis over which ``n`` rows split: the largest prefix of
+        ``axes`` whose product divides ``n`` (the reference's
+        ``axes_if_div``: a batch that does not divide over ``(pod, data)``
+        splits over ``pod`` alone), ``None`` where none does (every rank
+        holds every row; an axis of size 1 is left out)."""
+        axes = [a for a in axes if self.sizes[a] > 1]
+        while axes:
+            if n % math.prod(self.sizes[a] for a in axes) == 0:
+                return self.over(axes)
+            axes.pop()
+        return None
 
 
-def _rank_main(rank: int, fn: Callable, n: int, args: tuple,
-               device_type: str, workdir: str):
+def _rank_main(rank: int, n: int, device_type: str, workdir: str):
     import torch.distributed as dist
 
     # one thread a rank: the ranks share the host's cores
     torch.set_num_threads(1)
+    fn, args = torch.load(os.path.join(workdir, "call.pt"),
+                          weights_only=False)
     store = dist.FileStore(os.path.join(workdir, "store"), n)
     init_ranks(device_type, rank=rank, world_size=n, store=store,
                verbose=False)
     try:
+        # every rank joined before any runs: a rank that raises at once
+        # would otherwise close its connections under a peer still
+        # setting its own up, and the peer's error would be reported
+        dist.barrier()
         out = fn(*args)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
         # no rank tears its connections down while a peer still reads
@@ -360,8 +431,12 @@ def run_ranks(fn: Callable, n: int, args: tuple = (), *,
     wd = tmp.name if own else workdir
     os.makedirs(wd, exist_ok=True)
     try:
+        # the call goes through a file: arguments written down a spawned
+        # process's pipe past its buffer block the parent until that
+        # process has started, so the ranks would start one at a time
+        torch.save((fn, tuple(args)), os.path.join(wd, "call.pt"))
         ctx = mp.start_processes(
-            _rank_main, args=(fn, n, tuple(args), device_type, wd),
+            _rank_main, args=(n, device_type, wd),
             nprocs=n, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):

@@ -54,10 +54,15 @@ class Model:
         return self.impl.loss(params, batch)
 
     def on_mesh(self, mesh) -> "Model":
-        """The model placed on a ``(data, model)`` mesh of ranks
-        (``TransformerLM.on_mesh``; RWKV6LM, Zamba2LM and the MoE
-        transformer raise ``NotImplementedError``)."""
+        """The model placed on a ``(pod, data, model)`` mesh of ranks
+        (``TransformerLM.on_mesh``, ``RWKV6LM.on_mesh``,
+        ``Zamba2LM.on_mesh``)."""
         return Model(self.cfg, self.impl.on_mesh(mesh))
+
+    def with_rows(self, rows) -> "Model":
+        """The placed model for a batch whose rows split over ``rows``
+        (``transformer.MeshModel.with_rows``)."""
+        return Model(self.cfg, self.impl.with_rows(rows))
 
     # ------------------------------------------------------------------
     def uses_embeds(self) -> bool:

@@ -323,18 +323,21 @@ def attention_block(p, x, cfg, group=None):
     return reduce_from_group(out, group), k, v
 
 
-def decode_attention(p, x, cfg, k_cache, v_cache, index: int, group=None):
+def decode_attention(p, x, cfg, k_cache, v_cache, index: int, group=None,
+                     seq=None):
     """One-token decode against a dense KV cache, in plain torch.
 
     x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S, D], written in place at
     position ``index`` (the JAX package returns updated copies; its
     serving step donates the old ones).  Returns (attn_out [B, 1, d],
     k_cache, v_cache).  A bf16 cache is up-cast to f32 for the products,
-    as jnp's type promotion does.  Over ``group`` the cache is this
+    as jnp's type promotion does.  Over ``group`` (the heads' axis) and
+    ``seq`` (the sequence's, ``group`` where not given) the cache is this
     rank's sequence extent of every head (:func:`_dcache_step`, the
     D-Cache schedule)."""
-    if group is not None:
-        return _dcache_step(p, x, cfg, (k_cache, v_cache), index, group)
+    if group is not None or seq is not None:
+        return _dcache_step(p, x, cfg, (k_cache, v_cache), index, group,
+                            seq or group)
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = k_cache.shape[2]
@@ -357,43 +360,50 @@ def decode_attention(p, x, cfg, k_cache, v_cache, index: int, group=None):
     return out, k_cache, v_cache
 
 
-def _dcache_step(p, x, cfg, cache, index: int, group):
-    """One decode token over ``group`` (the mesh's ``model`` axis) with
-    the KV cache sequence-sharded over it: the paper's D-Cache schedule
-    (the reference's ``decode_attention`` under its cache placement).
+def _dcache_step(p, x, cfg, cache, index: int, group, seq):
+    """One decode token with the KV cache sequence-sharded over ``seq``:
+    the paper's D-Cache schedule (the reference's ``decode_attention``
+    under its cache placement).  ``group`` is the heads' axis (the mesh's
+    ``model``, or None), ``seq`` the sequence's (``model``, or ``(pod,
+    model)``: the pod ranks of one ``(data, model)`` coordinate hold the
+    same rows and compute the same q; only their extents differ).
 
-    ``cache``: (k, v) [B, Hkv, S / n, D], this rank's extent of every
-    head (positions ``index_on_axis * S / n`` on), or for int8 (k, v,
+    ``cache``: (k, v) [B, Hkv, S / |seq|, D], this rank's extent of every
+    head (positions ``seq.index * S / |seq|`` on), or for int8 (k, v,
     k_scale, v_scale).  The projections give this rank's heads; q and
-    the new k, v (B x H x D floats) are gathered over the group, the new
+    the new k, v (B x H x D floats) are gathered over ``group``, the new
     position (and its scales) written only on the rank that owns
     ``index``.  Each rank scores every head over its extent, masked
     ``<= index``:
 
       * f32 / bf16 cache: the partial ``(acc, m, l)`` merged by
-        ``runtime.serve.combine_partials`` over the group;
+        ``runtime.serve.combine_partials`` over ``seq``;
       * int8 cache: the global max and sum first (``all_reduce`` MAX,
-        then SUM), the weights normalised before they are rounded to
-        bf16 with ``v_scale`` folded in (the reference rounds its
-        normalised ``probs * v_scale``), and the partial outputs summed.
+        then SUM over ``seq``), the weights normalised before they are
+        rounded to bf16 with ``v_scale`` folded in (the reference rounds
+        its normalised ``probs * v_scale``), and the partial outputs
+        summed.
 
     This rank's heads of the merged output go through its rows of
-    ``wo``, summed over the group.  Returns (attn_out [B, 1, d], *cache).
+    ``wo``, summed over ``group``.  Returns (attn_out [B, 1, d], *cache).
     """
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     quant = len(cache) == 4
     k_cache, v_cache = cache[:2]
     sl = k_cache.shape[2]
-    start = group.index * sl
+    start = seq.index * sl
+    n = 1 if group is None else group.size
     q, k, v = _qkv(p, x, cfg, group)                     # this rank's heads
     if cfg.rope:
         pos = torch.full((b, 1), index, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    q = group.all_gather(q, 2)                           # [B, 1, H, D]
-    kv = group.all_gather(torch.cat([k, v], dim=2), 2)   # each rank's k, v
-    kv = kv.reshape(b, 1, group.size, 2, hkv // group.size, hd)
+    kv = torch.cat([k, v], dim=2)
+    if n > 1:
+        q = group.all_gather(q, 2)                       # [B, 1, H, D]
+        kv = group.all_gather(kv, 2)                     # each rank's k, v
+    kv = kv.reshape(b, 1, n, 2, hkv // n, hd)
     k = kv[:, 0, :, 0].reshape(b, hkv, hd)
     v = kv[:, 0, :, 1].reshape(b, hkv, hd)
     if start <= index < start + sl:
@@ -421,15 +431,16 @@ def _dcache_step(p, x, cfg, cache, index: int, group):
         e = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
         acc = torch.einsum("bhgs,bhsd->bhgd", e, v_cache.float())
         from repro_torch.runtime.serve import combine_partials
-        out = combine_partials(acc, m, e.sum(dim=-1), group=group)
+        out = combine_partials(acc, m, e.sum(dim=-1), group=seq)
     else:
-        m = group.all_reduce(m, "max")
+        m = seq.all_reduce(m, "max")
         e = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
-        probs = e / group.all_reduce(e.sum(dim=-1))[..., None]
+        probs = e / seq.all_reduce(e.sum(dim=-1))[..., None]
         w = _bf16_f32(probs * cache[3][:, :, None, :])
-        out = group.all_reduce(torch.einsum("bhgs,bhsd->bhgd", w,
-                                            v_cache.float()))
-    out = out.reshape(b, group.size, -1)[:, group.index]
+        out = seq.all_reduce(torch.einsum("bhgs,bhsd->bhgd", w,
+                                          v_cache.float()))
+    if n > 1:
+        out = out.reshape(b, n, -1)[:, group.index]
     out = out.to(x.dtype).reshape(b, 1, -1) @ p["wo"].to(x.dtype)
     return (reduce_from_group(out, group), *cache)
 
@@ -452,7 +463,7 @@ def _bf16_f32(x):
 
 
 def decode_attention_q8(p, x, cfg, k_cache, v_cache, k_scale, v_scale,
-                        index: int, group=None):
+                        index: int, group=None, seq=None):
     """``decode_attention`` over an int8 KV cache.
 
     k_cache/v_cache: int8 [B, Hkv, S, D]; k_scale/v_scale: f32 [B, Hkv,
@@ -460,11 +471,11 @@ def decode_attention_q8(p, x, cfg, k_cache, v_cache, k_scale, v_scale,
     Operands go to bf16 with f32 sums, and the scales fold in the
     reference's order: ``logits * k_scale / sqrt(D)``, then ``probs *
     v_scale`` before the bf16 cast.  Returns (attn_out [B, 1, d],
-    k_cache, v_cache, k_scale, v_scale).  Over ``group``: this rank's
-    sequence extent (:func:`_dcache_step`)."""
-    if group is not None:
+    k_cache, v_cache, k_scale, v_scale).  Over ``group`` and ``seq``:
+    this rank's sequence extent (:func:`_dcache_step`)."""
+    if group is not None or seq is not None:
         return _dcache_step(p, x, cfg, (k_cache, v_cache, k_scale, v_scale),
-                            index, group)
+                            index, group, seq or group)
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = k_cache.shape[2]
@@ -574,7 +585,7 @@ def moe_drops(on: bool = True):
     return was
 
 
-def moe_route(p, xt, cfg, capacity: int, data=None):
+def moe_route(p, xt, cfg, capacity: int, data=None, mean=None):
     """The reference's token-choice top-k routing of ``xt`` [T, d].
 
     Ties go to the lower expert id (a stable descending sort, as
@@ -584,13 +595,18 @@ def moe_route(p, xt, cfg, capacity: int, data=None):
     ``pos >= capacity``.  Returns (topv [T, k] f32, topi [T, k], keep
     [T, k] bool, the Switch-style aux loss over ``topi[:, 0]``).
 
-    Over ``data`` (a mesh's data axis, each rank holding its rows of the
-    global batch in rank order) the routing is the global batch's, the
-    one GSPMD gives the reference: a token's place adds the exclusive
-    prefix of the (slot, expert) counts of the data ranks before this
-    one, and ``aux`` takes the global means of the first slot's density
-    and of the probabilities (the probabilities' sum reduced with
-    :func:`reduce_from_group`: each rank's gradient is its tokens')."""
+    Over ``data`` (the axis a mesh's batch rows split over, each rank
+    holding its rows of the global batch in index order) the routing is
+    the global batch's, the one GSPMD gives the reference: a token's
+    place adds the exclusive prefix of the (slot, expert) counts of the
+    ranks before this one.  Over ``mean`` (``data`` where not given:
+    every rank whose gradients the step sums, which may hold the same
+    rows as another, ``(pod, data)`` when the rows split over ``pod``
+    alone) ``aux`` takes the global means of the first slot's density
+    and of the probabilities, each over ``T x |mean|`` tokens, so a row
+    held twice counts twice on both sides of the mean (the
+    probabilities' sum reduced with :func:`reduce_from_group`: each
+    rank's gradient is its tokens')."""
     e, k = cfg.n_experts, cfg.top_k
     logits = (xt @ p["router"].to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
@@ -600,15 +616,17 @@ def moe_route(p, xt, cfg, capacity: int, data=None):
     onehot = F.one_hot(topi, e)                               # [T, k, E]
     pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
     first = F.one_hot(topi[:, 0], e).float()
-    if _alone(data):
-        density, proxy = first.mean(dim=0), probs.mean(dim=0)
-    else:
+    mean = data if mean is None else mean
+    if not _alone(data):
         every = data.all_gather(onehot.sum(dim=0)[None], 0)  # [n, k, E]
         before = every[:data.index].sum(dim=0)
         pos = pos + (onehot * before[None]).sum(dim=-1)
-        t_all = xt.shape[0] * data.size
-        density = data.all_reduce(first.sum(dim=0)) / t_all
-        proxy = reduce_from_group(probs.sum(dim=0), data) / t_all
+    if _alone(mean):
+        density, proxy = first.mean(dim=0), probs.mean(dim=0)
+    else:
+        t_all = xt.shape[0] * mean.size
+        density = mean.all_reduce(first.sum(dim=0)) / t_all
+        proxy = reduce_from_group(probs.sum(dim=0), mean) / t_all
     aux = torch.sum(density * proxy) * (e ** 2) / e
     return topv, topi, pos < capacity, aux
 
@@ -642,18 +660,20 @@ def _expert_rows(p, xt, cfg, topv, topi, keep, ep=None):
     xe = copy_to_group(xt, ep)
     rows = xe[kept // k]
     ys = []
-    for rows_e, wg, wu, wd in zip(rows.split(counts[:n]),
-                                  p["w_gate"].unbind(0),
-                                  p["w_up"].unbind(0),
-                                  p["w_down"].unbind(0)):
-        if rows_e.shape[0]:
+    for i, (rows_e, wg, wu, wd) in enumerate(zip(rows.split(counts[:n]),
+                                                 p["w_gate"].unbind(0),
+                                                 p["w_up"].unbind(0),
+                                                 p["w_down"].unbind(0))):
+        # an expert without rows is skipped, but for the last one where
+        # none had rows: its empty products keep ``xe`` and the weights
+        # in the graph, so every rank's backward takes a (zero) gradient
+        # of each leaf and runs the all-reduce of ``xe``'s over ``ep``
+        if rows_e.shape[0] or (not ys and i == n - 1):
             with unsaved():
                 h = (_gate_act(rows_e @ wg.to(xt.dtype), cfg.act) *
                      (rows_e @ wu.to(xt.dtype)))
                 ys.append(h @ wd.to(xt.dtype))
-    y = xt.new_zeros((t * k, d))
-    if ys:
-        y = y.index_copy(0, kept, torch.cat(ys))
+    y = xt.new_zeros((t * k, d)).index_copy(0, kept, torch.cat(ys))
     y = y.reshape(t, k, d)
     tv = copy_to_group(topv, ep)
     out = xt.new_zeros((t, d))
@@ -669,7 +689,7 @@ def _expert_axis(p, cfg, place):
 
 
 def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False,
-              place=None):
+              place=None, rows=None):
     """Token-choice top-k MoE.  x: [B, S, d].  Returns (out, aux).
 
     Routing is the reference's (:func:`moe_route`).  Dispatch differs:
@@ -681,12 +701,15 @@ def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False,
     read a call: the rows each expert keeps.
 
     On a mesh (``place``, a ``launch.mesh.MeshPlacement``; ``x`` this
-    data rank's rows, replicated over ``model``) the result is the
-    reference's GSPMD one, the one-process routing of the global batch:
-    the capacity from the global token count, places ranked over the
-    data ranks (:func:`moe_route` over ``data``), the global aux; the
-    experts as ``param_specs`` places them (``E -> model``), each rank
-    running its own on its rows and the outputs summed over ``model``."""
+    rank's rows of the batch, split over ``rows``, an axis of
+    ``place.rows_axis`` or None for every row, and replicated over
+    ``model``) the result is the reference's GSPMD one, the one-process
+    routing of the global batch: the capacity from the global token count
+    (``T x |rows|``), places ranked over ``rows`` (:func:`moe_route`),
+    the global aux's means over every ``(pod, data)`` rank
+    (``place.fsdp``); the experts as ``param_specs`` places them (``E ->
+    model``), each rank running its own on its rows and the outputs
+    summed over ``model``."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -695,8 +718,9 @@ def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False,
             p, xt, cfg, moe_capacity(cfg, t, capacity, no_drop))
         return _expert_rows(p, xt, cfg, topv, topi, keep).reshape(
             b, s, d), aux
-    cap = moe_capacity(cfg, t * place.sizes["data"], capacity, no_drop)
-    topv, topi, keep, aux = moe_route(p, xt, cfg, cap, place.data)
+    cap = moe_capacity(cfg, t * (1 if rows is None else rows.size),
+                       capacity, no_drop)
+    topv, topi, keep, aux = moe_route(p, xt, cfg, cap, rows, place.fsdp)
     out = _expert_rows(p, xt, cfg, topv, topi, keep,
                        _expert_axis(p, cfg, place))
     return out.reshape(b, s, d), aux
@@ -704,14 +728,16 @@ def apply_moe(p, x, cfg, capacity=None, no_drop: bool = False,
 
 def apply_moe_shardmap(p, x, cfg, no_drop: bool = False, place=None):
     """The reference's explicit-schedule MoE (``apply_moe_shardmap``): on
-    a mesh each data rank routes its own tokens with the local capacity
-    ``int(cf * T_local * k / E)`` (``T_local`` under ``no_drop``), each
-    model rank runs its ``E / model`` experts on their rows (the
-    weights arrive whole over ``data`` from the FSDP gather), the
-    outputs are summed over ``model`` and ``aux`` is the local Switch
-    loss averaged over ``data``.  Where a token is dropped this is a
+    a mesh each ``(pod, data)`` rank routes its own tokens with the local
+    capacity ``int(cf * T_local * k / E)`` (``T_local`` under
+    ``no_drop``), each model rank runs its ``E / model`` experts on their
+    rows (the weights arrive whole over ``(pod, data)`` from the FSDP
+    gather), the outputs are summed over ``model`` and ``aux`` is the
+    local Switch loss averaged over ``(pod, data)`` (the reference's
+    ``fsdp = ("pod", "data")``).  Where a token is dropped this is a
     different result from :func:`apply_moe` on the mesh (global
-    capacity); the two agree under ``no_drop`` or with ``data = 1``.
+    capacity); the two agree under ``no_drop`` or with one ``(pod,
+    data)`` rank.
     Outside a mesh, on a mesh without a ``model`` axis, or where the
     experts do not split over it, it runs :func:`apply_moe`, as the
     reference falls back.  Returns (out, aux)."""
@@ -725,7 +751,7 @@ def apply_moe_shardmap(p, x, cfg, no_drop: bool = False, place=None):
     topv, topi, keep, aux = moe_route(p, xt, cfg,
                                       moe_capacity(cfg, t, None, no_drop))
     out = _expert_rows(p, xt, cfg, topv, topi, keep, place.model)
-    aux = reduce_from_group(aux, place.data) / place.sizes["data"]
+    aux = reduce_from_group(aux, place.fsdp) / place.fsdp.size
     return out.reshape(b, s, d), aux
 
 

@@ -20,10 +20,11 @@ Params use the reference's layout (``layers`` stacked along a leading
 ``n_layers`` dim, ``shared_attn`` unstacked, an untied ``lm_head``), so
 weights convert one to one (``models.convert``).
 
-``Zamba2LM.on_mesh(mesh)`` places the model on a ``(data, model)`` mesh:
-the batch's rows over ``data``, FSDP as ``runtime.sharding.param_specs``
-places the weights, and tensor parallelism by heads over ``model``
-(:class:`MambaTP`; the shared block as the dense transformer's).
+``Zamba2LM.on_mesh(mesh)`` places the model on a ``(pod, data, model)``
+mesh: the batch's rows over ``(pod, data)``, FSDP as
+``runtime.sharding.param_specs`` places the weights, and tensor
+parallelism by heads over ``model`` (:class:`MambaTP`; the shared block
+as the dense transformer's); decode's rows over ``data``.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (REMAT, _needs_grad, layer_params,
-                                            unbind_layers)
+from repro_torch.models.transformer import (REMAT, MeshModel, _needs_grad,
+                                            layer_params, unbind_layers)
 
 D_CONV = 4
 
@@ -291,7 +292,7 @@ def apply_mamba2_step(p, x, cfg, conv_state, ssm_state,
 # ---------------------------------------------------------------------------
 
 
-class Zamba2LM:
+class Zamba2LM(MeshModel):
     """Mamba2 backbone; ONE shared attention + MLP block applied before
     each group of ``attn_every`` mamba layers (weight-tied across its
     applications, each application keeping its own KV cache).  The
@@ -304,7 +305,14 @@ class Zamba2LM:
     "full" here too."""
 
     def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 64,
-                 remat: str = "full"):
+                 remat: str = "full", loss_chunk: int = 256,
+                 q_chunk: int = 1024, unroll_inner: bool = False):
+        """The reference's keywords, with its defaults: ``loss_chunk`` is
+        unread in the reference too (its loss is the CE over the full
+        logits), ``q_chunk`` the query chunk of the reference's
+        ``chunked_attention`` where the port runs the flash kernel, and
+        ``unroll_inner`` the unroll of its inner ``lax.scan`` (an XLA
+        compile option): kept, read nowhere."""
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r}: the port takes "
                              f"{', '.join(REMAT)}")
@@ -312,30 +320,40 @@ class Zamba2LM:
         self.compute_dtype = compute_dtype
         self.chunk = chunk
         self.remat = remat
+        self.loss_chunk = loss_chunk
+        self.q_chunk = q_chunk
+        self.unroll = unroll_inner
         self.groups = [(i, min(i + cfg.attn_every, cfg.n_layers))
                        for i in range(0, cfg.n_layers, cfg.attn_every)]
         self.n_attn = len(self.groups)
         # the placement (on_mesh): none in one process
-        self.place = self.tp = self.specs = self.mtp = None
+        self.place = self.tp = self.seq = self.rows = None
+        self.specs = self.mtp = None
         self.embed_split = self.head_split = None
 
     def on_mesh(self, mesh):
         """This model placed on ``mesh`` (``transformer.place_model``):
-        its methods take this rank's params, gathered over ``data``, and
-        its rows of a batch; ``loss`` is the mean over every data rank's
-        valid labels.  Over ``model`` each mamba layer runs ``H / model``
-        SSM heads (:class:`MambaTP`) and the shared block runs as the
-        dense transformer's (its heads and ffn columns; the gradient of
-        its weights sums over its applications).  The decode cache holds
-        this rank's rows: the shared block's K/V its extent of the
-        sequence, every head (the D-Cache placement of
+        its methods take this rank's params, gathered over the FSDP axes,
+        and its rows of a batch (``rows``, ``transformer.MeshModel``);
+        ``loss`` is the mean over every ``(pod, data)`` rank's valid
+        labels.  Over ``model`` each mamba layer runs ``H / model`` SSM
+        heads (:class:`MambaTP`) and the shared block runs as the dense
+        transformer's (its heads and ffn columns; the gradient of its
+        weights sums over its applications).  The decode cache holds this
+        rank's decode rows, over ``data`` (the pod ranks of one ``(data,
+        model)`` coordinate hold the same rows and run the same mamba
+        steps): the shared block's K/V its extent of the sequence over
+        ``(pod, model)``, every head (the D-Cache placement of
         ``cache_spec_shardings``); the conv state its heads' x channels
         and B, C [L, B, D_CONV - 1, d_inner / model + 2 ds], the SSM state
-        its heads [L, B, H / model, dh, ds] (``cache_spec_shardings``
-        splits the states' last dims, ``conv_dim`` and ``ds``, which is no
-        head split: ROADMAP §C).  ``gather_cache`` gives the whole cache.
-        Raises ``NotImplementedError`` where a head count or a product
-        does not split over ``model``."""
+        its heads [L, B, H / model, dh, ds].  ``cache_spec_shardings``
+        splits the states' rows over ``(pod, data)`` and their last dims,
+        ``conv_dim`` and ``ds``: one cache cannot put the K/V's rows and
+        the states' rows on different ranks, so the states follow the
+        K/V's rows, and a head split is not ``ds``'s (ROADMAP §C; the
+        values are the reference's).  ``gather_cache`` gives the whole
+        cache.  Raises ``NotImplementedError`` where a head count or a
+        product does not split over ``model``."""
         from repro_torch.models.transformer import place_model, split_over
 
         cfg = self.cfg
@@ -365,19 +383,19 @@ class Zamba2LM:
     def gather_cache(self, cache, batch: int):
         """The whole cache of a global batch of ``batch`` rows from this
         rank's, on every rank of a placed model."""
-        place, tp = self.place, self.tp
+        tp = self.tp
         out = dict(cache)
+        if self.seq is not None:
+            out.update(k=self.seq.all_gather(cache["k"], 3),
+                       v=self.seq.all_gather(cache["v"], 3))
         if tp is not None:
             ds = self.cfg.ssm_state
             conv = cache["conv"]
             xs = tp.all_gather(conv[..., :conv.shape[-1] - 2 * ds], -1)
-            out.update(k=tp.all_gather(cache["k"], 3),
-                       v=tp.all_gather(cache["v"], 3),
-                       conv=torch.cat([xs, conv[..., -2 * ds:]], dim=-1),
+            out.update(conv=torch.cat([xs, conv[..., -2 * ds:]], dim=-1),
                        ssm=tp.all_gather(cache["ssm"], 2))
-        if batch % place.sizes["data"] == 0:
-            for k in ("k", "v", "conv", "ssm"):
-                out[k] = place.data.all_gather(out[k], 1)
+        for k in ("k", "v", "conv", "ssm"):
+            out[k] = self._gather_rows(out[k], batch)
         return out
 
     def _dims(self):
@@ -442,9 +460,7 @@ class Zamba2LM:
         k = k.transpose(1, 2)
         if cache_len is not None and cache_len > k.shape[2]:
             k = F.pad(k, (0, 0, 0, cache_len - k.shape[2]))
-        if self.tp is not None:
-            k = self.tp.part(k, 2)
-        return k.to(cache_dtype)
+        return self._seq_extent(k, 2).to(cache_dtype)
 
     def _shared_attn_step(self, sp, h, kc, vc, index: int):
         """The shared block on one token; writes its K/V into ``kc``/``vc``
@@ -452,7 +468,7 @@ class Zamba2LM:
         cfg = self.cfg
         a = L.apply_norm(sp["attn_norm"], h, "rmsnorm")
         h = h + L.decode_attention(sp["attn"], a, cfg, kc, vc, index,
-                                   self.tp)[0]
+                                   self.tp, self.seq)[0]
         m = L.apply_norm(sp["mlp_norm"], h, "rmsnorm")
         return h + L.apply_mlp(sp["mlp"], m, cfg.act, self.tp)
 
@@ -529,7 +545,7 @@ class Zamba2LM:
         labels."""
         logits, _ = self.forward(params, batch)
         ce = L.cross_entropy(logits, batch["labels"], data=self.place and
-                             self.place.data)
+                             self.place.fsdp)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ----------------------------------------------------------------
@@ -543,14 +559,7 @@ class Zamba2LM:
         rank's (:meth:`on_mesh`)."""
         cfg = self.cfg
         conv_dim, n_heads = self._dims()
-        if self.place is not None:
-            sizes = self.place.sizes
-            if seq % sizes["model"]:
-                raise ValueError(f"a cache of {seq} positions does not "
-                                 f"split over model = {sizes['model']}")
-            seq //= sizes["model"]
-            if batch % sizes["data"] == 0:
-                batch //= sizes["data"]
+        batch, seq = self._local_cache_dims(batch, seq)
         kv = (self.n_attn, batch, cfg.n_kv_heads, seq, cfg.hd)
         return {"k": (kv, dtype), "v": (kv, dtype),
                 "conv": ((cfg.n_layers, batch, D_CONV - 1, conv_dim),
@@ -570,15 +579,18 @@ class Zamba2LM:
         """Returns (last-token logits [B, V] f32, the state after the
         prompt, its K/V in ``cache_dtype`` and as long as the prompt, or
         ``cache_len`` positions, zeros past it).  On a mesh this rank's
-        rows and cache (:meth:`on_mesh`; ``cache_len`` must split over
-        ``model``)."""
+        rows and cache, in the decode layout (:meth:`on_mesh`;
+        ``cache_len`` must split over ``(pod, model)``)."""
         tokens = batch["tokens"]
         if self.place is not None:
-            self.cache_spec(tokens.shape[0], cache_len or tokens.shape[1])
+            self._check_seq(cache_len or tokens.shape[1])
         h = self._embed(params, tokens)
         h, state = self._run(params, h, cache_dtype, cache_len)
-        return self._head(params, h[:, -1]), {**state,
-                                              "index": tokens.shape[1]}
+        state = {**state, "index": tokens.shape[1]}
+        if self.place is not None:
+            state = self._decode_layout(state,
+                                        self._global_rows(tokens.shape[0]))
+        return self._head(params, h[:, -1]), state
 
     def decode_step(self, params, cache, tokens):
         """One token for every sequence.  tokens: [B] int.  Returns

@@ -14,12 +14,12 @@ the full logits, no aux term.  Under a gradient the scan goes through
 backward kernel), and under ``remat="full"`` (or "dots", which is the
 same here) each layer is recomputed in the backward pass, as the reference checkpoints its ``layer_fn``.
 
-``on_mesh(mesh)`` places the model on a ``(data, model)`` mesh: the
-batch's rows over ``data``, the weights as ``runtime.sharding.
-param_specs`` places them (FSDP over ``data``, gathered by
-``runtime.train`` / ``runtime.serve``), and tensor parallelism by heads
-over ``model``, where the placement and the computation differ
-(:meth:`RWKV6LM.on_mesh`).
+``on_mesh(mesh)`` places the model on a ``(pod, data, model)`` mesh:
+the batch's rows over ``(pod, data)`` (decode's too), the weights as
+``runtime.sharding.param_specs`` places them (FSDP over ``(pod,
+data)``, gathered by ``runtime.train`` / ``runtime.serve``), and tensor
+parallelism by heads over ``model``, where the placement and the
+computation differ (:meth:`RWKV6LM.on_mesh`).
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ from repro_torch.kernels.ref import (wkv_chunk, wkv_ref,  # noqa: F401
                                      wkv_step)
 from repro_torch.kernels.ref import wkv_chunked_ref as wkv_chunked
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (REMAT, _needs_grad, layer_params,
-                                            unbind_layers)
+from repro_torch.models.transformer import (REMAT, MeshModel, _needs_grad,
+                                            layer_params, unbind_layers)
 
 LORA_R = 32
 DECAY_LORA_R = 64
@@ -43,14 +43,19 @@ DECAY_LORA_R = 64
 __all__ = ["RWKV6LM", "wkv_chunk", "wkv_chunked", "wkv_step", "wkv_ref"]
 
 
-class RWKV6LM:
+class RWKV6LM(MeshModel):
     """RWKV-6 LM.  ``remat`` is "none" or, for "full" and "dots" alike,
     each layer recomputed whole in the backward pass: the reference
     checkpoints its ``layer_fn`` with no policy for any value but
-    "none", so "dots" means "full" here too."""
+    "none", so "dots" means "full" here too.  The reference's other
+    keywords, with its defaults: ``loss_chunk`` is unread in the
+    reference too (its loss is the CE over the full logits) and
+    ``unroll_inner`` is the unroll of its inner ``lax.scan`` (an XLA
+    compile option): kept, read nowhere."""
 
     def __init__(self, cfg, compute_dtype=torch.float32, chunk: int = 32,
-                 remat: str = "full"):
+                 remat: str = "full", loss_chunk: int = 256,
+                 unroll_inner: bool = False):
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r}: the port takes "
                              f"{', '.join(REMAT)}")
@@ -58,10 +63,12 @@ class RWKV6LM:
         self.compute_dtype = compute_dtype
         self.chunk = chunk
         self.remat = remat
+        self.loss_chunk = loss_chunk
+        self.unroll = unroll_inner
         self.n_heads = cfg.d_model // cfg.ssm_head_dim
         self.dk = cfg.ssm_head_dim
         # the placement (on_mesh): none in one process
-        self.place = self.tp = self.specs = None
+        self.place = self.tp = self.seq = self.rows = self.specs = None
         self.embed_split = self.head_split = None
         self.split = {}
 
@@ -69,9 +76,12 @@ class RWKV6LM:
 
     def on_mesh(self, mesh):
         """This model placed on ``mesh`` (``transformer.place_model``):
-        its methods take this rank's params, gathered over ``data``, and
-        its rows of a batch; ``loss`` is the mean over every data rank's
-        valid labels.  Over ``model`` each rank runs ``H / model`` heads:
+        its methods take this rank's params, gathered over the FSDP axes,
+        and its rows of a batch (``rows``, ``transformer.MeshModel``),
+        decode's as prefill's, over ``(pod, data)`` (:meth:`decode_rows`:
+        the states' rows where ``cache_spec_shardings`` puts them);
+        ``loss`` is the mean over every ``(pod, data)`` rank's valid
+        labels.  Over ``model`` each rank runs ``H / model`` heads:
 
           * ``wr``, ``wk``, ``wv``, ``wg`` by columns (its heads), ``wo``
             by rows, its output summed over the axis;
@@ -123,17 +133,22 @@ class RWKV6LM:
                             "cm_wr": split_over(cm["wr"], -1)}
         return placed
 
+    def decode_rows(self, batch: int):
+        """The axis a decode batch's rows split over: prefill's, ``(pod,
+        data)`` (``pod`` alone where they do not divide), as
+        ``cache_spec_shardings`` places the states' rows (no K/V holds
+        them to ``data``)."""
+        return self.place.rows_axis(batch)
+
     def gather_cache(self, cache, batch: int):
         """The whole decode state of a global batch of ``batch`` rows
         (every row, every head) from this rank's, on every rank of a
         placed model."""
-        place = self.place
         out = dict(cache)
         if self.tp is not None:
             out["wkv"] = self.tp.all_gather(cache["wkv"], 2)
-        if batch % place.sizes["data"] == 0:
-            for k in ("shift_tm", "shift_cm", "wkv"):
-                out[k] = place.data.all_gather(out[k], 1)
+        for k in ("shift_tm", "shift_cm", "wkv"):
+            out[k] = self._gather_rows(out[k], batch)
         return out
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
@@ -267,11 +282,12 @@ class RWKV6LM:
 
     def cache_spec(self, batch: int, seq: int, dtype=torch.bfloat16):
         """{name: (shape, dtype)} of the state tensors; O(1) in ``seq``.
-        On a mesh this rank's: its rows (all where they do not split over
-        ``data``), the shift states whole, the wkv state of its heads."""
+        On a mesh this rank's: its rows (:meth:`decode_rows`), the shift
+        states whole, the wkv state of its heads."""
         del seq
-        if self.place is not None and batch % self.place.sizes["data"] == 0:
-            batch //= self.place.sizes["data"]
+        if self.place is not None:
+            rows = self.decode_rows(batch)
+            batch //= 1 if rows is None else rows.size
         return self._state_spec(batch, dtype)
 
     def _state_spec(self, rows: int, dtype):
@@ -361,7 +377,7 @@ class RWKV6LM:
         every data rank's labels."""
         logits, _ = self.forward(params, batch)
         ce = L.cross_entropy(logits, batch["labels"], data=self.place and
-                             self.place.data)
+                             self.place.fsdp)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ------------------------------------------------------------

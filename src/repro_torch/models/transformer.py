@@ -16,10 +16,11 @@ the MoE load-balancing term, with each layer recomputed in the backward
 pass under ``remat="full"``, or everything but its matrix products
 without batch dims under ``remat="dots"`` (:func:`remat_call`).
 
-``on_mesh(mesh)`` gives the same model placed on a ``(data, model)``
-mesh of ranks (:meth:`TransformerLM.on_mesh`): tensor parallelism over
-``model`` in the layer functions, the batch's rows over ``data``, the
-decode cache's sequence over ``model`` (the D-Cache schedule).
+``on_mesh(mesh)`` gives the same model placed on a ``(pod, data,
+model)`` mesh of ranks (:meth:`TransformerLM.on_mesh`): tensor
+parallelism over ``model`` in the layer functions, the batch's rows over
+``(pod, data)``, the decode cache's rows over ``data`` and its sequence
+over ``(pod, model)`` (the D-Cache schedule).
 """
 from __future__ import annotations
 
@@ -116,25 +117,30 @@ def causal_attention(q, k, v, positions):
 
 
 def place_model(model, mesh):
-    """A copy of ``model`` placed on ``mesh`` (a ``DeviceMesh`` of ``data``
-    and ``model`` over every rank of the group): ``place`` (its
-    ``launch.mesh.MeshPlacement``), ``specs`` (``runtime.sharding.
-    param_specs`` of its params), ``tp`` (the ``model`` axis where it has
-    more than one rank, else None) and, with ``tp``, the dims of the
-    embedding table and the untied ``lm_head`` that split over it
-    (``embed_split``, ``head_split``).  Raises ``NotImplementedError``
-    for a pod axis and where neither the vocabulary nor d splits."""
-    from repro_torch.launch.mesh import MeshPlacement, refuse_pod
+    """A copy of ``model`` placed on ``mesh`` (a ``DeviceMesh`` of ``pod``,
+    ``data`` and ``model``, any of them missing, over every rank of the
+    group): ``place`` (its ``launch.mesh.MeshPlacement``), ``specs``
+    (``runtime.sharding.param_specs`` of its params), ``tp`` (the
+    ``model`` axis where it has more than one rank, else None), ``seq``
+    (the decode cache's sequence axis, ``(pod, model)``, where it has more
+    than one rank, else None), ``rows`` (the axis a batch's rows split
+    over: ``fsdp`` until :meth:`MeshModel.with_rows` says otherwise) and,
+    with ``tp``, the dims of the embedding table and the untied
+    ``lm_head`` that split over it (``embed_split``, ``head_split``).
+    Raises ``NotImplementedError`` where neither the vocabulary nor d
+    splits."""
+    from repro_torch.launch.mesh import MeshPlacement
     from repro_torch.runtime.sharding import param_specs
 
     cfg = model.cfg
     placed = copy.copy(model)
     placed.place = place = MeshPlacement(mesh)
-    refuse_pod(place, type(model).__name__)
     placed.specs = specs = param_specs(
         mesh, model.init(torch.Generator(), device="meta"))
     n = place.sizes["model"]
     placed.tp = place.model if n > 1 else None
+    placed.seq = place.seq if place.seq.size > 1 else None
+    placed.rows = place.fsdp
     placed.embed_split = placed.head_split = None
     if n > 1:
         tables = [("embed", "table")] + (
@@ -149,6 +155,107 @@ def place_model(model, mesh):
     return placed
 
 
+class MeshModel:
+    """What a model placed on a mesh (:func:`place_model`) does with its
+    rows and its decode cache, shared by the three families.
+
+    The batch's rows split over ``rows`` (``MeshPlacement.rows_axis``:
+    ``(pod, data)``, or ``pod`` alone where the batch does not divide);
+    decode splits its rows over :meth:`decode_rows`, ``data`` (the
+    reference's ``decode_token_spec``), so the pod ranks of one
+    ``(data, model)`` coordinate hold the same rows, and the KV cache's
+    sequence over ``seq``, ``(pod, model)``.  A prefill whose rows split
+    over ``pod`` therefore ends in another layout than the one it
+    computed: :meth:`_decode_layout` moves its cache there."""
+
+    def with_rows(self, rows):
+        """This placed model for a batch whose rows split over ``rows``
+        (an axis of ``MeshPlacement.rows_axis``; ``None``: every rank
+        holds every row)."""
+        placed = copy.copy(self)
+        placed.rows = rows
+        return placed
+
+    def decode_rows(self, batch: int):
+        """The axis a decode batch of ``batch`` rows splits over: ``data``
+        where it divides, else none (every rank every row)."""
+        return self.place.rows_axis(batch, ("data",))
+
+    def _global_rows(self, n: int) -> int:
+        """The global batch of which this rank holds ``n`` rows."""
+        return n * (1 if self.rows is None else self.rows.size)
+
+    def _check_seq(self, seq: int) -> int:
+        """This rank's positions of a cache of ``seq``; raises where they
+        do not split over ``seq``."""
+        n = 1 if self.seq is None else self.seq.size
+        if seq % n:
+            raise ValueError(
+                f"a cache of {seq} positions does not split over "
+                f"{self.seq.name} = {n}")
+        return seq // n
+
+    def _local_cache_dims(self, batch: int, seq: int):
+        """(rows, positions) of this rank's decode cache of a global
+        ``batch`` x ``seq``."""
+        if self.place is None:
+            return batch, seq
+        rows = self.decode_rows(batch)
+        return (batch if rows is None else batch // rows.size,
+                self._check_seq(seq))
+
+    def _moves(self) -> bool:
+        """Whether the prefill's rows leave this rank before decode: they
+        split over ``pod`` (decode's rows do not)."""
+        return self.place.sizes["pod"] > 1 and self.rows is not None
+
+    def _seq_extent(self, x, dim: int):
+        """This rank's extent of ``x``'s positions along ``dim``: that of
+        its ``seq`` index, or, where the rows move (:meth:`_moves`), the
+        extents of every pod index at its ``model`` index, pod-major (the
+        only ones a rank of its ``model`` index asks of it)."""
+        if self.seq is None:
+            return x
+        if not self._moves():
+            return self.seq.part(x, dim)
+        pods, n = self.place.sizes["pod"], self.place.sizes["model"]
+        x = x.unflatten(dim, (pods, n, x.shape[dim] // (pods * n)))
+        return x.select(dim + 1, self.place.coord["model"]).flatten(
+            dim, dim + 1)
+
+    def _decode_layout(self, cache, batch: int, kv=("k", "v")):
+        """The prefill's cache (``kv``'s sequences cut by
+        :meth:`_seq_extent`, dim 3) in the decode layout: rows over
+        :meth:`decode_rows`, ``kv``'s sequence over ``seq``.  Where the
+        rows move, each tensor is all-gathered over ``rows`` (counted in
+        the placement's ``stats`` as ``redistribute``), then this rank
+        keeps its decode rows and, of ``kv``, its pod's extent."""
+        dec = self.decode_rows(batch)
+        moves = self._moves()
+        if not moves and (self.rows is not None or dec is None):
+            return cache
+        out = dict(cache)
+        pods, pod = self.place.sizes["pod"], self.place.coord["pod"]
+        for name, x in cache.items():
+            if not isinstance(x, torch.Tensor):
+                continue
+            if moves:
+                x = self.rows.all_gather(x, 1, kind="redistribute")
+            if dec is not None:
+                x = dec.part(x, 1)
+            if moves and name in kv:
+                n = x.shape[3] // pods
+                x = x.narrow(3, pod * n, n)
+            out[name] = x.contiguous()
+        return out
+
+    def _gather_rows(self, x, batch: int):
+        """``x`` [L, rows, ...] with every row of a decode batch of
+        ``batch``."""
+        dec = self.decode_rows(batch)
+        return x if dec is None else dec.all_gather(x, 1)
+
+
 def split_over(spec, dim: int) -> bool:
     """Whether ``spec`` (a leaf's, from ``param_specs``) splits ``dim``
     over the ``model`` axis."""
@@ -156,9 +263,19 @@ def split_over(spec, dim: int) -> bool:
                        else (spec[dim],))
 
 
-class TransformerLM:
-    def __init__(self, cfg, compute_dtype=torch.float32, remat: str = "full",
-                 loss_chunk: int = 256, moe_no_drop: bool = False,
+class TransformerLM(MeshModel):
+    """The reference's constructor keywords, with its defaults.
+    ``q_chunk`` is the query chunk of the reference's
+    ``chunked_attention``, where the port runs the flash kernel (whose
+    tiles are its own): kept, read nowhere.  ``unroll_inner`` is the
+    unroll of the reference's inner ``lax.scan`` (an XLA compile option):
+    kept, read nowhere.  ``compute_dtype`` defaults to f32 (the
+    reference's bf16 default is not the port's: the parity tests run
+    f32 on both sides)."""
+
+    def __init__(self, cfg, compute_dtype=torch.float32, q_chunk: int = 1024,
+                 remat: str = "full", loss_chunk: int = 256,
+                 moe_no_drop: bool = False, unroll_inner: bool = False,
                  kv_quant: str = "none", moe_impl: str = "dense"):
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r}: the port takes "
@@ -168,29 +285,34 @@ class TransformerLM:
                              f"{', '.join(MOE_IMPLS)}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.q_chunk = q_chunk
         self.remat = remat
         self.loss_chunk = loss_chunk
         self.moe_no_drop = moe_no_drop
+        self.unroll = unroll_inner
         self.kv_quant = kv_quant
         self.moe_impl = moe_impl
         # the placement (on_mesh): none in one process
-        self.place = self.tp = self.specs = None
+        self.place = self.tp = self.seq = self.rows = self.specs = None
         self.embed_split = self.head_split = None
 
     def on_mesh(self, mesh) -> "TransformerLM":
-        """This model placed on ``mesh`` (a ``DeviceMesh`` of ``data`` and
-        ``model`` over every rank of the group): a copy whose methods
-        take this rank's params as ``runtime.sharding.param_specs``
-        places them over ``model`` (tensor parallelism: this rank's heads
-        and ffn columns; the embedding table by vocabulary or, where it
-        does not divide, by d), already gathered over ``data``
-        (``runtime.train`` / ``runtime.serve`` gather the FSDP shards),
-        and this rank's rows of a batch.  ``loss`` is the mean over the
-        valid tokens of every ``data`` rank; ``forward``, ``prefill`` and
-        ``decode_step`` give this rank's rows; the dense cache
-        (``cache_spec``, ``init_cache``, ``prefill``'s) is this rank's
-        rows and its extent of the sequence, every head.  An MoE FFN over
-        a mesh is not ported (ROADMAP)."""
+        """This model placed on ``mesh`` (a ``DeviceMesh`` of ``pod``,
+        ``data`` and ``model``, any of them missing, over every rank of
+        the group): a copy whose methods take this rank's params as
+        ``runtime.sharding.param_specs`` places them over ``model``
+        (tensor parallelism: this rank's heads and ffn columns, or its
+        ``E / model`` experts; the embedding table by vocabulary or,
+        where it does not divide, by d), already gathered over the FSDP
+        axes (``runtime.train`` / ``runtime.serve`` gather the shards),
+        and this rank's rows of a batch (over ``rows``, :class:`MeshModel`).
+        ``loss`` is the mean over the valid tokens of every ``(pod,
+        data)`` rank; ``forward``, ``prefill`` and ``decode_step`` give
+        this rank's rows; the dense cache (``cache_spec``, ``init_cache``,
+        ``prefill``'s) is this rank's decode rows (over ``data``) and its
+        extent of the sequence (over ``(pod, model)``), every head.
+        Raises ``NotImplementedError`` where the heads or a product do
+        not split over ``model``."""
         cfg = self.cfg
         placed = place_model(self, mesh)
         n = placed.place.sizes["model"]
@@ -252,7 +374,7 @@ class TransformerLM:
             return L.apply_moe_shardmap(lp["mlp"], m, cfg, no_drop,
                                         self.place)
         return L.apply_moe(lp["mlp"], m, cfg, no_drop=no_drop,
-                           place=self.place)
+                           place=self.place, rows=self.rows)
 
     def _layer(self, h, lp):
         """One block: attention, then the FFN, each with its residual.
@@ -314,15 +436,14 @@ class TransformerLM:
         """A layer's k (or v) [B, S, Hkv, D] in the cache's layout [B,
         Hkv, cache_len, D], zeros past S.  Over a mesh ``k`` holds this
         rank's heads: they are gathered over ``model`` and this rank
-        keeps its extent of the positions, every head."""
+        keeps its extent of the positions, every head
+        (:meth:`MeshModel._seq_extent`)."""
         if self.tp is not None:
             k = self.tp.all_gather(k, 2)
         k = k.transpose(1, 2)
         if cache_len is not None and cache_len > k.shape[2]:
             k = F.pad(k, (0, 0, 0, cache_len - k.shape[2]))
-        if self.tp is not None:
-            k = self.tp.part(k, 2)
-        return k.to(cache_dtype)
+        return self._seq_extent(k, 2).to(cache_dtype)
 
     def forward(self, params, batch):
         """Full logits for ``batch["tokens"]`` or ``batch["embeds"]``
@@ -368,9 +489,9 @@ class TransformerLM:
             hh, ll = h[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
             part, c = remat_call(remat, self._ce_chunk, params, hh, ll)
             nll, cnt = nll + part, cnt + c
-        if self.place is not None:          # the mean over every data rank
-            nll = L.reduce_from_group(nll, self.place.data)
-            cnt = self.place.data.all_reduce(cnt)
+        if self.place is not None:   # the mean over every (pod, data) rank
+            nll = L.reduce_from_group(nll, self.place.fsdp)
+            cnt = self.place.fsdp.all_reduce(cnt)
         return nll / torch.clamp(cnt, min=1.0)
 
     # -- dense serving ------------------------------------------------------
@@ -383,8 +504,8 @@ class TransformerLM:
 
     def cache_spec(self, batch: int, seq: int, dtype=torch.bfloat16):
         """{name: (shape, dtype)} of the cache tensors; on a mesh this
-        rank's: its rows of ``batch`` (all where they do not split over
-        ``data``) and its ``seq / model`` positions."""
+        rank's: its decode rows of ``batch`` (all where they do not split
+        over ``data``) and its ``seq / (pod x model)`` positions."""
         cfg = self.cfg
         batch, seq = self._local_cache_dims(batch, seq)
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.hd)
@@ -398,25 +519,13 @@ class TransformerLM:
         """The whole cache of a global batch of ``batch`` rows (every row,
         every position) from this rank's, on every rank of a placed
         model."""
-        place = self.place
         out = dict(cache)
         for k, v in cache.items():
             if isinstance(v, torch.Tensor):
-                v = place.model.all_gather(v, 3)
-                if batch % place.sizes["data"] == 0:
-                    v = place.data.all_gather(v, 1)
-                out[k] = v
+                if self.seq is not None:
+                    v = self.seq.all_gather(v, 3)
+                out[k] = self._gather_rows(v, batch)
         return out
-
-    def _local_cache_dims(self, batch: int, seq: int):
-        if self.place is None:
-            return batch, seq
-        sizes = self.place.sizes
-        if seq % sizes["model"]:
-            raise ValueError(f"a cache of {seq} positions does not split "
-                             f"over model = {sizes['model']}")
-        return (batch // sizes["data"] if batch % sizes["data"] == 0
-                else batch), seq // sizes["model"]
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
                    device=None):
@@ -433,17 +542,20 @@ class TransformerLM:
         kv_quant="int8" too, as in the reference (``layers.quantize_kv``
         of it is the int8 cache).  The MoE FFN drops tokens unless
         ``moe_no_drop``.  On a mesh: this rank's rows, and its extent of
-        the cache (``cache_len`` must split over ``model``)."""
+        the cache in the decode layout (``cache_len`` must split over
+        ``(pod, model)``; :meth:`MeshModel._decode_layout`)."""
         cfg = self.cfg
         h = self._inputs_to_h(params, batch)
-        s = h.shape[1]
+        b, s = h.shape[:2]
         if self.place is not None:
-            self._local_cache_dims(h.shape[0], cache_len or s)
+            self._check_seq(cache_len or s)
         h, ks, vs, _ = self._backbone(params, h, cache_dtype, cache_len)
         h = L.apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
         logits = self._unembed(params, h)[:, 0]
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                        "index": s}
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs), "index": s}
+        if self.place is not None:
+            cache = self._decode_layout(cache, self._global_rows(b))
+        return logits, cache
 
     def decode_step(self, params, cache, tokens):
         """One token for every sequence of the batch.  tokens: [B] int.
@@ -459,10 +571,11 @@ class TransformerLM:
                 o = L.decode_attention_q8(
                     lp["attn"], a, cfg, cache["k"][li], cache["v"][li],
                     cache["k_scale"][li], cache["v_scale"][li], index,
-                    self.tp)[0]
+                    self.tp, self.seq)[0]
             else:
                 o = L.decode_attention(lp["attn"], a, cfg, cache["k"][li],
-                                       cache["v"][li], index, self.tp)[0]
+                                       cache["v"][li], index, self.tp,
+                                       self.seq)[0]
             h = h + o
             m = L.apply_norm(lp["mlp_norm"], h, cfg.norm)
             h = h + self._ffn(lp, m, no_drop=True)[0]

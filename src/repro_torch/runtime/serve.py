@@ -138,43 +138,51 @@ def make_serving_fns(model, mesh=None):
     methods, run eagerly (the JAX package jits them and donates the
     cache; ``decode_step`` here writes the cache in place).
 
-    Over ``mesh`` (a ``(data, model)`` ``DeviceMesh`` of every rank):
-    the params are this rank's shards as ``runtime.sharding.
-    param_specs`` places them, as the reference places them, and each
-    call gathers the leaves split over ``data`` first.  ``prefill(params,
-    batch, cache_dtype=bf16, cache_len=None)`` and ``decode_step(params,
-    cache, tokens)`` take the global batch and tokens ([B, S], [B]) and
-    return the global logits [B, V] on every rank; the cache is this
-    rank's (``model.on_mesh``: a transformer's its rows and its extent of
-    the sequence, every head, the D-Cache placement; RWKV6's and
-    Zamba2's states those of its heads).  Both functions carry the rank's
-    ``placement`` (``launch.mesh.MeshPlacement``; ``stats`` counts its
-    collectives), and ``decode_step.gather_cache(cache, batch)`` gives
-    the whole cache of a global batch of ``batch`` rows on every rank
-    (the one-process layout)."""
+    Over ``mesh`` (a ``(pod, data, model)`` ``DeviceMesh`` of every rank,
+    any axis missing): the params are this rank's shards as
+    ``runtime.sharding.param_specs`` places them, as the reference places
+    them, and each call gathers the leaves split over the FSDP axes
+    first.  ``prefill(params, batch, cache_dtype=bf16, cache_len=None)``
+    and ``decode_step(params, cache, tokens)`` take the global batch and
+    tokens ([B, S], [B]) and return the global logits [B, V] on every
+    rank.  Prefill splits the rows as ``batch_spec`` does, over ``(pod,
+    data)`` (``pod`` alone where they do not divide); decode as the
+    model's ``decode_rows`` says (a transformer's and Zamba2's over
+    ``data`` alone, ``decode_token_spec``: the pod ranks hold the same
+    rows; RWKV6's as prefill's).  The cache is this rank's, in the
+    decode layout (``model.on_mesh``: a transformer's its rows and its
+    extent of the sequence over ``(pod, model)``, every head, the D-Cache
+    placement; RWKV6's and Zamba2's states those of its heads), which
+    prefill reaches by moving its rows between the pod ranks where they
+    split over ``pod`` (``MeshModel._decode_layout``, counted as
+    ``redistribute`` in the placement's ``stats``).  Both functions
+    carry the rank's ``placement`` (``launch.mesh.MeshPlacement``;
+    ``stats`` counts its collectives), and ``decode_step.gather_cache(
+    cache, batch)`` gives the whole cache of a global batch of ``batch``
+    rows on every rank (the one-process layout)."""
     if mesh is None:
         return model.prefill, model.decode_step
-    from repro_torch.runtime.train import batch_rows, gather_data
+    from repro_torch.runtime.train import gather_data, join_rows, split_rows
 
     placed = model.on_mesh(mesh)
     place, specs = placed.place, placed.specs
 
-    def whole(logits, batch: int):
-        split = batch % place.sizes["data"] == 0
-        return place.data.all_gather(logits, 0) if split else logits
-
     @torch.no_grad()
     def prefill(params, batch, cache_dtype=torch.bfloat16, cache_len=None):
-        rows = {k: batch_rows(place, v) for k, v in batch.items()}
-        logits, cache = placed.prefill(gather_data(place, specs, params),
-                                       rows, cache_dtype, cache_len)
-        return whole(logits, next(iter(batch.values())).shape[0]), cache
+        rows = place.rows_axis(next(iter(batch.values())).shape[0])
+        logits, cache = placed.with_rows(rows).prefill(
+            gather_data(place, specs, params),
+            {k: split_rows(rows, v) for k, v in batch.items()},
+            cache_dtype, cache_len)
+        return join_rows(rows, logits), cache
 
     @torch.no_grad()
     def decode_step(params, cache, tokens):
-        logits, cache = placed.decode_step(gather_data(place, specs, params),
-                                           cache, batch_rows(place, tokens))
-        return whole(logits, tokens.shape[0]), cache
+        rows = placed.decode_rows(tokens.shape[0])
+        logits, cache = placed.with_rows(rows).decode_step(
+            gather_data(place, specs, params), cache,
+            split_rows(rows, tokens))
+        return join_rows(rows, logits), cache
 
     # the rank's placement: its collectives' counts
     prefill.placement = decode_step.placement = place

@@ -8,16 +8,22 @@ updates params and the optimizer state in place (the JAX step donates
 both) and returns them.
 
 Over a mesh (``make_train_step(..., mesh=)``) the step runs on each rank
-of a ``(data, model)`` mesh: params, the AdamW moments and the
-compression residuals are this rank's shards (``runtime.sharding.
-shard_tree`` under ``param_specs``), the batch is the global one and
-each rank takes its rows.  Leaves split over ``data`` (ZeRO-3 / FSDP)
-are all-gathered before the loss and their gradients reduce-scattered
-(the gather's backward, which is also the data-parallel reduction);
-leaves replicated over ``data`` have their gradients all-reduced.  The
-loss is the mean over every data rank's valid tokens, the clip's norm
-counts each element once, int8 compression takes each row's max over
-the row's shards, and AdamW updates each shard in place.
+of a ``(pod, data, model)`` mesh (any of the axes may be missing):
+params, the AdamW moments and the compression residuals are this rank's
+shards (``runtime.sharding.shard_tree`` under ``param_specs``), the
+batch is the global one and each rank takes its rows, split over ``(pod,
+data)`` or, where the batch does not divide, over ``pod`` alone
+(``MeshPlacement.rows_axis``, the reference's ``axes_if_div``).  Leaves
+split over the FSDP axes their spec entry names (``("pod", "data")``,
+``("pod",)`` or ``"data"``: ZeRO-3 / FSDP) are all-gathered over those
+axes before the loss and their gradients reduce-scattered over them (the
+gather's backward, which is also the data-parallel reduction), then
+all-reduced over the FSDP axes the leaf does not split over; leaves
+replicated over ``(pod, data)`` have their gradients all-reduced over
+it.  The loss is the mean over every ``(pod, data)`` rank's valid
+tokens, the clip's norm counts each element once, int8 compression takes
+each row's max over the row's shards, and AdamW updates each shard in
+place.
 """
 from __future__ import annotations
 
@@ -39,29 +45,39 @@ def _split(x, grad_accum: int):
     return x.reshape(b // grad_accum, grad_accum, *x.shape[1:]).movedim(1, 0)
 
 
-def _data_dim(spec):
-    """The dim a leaf's spec splits over ``data`` (FSDP), or None."""
+#: the axes the batch and the FSDP shards split over
+FSDP_AXES = ("pod", "data")
+
+
+def _fsdp_dim(spec):
+    """(the dim a leaf's spec splits over FSDP axes, those axes), or
+    (None, ())."""
     for d, entry in enumerate(spec):
-        if "data" in spec_axes(entry):
-            return d
-    return None
+        axes = tuple(a for a in spec_axes(entry) if a in FSDP_AXES)
+        if axes:
+            return d, axes
+    return None, ()
 
 
-def batch_rows(place, x):
-    """This data rank's rows of a global batch leaf (every row where they
-    do not split over ``data``, as ``batch_spec`` places them)."""
-    if x.shape[0] % place.sizes["data"]:
-        return x
-    return place.data.part(x, 0)
+def split_rows(rows, x):
+    """This rank's rows of a global batch leaf over ``rows`` (an axis from
+    ``MeshPlacement.rows_axis``; ``None``: every row)."""
+    return x if rows is None else rows.part(x, 0)
+
+
+def join_rows(rows, x):
+    """The global rows of ``x`` from every rank of ``rows``."""
+    return x if rows is None else rows.all_gather(x, 0)
 
 
 def gather_data(place, specs, params, cast=None):
-    """The leaves split over ``data`` all-gathered (after ``cast``): this
-    rank's tensor-parallel params, the placed model's input."""
+    """The leaves split over FSDP axes all-gathered over them (after
+    ``cast``): this rank's tensor-parallel params, the placed model's
+    input."""
     def one(x, spec):
         x = x if cast is None else cast(x)
-        d = _data_dim(spec)
-        return x if d is None else place.data.all_gather(x, d)
+        d, axes = _fsdp_dim(spec)
+        return x if d is None else place.over(axes).all_gather(x, d)
     return tree_map(one, params, specs)
 
 
@@ -74,9 +90,9 @@ def make_train_step(model, opt_update, *, grad_accum: int = 1,
     ``gather_dtype=torch.bfloat16`` casts float matrices to bf16 before
     the loss (the reference does it before its FSDP all-gather; over a
     mesh so does this step); the optimizer still updates the f32 master
-    weights.  ``mesh``: the step of this rank of a ``(data, model)``
-    mesh (see the module docstring; ``model.on_mesh`` raises for the
-    families not ported over a mesh)."""
+    weights.  ``mesh``: the step of this rank of a ``(pod, data, model)``
+    mesh (see the module docstring; ``model.on_mesh`` raises where the
+    model's heads or products do not split over ``model``)."""
     if compression not in ("none", "bf16", "int8"):
         raise ValueError(f"compression {compression!r}: none, bf16 or int8")
 
@@ -87,7 +103,7 @@ def make_train_step(model, opt_update, *, grad_accum: int = 1,
     def cast_for_compute(p):
         return p if gather_dtype is None else tree_map(cast, p)
 
-    def value_and_grad(params, mb, prepare):
+    def value_and_grad(params, mb, prepare, model):
         leaves = tree_leaves(params)
         live = [x.detach().requires_grad_(True) for x in leaves]
         it = iter(live)
@@ -97,9 +113,9 @@ def make_train_step(model, opt_update, *, grad_accum: int = 1,
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it).float(), params)
 
-    def accumulate(params, batch, prepare=cast_for_compute):
+    def accumulate(params, batch, prepare=cast_for_compute, model=model):
         if grad_accum == 1:
-            return value_and_grad(params, batch, prepare)
+            return value_and_grad(params, batch, prepare, model)
         mbs = {k: _split(v, grad_accum) for k, v in batch.items()}
         grads = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                                device=x.device), params)
@@ -107,7 +123,7 @@ def make_train_step(model, opt_update, *, grad_accum: int = 1,
                            device=tree_leaves(params)[0].device)
         for i in range(grad_accum):
             loss, g = value_and_grad(params, {k: v[i] for k, v in
-                                              mbs.items()}, prepare)
+                                              mbs.items()}, prepare, model)
             tree_map(lambda a, b: a.add_(b), grads, g)
             lsum = lsum + loss
             del g
@@ -121,16 +137,22 @@ def make_train_step(model, opt_update, *, grad_accum: int = 1,
         place, specs = model.place, model.specs
 
         def reduce(g, spec):
-            d = _data_dim(spec)
-            return (place.data.all_reduce(g) if d is None else
-                    place.data.reduce_scatter(g, d))
+            """Summed over every (pod, data) rank: reduce-scattered over
+            the FSDP axes the leaf splits over, all-reduced over the
+            others."""
+            d, axes = _fsdp_dim(spec)
+            if d is not None:
+                g = place.over(axes).reduce_scatter(g, d)
+            rest = place.over(a for a in FSDP_AXES if a not in axes)
+            return g if rest is None else rest.all_reduce(g)
 
         def compute_grads(params, batch):
+            rows = place.rows_axis(next(iter(batch.values())).shape[0])
             with torch.no_grad():
                 full = gather_data(place, specs, params, cast)
             loss, grads = accumulate(
-                full, {k: batch_rows(place, v) for k, v in batch.items()},
-                lambda p: p)
+                full, {k: split_rows(rows, v) for k, v in batch.items()},
+                lambda p: p, model.with_rows(rows))
             del full
             return loss, tree_map(reduce, grads, specs)
 

@@ -12,8 +12,10 @@ params from ``stage_params``, the gradients gathered by
 ``gather_stages``.  Held: loss within 1e-5 rel, every gradient within
 1e-4 x max(1, max|g|) (``tests/test_pipeline_par.py``'s bounds), and
 the same against the port's one-process ``model.loss`` (rank 0's twin);
-a ``model`` axis replicates the work; ``loss.backward()`` and
-``value_and_grad`` agree bit for bit; the errors."""
+a ``model`` axis replicates the work; on (pod 2, data 1, model 2) the
+pipeline and the model code placed on the same mesh (``model.on_mesh``:
+the batch over ``(pod, data)``) give the same loss; ``loss.backward()``
+and ``value_and_grad`` agree bit for bit; the errors."""
 import dataclasses
 import os
 import subprocess
@@ -128,7 +130,8 @@ def ranks(reference, tmp_path_factory):
     cases = {name: dict(base, mesh=shape, axes=axes)
              for name, (shape, axes) in MESHES.items()}
     cases["pod2 data1 model2"] = dict(base, mesh=(2, 1, 2),
-                                      axes=("pod", "data", "model"))
+                                      axes=("pod", "data", "model"),
+                                      model_code=True)
     cases["backward"] = dict(base, kind="pipeline_backward", mesh=(2, 2),
                              axes=("pod", "data"))
     cases["errors"] = {"kind": "pipeline_errors",
@@ -188,13 +191,23 @@ def test_backward_equals_value_and_grad(ranks):
 
 
 @pytest.mark.parametrize("what,says", [("layers", "layers"),
-                                       ("batch", "microbatches"),
-                                       ("pod refused", "ROADMAP A13")])
+                                       ("batch", "microbatches")])
 def test_pipeline_errors(ranks, what, says):
     """The pipeline refuses layers that do not divide over the stages and
-    a batch that does not divide over data x microbatches; the model
-    code refuses a pod axis, naming the ROADMAP item."""
+    a batch that does not divide over data x microbatches."""
     assert all(says in r["raised"][what] for r in ranks["errors"])
+
+
+def test_pipeline_and_model_code_share_a_pod_mesh(reference, ranks):
+    """On (pod 2, data 1, model 2) the pipeline's loss is still the
+    reference's (its (pod 2, data 2) run: the same batch), and the model
+    code placed on that mesh gives the same loss on every rank."""
+    res = ranks["pod2 data1 model2"]
+    want = reference["losses"]["pod2 data2"]
+    for r in res:
+        assert r["loss"] == pytest.approx(want, rel=LOSS_RTOL)
+        assert r["model_code_loss"] == pytest.approx(r["loss"],
+                                                     rel=LOSS_RTOL)
 
 
 def test_pipeline_takes_a_transformer():

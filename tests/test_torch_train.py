@@ -543,11 +543,34 @@ def test_opt_state_converts_both_ways(setup):
 # -- the facade, the launcher, the quickstart ---------------------------------
 
 
+@pytest.mark.parametrize("family", ["transformer", "rwkv6", "mamba2"])
+def test_constructor_takes_the_references_keywords(family):
+    """Each family class takes every keyword of its reference twin, with
+    the reference's default; ``compute_dtype`` is the one default of the
+    port's own (f32, where the reference's is bf16: a dtype of the other
+    library)."""
+    import importlib
+    import inspect
+
+    cls = {"transformer": "TransformerLM", "rwkv6": "RWKV6LM",
+           "mamba2": "Zamba2LM"}[family]
+    want = inspect.signature(getattr(importlib.import_module(
+        f"repro.models.{family}"), cls).__init__).parameters
+    got = inspect.signature(getattr(importlib.import_module(
+        f"repro_torch.models.{family}"), cls).__init__).parameters
+    assert set(want) <= set(got), set(want) - set(got)
+    for name, p in want.items():
+        if name not in ("self", "cfg", "compute_dtype"):
+            assert got[name].default == p.default, name
+    assert got["compute_dtype"].default is torch.float32
+
+
 def test_model_facade():
     cfg = get_arch("granite_3_2b").reduced()
     m = get_model(cfg, compute_dtype=torch.float32, remat="none",
-                  q_chunk=64, moe_no_drop=True)     # options it does not take
+                  q_chunk=64, moe_no_drop=True, unroll_inner=True)
     assert isinstance(m, Model) and m.cfg is cfg and m.remat == "none"
+    assert m.q_chunk == 64 and m.unroll and m.moe_no_drop   # they arrive
     assert m.compute_dtype is torch.float32 and not m.uses_embeds()
     p = m.init(torch.Generator().manual_seed(0), device="cpu")
     assert m.param_count(p) == m.active_param_count(p) == sum(
